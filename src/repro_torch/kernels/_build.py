@@ -1,0 +1,153 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel package keeps its sources under ``csrc/``.  On first use, one
+``nvcc`` per source compiles a shared library with a plain C interface for
+``sm_90a`` (Hopper) into ``build/repro_torch_kernels/`` at the repository
+root; the file name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded.  ``build`` starts
+every missing compile at once and waits for all of them.  The libraries are
+loaded with ``ctypes``: pointers and the CUDA stream go in as
+``c_void_p``, every launcher returns ``cudaGetLastError()`` and ``launch``
+raises when that is not 0.
+
+Nothing here runs when the package is imported: the build happens when a
+CUDA tensor first reaches a kernel, so the port imports on a machine with
+no ``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
+
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+COMMON_HEADER = KERNELS_DIR / "common.cuh"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "repro_torch are built from source on first use")
+
+
+class Kernel:
+    """One hand-written CUDA kernel: its source, the TPU kernel it replaces,
+    its loaded library and its launch count.
+
+    ``launches`` is a plain int that ``launch`` raises by one for every
+    kernel launch and nothing else touches, so a run can show that its main
+    path really went through the kernel."""
+
+    def __init__(self, name: str, source: str, replaces: str,
+                 functions: Dict[str, Sequence]):
+        self.name = name
+        self.source = KERNELS_DIR / source
+        self.replaces = replaces
+        self.functions = dict(functions)     # C symbol -> ctypes argtypes
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+
+    # -- build ---------------------------------------------------------------
+    def library_path(self) -> Path:
+        h = hashlib.sha256()
+        for p in (self.source, COMMON_HEADER):
+            h.update(p.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def compile_command(self, out: Path) -> List[str]:
+        return [nvcc_path(), *NVCC_FLAGS, f"-I{KERNELS_DIR}", "-o", str(out),
+                str(self.source)]
+
+    def relpath(self) -> str:
+        return str(self.source.relative_to(REPO_ROOT))
+
+    # -- load / launch ---------------------------------------------------------
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            path = self.library_path()
+            if not path.exists():
+                build([self])
+            lib = ctypes.CDLL(str(path))
+            for sym, argtypes in self.functions.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def launch(self, symbol: str, *args) -> None:
+        """Call one C launcher on the current stream and raise if the launch
+        was refused (``cudaGetLastError`` != 0)."""
+        fn = getattr(self.lib(), symbol)
+        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: {symbol} failed to launch (cudaError {err})")
+        self.launches += 1
+
+
+def build(kernels: Iterable[Kernel]) -> Dict[str, float]:
+    """Compile every kernel whose library is missing, all ``nvcc``s in
+    parallel; returns {name: seconds} for the ones it built.  Raises with
+    the compiler's output when one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for k in kernels:
+        out = k.library_path()
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+        procs.append((k, out, tmp, time.perf_counter(), subprocess.Popen(
+            k.compile_command(tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    took: Dict[str, float] = {}
+    failed = []
+    for k, out, tmp, t0, proc in procs:
+        log, _ = proc.communicate()
+        took[k.name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- {k.name} (nvcc exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)       # atomic: a concurrent build never sees
+        #                            a half-written library
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """The checks every wrapper makes before handing a pointer to C."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def dtype_code(dt: torch.dtype) -> int:
+    """The element-type code the C launchers dispatch on."""
+    return {torch.float32: 0, torch.bfloat16: 1}[dt]

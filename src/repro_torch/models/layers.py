@@ -1,0 +1,280 @@
+"""Primitive layers shared by the blocks (PyTorch port of
+``repro.models.layers``, forward only).
+
+Everything is a plain function of (params, inputs) on tensors.  Attention
+has the reference's three impls: "reference" (the O(s^2) oracle), "scan"
+(the online-softmax loop over kv blocks) and "pallas", which on the port
+means the hand-written CUDA kernels of ``repro_torch.kernels`` (their plain
+PyTorch versions on a CPU tensor).
+"""
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.block_sparse_attention import ops as bsa_ops
+from repro_torch.kernels.pruned_matmul import ops as pm_ops
+
+NEG_INF = -1e30
+KERNEL_IMPLS = ("reference", "scan", "pallas")
+
+
+def matmul(a, b):
+    """``a @ b`` with jnp's type promotion (a bf16 x f32 product runs in
+    f32 on the exactly upcast operand); torch refuses mixed operands."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def expand_ff_mask(ff_mask: torch.Tensor, dim: int) -> torch.Tensor:
+    """Block-level [n_blocks] -> feature-level [dim] pruning mask (no-op if
+    already expanded)."""
+    if ff_mask.shape[0] != dim:
+        ff_mask = ff_mask.repeat_interleave(dim // ff_mask.shape[0])
+    return ff_mask
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * scale.float()
+    return out.to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, x.device)                 # [hd/2]
+    angles = positions[..., None].float() * freqs                 # [..., seq, hd/2]
+    angles = angles[..., None, :]                                 # broadcast heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, wi, wg, wo, ff_mask=None, *, impl: str = "scan"):
+    """SwiGLU MLP.  ``ff_mask`` zeroes pruned feature blocks — either
+    block-level [n_blocks] or expanded [d_ff].
+
+    ``impl="pallas"`` routes through the block-pruned SwiGLU
+    (kernels.pruned_matmul), which needs the block-level mask.  Single-token
+    calls (decode) stay dense, as in the reference."""
+    assert impl in KERNEL_IMPLS, impl
+    d_ff = wi.shape[1]
+    if impl == "pallas" and x.shape[-2] > 1:
+        if ff_mask is None:
+            bmask, bf = torch.ones(1, device=x.device), d_ff
+        else:
+            nb = ff_mask.shape[0]
+            if not (nb < d_ff and d_ff % nb == 0):
+                raise ValueError(("pallas swiglu needs a block-level ff_mask",
+                                  tuple(ff_mask.shape), d_ff))
+            bmask, bf = ff_mask, d_ff // nb
+        return pm_ops.pruned_swiglu(x, wi, wg, wo, bmask, bf=bf)
+    h = F.silu(x @ wg) * (x @ wi)
+    if ff_mask is not None:
+        h = h * expand_ff_mask(ff_mask, d_ff).to(h.dtype)
+    return h @ wo
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def _repeat_kv(k, num_q_heads: int):
+    """[b, s, kv, d] -> [b, s, q, d] by repeating groups."""
+    return k.repeat_interleave(num_q_heads // k.shape[2], dim=2)
+
+
+def _einsum(eq, a, b, dtype=None):
+    """einsum in ``dtype`` (default: the operands' promoted dtype), computed
+    as XLA computes a dot on the host: operands rounded to ``dtype``,
+    products accumulated in fp32, the result rounded to ``dtype`` once."""
+    dtype = dtype or torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dtype).float(), b.to(dtype).float()).to(dtype)
+
+
+def attention_reference(q, k, v, *, causal: bool, sliding_window: int = 0,
+                        q_offset: int = 0, block_mask=None,
+                        block_size: int = 128):
+    """Naive O(s^2) attention; oracle for tests.  q:[b,sq,h,d]
+    k,v:[b,sk,kv,d].  ``block_mask`` [h, sq//bs, sk//bs] (or
+    [b, h|1, ..]) enables hash-based block sparsity."""
+    b, sq, h, d = q.shape
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    scores = _einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
+    dev = q.device
+    pq = torch.arange(sq, device=dev) + q_offset
+    pk = torch.arange(k.shape[1], device=dev)
+    neg = torch.full_like(scores, NEG_INF)
+    if causal:
+        scores = torch.where(pq[:, None] >= pk[None, :], scores, neg)
+    if sliding_window:
+        scores = torch.where(pq[:, None] - pk[None, :] < sliding_window,
+                             scores, neg)
+    if block_mask is not None:
+        bs = block_size
+        bm = block_mask if block_mask.dim() == 4 else block_mask[None]
+        m = bm.repeat_interleave(bs, dim=-2).repeat_interleave(bs, dim=-1)
+        sk = k.shape[1]
+        if m.shape[-2] < sq or m.shape[-1] < sk:
+            # trailing partial blocks reuse the last mask row/col
+            m = F.pad(m.float(), (0, max(0, sk - m.shape[-1]),
+                                  0, max(0, sq - m.shape[-2])),
+                      mode="replicate")
+        scores = torch.where(m[..., :sq, :sk] > 0, scores, neg)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(scores.amax(-1, keepdim=True) <= NEG_INF / 2,
+                        torch.zeros_like(probs), probs)
+    return _einsum("bhqk,bkhd->bqhd", probs, v, v.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool, sliding_window: int = 0,
+                    q_offset: int = 0, block_mask=None, kv_block: int = 512,
+                    impl: str = "scan"):
+    """Flash attention forward.  ``impl`` selects the inner implementation:
+      * "reference" — the O(s^2) dense oracle;
+      * "scan"      — the online-softmax loop over kv blocks;
+      * "pallas"    — the block-skipping CUDA kernel
+        (kernels.block_sparse_attention).  Sliding-window / offset queries
+        are not expressible as block masks — those fall back to the scan,
+        as in the reference.
+    """
+    assert impl in KERNEL_IMPLS, impl
+    if impl == "pallas" and sliding_window == 0 and q_offset == 0:
+        return _pallas_attention(q, k, v, block_mask, causal, kv_block)
+    if impl == "reference":
+        return attention_reference(
+            q, k, v, causal=causal, sliding_window=sliding_window,
+            q_offset=q_offset, block_mask=block_mask, block_size=kv_block)
+    out, _ = _flash_fwd_impl(q, k, v, block_mask, causal, sliding_window,
+                             q_offset, kv_block)
+    return out
+
+
+def _pallas_attention(q, k, v, block_mask, causal, kv_block):
+    """Route through the block-sparse kernel (dense = all-ones mask).
+
+    Accepts the model's mask layouts ([h, nqb, nkb] or [b, h|1, nqb, nkb])
+    and edge-extends them to the kernel's [b|1, hq|1, nqb, nkb]."""
+    b, sq, hq, _ = q.shape
+    sk = k.shape[1]
+    block = kv_block if block_mask is not None else min(kv_block, 128)
+    nqb = -(-sq // block)
+    nkb = -(-sk // block)
+    if block_mask is None:
+        bm = torch.ones((1, 1, nqb, nkb), dtype=torch.int32, device=q.device)
+    else:
+        bm = block_mask if block_mask.dim() == 4 else block_mask[None]
+        # trailing partial blocks reuse the last mask row/col
+        qb = torch.arange(nqb, device=q.device).clamp(0, bm.shape[2] - 1)
+        kb = torch.arange(nkb, device=q.device).clamp(0, bm.shape[3] - 1)
+        bm = bm[:, :, qb][:, :, :, kb]
+    return bsa_ops.block_sparse_attention(q, k, v, bm, causal=causal,
+                                          block=block)
+
+
+def _flash_fwd_impl(q, k, v, block_mask, causal, sliding_window, q_offset,
+                    kv_block):
+    """Forward online-softmax loop; returns (out, lse [b,h,sq])."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kv_heads = k.shape[2]
+    if sk % kv_block:
+        pad = kv_block - sk % kv_block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nkb = k.shape[1] // kv_block
+    rep = h // kv_heads
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    pq = torch.arange(sq, device=dev) + q_offset
+    qb_ids = torch.arange(sq, device=dev) // kv_block
+    if block_mask is not None:
+        # rows / columns past the mask's last block reuse it (jnp's clamped
+        # gather in the reference)
+        qb_ids = qb_ids.clamp(max=block_mask.shape[-2] - 1)
+
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    m_prev = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l_prev = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    for jb in range(nkb):
+        kblk = k[:, jb * kv_block:(jb + 1) * kv_block].repeat_interleave(
+            rep, dim=2)
+        vblk = v[:, jb * kv_block:(jb + 1) * kv_block].repeat_interleave(
+            rep, dim=2)
+        pk = jb * kv_block + torch.arange(kv_block, device=dev)
+        s = _einsum("bqhd,bkhd->bhqk", q, kblk).float() * scale
+        mask = (pk[None, :] <= sk - 1).expand(sq, kv_block)
+        if causal:
+            mask = mask & (pq[:, None] >= pk[None, :])
+        if sliding_window:
+            mask = mask & (pq[:, None] - pk[None, :] < sliding_window)
+        neg = torch.full_like(s, NEG_INF)
+        if block_mask is not None:
+            kb = min(jb, block_mask.shape[-1] - 1)
+            if block_mask.dim() == 3:
+                bm = block_mask[:, qb_ids, kb]                    # [h, sq]
+                s = torch.where(bm[None, :, :, None] > 0, s, neg)
+            else:
+                bm = block_mask[:, :, qb_ids, kb]                 # [b, h, sq]
+                s = torch.where(bm[..., None] > 0, s, neg)
+        s = torch.where(mask[None, None], s, neg)
+        m_new = torch.maximum(m_prev, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_prev - m_new)
+        l_prev = l_prev * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _einsum(
+            "bhqk,bkhd->bhqd", p, vblk, vblk.dtype).float()
+        m_prev = m_new
+    out = acc / l_prev[..., None].clamp_min(1e-30)
+    out = torch.where(m_prev[..., None] <= NEG_INF / 2,
+                      torch.zeros_like(out), out)
+    lse = m_prev + torch.log(l_prev.clamp_min(1e-30))              # [b,h,sq]
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     sliding_window: int = 0):
+    """Single-token decode attention over a cache.
+
+    q: [b, 1, h, d]; k_cache/v_cache: [b, S, kv, d]; cache_len: count of
+    valid entries — a scalar or a [b] tensor (each request at its own
+    position).  As in the reference, the probabilities are cast to the
+    cache's dtype before the P·V product."""
+    b, s, kv, d = k_cache.shape
+    h = q.shape[2]
+    k = _repeat_kv(k_cache, h)
+    v = _repeat_kv(v_cache, h)
+    scores = _einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
+    idx = torch.arange(s, device=q.device)
+    cl = torch.as_tensor(cache_len, device=q.device)
+    if cl.dim() == 0:
+        valid = idx < cl                                       # [s]
+        if sliding_window:
+            valid = valid & (idx >= cl - sliding_window)
+        vmask = valid[None, None, None, :]
+    else:
+        valid = idx[None, :] < cl[:, None]                     # [b, s]
+        if sliding_window:
+            valid = valid & (idx[None, :] >= cl[:, None] - sliding_window)
+        vmask = valid[:, None, None, :]
+    scores = torch.where(vmask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return _einsum("bhqk,bkhd->bqhd", probs, v, v.dtype)
+
+
+def gqa_project(x, wq, wk, wv, num_heads, num_kv_heads, head_dim):
+    b, s, _ = x.shape
+    q = (x @ wq).reshape(b, s, num_heads, head_dim)
+    k = (x @ wk).reshape(b, s, num_kv_heads, head_dim)
+    v = (x @ wv).reshape(b, s, num_kv_heads, head_dim)
+    return q, k, v

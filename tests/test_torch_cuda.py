@@ -1,0 +1,129 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version, and a reduced serve on the card against the same serve on the CPU.
+
+Every test here needs a CUDA card and skips without one (the CPU tests in
+``test_torch_kernels.py`` hold the plain versions to the JAX package).
+Run on the card with ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_cuda.py``.
+Tolerances: fp32 kernels vs plain at 1e-4 (attention, paged attention) and
+2e-4 (pruned matmul over K up to 2560); the two differ only in summation
+order.
+"""
+import copy
+
+import pytest
+import torch
+
+from repro_torch.kernels.block_sparse_attention import ops as bsa
+from repro_torch.kernels.block_sparse_attention import ref as bsa_ref
+from repro_torch.kernels.paged_attention import ops as pa
+from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.kernels.pruned_matmul import ops as pm
+from repro_torch.kernels.pruned_matmul import ref as pm_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels build and run only "
+                    "there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_block_sparse_attention_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for b, s, hq, hkv, d, block, causal in ((2, 300, 15, 5, 64, 128, True),
+                                            (1, 1024, 15, 5, 64, 512, True),
+                                            (2, 77, 4, 2, 16, 32, False)):
+        q = torch.randn((b, s, hq, d), generator=g, device=cuda)
+        k = torch.randn((b, s, hkv, d), generator=g, device=cuda)
+        v = torch.randn((b, s, hkv, d), generator=g, device=cuda)
+        n = -(-s // block)
+        m = (torch.rand((b, hq, n, n), generator=g, device=cuda) < 0.6).int()
+        before = bsa.KERNEL.launches
+        out, lse = bsa.block_sparse_attention_fwd(q, k, v, m, causal=causal,
+                                                  block=block)
+        assert bsa.KERNEL.launches == before + 1
+        rout, rlse = bsa_ref.block_sparse_attention_ref(q, k, v, m,
+                                                        causal=causal,
+                                                        block=block)
+        torch.testing.assert_close(out, rout, atol=1e-4, rtol=1e-4)
+        live = rlse > -1e29
+        torch.testing.assert_close(lse[live], rlse[live], atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_pruned_matmul_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for M, K, N, axis, blk in ((4096, 960, 2560, "n", 128),
+                               (333, 2560, 960, "k", 128),
+                               (50, 96, 70, "k", 48)):
+        x = torch.randn((M, K), generator=g, device=cuda)
+        w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+        nb = (N if axis == "n" else K) // blk
+        m = (torch.rand((nb,), generator=g, device=cuda) < 0.5).float()
+        before = pm.KERNEL.launches
+        out = pm.pruned_matmul(x, w, m, mask_axis=axis, bn=blk, bk=blk)
+        assert pm.KERNEL.launches == before + 1
+        want = pm_ref.pruned_matmul_ref(x, w, m, mask_axis=axis, bn=blk,
+                                        bk=blk)
+        torch.testing.assert_close(out, want, atol=2e-4, rtol=2e-4)
+
+
+def test_paged_attention_matches_plain(cuda):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    page, J, pool, n_q, n_kv, hd = 4, 4, 12, 15, 5, 64
+    for clen, hole in (([4, 7, 13, 16], False), ([9, 0, 3, 12], True)):
+        b = len(clen)
+        q = torch.randn((b, 1, n_q, hd), generator=g)
+        kp, vp = (torch.randn((pool + 1, page, n_kv, hd), generator=g)
+                  .bfloat16() for _ in range(2))
+        pt = torch.full((b, J), -1, dtype=torch.int32)
+        perm, n = torch.randperm(pool, generator=g), 0
+        for i, c in enumerate(clen):
+            for j in range(-(-c // page)):
+                pt[i, j] = int(perm[n])
+                n += 1
+        if hole:
+            pt[0, 1] = -1
+        args = [t.to(cuda) for t in (q, kp, vp, pt,
+                                     torch.tensor(clen, dtype=torch.int32))]
+        before = pa.KERNEL.launches
+        out = pa.paged_attention(*args)
+        assert pa.KERNEL.launches == before + 1
+        want = pa_ref.paged_attention_fwd_ref(args[0][:, 0], *args[1:])
+        torch.testing.assert_close(out[:, 0], want, atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_serve_on_the_card_matches_the_cpu(cuda):
+    """The whole serving path through the kernels on the card emits the
+    tokens its plain versions emit on the CPU (same params)."""
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    from repro_torch.serve import ElasticServer
+    from repro_torch.serve.kv import PagedKVConfig
+    from repro_torch.serve.requests import make_trace
+
+    cfg = reduced_config(get_config("smollm-360m"), num_layers=4,
+                         d_model=64, num_heads=4, num_kv_heads=2, d_ff=256,
+                         vocab_size=256)
+    dcfg = DistConfig(num_stages=2, slot_slack=2, param_dtype="float32",
+                      kernel_impl="pallas")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, dcfg)
+    trace = make_trace(8, prompt_len=24, max_gen=8, vocab_size=256, seed=1,
+                       min_prompt=12)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        srv = ElasticServer(cfg, dcfg, DynamicsConfig(kind="pruning"),
+                            PipelineShapes(2, 2, 24, cache_len=32),
+                            paged=PagedKVConfig(4, 64, prefix_cache=True),
+                            device=dev, params=params)
+        rep = srv.serve(copy.deepcopy(trace))
+        out[dev] = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    assert len(out["cuda"]) == 8
+    assert out["cuda"] == out["cpu"]
