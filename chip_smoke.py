@@ -13,6 +13,11 @@ final line:
                card at the main path's full-width shapes and at edge shapes,
                with the tolerance stated; kernel / plain / library times
                (CUDA events, warmed up, L2 warm) and the roofline bound;
+  3c.        the backward sweeps K2a (dq) and K2b (dk/dv) at the training
+               shapes (dense causal, a 512-block mask with dead tiles,
+               partial blocks, fully masked rows, bf16);
+  3d.        K3's backward products (dx, dw for a mask over N and over K,
+               dense and 87 % pruned) against torch.matmul;
   4. serve   — the port's serving path through its CLI entry point:
                full-width smollm-360m, one stage, paged KV + prefix cache,
                sparse attention, kernel_impl "pallas"; launch counters are
@@ -21,14 +26,29 @@ final line:
   4b. profile — device time by kernel over a shorter serve (4 requests)
                under torch.profiler, and the device's busy share against
                the same serve's wall time without the profiler;
+  4c. train  — the port's training path through its CLI entry point:
+               full-width smollm-360m (32 layers), two stage buffers, 4
+               microbatches of 2 x 1024 tokens, 15 steps with the prune at
+               step 10 and a rebalance cadence every 5 steps under a 2x
+               straggler; counters zeroed just before and read just after:
+               per step K1 128, K2a 128, K2b 128, K3 384 forward + 768
+               backward launches; a migration must move layers;
+  4d. profile — two train steps under torch.profiler: busy share and
+               device time by kernel;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
+  5b. train parity — loss and every gradient of one training step (full
+               widths, 4 layers, 2 stages, half the FFN blocks pruned)
+               through the kernels and through the plain versions;
   6. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -48,6 +68,25 @@ def serve_args(requests: int):
             str(requests), "--kv-page-size", "16", "--prefix-cache",
             "--dynamism", "sparse_attention", "--kernel-impl", "pallas",
             "--param-dtype", "float32", "--seed", "0"]
+
+
+def train_args(steps: int = 15):
+    """The training path's CLI flags: full-width smollm-360m, two stage
+    buffers on the card, the prune at step 10, a rebalance cadence every 5
+    steps under a 2x straggler on stage 1."""
+    return ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+            "--seq", "1024", "--steps", str(steps), "--rebalance-every", "5",
+            "--straggler", "1:2.0", "--balancer", "diffusion",
+            "--dynamism", "pruning", "--kernel-impl", "pallas",
+            "--param-dtype", "float32", "--seed", "0", "--log-every", "5"]
+
+
+# launches per train step at train_args(): 32 layers x 4 microbatches
+TRAIN_LAUNCHES_PER_STEP = {"block_sparse_attention": 128,
+                           "block_sparse_attention_bwd_dq": 128,
+                           "block_sparse_attention_bwd_dkv": 128,
+                           "pruned_matmul": 384 + 768}
+TRAIN_K3_BWD_PER_STEP = 768
 
 
 def say(phase: str, **kv) -> None:
@@ -309,8 +348,208 @@ def check_paged_attention(torch, F):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c / 3d: the backward kernels vs their plain versions
+# ---------------------------------------------------------------------------
+def rel_err(name: str, got, want, rtol: float) -> float:
+    """Max |got - want| after checking it against ``rtol`` x max|want| (the
+    backward sums over up to 2048 rows; entries near 0 carry the absolute
+    rounding of the large ones)."""
+    import torch
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    lim = rtol * float(want.abs().max())
+    if err > lim:
+        raise AssertionError(f"{name}: max |err| {err:.3e} exceeds "
+                             f"{rtol} x max|plain| = {lim:.3e}")
+    return err
+
+
+def check_attention_backward(torch, F):
+    """K2a and K2b at the training shapes (q [2, 1024, 15, 64], kv [2, 1024,
+    5, 64]) and at edge cases, each against the plain backward."""
+    from repro_torch.kernels.block_sparse_attention import ops, ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    # (label, b, s, hq, hkv, d, block, density, dtype, rtol, main path)
+    cases = [
+        ("main dense-causal blk128", 2, 1024, 15, 5, 64, 128, 1.0,
+         torch.float32, 2e-4, True),
+        ("blk512 dead-tiles", 2, 1024, 15, 5, 64, 512, 0.5, torch.float32,
+         2e-4, True),
+        ("partial s1000 masked-rows", 2, 1000, 15, 5, 64, 128, 0.6,
+         torch.float32, 2e-4, True),
+        ("bf16 s1024", 2, 1024, 15, 5, 64, 128, 1.0, torch.bfloat16, 3e-2,
+         False),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    timed = None
+    for label, b, s, hq, hkv, d, block, dens, dt, rtol, path in cases:
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev)
+                   .mul(0.5).to(dt) for h in (hq, hkv, hkv))
+        n = -(-s // block)
+        m = (torch.rand((b, 1, n, n), generator=g, device=dev)
+             < dens).to(torch.int32)
+        if dens < 1.0:
+            m[..., 0, 0] = 1
+        if label.startswith("partial"):
+            m[:, :, 2, :] = 0                     # fully masked q rows
+        out, lse = ops.block_sparse_attention_fwd(q, k, v, m, block=block)
+        dout = torch.randn(out.shape, generator=g, device=dev).to(dt)
+        delta = ((dout.float() * out.float()).sum(-1).transpose(1, 2)
+                 .contiguous())
+        dq = ops.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
+                                               block=block)
+        dk, dv = ops.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse,
+                                                    delta, block=block)
+        torch.cuda.synchronize()
+        rdq, rdk, rdv = ref.block_sparse_attention_bwd_ref(
+            q, k, v, m, dout, lse, delta, block=block)
+        e_dq = rel_err(f"K2a {label} dq", dq, rdq, rtol)
+        e_dkv = max(rel_err(f"K2b {label} dk", dk, rdk, rtol),
+                    rel_err(f"K2b {label} dv", dv, rdv, rtol))
+        if label.startswith("partial") and bool(
+                dq[:, 256:384].abs().max() != 0):
+            raise AssertionError("K2a: fully masked rows have nonzero dq")
+        if path:
+            worst["dq"] = max(worst["dq"], e_dq)
+            worst["dkv"] = max(worst["dkv"], e_dkv)
+        say("kernels", kernel="K2a/K2b", case=label.replace(" ", "_"),
+            dq_err=f"{e_dq:.3e}", dkv_err=f"{e_dkv:.3e}",
+            tol=f"{rtol}*max|plain|")
+        if timed is None:
+            timed = (q, k, v, m, dout, lse, delta, block)
+    q, k, v, m, dout, lse, delta, block = timed
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    args = (q, k, v, m, dout, lse, delta)
+    ms_dq = cuda_ms(lambda: ops.block_sparse_attention_bwd_dq(
+        *args, block=block))
+    ms_dkv = cuda_ms(lambda: ops.block_sparse_attention_bwd_dkv(
+        *args, block=block))
+    plain_dq = cuda_ms(lambda: ref.block_sparse_attention_bwd_dq_ref(
+        *args, block=block))
+    plain_dkv = cuda_ms(lambda: ref.block_sparse_attention_bwd_dkv_ref(
+        *args, block=block))
+    # library yardstick: SDPA forward + backward through autograd minus its
+    # forward, kv heads repeated beforehand (not timed); it computes dq,
+    # dk and dv together, so it stands beside both sweeps
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+              .detach().requires_grad_(True) for t in (k, v))
+    dot = dout.transpose(1, 2)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    lib_ms = cuda_ms(fwd_bwd) - fwd_ms
+    pairs = b * hq * s * (s + 1) / 2            # live causal (q, k) pairs
+    flop = 2.0 * d * pairs                      # one d-long product
+    # each sweep reads q, k, v, dout, lse, delta once and writes its output
+    in_bytes = 4.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d
+                      + 2 * b * hq * s)
+    shape = f"b{b} s{s} hq{hq} hkv{hkv} d{d} block{block} causal fp32"
+    common = dict(library_ms=lib_ms, library_covers="K2a+K2b (SDPA bwd)",
+                  tol="2e-4*max|plain|", shape=shape)
+    return {
+        # K2a needs s, dp and dq: three products per live pair
+        "block_sparse_attention_bwd_dq": dict(
+            ms=ms_dq, plain_ms=plain_dq, max_abs_err=worst["dq"],
+            bound=bound(3 * flop, in_bytes + 4.0 * b * s * hq * d),
+            **common),
+        # K2b needs s, dp, dk and dv: four
+        "block_sparse_attention_bwd_dkv": dict(
+            ms=ms_dkv, plain_ms=plain_dkv, max_abs_err=worst["dkv"],
+            bound=bound(4 * flop, in_bytes + 8.0 * b * s * hkv * d),
+            **common),
+    }
+
+
+def check_pruned_matmul_backward(torch):
+    """K3's backward products at the training shapes (M = 2048 tokens per
+    microbatch; the up projection masks N = 2560, the down projection K =
+    2560), dense and 87 % pruned, against torch.matmul on the same inputs."""
+    from repro_torch.kernels.pruned_matmul import ops
+    from repro_torch.kernels.pruned_matmul.backward import pruned_matmul_bwd
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    M, D, FF = 2048, 960, 2560
+    worst, times = 0.0, {}
+    for axis in ("n", "k"):
+        K, N = (D, FF) if axis == "n" else (FF, D)
+        x = torch.randn((M, K), generator=g, device=dev)
+        w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+        gr = torch.randn((M, N), generator=g, device=dev)
+        for dens in (1.0, 0.13):
+            m = (torch.rand((FF // 128,), generator=g, device=dev)
+                 < dens).float()
+            m[0] = 1.0
+            b0 = ops.KERNEL.launches_bwd
+            dx, dw = pruned_matmul_bwd(x, w, m, gr, mask_axis=axis, blk=128)
+            torch.cuda.synchronize()
+            if ops.KERNEL.launches_bwd != b0 + 2:
+                raise AssertionError("K3 backward did not launch twice")
+            me = m.repeat_interleave(128)
+            if axis == "n":
+                wx, ww = (gr * me) @ w.T, x.T @ (gr * me)
+            else:
+                wx, ww = (gr @ w.T) * me, (x.T @ gr) * me[:, None]
+            e = max(rel_err(f"K3 bwd {axis} {dens} dx", dx, wx, 2e-4),
+                    rel_err(f"K3 bwd {axis} {dens} dw", dw, ww, 2e-4))
+            worst = max(worst, e)
+            say("kernels", kernel="K3-bwd", case=f"mask_{axis}_keep{dens}",
+                max_abs_err=f"{e:.3e}", tol="2e-4*max|plain|")
+            if axis == "n":
+                kw = dict(mask_axis=axis, blk=128)
+                keep = float(m.mean())
+                times[dens] = dict(
+                    ms=cuda_ms(lambda: pruned_matmul_bwd(x, w, m, gr, **kw)),
+                    plain_ms=cuda_ms(lambda: ((gr * me) @ w.T,
+                                              x.T @ (gr * me))),
+                    library_ms=cuda_ms(lambda: (gr @ w.T, x.T @ gr)),
+                    bound=bound(2 * 2.0 * M * K * N * keep,
+                                4.0 * (2 * M * K + 2 * K * N + M * N)),
+                    keep=keep)
+    dense, pruned = times[1.0], times[0.13]
+    return dict(bwd_ms=dense["ms"], bwd_plain_ms=dense["plain_ms"],
+                bwd_library_ms=dense["library_ms"],
+                bwd_bound=dense["bound"], bwd_max_abs_err=worst,
+                bwd_pruned_ms=pruned["ms"],
+                bwd_pruned_bound=pruned["bound"],
+                bwd_pruned_keep=pruned["keep"],
+                bwd_shape=f"dx+dw M{M} K{D} N{FF} mask n fp32")
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: device time by kernel over a short serve
 # ---------------------------------------------------------------------------
+OURS = re.compile(r"\b(bsa_fwd_kernel|bsa_dq_kernel|bsa_dkv_kernel|"
+                  r"pm_kernel|paged_attn_kernel)<")
+
+
+def device_times(events):
+    """{kernel name: device ms} over the DEVICE-side entries of a
+    profiler's key averages.  A host op (``aten::mm``, an autograd
+    Function such as ``_PrunedMatmul``) also carries the device time of the
+    kernels it launched; counting it beside the kernels would count that
+    time twice."""
+    from torch.autograd import DeviceType
+    dev = {}
+    for e in events:
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            dev[e.key] = dev.get(e.key, 0.0) + t / 1e3          # ms
+    return dev
+
+
 def profile_serve(torch):
     """Device time by kernel over a 4-request serve under torch.profiler,
     against the wall time of the same serve run without the profiler (whose
@@ -326,18 +565,12 @@ def profile_serve(torch):
                              ProfilerActivity.CUDA]) as prof:
         rep = serve_run(serve_args(4))
         torch.cuda.synchronize()
-    dev = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0:
-            dev[e.key] = dev.get(e.key, 0.0) + t / 1e3          # ms
+    dev = device_times(prof.key_averages())
     busy = sum(dev.values())
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-    ours = sum(v for k, v in dev.items() if re.search(
-        r"\b(bsa_fwd_kernel|pm_kernel|paged_attn_kernel)<", k))
+    ours = sum(v for k, v in dev.items() if OURS.search(k))
     return {"requests": len(rep["completions"]),
             "wall_ms_unprofiled": f"{wall_ms:.1f}",
             "device_busy_ms": f"{busy:.1f}",
@@ -347,13 +580,51 @@ def profile_serve(torch):
             .replace(" ", "")}
 
 
+def profile_train(torch):
+    """Device time by kernel over two train steps under torch.profiler,
+    against the wall time of the same two steps without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import run as train_run
+    rep = train_run(train_args(2))
+    torch.cuda.synchronize()
+    wall_ms = rep["wall_s"] * 1e3
+    del rep
+    free_cuda(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep = train_run(train_args(2))
+        torch.cuda.synchronize()
+    prof_wall_ms = rep["wall_s"] * 1e3
+    del rep
+    free_cuda(torch)
+    dev = device_times(prof.key_averages())
+    busy = sum(dev.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    ours = sum(v for k, v in dev.items() if OURS.search(k))
+    return {"steps": 2, "wall_ms_unprofiled": f"{wall_ms:.1f}",
+            "wall_ms_profiled": f"{prof_wall_ms:.1f}",
+            "device_busy_ms": f"{busy:.1f}",
+            "busy_share": f"{busy / wall_ms:.3f}",
+            "port_kernels_ms": f"{ours:.1f}",
+            "top": json.dumps([[k[:48], round(v, 2)] for k, v in top])
+            .replace(" ", "")}
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 5: one engine state through the kernels and through the plain
 # versions
 # ---------------------------------------------------------------------------
 class PlainKernels:
-    """Route the model's three kernel calls to their plain versions on the
-    card (for the parity phase only)."""
+    """Route every kernel launch of the model to its plain version on the
+    card (for the parity phases only): K1's forward, the K2a / K2b backward,
+    every K3 product (forward and backward) and K6."""
 
     def __enter__(self):
         from repro_torch.kernels.block_sparse_attention import ops as bsa
@@ -363,21 +634,28 @@ class PlainKernels:
         from repro_torch.kernels.pruned_matmul import ops as pm
         from repro_torch.kernels.pruned_matmul import ref as pm_ref
 
-        def bsa_plain(q, k, v, m, *, causal=True, block=128):
+        def bsa_fwd(q, k, v, m, *, causal=True, block=128):
             return bsa_ref.block_sparse_attention_ref(
-                q, k, v, m, causal=causal, block=block)[0]
+                q, k, v, m, causal=causal, block=block)
 
-        def pm_plain(x, w, m, *, mask_axis="n", bn=128, bk=128):
-            out = pm_ref.pruned_matmul_ref(x.reshape(-1, x.shape[-1]), w, m,
-                                           mask_axis=mask_axis, bn=bn, bk=bk)
-            return out.reshape(*x.shape[:-1], w.shape[1])
+        def bsa_bwd(q, k, v, m, dout, lse, delta, *, causal=True,
+                    block=128):
+            return bsa_ref.block_sparse_attention_bwd_ref(
+                q, k, v, m, dout.to(q.dtype), lse, delta, causal=causal,
+                block=block)
+
+        def pm_product(x, w, m, mask_axis, blk, *, bwd=False, out=None):
+            res = pm_ref.pruned_matmul_ref(x, w, m, mask_axis=mask_axis,
+                                           bn=blk, bk=blk)
+            return res if out is None else out.copy_(res)
 
         def pa_plain(q, kp, vp, pt, cl):
             return pa_ref.paged_attention_fwd_ref(q[:, 0], kp, vp, pt,
                                                   cl)[:, None]
 
-        self._saved = [(bsa, "block_sparse_attention", bsa_plain),
-                       (pm, "pruned_matmul", pm_plain),
+        self._saved = [(bsa, "block_sparse_attention_fwd", bsa_fwd),
+                       (bsa, "block_sparse_attention_bwd", bsa_bwd),
+                       (pm, "product", pm_product),
                        (pa, "paged_attention", pa_plain)]
         self._orig = [getattr(mod, name) for mod, name, _ in self._saved]
         for mod, name, fn in self._saved:
@@ -445,10 +723,132 @@ def parity_run(torch, plain: bool):
     launched = [k.launches - b for k, b in zip(kernels.KERNELS, before)]
     if plain and any(launched):
         raise AssertionError(f"plain parity run launched kernels {launched}")
-    if not plain and not all(launched):
+    serving = ("block_sparse_attention", "pruned_matmul", "paged_attention")
+    if not plain and not all(n for k, n in zip(kernels.KERNELS, launched)
+                             if k.name in serving):
         raise AssertionError(f"kernel parity run missed a kernel {launched}")
     dec_logits = torch.stack(logits).reshape(gen, m, B, -1)
     return pf_ids, torch.stack(ids), torch.stack(lps), dec_logits
+
+
+def train_parity_run(torch, plain: bool):
+    """Loss and gradients of one training step (value_and_grad of the
+    pipelined loss) at full widths, 4 layers, 2 stage buffers, 4 x 2 x
+    1024 tokens, half the FFN blocks pruned; returns (loss, grads)."""
+    from repro_torch import kernels
+    from repro_torch.configs import DistConfig, get_config
+    from repro_torch.data.loader import DataConfig, make_loader
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.pipeline.pipeline import (PipelineShapes,
+                                               build_loss_fn,
+                                               value_and_grad)
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=4)
+    dcfg = DistConfig(num_stages=2, slot_slack=2, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    dyncfg = DynamicsConfig(kind="pruning")
+    shapes = PipelineShapes(4, 2, 1024)
+    eng = ElasticEngine(cfg, dcfg, dyncfg, shapes, device="cuda")
+    st = eng.init_state(0)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    st.dyn["ff_mask"] = (torch.rand(st.dyn["ff_mask"].shape, generator=g)
+                         < 0.5).float().cuda()
+    batch = eng._batch(next(make_loader(cfg, DataConfig(4, 2, 1024))))
+    loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes)
+    before = [k.launches for k in kernels.KERNELS]
+    loss, _, grads = value_and_grad(loss_fn, st.params, st.assignment,
+                                    st.dyn, batch)
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels.KERNELS, before)]
+    if plain and any(launched):
+        raise AssertionError(f"plain train parity run launched {launched}")
+    want = {"block_sparse_attention", "block_sparse_attention_bwd_dq",
+            "block_sparse_attention_bwd_dkv", "pruned_matmul"}
+    missed = [k.name for k, n in zip(kernels.KERNELS, launched)
+              if k.name in want and n == 0]
+    if not plain and missed:
+        raise AssertionError(f"train parity run missed {missed}")
+    return float(loss), grads
+
+
+def leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def run_train_phase(torch, kernels):
+    """Phase 4c: the training CLI's ``run`` at train_args(); returns the
+    launch counts of the run ({name: n}, K3 backward launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dynamics import pruning as prn
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.dynamics.trajectories import zhu_gupta_sparsity
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = train_run(train_args())
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    k3_bwd = pm.KERNEL.launches_bwd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = rep["args"]["steps"]
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if abs(losses[0] - math.log(49152)) > 1.0:
+        raise AssertionError(f"step 0 loss {losses[0]:.3f} is not within 1 "
+                             f"of ln(49152) = {math.log(49152):.3f}")
+    missing = [n for n in TRAIN_LAUNCHES_PER_STEP if launched[n] <= 0]
+    if missing:
+        raise AssertionError(f"train never launched {missing}: {launched}")
+    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+        if launched[name] != per_step * steps:
+            raise AssertionError(f"{name}: {launched[name]} launches in "
+                                 f"{steps} steps, expected {per_step} a "
+                                 f"step")
+    if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"K3 backward launches {k3_bwd}, expected "
+                             f"{TRAIN_K3_BWD_PER_STEP} a step")
+    moved = [(e.iteration, e.moved_layers) for e in rep["events"]]
+    if not any(m > 0 for _, m in moved):
+        raise AssertionError(f"no rebalance moved layers: {moved}")
+    # the prune at step 10 keeps the schedule's share of the FFN blocks
+    cfg = get_config("smollm-360m")
+    sp = zhu_gupta_sparsity(1000, dataclasses.replace(
+        DynamicsConfig(kind="pruning"), prune_start_iter=0,
+        prune_end_iter=steps * 100, prune_frequency=1))
+    keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
+    active = rep["assignment"]["tags"].to("cuda") != 0
+    ff = rep["dyn"]["ff_mask"][active]
+    if abs(float(ff.mean()) - keep / ff.numel()) > 1e-6:
+        raise AssertionError(f"ff_active {float(ff.mean()):.4f} != target "
+                             f"{keep}/{ff.numel()}")
+    st = rep["step_times"]
+    say("train", steps=steps, tokens_per_step=rep["tokens_per_step"],
+        tokens_per_s=f"{rep['steady_tokens_per_s']:.1f}",
+        step_ms_1_9=f"{sum(st[1:10]) / 9 * 1e3:.1f}",
+        step_ms_11_14=f"{sum(st[11:15]) / 4 * 1e3:.1f}",
+        step0_ms=f"{st[0] * 1e3:.1f}", wall_s=f"{rep['wall_s']:.2f}",
+        peak_mem_gb=f"{peak_gb:.2f}",
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        losses=json.dumps([round(x, 4) for x in losses]).replace(" ", ""),
+        prune_keep=f"{keep}/{ff.numel()}",
+        events=json.dumps([[e.iteration, e.moved_layers,
+                            round(e.imbalance_before, 4),
+                            round(e.imbalance_after, 4)]
+                           for e in rep["events"]]).replace(" ", ""),
+        final_lps=rep["final_lps"],
+        launches=json.dumps(launched).replace(" ", ""),
+        k3_bwd_launches=k3_bwd)
+    del rep
+    free_cuda(torch)
+    return launched, k3_bwd
 
 
 def main() -> int:
@@ -491,17 +891,29 @@ def main() -> int:
         "pruned_matmul": check_pruned_matmul(torch, F),
         "paged_attention": check_paged_attention(torch, F),
     }
+    # 3c / 3d. the backward kernels
+    results.update(check_attention_backward(torch, F))
+    results["pruned_matmul"].update(check_pruned_matmul_backward(torch))
     for name, r in results.items():
         say("kernels", kernel=name, shape=repr(r["shape"]),
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             library_ms=f"{r['library_ms']:.4f}",
             bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+    r = results["pruned_matmul"]
+    say("kernels", kernel="pruned_matmul(backward dx+dw)",
+        shape=repr(r["bwd_shape"]), ms=f"{r['bwd_ms']:.4f}",
+        plain_ms=f"{r['bwd_plain_ms']:.4f}",
+        library_ms=f"{r['bwd_library_ms']:.4f}",
+        bound_ms=f"{r['bwd_bound'][0]:.4f}", bound_by=r["bwd_bound"][1],
+        pruned_keep=f"{r['bwd_pruned_keep']:.3f}",
+        pruned_ms=f"{r['bwd_pruned_ms']:.4f}",
+        pruned_bound_ms=f"{r['bwd_pruned_bound'][0]:.4f}")
 
     # 4. serve: the main path, counters zeroed just before, read just after
     from repro_torch.launch.serve import run as serve_run
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.KERNELS:
-        k.launches = 0
+        k.reset()
     rep = serve_run(serve_args(12))
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -524,7 +936,9 @@ def main() -> int:
                                  f"tokens, budget {budget[c['rid']]}")
         if not all(0 <= t < 49152 for t in c["tokens"]):
             raise AssertionError(f"request {c['rid']}: token out of vocab")
-    missing = [n for n, v in launches.items() if v <= 0]
+    serve_path = ("block_sparse_attention", "pruned_matmul",
+                  "paged_attention")
+    missing = [n for n in serve_path if launches[n] <= 0]
     if missing:
         raise AssertionError(f"serve never launched {missing}: {launches}")
     say("serve", requests=len(comps), tokens=rep["total_tokens"],
@@ -535,11 +949,19 @@ def main() -> int:
         max_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=json.dumps(launches).replace(" ", ""),
         tiles_live=f"{rep['page_tile_live']}/{rep['page_tile_total']}")
+    del rep
 
     # 4b. where the time goes: a shorter serve under torch.profiler (its
     # wall includes the profiler's own overhead)
     prof = profile_serve(torch)
     say("profile", **prof)
+
+    # 4c. train: the training path, counters zeroed just before, read
+    # just after
+    train_launches, train_bwd = run_train_phase(torch, kernels)
+
+    # 4d. where the time goes in training: two steps under the profiler
+    say("profile_train", **profile_train(torch))
 
     # 5. parity of the path: kernels vs plain versions from one state
     k_pf, k_ids, k_lp, _ = parity_run(torch, plain=False)
@@ -559,19 +981,59 @@ def main() -> int:
         decided=int(decided.sum()), max_logprob_err=f"{lp_err:.3e}",
         tol=1e-3)
 
+    # 5b. train parity: one step's loss and grads, kernels vs plain
+    free_cuda(torch)
+    k_loss, k_grads = train_parity_run(torch, plain=False)
+    with PlainKernels():
+        p_loss, p_grads = train_parity_run(torch, plain=True)
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    if not (math.isfinite(k_loss) and loss_rel <= 1e-4):
+        raise AssertionError(f"train loss {k_loss} vs plain {p_loss}")
+    worst_leaf, n_leaves = 0.0, 0
+    pg = dict(leaves(p_grads))
+    for path, kg in leaves(k_grads):
+        want = pg[path]
+        scale = float(want.abs().max()) or 1.0
+        err = float((kg - want).abs().max()) / scale
+        if not (err <= 1e-3):
+            raise AssertionError(f"grad {path}: max |err| / max |plain| = "
+                                 f"{err:.3e} > 1e-3")
+        worst_leaf = max(worst_leaf, err)
+        n_leaves += 1
+    say("train_parity", loss=f"{k_loss:.6f}", plain_loss=f"{p_loss:.6f}",
+        loss_rel_err=f"{loss_rel:.3e}", tol_loss=1e-4, leaves=n_leaves,
+        worst_leaf_rel_err=f"{worst_leaf:.3e}", tol_grad="1e-3*max|plain|")
+    del k_grads, p_grads
+
     # 6. the kernels line, the card line, the last line
     line = []
     for k in kernels.KERNELS:
         r = results[k.name]
-        line.append({
+        entry = {
             "name": k.name, "route": "cuda", "source": k.relpath(),
             "replaces": k.replaces, "tpu_kernel": k.replaces,
-            "launches": launches[k.name],
+            "launches": launches[k.name] + train_launches[k.name],
+            "launches_serve": launches[k.name],
+            "launches_train": train_launches[k.name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "tolerance": r["tol"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"]}
+        if "library_covers" in r:
+            entry["library_covers"] = r["library_covers"]
+        if k.name == "pruned_matmul":
+            entry.update(
+                launches_train_bwd=train_bwd, bwd_ms=r["bwd_ms"],
+                bwd_plain_ms=r["bwd_plain_ms"],
+                bwd_library_ms=r["bwd_library_ms"],
+                bwd_bound_ms=r["bwd_bound"][0],
+                bwd_bound_by=r["bwd_bound"][1],
+                bwd_max_abs_err=r["bwd_max_abs_err"],
+                bwd_pruned_ms=r["bwd_pruned_ms"],
+                bwd_pruned_bound_ms=r["bwd_pruned_bound"][0],
+                bwd_shape=r["bwd_shape"])
+        line.append(entry)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

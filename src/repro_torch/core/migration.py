@@ -1,0 +1,108 @@
+"""Layer migration between pipeline stages (paper §4.1) — the PyTorch port
+of ``repro.core.migration``.
+
+A rebalance produces a new contiguous layers-per-stage split.  Stage state
+lives in ``[S, L_max, ...]`` slot buffers, so migration is a gather along
+the (stage, slot) axes with a host-computed (dst <- src) index map, applied
+to params, optimizer moments and dyn state alike.  All S buffers live on one
+card here, so the gather is one indexing op per leaf; PAD destinations are
+zeroed.  The plan itself is numpy, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import BLOCK_PAD
+
+
+@dataclasses.dataclass
+class MigrationPlan:
+    src_stage: np.ndarray     # int32 [S, L_max]
+    src_slot: np.ndarray      # int32 [S, L_max]
+    valid: np.ndarray         # bool  [S, L_max] (False = dst slot is PAD)
+    moved_layers: int         # how many layers change stage
+    moved_bytes_per_layer_hint: int = 0
+
+
+def _locate(lps) -> Tuple[np.ndarray, np.ndarray]:
+    """Global layer g -> (stage[g], slot[g]) under a contiguous split."""
+    lps = np.asarray(lps, np.int64)
+    stages = np.repeat(np.arange(len(lps)), lps)
+    starts = np.concatenate([[0], np.cumsum(lps)[:-1]])
+    slots = np.arange(int(lps.sum())) - starts[stages]
+    return stages, slots
+
+
+def build_plan(old_lps: Sequence[int], new_lps: Sequence[int],
+               L_max: int) -> MigrationPlan:
+    """Map each destination slot to its source slot under contiguous
+    splits (plan[dst] = src)."""
+    total_old, total_new = sum(old_lps), sum(new_lps)
+    assert total_old == total_new, (total_old, total_new)
+    S = len(new_lps)
+    assert max(new_lps) <= L_max, "destination split exceeds slot capacity"
+    src_st, src_sl = _locate(old_lps)
+    dst_st, dst_sl = _locate(new_lps)
+    src_stage = np.zeros((S, L_max), np.int32)
+    src_slot = np.zeros((S, L_max), np.int32)
+    valid = np.zeros((S, L_max), bool)
+    src_stage[dst_st, dst_sl] = src_st
+    src_slot[dst_st, dst_sl] = src_sl
+    valid[dst_st, dst_sl] = True
+    moved = int(np.sum(src_st != dst_st))
+    return MigrationPlan(src_stage, src_slot, valid, moved)
+
+
+def apply_plan(tree: Any, plan: MigrationPlan) -> Any:
+    """Gather [S, L_max, ...] tensors to the new layout.  Invalid (PAD)
+    destination slots hold zeros."""
+    if isinstance(tree, dict):
+        return {k: apply_plan(v, plan) for k, v in tree.items()}
+    dev = tree.device
+    ss = torch.as_tensor(plan.src_stage, dtype=torch.long, device=dev)
+    sl = torch.as_tensor(plan.src_slot, dtype=torch.long, device=dev)
+    valid = torch.as_tensor(plan.valid, device=dev)
+    out = tree[ss, sl]                                  # [S, L_max, ...]
+    mask = valid.reshape(valid.shape + (1,) * (out.dim() - 2))
+    return torch.where(mask, out, torch.zeros_like(out))
+
+
+def _apply_plan_to_opt(opt_state: Any, plan: MigrationPlan) -> Any:
+    """Optimizer state mirrors the param tree; only its ``stages`` subtrees
+    are stage-keyed (the step count and the embed / head moments stay)."""
+    if isinstance(opt_state, dict):
+        return {k: (apply_plan(v, plan) if k == "stages"
+                    else _apply_plan_to_opt(v, plan))
+                for k, v in opt_state.items()}
+    return opt_state
+
+
+def migrate(params_stages: Dict[str, torch.Tensor], opt_stages: Any,
+            dyn: Dict[str, torch.Tensor], old_lps: Sequence[int],
+            new_lps: Sequence[int], tags_pattern: Sequence[int],
+            L_max: int, cache: Any = None):
+    """One-call migration of all stage-keyed state + fresh assignment.
+
+    Returns (params_stages, opt_stages, dyn, assignment, cache, plan)."""
+    plan = build_plan(old_lps, new_lps, L_max)
+    new_params = apply_plan(params_stages, plan)
+    new_opt = (_apply_plan_to_opt(opt_stages, plan)
+               if opt_stages is not None else None)
+    new_dyn = apply_plan(dyn, plan)
+    new_cache = apply_plan(cache, plan) if cache is not None else None
+    S = len(new_lps)
+    tags = np.full((S, L_max), BLOCK_PAD, np.int32)
+    dst_st, dst_sl = _locate(new_lps)
+    tags[dst_st, dst_sl] = np.asarray(tags_pattern, np.int32)
+    lps = np.asarray(new_lps, np.int64)
+    assignment = {
+        "tags": torch.tensor(tags, dtype=torch.int32),
+        "num_active": torch.tensor(lps, dtype=torch.int32),
+        "depth_base": torch.tensor(
+            np.concatenate([[0], np.cumsum(lps)[:-1]]), dtype=torch.int32),
+    }
+    return new_params, new_opt, new_dyn, assignment, new_cache, plan

@@ -3,8 +3,10 @@
 Each kernel package keeps its sources under ``csrc/``.  On first use, one
 ``nvcc`` per source compiles a shared library with a plain C interface for
 ``sm_90a`` (Hopper) into ``build/repro_torch_kernels/`` at the repository
-root; the file name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build`` starts
+root; the file name carries a hash of the source, the headers beside it,
+the shared header and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Kernels that share a source (K2a and K2b) share
+one library, built once.  ``build`` starts
 every missing compile at once and waits for all of them.  The libraries are
 loaded with ``ctypes``: pointers and the CUDA stream go in as
 ``c_void_p``, every launcher returns ``cudaGetLastError()`` and ``launch``
@@ -55,7 +57,8 @@ class Kernel:
 
     ``launches`` is a plain int that ``launch`` raises by one for every
     kernel launch and nothing else touches, so a run can show that its main
-    path really went through the kernel."""
+    path really went through the kernel; ``launches_bwd`` counts the subset
+    launched by a backward pass (K3's backward products)."""
 
     def __init__(self, name: str, source: str, replaces: str,
                  functions: Dict[str, Sequence]):
@@ -64,15 +67,22 @@ class Kernel:
         self.replaces = replaces
         self.functions = dict(functions)     # C symbol -> ctypes argtypes
         self.launches = 0
+        self.launches_bwd = 0
         self._lib: Optional[ctypes.CDLL] = None
+
+    def reset(self) -> None:
+        """Zero the launch counters."""
+        self.launches = 0
+        self.launches_bwd = 0
 
     # -- build ---------------------------------------------------------------
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for p in (self.source, COMMON_HEADER):
+        for p in (self.source, COMMON_HEADER,
+                  *sorted(self.source.parent.glob("*.cuh"))):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def compile_command(self, out: Path) -> List[str]:
         return [nvcc_path(), *NVCC_FLAGS, f"-I{KERNELS_DIR}", "-o", str(out),
@@ -95,7 +105,7 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, symbol: str, *args) -> None:
+    def launch(self, symbol: str, *args, bwd: bool = False) -> None:
         """Call one C launcher on the current stream and raise if the launch
         was refused (``cudaGetLastError`` != 0)."""
         fn = getattr(self.lib(), symbol)
@@ -104,6 +114,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: {symbol} failed to launch (cudaError {err})")
         self.launches += 1
+        if bwd:
+            self.launches_bwd += 1
 
 
 def build(kernels: Iterable[Kernel]) -> Dict[str, float]:
@@ -111,11 +123,12 @@ def build(kernels: Iterable[Kernel]) -> Dict[str, float]:
     parallel; returns {name: seconds} for the ones it built.  Raises with
     the compiler's output when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, seen = [], set()
     for k in kernels:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or out in seen:
             continue
+        seen.add(out)
         tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
         procs.append((k, out, tmp, time.perf_counter(), subprocess.Popen(
             k.compile_command(tmp), stdout=subprocess.PIPE,
@@ -124,7 +137,7 @@ def build(kernels: Iterable[Kernel]) -> Dict[str, float]:
     failed = []
     for k, out, tmp, t0, proc in procs:
         log, _ = proc.communicate()
-        took[k.name] = time.perf_counter() - t0
+        took[k.source.stem] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"--- {k.name} (nvcc exit {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)

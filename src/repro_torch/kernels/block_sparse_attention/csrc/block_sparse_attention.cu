@@ -6,7 +6,8 @@
 // Same function: out = softmax(q·kᵀ·scale, masked) · v with the online
 // softmax in fp32, fully masked rows -> zeros and lse ≈ -1e30; an element
 // (row r, col c) is live iff mask[r/block, c/block] > 0, c < Sk and (causal)
-// r >= c.  A 64x64 tile whose covering mask blocks are all 0 — or that lies
+// r >= c (the predicate of bsa_mask.cuh, shared with the backward sweeps).
+// A 64x64 tile whose covering mask blocks are all 0 — or that lies
 // wholly above the causal diagonal or past Sk — does no work, exactly the
 // tiles the TPU kernel's `tile_active` skips (the mask block, 128 or 512, is
 // coarser than the tile and is expanded over it).
@@ -25,6 +26,7 @@
 // ragged q / kv edges are bounds-checked in the loads — no padding copies.
 // wgmma/TMA pipelining is later work.
 #include "common.cuh"
+#include "bsa_mask.cuh"
 
 namespace {
 
@@ -82,11 +84,9 @@ __global__ void __launch_bounds__(NT) bsa_fwd_kernel(
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int c0 = kt * BK;
     const int c_last = min(c0 + BK, Sk) - 1;
-    bool live = false;  // uniform over the block: same inputs everywhere
-    for (int qi = q0 / block; qi <= q_last / block && !live; ++qi)
-      for (int ki = c0 / block; ki <= c_last / block && !live; ++ki)
-        live = mb[qi * nkb + ki] > 0;
-    if (!live) continue;
+    // uniform over the block: same inputs everywhere
+    if (!bsa_tile_live(mb, nkb, block, q0, q_last, c0, c_last, causal))
+      continue;
 
     __syncthreads();  // previous tile's K/V/P reads done; Q stores visible
     for (int i = tid; i < BK * D; i += NT) {
@@ -123,9 +123,8 @@ __global__ void __launch_bounds__(NT) bsa_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx + 16 * j;
-        bool keep = row < Sq && col < Sk && (!causal || row >= col);
-        if (keep && !uniform)
-          keep = mb[(row / block) * nkb + col / block] > 0;
+        const bool keep = bsa_elem_live(mb, nkb, block, row, col, Sq, Sk,
+                                        causal, uniform);
         s[i][j] = keep ? s[i][j] * scale : RT_NEG_INF;
         rmax = fmaxf(rmax, s[i][j]);
       }

@@ -1,12 +1,18 @@
-"""Block-sparse flash attention forward: the CUDA kernel's wrapper.
+"""Block-sparse flash attention: the CUDA kernels' wrappers and the
+differentiable op built from them.
 
-``block_sparse_attention_fwd`` takes the model layout (q [b, sq, hq, d],
-k/v [b, sk, hkv, d]) and a [b|1, hq|1, nqb, nkb] block mask.  On a CUDA
-tensor it launches ``csrc/block_sparse_attention.cu`` (GQA by index, ragged
-edges bounds-checked in the kernel, a broadcast mask passed by stride — no
-repeat, pad or copy); on a CPU tensor it runs the plain version in
-``ref.py``.  ``attention_tile_work`` is the reference's tile accounting,
-unchanged.
+``block_sparse_attention_fwd`` (K1) takes the model layout (q [b, sq, hq,
+d], k/v [b, sk, hkv, d]) and a [b|1, hq|1, nqb, nkb] block mask;
+``block_sparse_attention_bwd`` runs the two backward sweeps, K2a (dq) and
+K2b (dk, dv).  On CUDA tensors they launch ``csrc/block_sparse_attention.cu``
+and ``csrc/block_sparse_attention_bwd.cu`` (GQA by index, ragged edges
+bounds-checked in the kernels, a broadcast mask passed by stride — no
+repeat, pad or copy); on CPU tensors they run the plain versions in
+``ref.py``.  ``block_sparse_attention`` is differentiable: its autograd
+Function saves (q, k, v, out, lse), computes ``delta = rowsum(dout ⊙ out)``
+in torch and hands the rest to the backward sweeps, as the reference's
+``_bsa_flat`` custom VJP does.  ``attention_tile_work`` is the reference's
+tile accounting, unchanged.
 """
 from __future__ import annotations
 
@@ -18,22 +24,31 @@ import torch
 
 from repro_torch.kernels._build import Kernel, dtype_code, require
 from repro_torch.kernels.block_sparse_attention.ref import (
-    block_sparse_attention_ref)
+    block_sparse_attention_bwd_ref, block_sparse_attention_ref)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_TAIL = [_I] * 8 + [_L] * 2 + [_I, _F, _I, _P]
+_SRC = "src/repro/kernels/block_sparse_attention/"
 KERNEL = Kernel(
     "block_sparse_attention",
     "block_sparse_attention/csrc/block_sparse_attention.cu",
-    replaces="src/repro/kernels/block_sparse_attention/"
-             "block_sparse_attention.py:120",
-    functions={"bsa_fwd": [_P] * 6 + [_I] * 8 + [_L] * 2 + [_I, _F, _I, _P]})
+    replaces=_SRC + "block_sparse_attention.py:143",
+    functions={"bsa_fwd": [_P] * 6 + _TAIL})
+KERNEL_DQ = Kernel(
+    "block_sparse_attention_bwd_dq",
+    "block_sparse_attention/csrc/block_sparse_attention_bwd.cu",
+    replaces=_SRC + "backward.py:144",
+    functions={"bsa_bwd_dq": [_P] * 8 + _TAIL})
+KERNEL_DKV = Kernel(
+    "block_sparse_attention_bwd_dkv",
+    "block_sparse_attention/csrc/block_sparse_attention_bwd.cu",
+    replaces=_SRC + "backward.py:164",
+    functions={"bsa_bwd_dkv": [_P] * 9 + _TAIL})
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
-                               block: int = 128):
-    """Returns (out [b, sq, hq, d] in q.dtype, lse [b, hq, sq] float32)."""
+def _check_shapes(q, k, v, block_mask, block):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     nqb, nkb = -(-sq // block), -(-sk // block)
@@ -45,13 +60,14 @@ def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
     if k.shape != (b, sk, hkv, d) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if not q.is_cuda:
-        return block_sparse_attention_ref(q, k, v, block_mask, causal=causal,
-                                          block=block)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t, name, _DTYPES, 4)
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    return nkb
+
+
+def _device_mask(block_mask, q):
+    """int32 mask on q's device with its batch / head strides (0 where the
+    mask broadcasts)."""
+    b, hq = q.shape[0], q.shape[2]
+    nkb = block_mask.shape[-1]
     mask = block_mask.to(device=q.device, dtype=torch.int32)
     if mask.shape[0] not in (1, b) or mask.shape[1] not in (1, hq):
         raise ValueError(f"block_mask {tuple(mask.shape)} does not "
@@ -60,20 +76,126 @@ def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
         mask = mask.contiguous()
     msb = mask.stride(0) if mask.shape[0] > 1 else 0
     msh = mask.stride(1) if mask.shape[1] > 1 else 0
+    return mask, msb, msh
+
+
+def _dims(q, k, block, nkb):
+    b, sq, hq, d = q.shape
+    return [b, sq, k.shape[1], hq, k.shape[2], d, block, nkb]
+
+
+def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
+                               block: int = 128):
+    """Returns (out [b, sq, hq, d] in q.dtype, lse [b, hq, sq] float32)."""
+    nkb = _check_shapes(q, k, v, block_mask, block)
+    if not q.is_cuda:
+        return block_sparse_attention_ref(q, k, v, block_mask, causal=causal,
+                                          block=block)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        require(t, name, _DTYPES, 4)
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    mask, msb, msh = _device_mask(block_mask, q)
+    b, sq, hq = q.shape[:3]
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     KERNEL.launch("bsa_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  mask.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk,
-                  hq, hkv, d, block, nkb, msb, msh, int(causal),
-                  1.0 / math.sqrt(d), dtype_code(q.dtype))
+                  mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  *_dims(q, k, block, nkb), msb, msh, int(causal),
+                  1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype))
     return out, lse
+
+
+def _bwd_prep(q, k, v, block_mask, dout, lse, delta, block):
+    """Checks shared by both sweeps; returns (dout, mask, msb, msh, nkb)."""
+    nkb = _check_shapes(q, k, v, block_mask, block)
+    dout = dout.to(q.dtype).contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        require(t, name, _DTYPES, 4)
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    b, sq, hq = q.shape[:3]
+    for name, t in (("lse", lse), ("delta", delta)):
+        require(t, name, (torch.float32,), 3)
+        if t.shape != (b, hq, sq):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(b, hq, sq)}")
+    mask, msb, msh = _device_mask(block_mask, q)
+    return dout, mask, msb, msh, nkb
+
+
+def _sweep(kernel, symbol, outs, q, k, v, block_mask, dout, lse, delta,
+           causal, block):
+    dout, mask, msb, msh, nkb = _bwd_prep(q, k, v, block_mask, dout, lse,
+                                          delta, block)
+    if q.shape[1] == 0:
+        return outs
+    kernel.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), *(t.data_ptr() for t in outs),
+                  *_dims(q, k, block, nkb), msb, msh, int(causal),
+                  1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype))
+    return outs
+
+
+def block_sparse_attention_bwd_dq(q, k, v, block_mask, dout, lse, delta, *,
+                                  causal: bool = True, block: int = 128):
+    """K2a, the dq sweep (CUDA tensors only)."""
+    return _sweep(KERNEL_DQ, "bsa_bwd_dq", (torch.empty_like(q),), q, k, v,
+                  block_mask, dout, lse, delta, causal, block)[0]
+
+
+def block_sparse_attention_bwd_dkv(q, k, v, block_mask, dout, lse, delta, *,
+                                   causal: bool = True, block: int = 128):
+    """K2b, the dk / dv sweep (CUDA tensors only)."""
+    return _sweep(KERNEL_DKV, "bsa_bwd_dkv",
+                  (torch.zeros_like(k), torch.zeros_like(v)), q, k, v,
+                  block_mask, dout, lse, delta, causal, block)
+
+
+def block_sparse_attention_bwd(q, k, v, block_mask, dout, lse, delta, *,
+                               causal: bool = True, block: int = 128):
+    """The flash backward: (dq, dk, dv) in the input dtypes from the
+    forward's inputs, its lse, ``dout`` and ``delta = rowsum(dout ⊙ out)``
+    ([b, hq, sq] float32).  On CUDA: K2a then K2b."""
+    if not q.is_cuda:
+        _check_shapes(q, k, v, block_mask, block)
+        return block_sparse_attention_bwd_ref(
+            q, k, v, block_mask, dout.to(q.dtype), lse, delta,
+            causal=causal, block=block)
+    kw = dict(causal=causal, block=block)
+    dq = block_sparse_attention_bwd_dq(q, k, v, block_mask, dout, lse,
+                                       delta, **kw)
+    dk, dv = block_sparse_attention_bwd_dkv(q, k, v, block_mask, dout, lse,
+                                            delta, **kw)
+    return dq, dk, dv
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    """K1 forward; K2a + K2b backward (the reference's ``_bsa_flat``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_mask, causal, block):
+        out, lse = block_sparse_attention_fwd(q, k, v, block_mask,
+                                              causal=causal, block=block)
+        ctx.save_for_backward(q, k, v, block_mask, out, lse)
+        ctx.causal, ctx.block = causal, block
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, block_mask, out, lse = ctx.saved_tensors
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        dq, dk, dv = block_sparse_attention_bwd(
+            q, k, v, block_mask, dout, lse, delta.contiguous(),
+            causal=ctx.causal, block=ctx.block)
+        return dq, dk, dv, None, None, None
 
 
 def block_sparse_attention(q, k, v, block_mask, *, causal: bool = True,
                            block: int = 128):
-    """Attention output only ([b, sq, hq, d]); see the ``_fwd`` variant."""
-    return block_sparse_attention_fwd(q, k, v, block_mask, causal=causal,
-                                      block=block)[0]
+    """Attention output only ([b, sq, hq, d]); differentiable in q, k, v
+    through the flash backward (K2a / K2b on the card)."""
+    return _BlockSparseAttention.apply(q, k, v, block_mask, causal, block)
 
 
 def attention_tile_work(block_mask, *, causal: bool = True,

@@ -1,10 +1,11 @@
-"""Plain PyTorch version of the block-sparse flash attention kernel.
+"""Plain PyTorch versions of the block-sparse flash attention kernels.
 
-The CPU path of ``ops.block_sparse_attention_fwd`` and the oracle the CUDA
-kernel is held against on the card: an exact dense computation of the
-kernel's semantics (scores masked at block granularity plus token-level
-causal, fp32 softmax with the fully-masked-row guard), on the model layout
-the wrapper takes.
+The CPU path of ``ops.block_sparse_attention_fwd`` / ``_bwd`` and the
+oracles the CUDA kernels (K1 forward, K2a / K2b backward) are held against
+on the card: exact dense computations of the kernels' semantics (scores
+masked at block granularity plus token-level causal, fp32 softmax with the
+fully-masked-row guard, the recompute-from-lse backward), on the model
+layout the wrappers take.
 """
 from __future__ import annotations
 
@@ -23,17 +24,12 @@ def block_sparse_attention_ref(q, k, v, block_mask, *, causal: bool = True,
     Returns (out [b, sq, hq, d] in q.dtype, lse [b, hq, sq] float32); a row
     with no live entry gives zeros and lse ≈ -1e30."""
     b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    rep = hq // hkv
+    rep = hq // k.shape[2]
     qf = q.float().transpose(1, 2)                                # [b,h,sq,d]
     kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
-    mask = (block_mask.repeat_interleave(block, dim=-2)
-            .repeat_interleave(block, dim=-1)[..., :sq, :sk] > 0)
-    if causal:
-        mask = mask & torch.ones(sq, sk, dtype=torch.bool,
-                                 device=q.device).tril()
+    mask = live_elements(block_mask, sq, k.shape[1], causal, block)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
@@ -42,3 +38,75 @@ def block_sparse_attention_ref(q, k, v, block_mask, *, causal: bool = True,
     out = torch.where(l > 0, out, torch.zeros_like(out))
     lse = m[..., 0] + torch.log(l[..., 0].clamp_min(1e-30))
     return out.transpose(1, 2).to(q.dtype), lse
+
+
+def live_elements(block_mask, sq: int, sk: int, causal: bool, block: int):
+    """[b|1, hq|1, sq, sk] bool: the element predicate the kernels share
+    (mask block live, and on or below the diagonal when causal)."""
+    mask = (block_mask.repeat_interleave(block, dim=-2)
+            .repeat_interleave(block, dim=-1)[..., :sq, :sk] > 0)
+    if causal:
+        mask = mask & torch.ones(sq, sk, dtype=torch.bool,
+                                 device=block_mask.device).tril()
+    return mask
+
+
+def _recompute(q, k, v, block_mask, dout, lse, delta, causal, block):
+    """The backward's recomputed tiles, dense: (p, ds, q, k, dout) in fp32
+    with heads second ([b, h, s, ...]; k repeated over the GQA group)."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    rep = hq // k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().transpose(1, 2)                                # [b,h,sq,d]
+    of = dout.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    live = live_elements(block_mask, sq, sk, causal, block)
+    live = live & (lse[..., None] > NEG_INF / 4)
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = of @ vf.transpose(-1, -2)
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, qf, kf, of
+
+
+def _group_sum(t, hkv):
+    """[b, hq, s, d] -> [b, s, hkv, d], summing each kv head's q group."""
+    b, hq, s, d = t.shape
+    return t.reshape(b, hkv, hq // hkv, s, d).sum(2).transpose(1, 2)
+
+
+def block_sparse_attention_bwd_dq_ref(q, k, v, block_mask, dout, lse, delta,
+                                      *, causal: bool = True,
+                                      block: int = 128):
+    """dq alone (the plain version of the dq sweep, K2a)."""
+    _, ds, _, kf, _ = _recompute(q, k, v, block_mask, dout, lse, delta,
+                                 causal, block)
+    return (ds @ kf).transpose(1, 2).to(q.dtype)
+
+
+def block_sparse_attention_bwd_dkv_ref(q, k, v, block_mask, dout, lse,
+                                       delta, *, causal: bool = True,
+                                       block: int = 128):
+    """(dk, dv) alone (the plain version of the dk / dv sweep, K2b)."""
+    p, ds, qf, _, of = _recompute(q, k, v, block_mask, dout, lse, delta,
+                                  causal, block)
+    hkv = k.shape[2]
+    return (_group_sum(ds.transpose(-1, -2) @ qf, hkv).to(k.dtype),
+            _group_sum(p.transpose(-1, -2) @ of, hkv).to(v.dtype))
+
+
+def block_sparse_attention_bwd_ref(q, k, v, block_mask, dout, lse, delta, *,
+                                   causal: bool = True, block: int = 128):
+    """The recompute-from-lse flash backward, dense.  q, dout [b, sq, hq,
+    d]; k, v [b, sk, hkv, d]; lse, delta [b, hq, sq] float32 (delta =
+    rowsum(dout * out)).  Returns (dq, dk, dv) in the input dtypes; the GQA
+    group of each kv head is summed, as the transpose of the reference's
+    ``jnp.repeat`` sums it."""
+    p, ds, qf, kf, of = _recompute(q, k, v, block_mask, dout, lse, delta,
+                                   causal, block)
+    hkv = k.shape[2]
+    return ((ds @ kf).transpose(1, 2).to(q.dtype),
+            _group_sum(ds.transpose(-1, -2) @ qf, hkv).to(k.dtype),
+            _group_sum(p.transpose(-1, -2) @ of, hkv).to(v.dtype))

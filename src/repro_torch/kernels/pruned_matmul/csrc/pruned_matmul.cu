@@ -21,21 +21,36 @@
 // each thread an 8 x 8 sub-tile (two 4-wide row and column groups 64 apart,
 // so its shared loads are conflict-free), fp32 accumulators in registers.
 // Ragged M / N / K edges are bounds-checked in the loads and stores, so the
-// wrapper pads nothing (the TPU wrapper pads K = 960 to 1024).  Double
-// buffering, wgmma and TMA are later work.
+// wrapper pads nothing (the TPU wrapper pads K = 960 to 1024).
+// Every operand is read, and the output written, through a (row, column)
+// stride pair, so the backward's four products (src/repro/kernels/
+// pruned_matmul/backward.py::pruned_matmul_bwd_p: g·wᵀ and xᵀ·g, and
+// (gᵀ·x)ᵀ for a mask over K) are launches of this same kernel on transposed
+// views — a stride swap, no copy; each load loop walks the operand's
+// unit-stride axis fastest, so global reads stay coalesced either way.
+// When x, w and out are all contiguous (the forward) a second
+// instantiation addresses them through K and N alone, as the forward-only
+// kernel did: the strided kernel ran the forward at 1.10 ms against 0.79
+// (M 4096, K 960, N 2560; PERF.md).
+// Double buffering, wgmma and TMA are later work.
 #include "common.cuh"
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BKC = 16, NT = 256;
 
-template <typename T>
+// GEN: operands and output addressed through their strides; otherwise all
+// three are contiguous and only K and N address them
+template <typename T, bool GEN>
 __global__ void __launch_bounds__(NT) pm_kernel(
     const T* __restrict__ x, const T* __restrict__ w,
     const int32_t* __restrict__ mask, T* __restrict__ out, int M, int K,
-    int N, int mask_n, int mblk) {
+    int N, int mask_n, int mblk, long long xr, long long xc, long long wr,
+    long long wc, long long orow, long long ocol) {
   __shared__ float As[BKC][BM + 1];  // x tile, transposed (padded rows)
-  __shared__ __align__(16) float Bs[BKC][BN];
+  // GEN pads rows by 1 so a transposed w's column-wise stores hit 16
+  // banks (a pad of 4 ran the backward products slower; PERF.md)
+  __shared__ __align__(16) float Bs[BKC][GEN ? BN + 1 : BN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
@@ -48,7 +63,8 @@ __global__ void __launch_bounds__(NT) pm_kernel(
       for (int i = tid; i < BM * BN; i += NT) {
         const int r = i / BN, c = i % BN;
         if (m0 + r < M && n0 + c < N)
-          out[(long long)(m0 + r) * N + n0 + c] = rt_from_f32<T>(0.f);
+          out[GEN ? (m0 + r) * orow + (n0 + c) * ocol
+                  : (long long)(m0 + r) * N + n0 + c] = rt_from_f32<T>(0.f);
       }
       return;
     }
@@ -69,16 +85,25 @@ __global__ void __launch_bounds__(NT) pm_kernel(
       if (!live) continue;
     }
     for (int i = tid; i < BM * BKC; i += NT) {
-      const int r = i / BKC, kk = i % BKC;
+      // walk x's unit-stride axis fastest (k for x, m for a transposed x)
+      const bool xk = !GEN || xc == 1;
+      const int r = xk ? i / BKC : i % BM;
+      const int kk = xk ? i % BKC : i / BM;
       const int gm = m0 + r, gk = k0 + kk;
       const bool ok = gm < M && gk < K && (mask_n || mask[gk / mblk] > 0);
-      As[kk][r] = ok ? rt_to_f32(x[(long long)gm * K + gk]) : 0.f;
+      As[kk][r] = ok ? rt_to_f32(x[GEN ? gm * xr + gk * xc
+                                       : (long long)gm * K + gk])
+                     : 0.f;
     }
     for (int i = tid; i < BKC * BN; i += NT) {
-      const int kk = i / BN, c = i % BN;
+      const bool wn = !GEN || wc == 1;
+      const int kk = wn ? i / BN : i % BKC;
+      const int c = wn ? i % BN : i / BKC;
       const int gk = k0 + kk, gn = n0 + c;
       const bool ok = gk < K && gn < N && (mask_n || mask[gk / mblk] > 0);
-      Bs[kk][c] = ok ? rt_to_f32(w[(long long)gk * N + gn]) : 0.f;
+      Bs[kk][c] = ok ? rt_to_f32(w[GEN ? gk * wr + gn * wc
+                                       : (long long)gk * N + gn])
+                     : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -109,30 +134,51 @@ __global__ void __launch_bounds__(NT) pm_kernel(
       if (gn >= N) continue;
       float val = acc[i][j];
       if (mask_n && mask[gn / mblk] <= 0) val = 0.f;
-      out[(long long)gm * N + gn] = rt_from_f32<T>(val);
+      out[GEN ? gm * orow + gn * ocol : (long long)gm * N + gn] =
+          rt_from_f32<T>(val);
     }
   }
 }
 
+// the contiguous instantiation when every operand is contiguous
+template <typename T>
+cudaError_t launch_layout(const T* x, const T* w, const int32_t* mask,
+                          T* out, int M, int K, int N, int mask_n, int mblk,
+                          long long xr, long long xc, long long wr,
+                          long long wc, long long orow, long long ocol,
+                          dim3 grid, cudaStream_t st) {
+  const bool contiguous = xc == 1 && xr == K && wc == 1 && wr == N &&
+                          ocol == 1 && orow == N;
+  if (contiguous)
+    return rt_launch(pm_kernel<T, false>, grid, dim3(NT), 0, st, x, w,
+                     mask, out, M, K, N, mask_n, mblk, xr, xc, wr, wc, orow,
+                     ocol);
+  return rt_launch(pm_kernel<T, true>, grid, dim3(NT), 0, st, x, w, mask,
+                   out, M, K, N, mask_n, mblk, xr, xc, wr, wc, orow, ocol);
+}
+
 }  // namespace
 
-// x [M, K], w [K, N], out [M, N] (contiguous, one dtype); mask int32 over
-// N / mblk column blocks (mask_n = 1) or K / mblk reduction blocks (0).
+// x [M, K], w [K, N], out [M, N] (one dtype), each addressed through its
+// (row, column) element strides: x[m * xr + k * xc], w[k * wr + n * wc],
+// out[m * orow + n * ocol]; mask int32 over N / mblk column blocks
+// (mask_n = 1) or K / mblk reduction blocks (0).
 extern "C" int pm_fwd(const void* x, const void* w, const void* mask,
                       void* out, int M, int K, int N, int mask_n, int mblk,
-                      int dtype, void* stream) {
+                      long long xr, long long xc, long long wr, long long wc,
+                      long long orow, long long ocol, int dtype,
+                      void* stream) {
   if (mblk <= 0) return cudaErrorInvalidValue;
   if (M == 0 || N == 0) return cudaSuccess;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == RT_F32)
-    return rt_launch(pm_kernel<float>, grid, dim3(NT), 0, st,
-                     (const float*)x, (const float*)w, (const int32_t*)mask,
-                     (float*)out, M, K, N, mask_n, mblk);
+    return launch_layout((const float*)x, (const float*)w,
+                         (const int32_t*)mask, (float*)out, M, K, N, mask_n,
+                         mblk, xr, xc, wr, wc, orow, ocol, grid, st);
   if (dtype == RT_BF16)
-    return rt_launch(pm_kernel<__nv_bfloat16>, grid, dim3(NT), 0, st,
-                     (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-                     (const int32_t*)mask, (__nv_bfloat16*)out, M, K, N,
-                     mask_n, mblk);
+    return launch_layout((const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+                         (const int32_t*)mask, (__nv_bfloat16*)out, M, K, N,
+                         mask_n, mblk, xr, xc, wr, wc, orow, ocol, grid, st);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,15 @@
-"""Block-pruned matmul: the CUDA kernel's wrapper, and the block-pruned
-SwiGLU composed from it.
+"""Block-pruned matmul: the CUDA kernel's wrapper, the differentiable op
+built from it, and the block-pruned SwiGLU composed from that.
 
-``pruned_matmul`` flattens the leading dims and, on a CUDA tensor, launches
-``csrc/pruned_matmul.cu`` (ragged M / N / K bounds-checked in the kernel, no
-padding copies); on a CPU tensor it runs the plain version in ``ref.py``.
+``product`` is one K3 launch (on CUDA tensors, ``csrc/pruned_matmul.cu``,
+reading x and w and writing the output through their strides, so a
+transposed view costs no copy) or its plain version in ``ref.py`` (on CPU
+tensors).  ``pruned_matmul`` flattens the leading dims and goes through an
+autograd Function whose backward is the reference's ``pruned_matmul_bwd_p``
+(``backward.py``): four more K3 products with the mask in the other slot.
 ``pruned_swiglu`` is three such calls with ``silu(a)·b`` between them,
-exactly as the reference composes it.  ``matmul_tile_work`` is the
-reference's tile accounting, unchanged.
+exactly as the reference composes it, and differentiable through them.
+``matmul_tile_work`` is the reference's tile accounting, unchanged.
 """
 from __future__ import annotations
 
@@ -16,22 +19,75 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import Kernel, dtype_code, require
+from repro_torch.kernels._build import Kernel, dtype_code
 from repro_torch.kernels.pruned_matmul.ref import pruned_matmul_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel(
     "pruned_matmul", "pruned_matmul/csrc/pruned_matmul.cu",
-    replaces="src/repro/kernels/pruned_matmul/pruned_matmul.py:63",
-    functions={"pm_fwd": [_P] * 4 + [_I] * 6 + [_P]})
+    replaces="src/repro/kernels/pruned_matmul/pruned_matmul.py:83",
+    functions={"pm_fwd": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_I, _P]})
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def product(x, w, block_mask, mask_axis: str, blk: int, *,
+            bwd: bool = False, out=None):
+    """One block-pruned product x [M, K] @ w [K, N] (any strides) under a
+    mask over N ("n") or K ("k") in blocks of ``blk``; fp32 accumulation,
+    output in x's dtype, written into ``out`` (any strides) when given.
+    ``bwd`` counts the launch as a backward one."""
+    M, K = x.shape
+    N = w.shape[1]
+    if not x.is_cuda:
+        res = pruned_matmul_ref(x, w, block_mask, mask_axis=mask_axis,
+                                bn=blk, bk=blk)
+        return res if out is None else out.copy_(res)
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_cuda or t.dim() != 2:
+            raise ValueError(f"{name} must be a 2-d CUDA tensor, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.dtype not in _DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype} (x is {x.dtype})")
+    if out is None:
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    elif out.shape != (M, N) or out.dtype != x.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} != "
+                         f"{(M, N)} {x.dtype}")
+    mask = block_mask.to(device=x.device, dtype=torch.int32).contiguous()
+    KERNEL.launch("pm_fwd", x.data_ptr(), w.data_ptr(), mask.data_ptr(),
+                  out.data_ptr(), M, K, N, int(mask_axis == "n"), blk,
+                  *x.stride(), *w.stride(), *out.stride(),
+                  dtype_code(x.dtype), bwd=bwd)
+    return out
+
+
+class _PrunedMatmul(torch.autograd.Function):
+    """K3 forward; K3 backward products (the reference's ``_pm_flat``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_mask, mask_axis, blk):
+        ctx.save_for_backward(x, w, block_mask)
+        ctx.mask_axis, ctx.blk = mask_axis, blk
+        return product(x, w, block_mask, mask_axis, blk)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.pruned_matmul.backward import (
+            pruned_matmul_bwd)
+        x, w, block_mask = ctx.saved_tensors
+        dx, dw = pruned_matmul_bwd(
+            x, w, block_mask, g.float(), mask_axis=ctx.mask_axis,
+            blk=ctx.blk, need_dx=ctx.needs_input_grad[0],
+            need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None, None, None
 
 
 def pruned_matmul(x, w, block_mask, *, mask_axis: str = "n", bn: int = 128,
                   bk: int = 128):
     """x: [..., K] @ w: [K, N] under a block mask of N // bn ("n") or
-    K // bk ("k") entries; the masked dim must be a block multiple."""
+    K // bk ("k") entries; the masked dim must be a block multiple.
+    Differentiable in x and w."""
     lead = x.shape[:-1]
     K, N = x.shape[-1], w.shape[1]
     if mask_axis not in ("n", "k"):
@@ -42,19 +98,8 @@ def pruned_matmul(x, w, block_mask, *, mask_axis: str = "n", bn: int = 128,
     if dim % blk or tuple(block_mask.shape) != (dim // blk,):
         raise ValueError(f"mask {tuple(block_mask.shape)} does not tile the "
                          f"masked dim {dim} in blocks of {blk}")
-    x2 = x.reshape(-1, K)
-    if not x.is_cuda:
-        out = pruned_matmul_ref(x2, w, block_mask, mask_axis=mask_axis,
-                                bn=bn, bk=bk)
-        return out.reshape(*lead, N)
-    x2 = x2.contiguous()
-    require(x2, "x", _DTYPES, 2)
-    require(w, "w", (x.dtype,), 2)
-    mask = block_mask.to(device=x.device, dtype=torch.int32).contiguous()
-    out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
-    KERNEL.launch("pm_fwd", x2.data_ptr(), w.data_ptr(), mask.data_ptr(),
-                  out.data_ptr(), x2.shape[0], K, N, int(mask_axis == "n"),
-                  blk, dtype_code(x.dtype))
+    out = _PrunedMatmul.apply(x.reshape(-1, K), w, block_mask, mask_axis,
+                              blk)
     return out.reshape(*lead, N)
 
 

@@ -1,13 +1,12 @@
-"""Serving engine on one fixed execution world — the serving subset of
-``repro.launch.engine.ElasticEngine``.
+"""Training and serving engine on one fixed execution world — the
+one-world subset of ``repro.launch.engine.ElasticEngine``.
 
 The reference's engine owns one execution world per stage count (a mesh
 over a device subset, jitted step/serving fns) and resizes live between
-them.  This slice serves on ONE world: ``dcfg.num_stages`` stage buffers on
-one card.  The state keeps the reference's stacked ``[S, L_max, ...]``
-layout, so the resize slice can gather along the same axes.  Training
-(``with_opt=True``), resizes and in-step timing raise
-``NotImplementedError``.
+them.  This port trains and serves on ONE world: ``dcfg.num_stages`` stage
+buffers on one card.  The state keeps the reference's stacked ``[S, L_max,
+...]`` layout, which the controller's migration gathers along.  Resizes
+(shrink / grow / evict) and in-step timing raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,8 +20,35 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
+from repro_torch.optim.optimizers import OptConfig, make_optimizer
 from repro_torch.pipeline.pipeline import (PipelineShapes, build_decode_fn,
-                                           build_prefill_fn)
+                                           build_loss_fn, build_prefill_fn,
+                                           value_and_grad)
+
+
+def make_train_step(cfg: ModelConfig, dcfg: DistConfig,
+                    dyncfg: DynamicsConfig, shapes: PipelineShapes,
+                    opt_cfg: Optional[OptConfig] = None, *,
+                    device: DeviceLike = None, hash_proj=None):
+    """Returns (init_opt_fn, train_step) with
+    train_step(params, opt_state, assignment, dyn, batch, lr)
+      -> (params, opt_state, loss, stats, gnorm);
+    params and opt_state are updated in place; the batch is moved to
+    ``device`` (the card unless ``"cpu"`` is asked for)."""
+    dev = resolve_device(device)
+    opt_cfg = opt_cfg or OptConfig(name=dcfg.optimizer)
+    loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj)
+    init_fn, update_fn = make_optimizer(opt_cfg)
+
+    def train_step(params, opt_state, assignment, dyn, batch, lr):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, stats, grads = value_and_grad(loss_fn, params, assignment, dyn,
+                                            batch)
+        params, opt_state, gnorm = update_fn(
+            grads, opt_state, params, lr, frozen=dyn.get("frozen"))
+        return params, opt_state, loss, stats, gnorm
+
+    return init_fn, train_step
 
 
 def _pack_pages(pool, scratch_k, scratch_v, table, mask):
@@ -70,10 +96,12 @@ class EngineState:
 
 
 class ElasticEngine:
-    """Serving fns and device helpers for one fixed stage count."""
+    """Train step, serving fns and device helpers for one fixed stage
+    count."""
 
     def __init__(self, cfg: ModelConfig, dcfg: DistConfig,
                  dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
+                 opt_cfg: Optional[OptConfig] = None,
                  paged=None, temperature: float = 0.0,
                  device: DeviceLike = None, hash_proj=None):
         M.check_ported(cfg, dyncfg)
@@ -91,20 +119,26 @@ class ElasticEngine:
                 cfg.d_model, dyncfg.sparse_nbuckets, self.device)
         self.hash_proj = (None if hash_proj is None
                           else hash_proj.to(self.device, torch.float32))
+        self.opt_cfg = opt_cfg
         self._prefill = None
         self._decode: Dict[int, Any] = {}
+        self._train = None
+        self._eval_loss = None
+        # world epoch (the control plane fences its plans with it); a
+        # resize would bump it — one world here, so it stays 0
+        self.epoch = 0
+        self.stepped = False
+        self.last_step_compiled = False
 
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, seed: int = 0, *, with_opt: bool = False,
                    with_cache: bool = False, params=None) -> EngineState:
-        """``with_cache=True`` allocates the stacked decode KV cache (the
-        paged pool when the engine is paged).  ``params`` (a converted
-        reference tree, see ``repro_torch.convert``) replaces the engine's
-        own init, which draws from a torch generator seeded with ``seed``."""
-        if with_opt:
-            raise NotImplementedError(
-                "training state is not in repro_torch yet (ROADMAP Queue 1 "
-                "[training])")
+        """``with_opt=True`` adds the optimizer state (the reference's tree:
+        ``m``, ``v``, ``count`` for AdamW); ``with_cache=True`` allocates the
+        stacked decode KV cache (the paged pool when the engine is paged).
+        ``params`` (a converted reference tree, see ``repro_torch.convert``)
+        replaces the engine's own init, which draws from a torch generator
+        seeded with ``seed``."""
         cfg, dcfg, dev = self.cfg, self.base_dcfg, self.device
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -124,8 +158,56 @@ class ElasticEngine:
                                            self.paged.page_size, dev)
             else:
                 cache = self.make_dense_scratch(dcfg.num_stages)
-        return EngineState(params, None, dyn, assignment, lps,
+        opt_state = self.train_fns()[0](params) if with_opt else None
+        return EngineState(params, opt_state, dyn, assignment, lps,
                            dcfg.num_stages, cache)
+
+    # -- training ------------------------------------------------------------
+    def train_fns(self):
+        """(init_opt, train_step) of this engine's world, built once."""
+        if self._train is None:
+            self._train = make_train_step(
+                self.cfg, self.base_dcfg, self.dyncfg, self.shapes,
+                self.opt_cfg, device=self.device, hash_proj=self.hash_proj)
+        return self._train
+
+    def _batch(self, batch):
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    def step(self, state: EngineState, batch, lr):
+        """One train step; updates ``state.params`` / ``state.opt_state``
+        in place and returns (loss, stats, gnorm) on the device (the caller
+        decides when to pay the host sync)."""
+        if state.stages != self.base_dcfg.num_stages:
+            raise NotImplementedError(
+                "training on another stage count needs live resizes, not in "
+                "repro_torch yet (ROADMAP Queue 1 [training]: live resize)")
+        _, train_step = self.train_fns()
+        self.last_step_compiled = not self.stepped
+        self.stepped = True
+        params, opt_state, loss, stats, gnorm = train_step(
+            state.params, state.opt_state, state.assignment, state.dyn,
+            batch, lr)
+        state.params, state.opt_state = params, opt_state
+        return loss, stats, gnorm
+
+    @staticmethod
+    def stats_to_host(state: EngineState, stats):
+        """The per-slot stats tree ([S, L_max, ...]) on the host: a full
+        device -> host sync — call it on controller cadence only."""
+        return {k: v.detach().cpu().numpy() for k, v in stats.items()}
+
+    @torch.no_grad()
+    def eval_loss(self, state: EngineState, batch):
+        """Loss only (no update) in the current world."""
+        if self._eval_loss is None:
+            self._eval_loss = build_loss_fn(
+                self.cfg, self.base_dcfg, self.dyncfg, self.shapes,
+                hash_proj=self.hash_proj)
+        loss, _ = self._eval_loss(state.params, state.assignment, state.dyn,
+                                  self._batch(batch))
+        return loss
 
     # -- serving -------------------------------------------------------------
     def serve_fns(self, stages: int, live_micros: Optional[int] = None):

@@ -1,11 +1,15 @@
 """Primitive layers shared by the blocks (PyTorch port of
-``repro.models.layers``, forward only).
+``repro.models.layers``).
 
 Everything is a plain function of (params, inputs) on tensors.  Attention
 has the reference's three impls: "reference" (the O(s^2) oracle), "scan"
 (the online-softmax loop over kv blocks) and "pallas", which on the port
 means the hand-written CUDA kernels of ``repro_torch.kernels`` (their plain
-PyTorch versions on a CPU tensor).
+PyTorch versions on a CPU tensor).  The "pallas" ops are differentiable
+through the kernels' own backward (K2a / K2b for attention, K3's backward
+products for the SwiGLU); "reference" and "scan" differentiate through
+torch autograd of their forward (the reference's memory-saving
+``_flash_vjp`` for "scan" is ROADMAP work).
 """
 from __future__ import annotations
 
@@ -278,3 +282,19 @@ def gqa_project(x, wq, wk, wv, num_heads, num_kv_heads, head_dim):
     k = (x @ wk).reshape(b, s, num_kv_heads, head_dim)
     v = (x @ wv).reshape(b, s, num_kv_heads, head_dim)
     return q, k, v
+
+
+def cross_entropy_with_head(h, head_w, labels, *, label_mask=None):
+    """Cross-entropy over the head: h [..., d], head_w [d, V], labels
+    [...] int.  (The reference's vocab-sharded variant waits for ROADMAP
+    Queue 1 [multi-card].)"""
+    logits = matmul(h, head_w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if label_mask is not None:
+        nll = nll * label_mask
+        denom = torch.clamp(label_mask.sum(), min=1.0)
+    else:
+        denom = float(nll.numel())
+    return nll.sum() / denom

@@ -1,5 +1,5 @@
-"""Whole-model assembly on top of the slot-block layer — the serving subset
-of ``repro.models.model``.
+"""Whole-model assembly on top of the slot-block layer — the serving and
+training subset of ``repro.models.model``.
 
 Parameters (same keys and stacked layout as the reference)
   params = {
@@ -16,6 +16,10 @@ Assignment — host tensors (it steers host control flow: which slot runs)
 
 Dynamism state
   dyn = {"ff_mask": f32 [S, L_max, npb], "frozen": f32 [S, L_max]}
+
+For training, ``params["stages"]`` may also hold, per field, nested lists
+``[S][L_max]`` of per-slot tensors (the engine's gradient leaves, see
+``pipeline.value_and_grad``): everything here indexes it as ``v[s][l]``.
 """
 from __future__ import annotations
 
@@ -23,11 +27,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_PAD, DistConfig, ModelConfig
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import matmul, rms_norm
+from repro_torch.models.layers import (cross_entropy_with_head, matmul,
+                                      rms_norm)
 
 # what the port's slices serve so far; the other kinds raise
 PORTED_DYNAMICS = ("none", "pruning", "freezing", "sparse_attention")
@@ -195,21 +201,40 @@ def stage_forward(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
     stage_params: {field: [L_max, ...]}; tags: [L_max] host ints (PAD slots
     are skipped on the host); cache_stage: {field: [L_max, ...]} or None,
     written in place.  Returns (carry, cache_stage, stats {field: [L_max,
-    ...]}, aux_loss)."""
+    ...]}, aux_loss).
+
+    Training: a frozen slot (freezing dynamism) runs on detached params, so
+    the backward computes its input gradient and no weight gradient — the
+    reference's ``blocks.freezable``.  ``dcfg.remat == "block"`` recomputes
+    each slot in the backward (``torch.utils.checkpoint``)."""
     zero = _stat_zeros(cfg, carry["x"].device)
     per_slot = []
     aux = 0.0
+    frozen = None
+    if dyncfg.uses_freezing and mode == "train":
+        frozen = [float(f) > 0 for f in dyn_stage["frozen"].tolist()]
     for l, tag in enumerate(int(t) for t in tags):
         if tag == BLOCK_PAD:
             per_slot.append({})
             continue
         p = {k: v[l] for k, v in stage_params.items()}
+        if frozen is not None and frozen[l]:
+            p = {k: v.detach() for k, v in p.items()}
         dyn_slot = {k: v[l] for k, v in dyn_stage.items()}
         cache_slot = (None if cache_stage is None
                       else {k: v[l] for k, v in cache_stage.items()})
-        carry, _, st, a = B.apply_block(
-            cfg, dyncfg, mode, p, shared, carry, tag, dyn_slot, cache_slot,
-            pos, kernel_impl=dcfg.kernel_impl, hash_proj=hash_proj)
+
+        def run(carry, p=p, dyn_slot=dyn_slot, cache_slot=cache_slot,
+                tag=tag):
+            return B.apply_block(
+                cfg, dyncfg, mode, p, shared, carry, tag, dyn_slot,
+                cache_slot, pos, kernel_impl=dcfg.kernel_impl,
+                hash_proj=hash_proj)
+
+        if mode == "train" and dcfg.remat == "block":
+            carry, _, st, a = checkpoint(run, carry, use_reentrant=False)
+        else:
+            carry, _, st, a = run(carry)
         per_slot.append(st)
         aux = aux + a
     stats = {k: torch.stack([st.get(k, z) for st in per_slot])
@@ -220,3 +245,42 @@ def stage_forward(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
 def _stat_zeros(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
             for k, v in B.stats_spec(cfg).items()}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+AUX_LOSS_COEF = 0.01
+
+
+def head_weight(params):
+    head = params.get("head")
+    return params["embed"].T if head is None else head
+
+
+def reference_loss(cfg: ModelConfig, dcfg: DistConfig,
+                   dyncfg: DynamicsConfig, params, assignment, dyn, tokens,
+                   labels, label_mask=None, *, hash_proj=None):
+    """Apply all blocks in global order, unpipelined — the oracle the
+    pipelined loss is held against; same math (MoE aux weighting added
+    identically)."""
+    check_ported(cfg, dyncfg)
+    tags = assignment["tags"].tolist()
+    carry = embed(params, cfg, tokens)
+    carry["x"] = carry["x"].to(param_dtype(dcfg))
+    pos = torch.arange(carry["x"].shape[1], device=carry["x"].device)
+    aux_total = 0.0
+    for s, row in enumerate(tags):
+        stage_params = {k: v[s] for k, v in params["stages"].items()}
+        dyn_stage = {k: v[s] for k, v in dyn.items()}
+        carry, _, _, aux = stage_forward(
+            cfg, dcfg, dyncfg, "train", stage_params, params["shared"], row,
+            dyn_stage, carry, None, pos, 0, hash_proj=hash_proj)
+        aux_total = aux_total + aux
+    h = carry["x"]
+    if label_mask is None:
+        label_mask = torch.ones(labels.shape, device=h.device)
+    hn = rms_norm(h, params["final_norm"], cfg.norm_eps).float()
+    loss = cross_entropy_with_head(hn, head_weight(params).float(), labels,
+                                   label_mask=label_mask)
+    return loss + AUX_LOSS_COEF * aux_total / max(1, cfg.total_blocks())

@@ -1,4 +1,4 @@
-"""GPipe serving schedule on one device — the serving subset of
+"""GPipe schedule on one device — the serving and training subset of
 ``repro.pipeline.pipeline``.
 
 The reference runs S stages as a ``shard_map`` over the ``model`` mesh axis
@@ -11,6 +11,12 @@ fresh microbatch instead).  The schedule keeps the reference's
 pair outside ``0 <= t - s < num_micro`` changes nothing in the reference
 (its cache writes are masked or steered to the trash block), so the port
 decides that on the host and skips the pair.
+
+Training (``build_loss_fn``) runs the same ticks forward, keeps each
+finished microbatch's hidden state, then takes the head + log-sum-exp loss
+per microbatch after the schedule (recomputed in the backward, as the
+reference's ``jax.checkpoint`` of that body); ``value_and_grad`` takes the
+gradients of every param leaf, stage params per active slot.
 """
 from __future__ import annotations
 
@@ -18,8 +24,9 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DistConfig, ModelConfig
+from repro_torch.configs.base import BLOCK_PAD, DistConfig, ModelConfig
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.models import model as M
 
@@ -176,3 +183,139 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
         return ids_out, cache
 
     return prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# Training / evaluation loss
+# ---------------------------------------------------------------------------
+def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
+                  shapes: PipelineShapes, mode: str = "train", *,
+                  hash_proj=None):
+    """Returns loss_fn(params, assignment, dyn, batch) -> (loss, stats).
+
+    batch = {"tokens", "labels": [m, B, seq] int, "label_mask": [m, B, seq]
+    f32}.  loss = sum(nll) / sum(mask) + AUX_LOSS_COEF * aux; stats: the
+    per-slot profiler aggregates {field: [S, L_max, ...]} summed over the
+    valid ticks (detached)."""
+    M.check_ported(cfg, dyncfg)
+    S = dcfg.num_stages
+    dt = M.param_dtype(dcfg)
+
+    def loss_fn(params, assignment, dyn, batch):
+        tokens = batch["tokens"]
+        device = tokens.device
+        m = shapes.num_micro
+        tags = assignment["tags"].tolist()
+        depth_base = assignment["depth_base"].tolist()
+        pos = torch.arange(shapes.seq, device=device)
+        per_stage = [None] * S
+        aux_acc = 0.0
+        h_seq = [None] * m
+        buf: Dict[int, dict] = {}
+        for t, idx, mi in _ticks(m, S):
+            if idx == 0:
+                carry = M.embed(params, cfg, tokens[mi])
+                carry["x"] = carry["x"].to(dt)
+            else:
+                carry = buf.pop(idx)
+
+            def stage_fn(carry, idx=idx):
+                return M.stage_forward(
+                    cfg, dcfg, dyncfg, mode,
+                    _stage_slice(params["stages"], idx), params["shared"],
+                    tags[idx], _stage_slice(dyn, idx), carry, None, pos,
+                    depth_base[idx], hash_proj=hash_proj)
+
+            if dcfg.remat == "full":
+                carry, _, stats, aux = checkpoint(stage_fn, carry,
+                                                  use_reentrant=False)
+            else:
+                carry, _, stats, aux = stage_fn(carry)
+            stats = {k: v.detach() for k, v in stats.items()}
+            per_stage[idx] = (stats if per_stage[idx] is None else
+                              {k: per_stage[idx][k] + v
+                               for k, v in stats.items()})
+            aux_acc = aux_acc + aux
+            if idx == S - 1:
+                h_seq[mi] = carry["x"]
+            else:
+                buf[idx + 1] = carry          # the ring roll
+        head = M.head_weight(params)
+        nll = cnt = 0.0
+        for mi in range(m):
+            n_, c_ = checkpoint(_micro_loss, params["final_norm"], head,
+                                h_seq[mi], batch["labels"][mi],
+                                batch["label_mask"][mi], cfg.norm_eps,
+                                use_reentrant=False)
+            nll, cnt = nll + n_, cnt + c_
+        loss = nll / torch.clamp(cnt, min=1.0)
+        loss = loss + M.AUX_LOSS_COEF * aux_acc / (m * max(
+            1, cfg.total_blocks()))
+        stats = {k: torch.stack([st[k] for st in per_stage])
+                 for k in per_stage[0]}
+        return loss, stats
+
+    return loss_fn
+
+
+def _micro_loss(final_norm, head, h, labels, label_mask, eps):
+    hn = M.rms_norm(h, final_norm, eps)
+    logits = hn.float() @ head.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return ((lse - ll) * label_mask).sum(), label_mask.sum()
+
+
+def value_and_grad(loss_fn, params, assignment, dyn, batch):
+    """(loss, stats, grads) of ``loss_fn``; ``grads`` has ``params``' tree
+    and shapes.
+
+    Each stage field is handed to the loss as per-slot leaves (detached
+    views of the stacked tensor, no copy) so the backward writes each
+    slot's gradient once instead of scattering into a full-size zero
+    buffer per use; PAD slots and frozen slots get zeros, as the reference's
+    masked select and ``freezable`` give them."""
+    tags = assignment["tags"].tolist()
+
+    def leaf(v):
+        return v.detach().requires_grad_(True)
+
+    gp = {k: leaf(v) for k, v in params.items()
+          if k not in ("stages", "shared")}
+    gp["shared"] = {k: leaf(v) for k, v in params["shared"].items()}
+    gp["stages"] = {
+        k: [[(leaf(v[s, l]) if tags[s][l] != BLOCK_PAD else v[s, l])
+             for l in range(v.shape[1])] for s in range(v.shape[0])]
+        for k, v in params["stages"].items()}
+    loss, stats = loss_fn(gp, assignment, dyn, batch)
+    flat = []
+    for k, v in gp.items():
+        if k == "stages":
+            for rows in v.values():
+                flat += [t for row in rows for t in row if t.requires_grad]
+        elif k == "shared":
+            flat += list(v.values())
+        else:
+            flat.append(v)
+    got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+
+    def take(t):
+        g = next(got)
+        return torch.zeros_like(t) if g is None else g
+
+    grads = {}
+    for k, v in gp.items():
+        if k == "stages":
+            grads[k] = {}
+            for f, rows in v.items():
+                full = torch.zeros_like(params["stages"][f])
+                for s, row in enumerate(rows):
+                    for l, t in enumerate(row):
+                        if t.requires_grad:
+                            full[s, l] = take(t)
+                grads[k][f] = full
+        elif k == "shared":
+            grads[k] = {n: take(t) for n, t in v.items()}
+        else:
+            grads[k] = take(v)
+    return loss.detach(), stats, grads

@@ -7,7 +7,9 @@ Run on the card with ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_cuda.py``.
 Tolerances: fp32 kernels vs plain at 1e-4 (attention, paged attention) and
 2e-4 (pruned matmul over K up to 2560); the two differ only in summation
-order.
+order.  The backward sweeps (K2a / K2b, K3's backward products) sum over
+the sequence (up to 1024 rows) or the token count (up to 2048): 2e-4
+relative to the largest entry in fp32, 3e-2 in bf16 (its 8-bit mantissa).
 """
 import copy
 
@@ -71,6 +73,98 @@ def test_pruned_matmul_matches_plain(cuda):
         want = pm_ref.pruned_matmul_ref(x, w, m, mask_axis=axis, bn=blk,
                                         bk=blk)
         torch.testing.assert_close(out, want, atol=2e-4, rtol=2e-4)
+
+
+def _rel_close(got, want, rtol):
+    """Every entry within ``rtol`` of the largest |entry| of ``want``."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= rtol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,block,dens,causal,dt", [
+    (2, 1024, 15, 5, 64, 128, 1.0, True, torch.float32),
+    (1, 1024, 15, 5, 64, 512, 0.5, True, torch.float32),
+    (2, 300, 4, 2, 32, 128, 0.6, True, torch.float32),
+    (2, 77, 4, 1, 16, 32, 0.5, False, torch.float32),
+    (2, 256, 15, 5, 64, 128, 0.7, True, torch.bfloat16),
+])
+def test_attention_backward_matches_plain(cuda, b, s, hq, hkv, d, block,
+                                          dens, causal, dt):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda)
+               .mul(0.5).to(dt) for h in (hq, hkv, hkv))
+    n = -(-s // block)
+    m = (torch.rand((b, hq, n, n), generator=g, device=cuda) < dens).int()
+    m[:, :, min(1, n - 1), :] = 0                  # fully masked q rows
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, m, causal=causal,
+                                              block=block)
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(dt)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    n_dq, n_dkv = bsa.KERNEL_DQ.launches, bsa.KERNEL_DKV.launches
+    got = bsa.block_sparse_attention_bwd(q, k, v, m, dout, lse, delta,
+                                         causal=causal, block=block)
+    assert bsa.KERNEL_DQ.launches == n_dq + 1
+    assert bsa.KERNEL_DKV.launches == n_dkv + 1
+    want = bsa_ref.block_sparse_attention_bwd_ref(q, k, v, m, dout, lse,
+                                                  delta, causal=causal,
+                                                  block=block)
+    rows = slice(block * min(1, n - 1), block * min(2, n))
+    assert float(got[0][:, rows].abs().max()) == 0.0   # masked rows: dq 0
+    for a, w_ in zip(got, want):
+        assert a.dtype == dt
+        _rel_close(a, w_, 2e-4 if dt == torch.float32 else 3e-2)
+
+
+@pytest.mark.parametrize("axis", ["n", "k"])
+@pytest.mark.parametrize("M,K,N,dens", [(2048, 960, 2560, 1.0),
+                                        (2048, 960, 2560, 0.13),
+                                        (333, 256, 384, 0.5)])
+def test_pruned_matmul_backward_matches_plain(cuda, axis, M, K, N, dens):
+    from repro_torch.kernels.pruned_matmul.backward import pruned_matmul_bwd
+    if axis == "k":
+        K, N = N, K
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+    gr = torch.randn((M, N), generator=g, device=cuda)
+    nb = (N if axis == "n" else K) // 128
+    m = (torch.rand((nb,), generator=g, device=cuda) < dens).float()
+    m[0] = 1.0
+    n0, b0 = pm.KERNEL.launches, pm.KERNEL.launches_bwd
+    dx, dw = pruned_matmul_bwd(x, w, m, gr, mask_axis=axis, blk=128)
+    assert (pm.KERNEL.launches, pm.KERNEL.launches_bwd) == (n0 + 2, b0 + 2)
+    me = m.repeat_interleave(128)
+    if axis == "n":
+        wx, ww = (gr * me) @ w.T, x.T @ (gr * me)
+    else:
+        wx, ww = (gr @ w.T) * me, (x.T @ gr) * me[:, None]
+    _rel_close(dx, wx, 2e-4)
+    _rel_close(dw, ww, 2e-4)
+    dead = me == 0
+    if axis == "n":
+        assert not dw[:, dead].any()
+    else:
+        assert not dx[:, dead].any()
+        assert not dw[dead].any()
+
+
+def test_pruned_matmul_backward_bf16(cuda):
+    """bf16 weights and activations: the backward products run in fp32 on
+    exactly upcast operands, their results rounded to bf16 once."""
+    from repro_torch.kernels.pruned_matmul.backward import pruned_matmul_bwd
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((512, 256), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((256, 384), generator=g, device=cuda) * 0.06).bfloat16()
+    gr = torch.randn((512, 384), generator=g, device=cuda)
+    m = torch.tensor([1.0, 0.0, 1.0], device=cuda)
+    dx, dw = pruned_matmul_bwd(x, w, m, gr, mask_axis="n", blk=128)
+    assert (dx.dtype, dw.dtype) == (torch.bfloat16, torch.bfloat16)
+    me = m.repeat_interleave(128)
+    _rel_close(dx, (gr * me) @ w.float().T, 1e-2)
+    _rel_close(dw, x.float().T @ (gr * me), 1e-2)
 
 
 def test_paged_attention_matches_plain(cuda):

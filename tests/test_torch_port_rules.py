@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps.
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither jax nor the JAX
-  package — checked in the source and in ``sys.modules`` after a CPU serve.
+  package — checked in the source and in ``sys.modules`` after a CPU serve
+  and a CPU train.
 * Entry points run on CUDA and raise without a card unless the caller asks
   for the CPU; features outside the slice raise ``NotImplementedError``.
 * ``chip_smoke.py`` fails, and prints no result, without a card or outside
@@ -25,6 +26,12 @@ SERVE_ARGS = ["--elastic", "--stages", "2", "--layers", "4", "--d-model",
               "64", "--d-ff", "256", "--vocab-size", "256", "--prompt-len",
               "8", "--gen", "8", "--requests", "6", "--kv-page-size", "4",
               "--prefix-cache", "--kernel-impl", "pallas"]
+
+TRAIN_ARGS = ["--stages", "2", "--layers", "4", "--d-model", "64", "--d-ff",
+              "256", "--vocab-size", "256", "--seq", "16", "--num-micro",
+              "2", "--mb-global", "2", "--steps", "2", "--dynamism",
+              "pruning", "--kernel-impl", "pallas", "--rebalance-every",
+              "1", "--straggler", "1:2.0"]
 
 torch.set_num_threads(1)
 
@@ -53,6 +60,22 @@ def test_cpu_serve_imports_no_jax_and_no_reference():
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
     r"from\s+repro(\.|\s))", re.M)
+
+
+def test_cpu_train_imports_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.train import run\n"
+        f"rep = run({TRAIN_ARGS + ['--device', 'cpu']!r})\n"
+        "assert len(rep['losses']) == 2, rep['losses']\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('CLEAN', rep['controller']['decided'])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN 2" in out.stdout
 
 
 def test_no_jax_or_reference_imports_in_the_port():
@@ -88,6 +111,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         make(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         run(SERVE_ARGS)
+    from repro_torch.launch.engine import make_train_step
+    from repro_torch.launch.train import run as train_run
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_run(TRAIN_ARGS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, dcfg, DynamicsConfig(), shapes)
+    make_train_step(cfg, dcfg, DynamicsConfig(), shapes, device="cpu")
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -102,6 +132,26 @@ def test_features_outside_the_slice_raise(extra, what):
     from repro_torch.launch.serve import run
     with pytest.raises(NotImplementedError, match=what):
         run(SERVE_ARGS + ["--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra,what", [
+    (["--repack"], "consolidation"),
+    (["--autoscale"], "autoscal"),
+    (["--async-controller"], "asynchronous"),
+    (["--job-manager", "file"], "job managers"),
+    (["--resume", "ckpt"], "resume"),
+    (["--ckpt-dir", "ckpt"], "checkpoint"),
+    (["--chaos"], "fault"),
+    (["--measure-stage-times"], "stage-time"),
+    (["--in-step-timing"], "in-step"),
+    (["--dynamism", "early_exit"], "early_exit"),
+    (["--dynamism", "mod"], "mod"),
+    (["--dynamism", "moe"], "moe"),
+])
+def test_train_features_outside_the_slice_raise(extra, what):
+    from repro_torch.launch.train import run
+    with pytest.raises(NotImplementedError, match=what):
+        run(TRAIN_ARGS + ["--device", "cpu"] + extra)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -119,6 +169,27 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_counts_device_time_once():
+    """The busy share sums device-side profiler entries only: a host op
+    (an autograd Function, ``aten::mm``) carries its kernels' device time
+    too, and adding both counted that time twice."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ev = [SimpleNamespace(key=k, device_type=d, self_device_time_total=t)
+          for k, d, t in (("_PrunedMatmul", DeviceType.CPU, 5000.0),
+                          ("pm_kernel<float>", DeviceType.CUDA, 5000.0),
+                          ("aten::mm", DeviceType.CPU, 2000.0),
+                          ("sgemm", DeviceType.CUDA, 2000.0),
+                          ("sgemm", DeviceType.CUDA, 500.0))]
+    assert smoke.device_times(ev) == {"pm_kernel<float>": 5.0, "sgemm": 2.5}
 
 
 @pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
