@@ -18,6 +18,14 @@ final line:
                partial blocks, fully masked rows, bf16);
   3d.        K3's backward products (dx, dw for a mask over N and over K,
                dense and 87 % pruned) against torch.matmul;
+  3e.        the grouped expert matmul K4 (forward and as dx on a
+               transposed weight view) and its weight gradient K5 at the
+               Mixtral-8x7B training shapes (b 2, s 1024, cap 320, 16
+               groups; K / N = 4096 / 14336 and 14336 / 4096; counts from
+               a seeded router), at the serve prefill and decode shapes
+               (cap 4, counts 0/1), and at edge cases (empty and full
+               groups, cap off the row tile, a placement, garbage in dead
+               rows), fp32 and bf16;
   4. serve   — the port's serving path through its CLI entry point:
                full-width smollm-360m, one stage, paged KV + prefix cache,
                sparse attention, kernel_impl "pallas"; launch counters are
@@ -35,11 +43,30 @@ final line:
                backward launches; a migration must move layers;
   4d. profile — two train steps under torch.profiler: busy share and
                device time by kernel;
+  4e. moe train — the training CLI on full-width Mixtral-8x7B cut to 2
+               layers (2 stage buffers of one layer, --slot-slack 0, bf16
+               params, AdamW), 4 microbatches of 2 x 1024 tokens, 8 steps,
+               --dynamism moe with live expert re-layout (watermark 1.01,
+               min tokens 1, cadence 3); counters zeroed just before and
+               read just after: per step K4 48 (24 forward + 24 as dx), K5
+               24, K1 / K2 / K3 0 (the sliding window sends attention down
+               the scan path); a re-layout must move experts;
+  4f. moe serve — the serving CLI on full-width Mixtral-8x7B cut to 4
+               layers, fp32, one stage, 2 x 4 lanes, 8 requests, prompts
+               512–1024, up to 16 generated, contiguous KV (the sliding
+               window forbids paging); K4 in every prefill and decode;
+               moe_dropped_mean in [0, 1);
+  4g. profile — two MoE train steps under torch.profiler;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
   5b. train parity — loss and every gradient of one training step (full
                widths, 4 layers, 2 stages, half the FFN blocks pruned)
                through the kernels and through the plain versions;
+  5c. moe parity — full-width Mixtral-8x7B cut to 2 layers, fp32: one
+               train step's loss and gradients, and one prefill plus 8
+               teacher-forced decode steps, kernels vs plain versions;
+               moe_ffn under the identity and two expert placements, y,
+               load and drop fraction bitwise equal;
   6. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
 """
@@ -58,7 +85,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet) used for the roofline bound
-PEAK_FP32_FLOPS = 67e12      # fp32 on the CUDA cores: every kernel here
+PEAK_FP32_FLOPS = 67e12      # fp32 on the CUDA cores
+PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12         # HBM3
 
 def serve_args(requests: int):
@@ -88,6 +116,57 @@ TRAIN_LAUNCHES_PER_STEP = {"block_sparse_attention": 128,
                            "pruned_matmul": 384 + 768}
 TRAIN_K3_BWD_PER_STEP = 768
 
+# launches per MoE train step at moe_train_args(): 2 layers x 4
+# microbatches x 3 expert projections, each once forward (K4), once as dx
+# (K4) and once as dw (K5); attention takes the scan path (sliding window)
+MOE_TRAIN_LAUNCHES_PER_STEP = {"grouped_matmul": 48,
+                               "grouped_matmul_dw": 24,
+                               "block_sparse_attention": 0,
+                               "block_sparse_attention_bwd_dq": 0,
+                               "block_sparse_attention_bwd_dkv": 0,
+                               "pruned_matmul": 0}
+MOE_SERVE_PATH = ("grouped_matmul",)
+
+
+def moe_arch(layers: int) -> str:
+    """Register full-width Mixtral-8x7B cut to ``layers`` layers (depth is
+    the only cut: 32 layers are 93 GB in bf16) and return its name."""
+    from repro_torch.configs import get_config, register
+    name = f"mixtral-8x7b-{layers}l"
+    register(dataclasses.replace(get_config("mixtral-8x7b"), name=name,
+                                 num_layers=layers))
+    return name
+
+
+def moe_train_args(steps: int = 8):
+    """The MoE training path's CLI flags: 2 layers, one per stage buffer,
+    bf16 params, 8192 tokens a step, live expert re-layout."""
+    return ["--arch", moe_arch(2), "--stages", "2", "--slot-slack", "0",
+            "--param-dtype", "bfloat16", "--num-micro", "4", "--mb-global",
+            "2", "--seq", "1024", "--steps", str(steps), "--dynamism", "moe",
+            "--dynamics.expert_relayout", "--dynamics.expert_watermark",
+            "1.01", "--dynamics.expert_min_tokens", "1",
+            "--rebalance-every", "3", "--kernel-impl", "pallas", "--seed",
+            "0", "--log-every", "1"]
+
+
+def moe_serve_args(requests: int = 8):
+    """The MoE serving path's CLI flags: 4 layers, fp32, contiguous KV."""
+    return ["--elastic", "--arch", moe_arch(4), "--stages", "1",
+            "--slot-slack", "0", "--micro", "2", "--mb-global", "4",
+            "--prompt-len", "1024", "--gen", "16", "--requests",
+            str(requests), "--kernel-impl", "pallas", "--param-dtype",
+            "float32", "--seed", "0"]
+
+
+def check_launches(label: str, launched, per_step, steps: int) -> None:
+    """Every kernel of ``per_step`` launched exactly its count a step."""
+    for name, n in per_step.items():
+        got = launched.get(name, 0)
+        if got != n * steps:
+            raise AssertionError(f"{label}: {name} launched {got} times in "
+                                 f"{steps} steps, expected {n} a step")
+
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
@@ -110,8 +189,8 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -526,10 +605,214 @@ def check_pruned_matmul_backward(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the grouped expert matmul (K4) and its weight gradient (K5)
+# ---------------------------------------------------------------------------
+def route_counts(torch, g, b: int, s: int, E: int, K: int, cap: int):
+    """Live rows per (batch row, expert) group from a seeded top-K router:
+    each group keeps its first ``cap`` routed pairs."""
+    import torch.nn.functional as F
+    logits = torch.randn((b, s, E), generator=g, device="cuda")
+    sel = logits.topk(K, dim=-1).indices
+    load = F.one_hot(sel, E).sum(dim=(1, 2))                   # [b, E]
+    return load.clamp(max=cap).reshape(b * E).to(torch.int32)
+
+
+def gm_close(name: str, got, want) -> float:
+    """fp32 outputs within 1e-4 of the plain version's largest entry (sums
+    over up to 14336 terms); bf16 outputs within one bf16 rounding of it
+    (both round the same fp32 sum once: 2^-7 relative, 1e-2 near 0)."""
+    import torch
+    if got.dtype == torch.float32:
+        return rel_err(name, got, want, 1e-4)
+    return check_close(name, got, want, 1e-2, 2 ** -7)
+
+
+def check_grouped_matmul(torch):
+    """K4 and K5 against their plain versions at the MoE paths' shapes and
+    at edge shapes, each case with its kernel / plain / library times and
+    its bound: the train shapes (bf16, the 4e path), the serve prefill and
+    decode shapes (fp32, the 4f path), edge cases (empty and full groups,
+    cap off the row tile, a placement, garbage in dead rows)."""
+    from repro_torch.kernels.grouped_matmul import ops, ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(8)
+    E, TOPK, D, FF = 8, 2, 4096, 14336
+    TOL = "1e-4*max|plain| fp32; 2^-7 rel + 1e-2 bf16"
+
+    def live_mask(counts, cap):
+        return (torch.arange(counts.numel() * cap, device=dev) % cap
+                < counts.repeat_interleave(cap))
+
+    def peak(dt):
+        return PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+
+    def timed(fn, big):
+        return cuda_ms(fn, warmup=2, iters=5) if big else cuda_ms(fn)
+
+    times, worst = {}, {"k4": 0.0, "k5": 0.0}
+
+    # K4: (label, b, s, cap, K, N, dtype, placement, transposed w, path)
+    k4_cases = [
+        ("train ewg fwd", 2, 1024, 320, D, FF, torch.bfloat16, False, False,
+         True),
+        ("train ewo fwd", 2, 1024, 320, FF, D, torch.bfloat16, False, False,
+         True),
+        ("train ewg dx", 2, 1024, 320, FF, D, torch.bfloat16, False, True,
+         True),
+        ("serve prefill ewg fwd fp32", 4, 1024, 320, D, FF, torch.float32,
+         False, False, True),
+        ("decode fp32", 4, 1, 8, D, FF, torch.float32, False, False, True),
+        ("train ewg fwd fp32 placement", 2, 1024, 320, D, FF,
+         torch.float32, True, False, False),
+        ("edges cap200 fp32 placement", 2, 640, 200, 512, 640,
+         torch.float32, True, False, False),
+    ]
+    for label, b, s, cap, K, N, dt, placed, trans, path in k4_cases:
+        counts = route_counts(torch, g, b, s, E, TOPK, cap)
+        if label.startswith("edges"):
+            counts[0], counts[1] = 0, cap          # empty and full groups
+        G = b * E
+        x = torch.randn((G * cap, K), generator=g, device=dev).to(dt)
+        x[~live_mask(counts, cap)] = 1e3           # garbage in dead rows
+        # dx reads w [E, D, FF] through its transposed view [E, FF, D]
+        w = (torch.randn((E, N, K) if trans else (E, K, N), generator=g,
+                         device=dev) * K ** -0.5).to(dt)
+        if trans:
+            w = w.transpose(1, 2)
+        wmap = (torch.randperm(E, generator=g, device=dev).to(torch.int32)
+                if placed else None)
+        out = ops.grouped_product(x, w, counts, cap, wmap)
+        torch.cuda.synchronize()
+        want = ref.grouped_product_ref(x, w, counts, cap, wmap)
+        e = gm_close(f"K4 {label}", out, want)
+        if bool(out[~live_mask(counts, cap)].any()):
+            raise AssertionError(f"K4 {label}: dead rows are not zero")
+        if path:
+            worst["k4"] = max(worst["k4"], e)
+        del out, want
+        big = K * N > 1 << 24
+        # library yardstick: one bmm over [G, cap, K] x w[g % E], the
+        # weights gathered beforehand (not timed); it pays full capacity
+        idx = torch.arange(G, device=dev) % E
+        wg = w[idx if wmap is None else wmap.long()[idx]]
+        x3 = x.view(G, cap, K)
+        live = float(counts.sum())
+        elt = x.element_size()
+        experts = int((counts.reshape(b, E).sum(0) > 0).sum())
+        nbytes = (elt * (live * K + experts * K * N + G * cap * N)
+                  + 4 * G)
+        times[label] = r = dict(
+            ms=timed(lambda: ops.grouped_product(x, w, counts, cap, wmap),
+                     big),
+            plain_ms=timed(lambda: ref.grouped_product_ref(
+                x, w, counts, cap, wmap), big),
+            library_ms=timed(lambda: torch.bmm(x3, wg), big),
+            bound=bound(2.0 * live * K * N, nbytes, peak(dt)),
+            shape=f"G{G} cap{cap} K{K} N{N} live{int(live)} "
+                  f"{str(dt)[6:]}" + (" w^T view" if trans else "")
+                  + (" placement" if placed else ""))
+        say("kernels", kernel="K4", case=label.replace(" ", "_"),
+            shape=repr(r["shape"]), ms=f"{r['ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}",
+            library_ms=f"{r['library_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
+            max_abs_err=f"{e:.3e}", tol=repr(TOL))
+        del x, w, wg, x3
+
+    # K5: (label, b, s, cap, K, N, dtype, out dtype, placement, path)
+    k5_cases = [
+        ("train ewg dw", 2, 1024, 320, D, FF, torch.bfloat16,
+         torch.float32, False, True),
+        ("train ewo dw", 2, 1024, 320, FF, D, torch.bfloat16,
+         torch.float32, False, True),
+        ("train ewg dw bf16-out placement", 2, 1024, 320, D, FF,
+         torch.bfloat16, torch.bfloat16, True, True),
+        ("edges cap200 fp32 placement", 2, 640, 200, 512, 640,
+         torch.float32, torch.float32, True, False),
+        ("decode cap8 fp32", 4, 1, 8, 512, 640, torch.float32,
+         torch.float32, False, False),
+    ]
+    for label, b, s, cap, K, N, dt, out_dt, placed, path in k5_cases:
+        counts = route_counts(torch, g, b, s, E, TOPK, cap)
+        if label.startswith("edges"):
+            counts[0], counts[1] = 0, cap
+        G = b * E
+        dead = ~live_mask(counts, cap)
+        x = torch.randn((G * cap, K), generator=g, device=dev).to(dt)
+        gr = torch.randn((G * cap, N), generator=g, device=dev).to(dt)
+        x[dead], gr[dead] = 1e3, -1e3              # garbage in dead rows
+        gmap = (torch.randperm(E, generator=g, device=dev).to(torch.int32)
+                if placed else None)
+        dw = ops.grouped_product_dw(x, gr, counts, cap, E, gmap,
+                                    out_dtype=out_dt)
+        torch.cuda.synchronize()
+        want = ref.grouped_product_dw_ref(x, gr, counts, cap, E, gmap,
+                                          out_dtype=out_dt)
+        e = gm_close(f"K5 {label}", dw, want)
+        if not torch.equal(ops.grouped_product_dw(x, gr, counts, cap, E,
+                                                  gmap, out_dtype=out_dt),
+                           dw):
+            raise AssertionError(f"K5 {label}: two runs differ")
+        if path:
+            worst["k5"] = max(worst["k5"], e)
+        del dw, want
+        big = K * N > 1 << 24
+        # library yardstick: one bmm over the [E, b*cap, K]^T x [E, b*cap,
+        # N] views, made beforehand with dead rows zeroed (not timed); it
+        # pays full capacity
+        xz = torch.where(dead[:, None], 0, x)
+        gz = torch.where(dead[:, None], 0, gr)
+        xe = (xz.view(b, E, cap, K).transpose(0, 1).reshape(E, b * cap, K)
+              .transpose(1, 2))
+        ge = gz.view(b, E, cap, N).transpose(0, 1).reshape(E, b * cap, N)
+        live = float(counts.sum())
+        nbytes = (x.element_size() * live * (K + N)
+                  + (2 if out_dt == torch.bfloat16 else 4) * E * K * N)
+        times[label] = r = dict(
+            ms=timed(lambda: ops.grouped_product_dw(
+                x, gr, counts, cap, E, gmap, out_dtype=out_dt), big),
+            plain_ms=timed(lambda: ref.grouped_product_dw_ref(
+                x, gr, counts, cap, E, gmap, out_dtype=out_dt), big),
+            library_ms=timed(lambda: torch.bmm(xe, ge), big),
+            bound=bound(2.0 * live * K * N, nbytes, peak(dt)),
+            shape=f"E{E} b{b} cap{cap} K{K} N{N} live{int(live)} "
+                  f"{str(dt)[6:]} -> {str(out_dt)[6:]}"
+                  + (" placement" if placed else ""))
+        say("kernels", kernel="K5", case=label.replace(" ", "_"),
+            shape=repr(r["shape"]), ms=f"{r['ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}",
+            library_ms=f"{r['library_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
+            max_abs_err=f"{e:.3e}", tol=repr(TOL), bitwise_repeat=True)
+        del x, gr, xz, gz, xe, ge
+    free_cuda(torch)
+
+    def entry(main, worst_err, cases):
+        r = times[main]
+        return dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                    library_ms=r["library_ms"], max_abs_err=worst_err,
+                    tol=TOL, bound=r["bound"], shape=r["shape"],
+                    library_covers="torch.bmm at full capacity",
+                    cases={k: {"ms": times[k]["ms"],
+                               "plain_ms": times[k]["plain_ms"],
+                               "library_ms": times[k]["library_ms"],
+                               "bound_ms": times[k]["bound"][0],
+                               "bound_by": times[k]["bound"][1],
+                               "shape": times[k]["shape"]} for k in cases})
+    return {
+        "grouped_matmul": entry(
+            "train ewg fwd", worst["k4"],
+            [c[0] for c in k4_cases]),
+        "grouped_matmul_dw": entry(
+            "train ewg dw", worst["k5"], [c[0] for c in k5_cases]),
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: device time by kernel over a short serve
 # ---------------------------------------------------------------------------
 OURS = re.compile(r"\b(bsa_fwd_kernel|bsa_dq_kernel|bsa_dkv_kernel|"
-                  r"pm_kernel|paged_attn_kernel)<")
+                  r"pm_kernel|paged_attn_kernel|gm_kernel|gm_dw_kernel)<")
 
 
 def device_times(events):
@@ -580,19 +863,21 @@ def profile_serve(torch):
             .replace(" ", "")}
 
 
-def profile_train(torch):
-    """Device time by kernel over two train steps under torch.profiler,
-    against the wall time of the same two steps without the profiler."""
+def profile_train(torch, args_fn=None):
+    """Device time by kernel over two train steps (``args_fn(2)``'s flags,
+    smollm's by default) under torch.profiler, against the wall time of
+    the same two steps without the profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.train import run as train_run
-    rep = train_run(train_args(2))
+    args_fn = args_fn or train_args
+    rep = train_run(args_fn(2))
     torch.cuda.synchronize()
     wall_ms = rep["wall_s"] * 1e3
     del rep
     free_cuda(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rep = train_run(train_args(2))
+        rep = train_run(args_fn(2))
         torch.cuda.synchronize()
     prof_wall_ms = rep["wall_s"] * 1e3
     del rep
@@ -624,11 +909,14 @@ def free_cuda(torch):
 class PlainKernels:
     """Route every kernel launch of the model to its plain version on the
     card (for the parity phases only): K1's forward, the K2a / K2b backward,
-    every K3 product (forward and backward) and K6."""
+    every K3 product (forward and backward), every K4 product (forward and
+    as dx), K5 and K6."""
 
     def __enter__(self):
         from repro_torch.kernels.block_sparse_attention import ops as bsa
         from repro_torch.kernels.block_sparse_attention import ref as bsa_ref
+        from repro_torch.kernels.grouped_matmul import ops as gm
+        from repro_torch.kernels.grouped_matmul import ref as gm_ref
         from repro_torch.kernels.paged_attention import ops as pa
         from repro_torch.kernels.paged_attention import ref as pa_ref
         from repro_torch.kernels.pruned_matmul import ops as pm
@@ -653,9 +941,20 @@ class PlainKernels:
             return pa_ref.paged_attention_fwd_ref(q[:, 0], kp, vp, pt,
                                                   cl)[:, None]
 
+        def gm_product(x, w, counts, cap, wmap=None, *, bwd=False):
+            return gm_ref.grouped_product_ref(x, w, counts, cap, wmap)
+
+        def gm_product_dw(x, g, counts, cap, num_experts, gmap=None, *,
+                          out_dtype=None):
+            return gm_ref.grouped_product_dw_ref(x, g, counts, cap,
+                                                 num_experts, gmap,
+                                                 out_dtype=out_dtype)
+
         self._saved = [(bsa, "block_sparse_attention_fwd", bsa_fwd),
                        (bsa, "block_sparse_attention_bwd", bsa_bwd),
                        (pm, "product", pm_product),
+                       (gm, "grouped_product", gm_product),
+                       (gm, "grouped_product_dw", gm_product_dw),
                        (pa, "paged_attention", pa_plain)]
         self._orig = [getattr(mod, name) for mod, name, _ in self._saved]
         for mod, name, fn in self._saved:
@@ -667,10 +966,11 @@ class PlainKernels:
             setattr(mod, name, fn)
 
 
-def parity_run(torch, plain: bool):
-    """Prefill [2, 4, 1024] tokens and 8 teacher-forced paged decode steps
-    at full width; returns (prefill ids, decode ids [8, m, B], decode
-    logprobs, decode logits)."""
+def parity_run(torch, plain: bool, moe: bool = False):
+    """Prefill [2, 4, 1024] tokens and 8 teacher-forced decode steps at
+    full width — smollm-360m with paged KV, or (``moe``) Mixtral-8x7B cut
+    to 2 layers with contiguous KV; returns (prefill ids, decode ids [8, m,
+    B], decode logprobs, decode logits)."""
     from repro_torch import kernels
     from repro_torch.configs import DistConfig, get_config
     from repro_torch.dynamics.config import DynamicsConfig
@@ -679,15 +979,18 @@ def parity_run(torch, plain: bool):
     from repro_torch.pipeline.pipeline import PipelineShapes
     from repro_torch.serve.kv import PagedKVConfig
 
-    cfg = get_config("smollm-360m")
-    dcfg = DistConfig(num_stages=1, slot_slack=2, remat="none",
-                      param_dtype="float32", kernel_impl="pallas")
+    cfg = get_config(moe_arch(2) if moe else "smollm-360m")
+    dcfg = DistConfig(num_stages=1, slot_slack=0 if moe else 2,
+                      remat="none", param_dtype="float32",
+                      kernel_impl="pallas")
     m, B, s, gen, page = 2, 4, 1024, 8, 16
     shapes = PipelineShapes(m, B, s, cache_len=s + 32)
     J = shapes.cache_len // page
-    paged = PagedKVConfig(page_size=page, pool_pages=m * B * J)
-    eng = ElasticEngine(cfg, dcfg, DynamicsConfig(kind="sparse_attention"),
-                        shapes, paged=paged, device="cuda")
+    paged = None if moe else PagedKVConfig(page_size=page,
+                                           pool_pages=m * B * J)
+    dyncfg = DynamicsConfig(kind="moe" if moe else "sparse_attention")
+    eng = ElasticEngine(cfg, dcfg, dyncfg, shapes, paged=paged,
+                        device="cuda")
     st = eng.init_state(0, with_cache=True)
     g = torch.Generator(device="cpu").manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (m, B, s + gen), generator=g)
@@ -703,18 +1006,22 @@ def parity_run(torch, plain: bool):
     M.lm_logits = recording
     before = [k.launches for k in kernels.KERNELS]
     try:
-        scratch = eng.make_dense_scratch(1)
-        pf_ids, scratch = eng.prefill(st, {"tokens": toks[:, :, :s]},
-                                      cache=scratch)
-        eng.pack_pages(st, scratch, table,
-                       torch.ones((m, B, J), dtype=torch.bool))
-        del scratch
+        if paged is None:
+            pf_ids, _ = eng.prefill(st, {"tokens": toks[:, :, :s]})
+        else:
+            scratch = eng.make_dense_scratch(1)
+            pf_ids, scratch = eng.prefill(st, {"tokens": toks[:, :, :s]},
+                                          cache=scratch)
+            eng.pack_pages(st, scratch, table,
+                           torch.ones((m, B, J), dtype=torch.bool))
+            del scratch
         ids, lps = [], []
         logits.clear()
         for i in range(gen):
             pos = torch.full((m, B), s + i, dtype=torch.int32)
             d_ids, d_lp = eng.decode(st, toks[:, :, s + i], pos,
-                                     page_table=table)
+                                     page_table=None if paged is None
+                                     else table)
             ids.append(d_ids)
             lps.append(d_lp)
         torch.cuda.synchronize()
@@ -723,18 +1030,22 @@ def parity_run(torch, plain: bool):
     launched = [k.launches - b for k, b in zip(kernels.KERNELS, before)]
     if plain and any(launched):
         raise AssertionError(f"plain parity run launched kernels {launched}")
-    serving = ("block_sparse_attention", "pruned_matmul", "paged_attention")
+    serving = (MOE_SERVE_PATH if moe else
+               ("block_sparse_attention", "pruned_matmul", "paged_attention"))
     if not plain and not all(n for k, n in zip(kernels.KERNELS, launched)
                              if k.name in serving):
         raise AssertionError(f"kernel parity run missed a kernel {launched}")
     dec_logits = torch.stack(logits).reshape(gen, m, B, -1)
+    del eng, st
     return pf_ids, torch.stack(ids), torch.stack(lps), dec_logits
 
 
-def train_parity_run(torch, plain: bool):
+def train_parity_run(torch, plain: bool, moe: bool = False):
     """Loss and gradients of one training step (value_and_grad of the
-    pipelined loss) at full widths, 4 layers, 2 stage buffers, 4 x 2 x
-    1024 tokens, half the FFN blocks pruned; returns (loss, grads)."""
+    pipelined loss) at full widths: smollm-360m with 4 layers, 2 stage
+    buffers, 4 x 2 x 1024 tokens, half the FFN blocks pruned — or (``moe``)
+    Mixtral-8x7B cut to 2 layers, one per stage buffer, 2 x 2 x 1024
+    tokens; fp32; returns (loss, grads)."""
     from repro_torch import kernels
     from repro_torch.configs import DistConfig, get_config
     from repro_torch.data.loader import DataConfig, make_loader
@@ -743,17 +1054,26 @@ def train_parity_run(torch, plain: bool):
     from repro_torch.pipeline.pipeline import (PipelineShapes,
                                                build_loss_fn,
                                                value_and_grad)
-    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=4)
-    dcfg = DistConfig(num_stages=2, slot_slack=2, remat="none",
-                      param_dtype="float32", kernel_impl="pallas")
-    dyncfg = DynamicsConfig(kind="pruning")
-    shapes = PipelineShapes(4, 2, 1024)
+    if moe:
+        cfg = get_config(moe_arch(2))
+        dcfg = DistConfig(num_stages=2, slot_slack=0, remat="none",
+                          param_dtype="float32", kernel_impl="pallas")
+        dyncfg = DynamicsConfig(kind="moe")
+        shapes = PipelineShapes(2, 2, 1024)
+    else:
+        cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=4)
+        dcfg = DistConfig(num_stages=2, slot_slack=2, remat="none",
+                          param_dtype="float32", kernel_impl="pallas")
+        dyncfg = DynamicsConfig(kind="pruning")
+        shapes = PipelineShapes(4, 2, 1024)
     eng = ElasticEngine(cfg, dcfg, dyncfg, shapes, device="cuda")
     st = eng.init_state(0)
-    g = torch.Generator(device="cpu").manual_seed(6)
-    st.dyn["ff_mask"] = (torch.rand(st.dyn["ff_mask"].shape, generator=g)
-                         < 0.5).float().cuda()
-    batch = eng._batch(next(make_loader(cfg, DataConfig(4, 2, 1024))))
+    if not moe:
+        g = torch.Generator(device="cpu").manual_seed(6)
+        st.dyn["ff_mask"] = (torch.rand(st.dyn["ff_mask"].shape,
+                                        generator=g) < 0.5).float().cuda()
+    batch = eng._batch(next(make_loader(cfg, DataConfig(
+        shapes.num_micro, shapes.mb_global, shapes.seq))))
     loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes)
     before = [k.launches for k in kernels.KERNELS]
     loss, _, grads = value_and_grad(loss_fn, st.params, st.assignment,
@@ -762,12 +1082,14 @@ def train_parity_run(torch, plain: bool):
     launched = [k.launches - b for k, b in zip(kernels.KERNELS, before)]
     if plain and any(launched):
         raise AssertionError(f"plain train parity run launched {launched}")
-    want = {"block_sparse_attention", "block_sparse_attention_bwd_dq",
-            "block_sparse_attention_bwd_dkv", "pruned_matmul"}
+    want = ({"grouped_matmul", "grouped_matmul_dw"} if moe else
+            {"block_sparse_attention", "block_sparse_attention_bwd_dq",
+             "block_sparse_attention_bwd_dkv", "pruned_matmul"})
     missed = [k.name for k, n in zip(kernels.KERNELS, launched)
               if k.name in want and n == 0]
     if not plain and missed:
         raise AssertionError(f"train parity run missed {missed}")
+    del eng, st, batch
     return float(loss), grads
 
 
@@ -851,6 +1173,193 @@ def run_train_phase(torch, kernels):
     return launched, k3_bwd
 
 
+def serve_parity(torch, moe: bool = False) -> None:
+    """Phases 5 / 5c: decode ids equal wherever the plain run's top-2 gap
+    exceeds 1e-3, logprobs within 1e-3 where the ids agree."""
+    k_pf, k_ids, k_lp, _ = parity_run(torch, plain=False, moe=moe)
+    free_cuda(torch)
+    with PlainKernels():
+        p_pf, p_ids, p_lp, p_logits = parity_run(torch, plain=True, moe=moe)
+    free_cuda(torch)
+    top2 = p_logits.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 1e-3
+    if not bool((k_ids == p_ids)[decided].all()):
+        raise AssertionError("decode ids differ where the plain run's "
+                             "top-2 gap exceeds 1e-3")
+    same = k_ids == p_ids
+    lp_err = float((k_lp - p_lp).abs()[same].max())
+    if lp_err > 1e-3:
+        raise AssertionError(f"decode logprobs differ by {lp_err:.3e}")
+    say("moe_parity" if moe else "parity",
+        prefill_ids_equal=bool((k_pf == p_pf).all()),
+        decode_ids_equal=f"{int(same.sum())}/{same.numel()}",
+        decided=int(decided.sum()), max_logprob_err=f"{lp_err:.3e}",
+        tol=1e-3)
+
+
+def train_parity(torch, moe: bool = False) -> None:
+    """Phases 5b / 5c: one step's loss within 1e-4 relative and every
+    gradient leaf within 1e-3 of its largest entry (fp32)."""
+    free_cuda(torch)
+    k_loss, k_grads = train_parity_run(torch, plain=False, moe=moe)
+    free_cuda(torch)
+    with PlainKernels():
+        p_loss, p_grads = train_parity_run(torch, plain=True, moe=moe)
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    if not (math.isfinite(k_loss) and loss_rel <= 1e-4):
+        raise AssertionError(f"train loss {k_loss} vs plain {p_loss}")
+    worst_leaf, n_leaves = 0.0, 0
+    pg = dict(leaves(p_grads))
+    for path, kg in leaves(k_grads):
+        want = pg[path]
+        scale = float(want.abs().max()) or 1.0
+        err = float((kg - want).abs().max()) / scale
+        if not (err <= 1e-3):
+            raise AssertionError(f"grad {path}: max |err| / max |plain| = "
+                                 f"{err:.3e} > 1e-3")
+        worst_leaf = max(worst_leaf, err)
+        n_leaves += 1
+    say("moe_train_parity" if moe else "train_parity",
+        loss=f"{k_loss:.6f}", plain_loss=f"{p_loss:.6f}",
+        loss_rel_err=f"{loss_rel:.3e}", tol_loss=1e-4, leaves=n_leaves,
+        worst_leaf_rel_err=f"{worst_leaf:.3e}", tol_grad="1e-3*max|plain|")
+    del k_grads, p_grads, pg
+    free_cuda(torch)
+
+
+def moe_placement_neutrality(torch) -> None:
+    """Phase 5c: moe_ffn through the kernels at full width under the
+    identity placement and two permutations — y, load and the drop
+    fraction bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import moe_ffn
+    cfg = get_config("mixtral-8x7b")
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(9)
+    p = {"router": torch.randn((d, E), generator=g, device="cuda") * d ** -.5,
+         "ewi": torch.randn((E, d, ff), generator=g, device="cuda") * d ** -.5,
+         "ewg": torch.randn((E, d, ff), generator=g, device="cuda") * d ** -.5,
+         "ewo": torch.randn((E, ff, d), generator=g, device="cuda")
+         * ff ** -.5}
+    x = torch.randn((2, 1024, d), generator=g, device="cuda")
+    with torch.no_grad():
+        base = moe_ffn(p, x, cfg, kernel_impl="pallas")
+        for perm in ([3, 1, 0, 2, 7, 5, 4, 6], [7, 6, 5, 4, 3, 2, 1, 0]):
+            em = torch.tensor(perm, dtype=torch.float32, device="cuda")
+            got = moe_ffn(p, x, cfg, kernel_impl="pallas", expert_map=em)
+            for i, name in ((0, "y"), (1, "load"), (3, "dropped")):
+                if not torch.equal(got[i], base[i]):
+                    raise AssertionError(f"placement {perm} changed {name}")
+    say("moe_placement", placements=3, y_load_dropped_bitwise=True,
+        dropped=f"{float(base[3]):.4f}",
+        load=json.dumps(base[1].int().tolist()).replace(" ", ""))
+    del p, x, base
+    free_cuda(torch)
+
+
+def run_moe_train_phase(torch, kernels):
+    """Phase 4e: the training CLI's ``run`` at moe_train_args(); returns
+    the launch counts of the run ({name: n})."""
+    from repro_torch.kernels.grouped_matmul import ops as gm
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = train_run(moe_train_args())
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = rep["args"]["steps"]
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite MoE training loss: {losses}")
+    if abs(losses[0] - math.log(32000)) > 1.0:
+        raise AssertionError(f"step 0 loss {losses[0]:.3f} is not within 1 "
+                             f"of ln(32000) = {math.log(32000):.3f}")
+    check_launches("moe train", launched, MOE_TRAIN_LAUNCHES_PER_STEP, steps)
+    rl = rep["relayouts"]
+    if not any(r["moved_experts"] > 0 for r in rl):
+        raise AssertionError(f"no expert re-layout moved experts: {rl}")
+    if not (rep["expert_skew_last"] >= 1.0
+            and 0.0 <= rep["moe_dropped_last"] < 1.0):
+        raise AssertionError(f"skew {rep['expert_skew_last']} / dropped "
+                             f"{rep['moe_dropped_last']} out of range")
+    st = rep["step_times"]
+    say("moe_train", steps=steps, tokens_per_step=rep["tokens_per_step"],
+        tokens_per_s=f"{rep['steady_tokens_per_s']:.1f}",
+        step_ms_1_7=f"{sum(st[1:]) / (len(st) - 1) * 1e3:.1f}",
+        step0_ms=f"{st[0] * 1e3:.1f}", wall_s=f"{rep['wall_s']:.2f}",
+        peak_mem_gb=f"{peak_gb:.2f}",
+        losses=json.dumps([round(x, 4) for x in losses]).replace(" ", ""),
+        expert_skew_last=f"{rep['expert_skew_last']:.4f}",
+        moe_dropped_last=f"{rep['moe_dropped_last']:.4f}",
+        relayouts=json.dumps([[r["step"], r["moved_experts"],
+                               round(r["skew"], 4)] for r in rl])
+        .replace(" ", ""),
+        expert_layout=json.dumps(rep["expert_layout"]).replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""),
+        k4_dx_launches=gm.KERNEL.launches_bwd)
+    del rep
+    free_cuda(torch)
+    return launched
+
+
+def run_moe_serve_phase(torch, kernels):
+    """Phase 4f: the serving CLI's ``run`` at moe_serve_args(); returns
+    the launch counts of the run ({name: n})."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run as serve_run
+    from repro_torch.models.blocks import moe_capacity
+    from repro_torch.serve.requests import make_trace
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = serve_run(moe_serve_args())
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    args = rep["args"]
+    comps = rep["completions"]
+    if len(comps) != args["requests"]:
+        raise AssertionError(f"{len(comps)} of {args['requests']} MoE "
+                             f"requests completed")
+    cache_len = args["prompt_len"] + args["gen"]
+    budget = {r.rid: min(r.gen, cache_len - r.plen + 1)
+              for r in make_trace(args["requests"],
+                                  prompt_len=args["prompt_len"],
+                                  max_gen=args["gen"], vocab_size=32000,
+                                  seed=args["seed"],
+                                  min_prompt=args["prompt_len"] // 2)}
+    for c in comps:
+        if len(c["tokens"]) != budget[c["rid"]]:
+            raise AssertionError(f"MoE request {c['rid']}: "
+                                 f"{len(c['tokens'])} tokens, budget "
+                                 f"{budget[c['rid']]}")
+        if not all(0 <= t < 32000 for t in c["tokens"]):
+            raise AssertionError(f"MoE request {c['rid']}: token out of "
+                                 f"vocab")
+    missing = [n for n in MOE_SERVE_PATH if launched[n] <= 0]
+    if missing:
+        raise AssertionError(f"MoE serve never launched {missing}: "
+                             f"{launched}")
+    drop = rep["moe_dropped_mean"]
+    if drop is None or not 0.0 <= drop < 1.0:
+        raise AssertionError(f"moe_dropped_mean {drop} not in [0, 1)")
+    say("moe_serve", requests=len(comps), tokens=rep["total_tokens"],
+        ticks=rep["ticks"], tokens_per_s=f"{rep['tokens_per_s']:.1f}",
+        p50_ms=f"{rep['latency_p50_s'] * 1e3:.1f}",
+        p95_ms=f"{rep['latency_p95_s'] * 1e3:.1f}",
+        wall_s=f"{rep['wall_s']:.2f}",
+        max_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        moe_dropped_mean=f"{drop:.5f}",
+        decode_cap=moe_capacity(get_config(moe_arch(4)), 1),
+        launches=json.dumps(launched).replace(" ", ""))
+    del rep
+    free_cuda(torch)
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -894,6 +1403,8 @@ def main() -> int:
     # 3c / 3d. the backward kernels
     results.update(check_attention_backward(torch, F))
     results["pruned_matmul"].update(check_pruned_matmul_backward(torch))
+    # 3e. the grouped expert matmul and its weight gradient
+    results.update(check_grouped_matmul(torch))
     for name, r in results.items():
         say("kernels", kernel=name, shape=repr(r["shape"]),
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
@@ -963,47 +1474,24 @@ def main() -> int:
     # 4d. where the time goes in training: two steps under the profiler
     say("profile_train", **profile_train(torch))
 
+    # 4e / 4f. the MoE paths, counters zeroed just before each and read
+    # just after
+    moe_train_launches = run_moe_train_phase(torch, kernels)
+    moe_serve_launches = run_moe_serve_phase(torch, kernels)
+
+    # 4g. where the time goes in MoE training
+    say("profile_moe_train", **profile_train(torch, moe_train_args))
+
     # 5. parity of the path: kernels vs plain versions from one state
-    k_pf, k_ids, k_lp, _ = parity_run(torch, plain=False)
-    with PlainKernels():
-        p_pf, p_ids, p_lp, p_logits = parity_run(torch, plain=True)
-    top2 = p_logits.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 1e-3
-    if not bool((k_ids == p_ids)[decided].all()):
-        raise AssertionError("decode ids differ where the plain run's "
-                             "top-2 gap exceeds 1e-3")
-    same = k_ids == p_ids
-    lp_err = float((k_lp - p_lp).abs()[same].max())
-    if lp_err > 1e-3:
-        raise AssertionError(f"decode logprobs differ by {lp_err:.3e}")
-    say("parity", prefill_ids_equal=bool((k_pf == p_pf).all()),
-        decode_ids_equal=f"{int(same.sum())}/{same.numel()}",
-        decided=int(decided.sum()), max_logprob_err=f"{lp_err:.3e}",
-        tol=1e-3)
+    serve_parity(torch)
 
     # 5b. train parity: one step's loss and grads, kernels vs plain
-    free_cuda(torch)
-    k_loss, k_grads = train_parity_run(torch, plain=False)
-    with PlainKernels():
-        p_loss, p_grads = train_parity_run(torch, plain=True)
-    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
-    if not (math.isfinite(k_loss) and loss_rel <= 1e-4):
-        raise AssertionError(f"train loss {k_loss} vs plain {p_loss}")
-    worst_leaf, n_leaves = 0.0, 0
-    pg = dict(leaves(p_grads))
-    for path, kg in leaves(k_grads):
-        want = pg[path]
-        scale = float(want.abs().max()) or 1.0
-        err = float((kg - want).abs().max()) / scale
-        if not (err <= 1e-3):
-            raise AssertionError(f"grad {path}: max |err| / max |plain| = "
-                                 f"{err:.3e} > 1e-3")
-        worst_leaf = max(worst_leaf, err)
-        n_leaves += 1
-    say("train_parity", loss=f"{k_loss:.6f}", plain_loss=f"{p_loss:.6f}",
-        loss_rel_err=f"{loss_rel:.3e}", tol_loss=1e-4, leaves=n_leaves,
-        worst_leaf_rel_err=f"{worst_leaf:.3e}", tol_grad="1e-3*max|plain|")
-    del k_grads, p_grads
+    train_parity(torch)
+
+    # 5c. the MoE path: train step, prefill + decode, placement neutrality
+    train_parity(torch, moe=True)
+    serve_parity(torch, moe=True)
+    moe_placement_neutrality(torch)
 
     # 6. the kernels line, the card line, the last line
     line = []
@@ -1012,16 +1500,21 @@ def main() -> int:
         entry = {
             "name": k.name, "route": "cuda", "source": k.relpath(),
             "replaces": k.replaces, "tpu_kernel": k.replaces,
-            "launches": launches[k.name] + train_launches[k.name],
+            "launches": (launches[k.name] + train_launches[k.name]
+                         + moe_train_launches[k.name]
+                         + moe_serve_launches[k.name]),
             "launches_serve": launches[k.name],
             "launches_train": train_launches[k.name],
+            "launches_moe_train": moe_train_launches[k.name],
+            "launches_moe_serve": moe_serve_launches[k.name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "tolerance": r["tol"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]}
-        if "library_covers" in r:
-            entry["library_covers"] = r["library_covers"]
+        for key in ("library_covers", "cases"):
+            if key in r:
+                entry[key] = r[key]
         if k.name == "pruned_matmul":
             entry.update(
                 launches_train_bwd=train_bwd, bwd_ms=r["bwd_ms"],

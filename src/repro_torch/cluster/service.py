@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.controller import ControllerEvent, DynMoController
+from repro_torch.core.expert_layout import ExpertRelayoutPlan
 from repro_torch.core.profiler import profile_from_stats
 
 
@@ -43,12 +44,14 @@ class StatsSnapshot:
 class DecisionPlan:
     """One controller decision, fenced by the epoch of the world it was
     decided against.  ``new_lps`` is the in-mesh migration's split (None:
-    keep the current one)."""
+    keep the current one); ``expert_relayout`` is orthogonal (it moves no
+    stage state, only the expert_map dyn leaf)."""
     epoch: int
     iteration: int
     new_lps: Optional[List[int]]
     event: ControllerEvent
     decide_s: float
+    expert_relayout: Optional[ExpertRelayoutPlan] = None
 
 
 class ControlPlane:
@@ -103,7 +106,9 @@ class ControlPlane:
             snap.seq, frozen=snap.frozen,
             bytes_per_param=ctrl.dcfg.bytes_per_param)
         new_lps, ev = ctrl.decide(profile, snap.iteration)
+        relayout = ctrl.take_expert_relayout()
         self.decided += 1
         return DecisionPlan(epoch=snap.epoch, iteration=snap.iteration,
                             new_lps=new_lps, event=ev,
-                            decide_s=time.perf_counter() - t0)
+                            decide_s=time.perf_counter() - t0,
+                            expert_relayout=relayout)

@@ -269,7 +269,7 @@ def list_configs() -> List[str]:
 
 # the port registers the architectures its slices serve; the rest of the
 # reference's registry joins as their block families are ported
-_ARCH_MODULES = ["smollm_360m"]
+_ARCH_MODULES = ["smollm_360m", "mixtral_8x7b"]
 
 
 def _load_all() -> None:

@@ -6,10 +6,10 @@
 
 The controller consumes the per-slot stats every train step emits, decides
 a new contiguous split on the host, and applies one migration (a gather
-over params, optimizer moments and dyn state).  This slice ports the
-synchronous controller with its straggler folding; re-packing onto fewer
-workers and live expert re-layout raise ``NotImplementedError`` naming
-their ROADMAP items.
+over params, optimizer moments and dyn state).  The port has the
+synchronous controller with its straggler folding and the live expert
+re-layout decision (the runtime applies it at a safe point); re-packing
+onto fewer workers raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 
 from repro_torch.configs.base import DistConfig, ModelConfig
 from repro_torch.core import balancer as bal
+from repro_torch.core import expert_layout as el
 from repro_torch.core import migration as mig
 from repro_torch.core.cost_model import MEM_STATE_FACTOR
 from repro_torch.core.profiler import LayerProfile
@@ -36,7 +37,10 @@ class ControllerConfig:
     imbalance_threshold: float = 0.05  # skip rebalance below this ΔL
     mem_cap: float = float("inf")
     repack: bool = False             # raises: not in this slice
-    expert_relayout: bool = False    # raises: not in this slice
+    # live expert re-layout (MoE archs with the grouped kernels)
+    expert_relayout: bool = False
+    expert_watermark: float = 2.0     # max/mean routed-load trigger
+    expert_min_tokens: int = 16       # ignore windows below this total
 
 
 @dataclasses.dataclass
@@ -48,6 +52,10 @@ class ControllerEvent:
     active_workers: int
     decision_s: float
     rebalanced: bool
+    # MoE telemetry (defaults keep non-MoE call sites untouched)
+    expert_skew: float = 0.0          # measured max/mean routed load
+    expert_dropped: float = 0.0       # capacity-overflow drop fraction
+    relayout: bool = False            # a re-layout plan was emitted
 
 
 class DynMoController:
@@ -62,10 +70,6 @@ class DynMoController:
                 "re-packing onto fewer workers (a live shrink) is not in "
                 "repro_torch yet (ROADMAP Queue 1 [training]: repack, live "
                 "resize)")
-        if ccfg.expert_relayout:
-            raise NotImplementedError(
-                "live expert re-layout is not in repro_torch yet (ROADMAP "
-                "Queue 1 [moe])")
         from repro_torch.models.model import uniform_boundaries
         self.cfg, self.dcfg, self.dyncfg, self.ccfg = cfg, dcfg, dyncfg, ccfg
         self.straggler = straggler
@@ -75,15 +79,44 @@ class DynMoController:
         self.pattern = cfg.block_pattern()
         self.events: List[ControllerEvent] = []
         self.active_workers = dcfg.num_stages
+        # expert placement: the controller owns the LOGICAL layout; the
+        # runtime mirrors it into dyn["expert_map"] at safe points, and the
+        # layout advances only when a plan is applied (commit_relayout)
+        self.expert_layout = (el.ExpertLayout.identity(cfg.num_experts)
+                              if cfg.num_experts else None)
+        self.pending_relayout: Optional[el.ExpertRelayoutPlan] = None
+        self.relayouts: List[el.ExpertRelayoutPlan] = []
 
     def cadence(self, iteration: int) -> bool:
         """Whether the controller acts this iteration; the training loop
         gates its device -> host stats sync on this (paper §3.3.1)."""
         return iteration % max(1, self.ccfg.rebalance_every) == 0
 
+    def take_expert_relayout(self) -> Optional[el.ExpertRelayoutPlan]:
+        """Consume the pending expert re-layout (safe-point apply)."""
+        plan, self.pending_relayout = self.pending_relayout, None
+        return plan
+
+    def commit_relayout(self, plan: el.ExpertRelayoutPlan):
+        """Record that a re-layout plan was applied to the model's
+        expert_map; only now does the controller's layout advance."""
+        self.expert_layout = plan.new
+        self.relayouts.append(plan)
+        return self
+
     def decide(self, profile: LayerProfile, iteration: int
                ) -> Tuple[Optional[List[int]], ControllerEvent]:
         t0 = time.perf_counter()
+        self.pending_relayout = None    # a stale unconsumed plan won't linger
+        expert_skew = 0.0
+        if profile.expert_load is not None and self.expert_layout is not None:
+            expert_skew, _ = el.measure_skew(profile.expert_load)
+            if self.ccfg.expert_relayout:
+                self.pending_relayout = el.build_relayout(
+                    profile.expert_load, self.expert_layout,
+                    watermark=self.ccfg.expert_watermark,
+                    min_tokens=self.ccfg.expert_min_tokens,
+                    iteration=iteration)
         costs = (profile.time_per_layer if self.ccfg.cost_by == "time"
                  else profile.param_bytes)
         if (self.straggler is not None and self.ccfg.cost_by == "time"
@@ -119,7 +152,10 @@ class DynMoController:
             imbalance_after=imb_after, moved_layers=moved,
             active_workers=self.active_workers,
             decision_s=time.perf_counter() - t0,
-            rebalanced=new_lps is not None)
+            rebalanced=new_lps is not None,
+            expert_skew=expert_skew,
+            expert_dropped=profile.moe_drop_frac,
+            relayout=self.pending_relayout is not None)
         self.events.append(ev)
         return new_lps, ev
 

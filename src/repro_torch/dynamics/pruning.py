@@ -24,8 +24,9 @@ def block_magnitudes(cfg: ModelConfig, stage_params: Dict[str, torch.Tensor]
     from blocks of d_ff columns of (wi, wg) and rows of wof."""
     if "wi" not in stage_params:
         raise NotImplementedError(
-            "block magnitudes of non-dense block families are not in "
-            "repro_torch yet (ROADMAP Queue 1 [moe], [block-families])")
+            "block magnitudes of MoE experts and other non-dense block "
+            "families are not in repro_torch yet (ROADMAP Queue 1 "
+            "[moe-pruning], [block-families])")
     npb = n_prune_blocks(cfg)
     tot = None
     for name, axis in (("wi", "col"), ("wg", "col"), ("wof", "row")):

@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import DistConfig, ModelConfig
+from repro_torch.configs.base import BLOCK_MOE, DistConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.models import blocks as B
@@ -129,6 +129,9 @@ class ElasticEngine:
         self.epoch = 0
         self.stepped = False
         self.last_step_compiled = False
+        # serve telemetry: the last prefill / decode call's mean MoE
+        # capacity-drop fraction (a device scalar; None for non-MoE archs)
+        self.last_moe_drop = None
 
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, seed: int = 0, *, with_opt: bool = False,
@@ -234,18 +237,24 @@ class ElasticEngine:
         """Run prefill; returns (last_ids, cache).  The target cache
         (``cache``, else ``state.cache``) is written in place for EVERY lane
         of the batch, so the server prefills into a scratch and merges the
-        admitted lanes (dense) or packs their pages (paged)."""
+        admitted lanes (dense) or packs their pages (paged).
+        ``self.last_moe_drop`` holds the call's mean MoE capacity-drop
+        fraction."""
         pf, _ = self.serve_fns(state.stages)
         target = state.cache if cache is None else cache
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
-        return pf(state.params, state.assignment, state.dyn, target, batch)
+        ids, cache, drop = pf(state.params, state.assignment, state.dyn,
+                              target, batch)
+        self._note_moe_drop(drop)
+        return ids, cache
 
     def decode(self, state: EngineState, tokens, pos, *, page_table=None,
                seeds=None, live_micros: Optional[int] = None):
         """One decode step; updates ``state.cache`` in place and returns
         (ids, logprobs).  ``page_table`` [m, B, J] is required iff the
-        engine is paged; ``live_micros`` selects the decode variant."""
+        engine is paged; ``live_micros`` selects the decode variant;
+        ``self.last_moe_drop`` as in :meth:`prefill`."""
         if seeds is not None:
             raise NotImplementedError(
                 "per-lane sampling seeds need temperature > 0 (ROADMAP "
@@ -258,9 +267,20 @@ class ElasticEngine:
             assert page_table is not None, "paged decode needs a page table"
             pt = torch.as_tensor(page_table, dtype=torch.int32,
                                  device=self.device)
-        ids, lp, state.cache = dec(state.params, state.assignment, state.dyn,
-                                   state.cache, tokens, pos, pt)
+        ids, lp, state.cache, drop = dec(state.params, state.assignment,
+                                         state.dyn, state.cache, tokens, pos,
+                                         pt)
+        self._note_moe_drop(drop)
         return ids, lp
+
+    def _note_moe_drop(self, drop):
+        """A serve call's summed MoE drop signal as a mean fraction over
+        the MoE layers and the microbatches (the reference normalizes by
+        the full microbatch count, live or not).  Stays a device scalar:
+        the server pays the host sync when it reads the telemetry."""
+        n_moe = sum(1 for t in self.cfg.block_pattern() if t == BLOCK_MOE)
+        self.last_moe_drop = (None if n_moe == 0 else
+                              drop / float(n_moe * self.shapes.num_micro))
 
     # -- KV helpers ----------------------------------------------------------
     def make_dense_scratch(self, stages: int):

@@ -53,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--kernel-impl", default="scan",
       choices=["reference", "scan", "pallas"])
     a("--dynamism", default="none",
-      help="dynamism scheme (none | pruning | freezing | sparse_attention)")
+      help="dynamism scheme (none | moe | pruning | freezing | "
+           "sparse_attention)")
     # serve.*
     a("--requests", type=int, default=16)
     a("--prompt-len", type=int, default=32)
@@ -110,9 +111,10 @@ def model_config(args):
     return cfg
 
 
-def build_server(args) -> (ElasticServer, list):
+def build_server(args, params=None) -> (ElasticServer, list):
     """(server, trace) for parsed args, as ``Session.serve`` assembles
-    them."""
+    them; ``params`` (a converted reference tree) replaces the engine's own
+    init."""
     _reject_unported(args)
     cfg = model_config(args)
     dcfg = DistConfig(num_stages=args.stages, slot_slack=args.slot_slack,
@@ -140,14 +142,17 @@ def build_server(args) -> (ElasticServer, list):
                        early_exit_frac=args.early_exit_frac)
     srv = ElasticServer(cfg, dcfg, dyncfg, shapes, seed=args.seed,
                         defrag_every=args.defrag_every, paged=paged,
-                        temperature=args.temperature, device=args.device)
+                        temperature=args.temperature, device=args.device,
+                        params=params)
     return srv, trace
 
 
-def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Parse ``argv``, serve the trace, return the server's report."""
+def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
+    """Parse ``argv``, serve the trace, return the server's report.
+    ``params`` (a converted reference tree) replaces the engine's own
+    init."""
     args = build_parser().parse_args(argv)
-    srv, trace = build_server(args)
+    srv, trace = build_server(args, params)
     report = srv.serve(trace, max_ticks=args.max_ticks)
     report["args"] = vars(args)
     return report

@@ -12,9 +12,15 @@ reduces to 8 layers by default; this one trains the full model unless
 asked).  The loop is ``Session.train``'s, in its order: a step (pipelined
 loss, backward, clipped AdamW), the pruning / freezing events, stats
 published to the control plane on its cadence, the decision polled at the
-safe point and its migration applied.  The run is on the CUDA card unless
+safe point and its migration applied — and, for an MoE arch with
+``--dynamics.expert_relayout``, the new expert placement broadcast into
+``dyn["expert_map"]`` and committed.  The run is on the CUDA card unless
 ``--device cpu``.  Flags of features outside this slice raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+  python -m repro_torch.launch.train --arch mixtral-8x7b --layers 4 \
+      --stages 2 --dynamism moe --kernel-impl pallas \
+      --dynamics.expert_relayout --dynamics.expert_watermark 1.01
 """
 from __future__ import annotations
 
@@ -88,7 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
     a("--kernel-impl", default="scan",
       choices=["reference", "scan", "pallas"])
     a("--dynamism", default="none",
-      help="dynamism scheme (none | pruning | freezing | sparse_attention)")
+      help="dynamism scheme (none | moe | pruning | freezing | "
+           "sparse_attention)")
+    # dynamics.* spec fields, spelled as the reference's dotted flags
+    a("--dynamics.expert_relayout", dest="expert_relayout", nargs="?",
+      const="true", default="false", type=_bool,
+      help="live expert re-layout at safe points (MoE archs)")
+    a("--dynamics.expert_watermark", dest="expert_watermark", type=float,
+      default=2.0, help="max/mean routed-load skew that triggers it")
+    a("--dynamics.expert_min_tokens", dest="expert_min_tokens", type=int,
+      default=16, help="ignore windows with fewer routed tokens")
     # controller.*
     a("--balancer", default="diffusion", choices=["diffusion", "partition"])
     a("--rebalance-every", type=int, default=10)
@@ -109,6 +124,16 @@ def build_parser() -> argparse.ArgumentParser:
     a("--device", default=None,
       help="cuda (default) or cpu (the kernels' plain versions)")
     return ap
+
+
+def _bool(text: str) -> bool:
+    """A spec bool as the reference's ``RunSpec.override`` parses it."""
+    s = str(text).lower()
+    if s in ("1", "true", "yes", "on"):
+        return True
+    if s in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a bool, got {text!r}")
 
 
 def parse_straggler(text: Optional[str]) -> Optional[Dict[int, float]]:
@@ -152,10 +177,17 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
     check_slice(args)
     straggler = parse_straggler(args.straggler)
     cfg = model_config(args)
+    if args.dynamism == "pruning" and cfg.num_experts:
+        raise NotImplementedError(
+            "pruning an MoE arch's experts is not in repro_torch yet "
+            "(ROADMAP Queue 1 [moe-pruning])")
     dcfg = DistConfig(num_stages=args.stages, slot_slack=args.slot_slack,
                       remat=args.remat, param_dtype=args.param_dtype,
                       kernel_impl=args.kernel_impl)
-    dyncfg = DynamicsConfig(kind=args.dynamism)
+    dyncfg = DynamicsConfig(kind=args.dynamism,
+                            expert_relayout=args.expert_relayout,
+                            expert_watermark=args.expert_watermark,
+                            expert_min_tokens=args.expert_min_tokens)
     steps, seq, stages = args.steps, args.seq, args.stages
     shapes = PipelineShapes(num_micro=args.num_micro,
                             mb_global=args.mb_global, seq=seq)
@@ -165,7 +197,10 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
     state = engine.init_state(args.seed, with_opt=True, params=params)
     stage_workers = list(range(stages))
     ccfg = ControllerConfig(method=args.balancer,
-                            rebalance_every=args.rebalance_every)
+                            rebalance_every=args.rebalance_every,
+                            expert_relayout=dyncfg.expert_relayout,
+                            expert_watermark=dyncfg.expert_watermark,
+                            expert_min_tokens=dyncfg.expert_min_tokens)
     det = StragglerDetector(stages) if straggler else None
     ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det)
     cp = ControlPlane(ctrl, async_mode=False, epoch_fn=lambda: engine.epoch)
@@ -173,6 +208,8 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                                          seed=args.seed))
 
     losses, gnorms, events, step_times, stages_hist = [], [], [], [], []
+    relayouts: List[Dict[str, Any]] = []
+    expert_skew_last = moe_dropped_last = None
     warmup_steps, warmup_s, decide_s = 0, 0.0, 0.0
     steady_times: List[float] = []
     t0 = time.perf_counter()
@@ -245,6 +282,9 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         # ---- safe point: apply the newest finished plan
         plan = cp.poll(engine.epoch)
         if plan is not None:
+            if plan.event is not None:
+                expert_skew_last = plan.event.expert_skew
+                moe_dropped_last = plan.event.expert_dropped
             if plan.event is not None and plan.event.rebalanced:
                 events.append(plan.event)
             if plan.new_lps is not None:
@@ -253,6 +293,23 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                 state.params, state.opt_state, state.dyn = p, o, d
                 state.assignment = new_assignment
                 state.lps = list(cp.ctrl.lps)
+            # expert re-layout: orthogonal to the stage plan above (it
+            # rewrites only the expert_map dyn leaf)
+            if (plan.expert_relayout is not None
+                    and "expert_map" in state.dyn):
+                rl = plan.expert_relayout
+                em = state.dyn["expert_map"]
+                state.dyn = {**state.dyn, "expert_map": em.new_tensor(
+                    rl.new.as_array()).expand_as(em).clone()}
+                ctrl.commit_relayout(rl)
+                relayouts.append({
+                    "step": step, "iteration": rl.iteration,
+                    "skew": rl.skew, "tokens": rl.total_tokens,
+                    "moved_experts": rl.moved_experts,
+                    "placement": list(rl.new.placement)})
+                print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
+                      f"{rl.moved_experts} experts -> "
+                      f"{list(rl.new.placement)}", flush=True)
         gnorms.append(float(gnorm))
         if step % args.log_every == 0:
             print(f"step {step:4d} loss {float(loss):.4f} "
@@ -281,6 +338,12 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         "controller": {"mode": "inline", "published": cp.published,
                        "decided": cp.decided, "dropped": cp.dropped,
                        "stale_rejected": cp.stale_rejected},
+        # expert-parallel telemetry (MoE archs; None otherwise)
+        "relayouts": relayouts,
+        "expert_skew_last": expert_skew_last,
+        "moe_dropped_last": moe_dropped_last,
+        "expert_layout": (list(ctrl.expert_layout.placement)
+                          if ctrl.expert_layout is not None else None),
         "device": str(engine.device), "args": vars(args),
     }
 
@@ -291,7 +354,7 @@ def main(argv=None):
     print(f"done: loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f} "
           f"in {out['wall_s']:.1f}s; rebalances={len(out['events'])}; "
           f"final lps={out['final_lps']}; controller[{ctl['mode']}] "
-          f"decided={ctl['decided']}")
+          f"decided={ctl['decided']}; relayouts={len(out['relayouts'])}")
     for ev in out["events"]:
         print(f"  rebalance @iter {ev.iteration}: imbalance "
               f"{ev.imbalance_before:.3f} -> {ev.imbalance_after:.3f}, "

@@ -1,9 +1,11 @@
-"""Slot-block layer — the dense-decoder slice of ``repro.models.blocks``.
+"""Slot-block layer — the dense-decoder and MoE slice of
+``repro.models.blocks``.
 
 A pipeline stage owns ``L_max`` slots; each slot holds the parameter fields
 of the arch's block types plus a type tag, so the layer→stage assignment can
-change at runtime.  This slice ports the DENSE block (attention + SwiGLU)
-and the PAD slot; other block families raise ``NotImplementedError``.
+change at runtime.  The port has the DENSE block (attention + SwiGLU), the
+MOE block (attention + top-k routed experts, ``moe_ffn``) and the PAD slot;
+other block families raise ``NotImplementedError``.
 
 Public interface (same names as the reference)
   slot_param_spec(cfg)            -> {field: TensorSpec}   (per slot)
@@ -20,9 +22,11 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import (BLOCK_DENSE, BLOCK_PAD,
+from repro_torch.configs.base import (BLOCK_DENSE, BLOCK_MOE, BLOCK_PAD,
                                       BLOCK_TYPE_NAMES, ModelConfig)
+from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models.layers import (apply_rope, decode_attention,
@@ -31,9 +35,10 @@ from repro_torch.models.layers import (apply_rope, decode_attention,
 
 PRUNE_BLOCK = 128      # block-structured pruning granularity
 HASH_PROJ_SEED = 17    # the reference draws its projection from PRNGKey(17)
+MOE_CAPACITY_FACTOR = 1.25
 
 # what the port's slices serve so far; anything else raises
-PORTED_BLOCK_TYPES = (BLOCK_DENSE,)
+PORTED_BLOCK_TYPES = (BLOCK_DENSE, BLOCK_MOE)
 
 
 class TensorSpec(NamedTuple):
@@ -46,7 +51,7 @@ class TensorSpec(NamedTuple):
 # ---------------------------------------------------------------------------
 def _dims(cfg: ModelConfig) -> Dict[str, int]:
     return dict(d=cfg.d_model, hd=cfg.resolved_head_dim, nq=cfg.num_heads,
-                nkv=cfg.num_kv_heads, ff=cfg.d_ff)
+                nkv=cfg.num_kv_heads, ff=cfg.d_ff, E=cfg.num_experts)
 
 
 def prunable_dim(cfg: ModelConfig) -> int:
@@ -71,7 +76,7 @@ def check_ported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: block types {missing} are not in repro_torch yet "
-            f"(ROADMAP Queue 1 [moe], [block-families])")
+            f"(ROADMAP Queue 1 [block-families])")
 
 
 # ---------------------------------------------------------------------------
@@ -81,14 +86,25 @@ def slot_param_spec(cfg: ModelConfig, dtype=torch.bfloat16
                     ) -> Dict[str, TensorSpec]:
     check_ported(cfg)
     m = _dims(cfg)
+    types = block_type_set(cfg)
     d, hd, nq, nkv, ff = m["d"], m["hd"], m["nq"], m["nkv"], m["ff"]
-    return dict(
+    spec = dict(
         attn_norm=TensorSpec((d,), dtype), wq=TensorSpec((d, nq * hd), dtype),
         wk=TensorSpec((d, nkv * hd), dtype),
         wv=TensorSpec((d, nkv * hd), dtype),
-        wo=TensorSpec((nq * hd, d), dtype), ffn_norm=TensorSpec((d,), dtype),
-        wi=TensorSpec((d, ff), dtype), wg=TensorSpec((d, ff), dtype),
-        wof=TensorSpec((ff, d), dtype))
+        wo=TensorSpec((nq * hd, d), dtype), ffn_norm=TensorSpec((d,), dtype))
+    if BLOCK_DENSE in types:
+        spec.update(wi=TensorSpec((d, ff), dtype),
+                    wg=TensorSpec((d, ff), dtype),
+                    wof=TensorSpec((ff, d), dtype))
+    if BLOCK_MOE in types:
+        E = m["E"]
+        # the router stays fp32 whatever the param dtype, as in the reference
+        spec.update(router=TensorSpec((d, E), torch.float32),
+                    ewi=TensorSpec((E, d, ff), dtype),
+                    ewg=TensorSpec((E, d, ff), dtype),
+                    ewo=TensorSpec((E, ff, d), dtype))
+    return spec
 
 
 def slot_cache_spec(cfg: ModelConfig, mb: int, cache_len: int,
@@ -137,8 +153,8 @@ def init_slot(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
             out[name] = torch.ones(shape, dtype=sds.dtype, device=device)
         else:
             fan_in = sds.shape[-2]
-            out[name] = (torch.randn(shape, generator=gen, device=device)
-                         * fan_in ** -0.5).to(sds.dtype)
+            out[name] = torch.randn(shape, generator=gen, device=device
+                                    ).mul_(fan_in ** -0.5).to(sds.dtype)
     return out
 
 
@@ -288,6 +304,95 @@ def _attn_fwd(x, wq, wk, wv, wo, *, cfg, mode, cache, pos, rope: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# MoE FFN (GShard-style capacity dispatch, cumsum position-in-expert)
+# ---------------------------------------------------------------------------
+def moe_capacity(cfg: ModelConfig, s: int) -> int:
+    """Rows per (batch row, expert) group for a sequence of ``s`` tokens."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    cf = cfg.moe_capacity_factor or MOE_CAPACITY_FACTOR
+    cap = int(cf * s * K / E + 0.999)
+    return max(4, min(s, (cap + 3) // 4 * 4))
+
+
+def moe_ffn(p, x, cfg: ModelConfig, *, kernel_impl: str = "scan",
+            expert_map=None):
+    """x: [mb, s, d] -> (y, expert_load [E], aux_loss, dropped_frac), as
+    ``repro.models.blocks.moe_ffn``.
+
+    Routing (top-k, k-major cumsum position-in-expert, capacity drops) is
+    the same for every impl; only the expert compute differs:
+
+      "reference"/"scan": the dense capacity einsum over the zero-padded
+        [b, E, cap, d] buffer (every expert pays full capacity).
+      "pallas": the grouped ragged matmul (K4 forward, K4 + K5 backward)
+        over the groups g = b * E + p; each group costs row tiles in
+        proportion to its routed load.  ``expert_map`` ([E], logical
+        expert -> physical group; None = identity) permutes only the
+        physical group order, folded into the kernels' weight index: every
+        token's math is row-wise, so y is bit-identical under any placement.
+
+    Dispatch copies each kept (token, expert) pair into its slot (one writer
+    per live slot; dropped pairs all land in a trash slot that is cut off).
+    The combine is a reshape of the k-major pairs to [K, s, d] and a sum
+    over k in a fixed order — no atomics, so its bits do not change from
+    run to run (the reference scatter-adds; with two terms per token the
+    sums are equal)."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    b, s, d = x.shape
+    cap = moe_capacity(cfg, s)
+
+    logits = matmul(x, p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                       # [b,s,E]
+    w, sel = torch.topk(probs, K, dim=-1)                       # [b,s,K]
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    flat_e = sel.transpose(1, 2).reshape(b, K * s)              # k-major
+    flat_w = w.transpose(1, 2).reshape(b, K * s)
+    oh = F.one_hot(flat_e, E)                                   # [b,Ks,E]
+    pos = ((oh.cumsum(1) - oh) * oh).sum(-1)                    # exclusive
+    keep = pos < cap
+    x_rep = x.repeat(1, K, 1)          # pair k * s + t carries token t
+
+    def dispatch(group):
+        slot = torch.where(keep, group * cap + pos,
+                           torch.full_like(pos, E * cap))
+        buf = x.new_zeros((b, E * cap + 1, d)).scatter(
+            1, slot[..., None].expand(b, K * s, d), x_rep)
+        return slot, buf[:, :E * cap]
+
+    ewg, ewi, ewo = p["ewg"], p["ewi"], p["ewo"]
+    if kernel_impl == "pallas":
+        phys = flat_e if expert_map is None else expert_map.long()[flat_e]
+        slot, buf = dispatch(phys)
+        counts = (F.one_hot(phys, E) * keep[..., None]).sum(1).reshape(b * E)
+        xg = buf.reshape(b * E, cap, d)                         # batch-major
+        gmm = lambda a, wt: grouped_matmul(a, wt, counts,
+                                           expert_map=expert_map)
+        h = gmm(xg, ewg)
+        h = F.silu(h) * gmm(xg, ewi)
+        out = gmm(h.to(xg.dtype), ewo)
+    else:
+        slot, buf = dispatch(flat_e)
+        buf = buf.reshape(b, E, cap, d)
+        h = torch.einsum("becd,edf->becf", buf, ewg)
+        h = F.silu(h) * torch.einsum("becd,edf->becf", buf, ewi)
+        out = torch.einsum("becf,efd->becd", h, ewo)
+    out = out.reshape(b, E * cap, d)
+    idx = torch.clamp(slot, max=E * cap - 1)
+    vals = out.gather(1, idx[..., None].expand(b, K * s, d))
+    vals = vals * (flat_w * keep)[..., None].to(vals.dtype)
+    y = vals.reshape(b, K, s, d).sum(1)
+    load = F.one_hot(sel, E).sum(dim=(0, 1, 2)).float()         # [E]
+    # capacity-overflow drops: routed (token, expert) pairs past each
+    # expert's cap — the same keep mask on every impl
+    dropped = 1.0 - keep.float().mean()
+    # auxiliary load-balancing loss (Mixtral-style), returned via stats
+    me = probs.reshape(-1, E).mean(0)
+    ce = load / torch.clamp(load.sum(), min=1.0)
+    aux_loss = E * (me * ce).sum()
+    return y, load, aux_loss, dropped
+
+
+# ---------------------------------------------------------------------------
 # Per-type block forward
 # ---------------------------------------------------------------------------
 def _dense_block(p, x, *, cfg, mode, cache, pos, dyn, dyncfg,
@@ -308,6 +413,25 @@ def _dense_block(p, x, *, cfg, mode, cache, pos, dyn, dyncfg,
     return x, cache, stats, 0.0
 
 
+def _moe_block(p, x, *, cfg, mode, cache, pos, dyn, dyncfg,
+               kernel_impl="scan", hash_proj=None):
+    h, cache, density = _attn_fwd(
+        rms_norm(x, p["attn_norm"], cfg.norm_eps),
+        p["wq"], p["wk"], p["wv"], p["wo"], cfg=cfg, mode=mode,
+        cache=cache, pos=pos, dyncfg=dyncfg, kernel_impl=kernel_impl,
+        hash_proj=hash_proj)
+    x = x + h
+    hn = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    y, load, aux_loss, dropped = moe_ffn(
+        p, hn, cfg, kernel_impl=kernel_impl,
+        expert_map=dyn.get("expert_map"))
+    x = x + y
+    stats = {"expert_load": load, "moe_dropped": dropped,
+             "ff_active": torch.ones((), device=x.device),
+             "attn_density": density}
+    return x, cache, stats, aux_loss
+
+
 def apply_block(cfg: ModelConfig, dyncfg, mode: str, p, shared, carry,
                 tag: int, dyn, cache, pos, *, kernel_impl: str = "scan",
                 hash_proj=None):
@@ -319,12 +443,13 @@ def apply_block(cfg: ModelConfig, dyncfg, mode: str, p, shared, carry,
     are the identity."""
     if tag == BLOCK_PAD:
         return carry, cache, {}, 0.0
-    if tag != BLOCK_DENSE:
+    block = {BLOCK_DENSE: _dense_block, BLOCK_MOE: _moe_block}.get(tag)
+    if block is None:
         raise NotImplementedError(
             f"block type {BLOCK_TYPE_NAMES.get(tag, tag)} is not in "
-            f"repro_torch yet (ROADMAP Queue 1 [moe], [block-families])")
+            f"repro_torch yet (ROADMAP Queue 1 [block-families])")
     x = carry["x"]
-    y, c, st, aux = _dense_block(p, x, cfg=cfg, mode=mode, cache=cache,
-                                 pos=pos, dyn=dyn, dyncfg=dyncfg,
-                                 kernel_impl=kernel_impl, hash_proj=hash_proj)
+    y, c, st, aux = block(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
+                          dyn=dyn, dyncfg=dyncfg, kernel_impl=kernel_impl,
+                          hash_proj=hash_proj)
     return {**carry, "x": y.to(x.dtype)}, c, st, aux

@@ -15,7 +15,8 @@ Assignment — host tensors (it steers host control flow: which slot runs)
                 "depth_base": int32 [S]}
 
 Dynamism state
-  dyn = {"ff_mask": f32 [S, L_max, npb], "frozen": f32 [S, L_max]}
+  dyn = {"ff_mask": f32 [S, L_max, npb], "frozen": f32 [S, L_max],
+         "expert_map": f32 [S, L_max, E]   (MoE archs with expert_relayout)}
 
 For training, ``params["stages"]`` may also hold, per field, nested lists
 ``[S][L_max]`` of per-slot tensors (the engine's gradient leaves, see
@@ -36,7 +37,7 @@ from repro_torch.models.layers import (cross_entropy_with_head, matmul,
                                       rms_norm)
 
 # what the port's slices serve so far; the other kinds raise
-PORTED_DYNAMICS = ("none", "pruning", "freezing", "sparse_attention")
+PORTED_DYNAMICS = ("none", "moe", "pruning", "freezing", "sparse_attention")
 
 
 def check_ported(cfg: ModelConfig, dyncfg: DynamicsConfig) -> None:
@@ -44,7 +45,7 @@ def check_ported(cfg: ModelConfig, dyncfg: DynamicsConfig) -> None:
     if dyncfg.kind not in PORTED_DYNAMICS:
         raise NotImplementedError(
             f"dynamism kind {dyncfg.kind!r} is not in repro_torch yet "
-            f"(ROADMAP Queue 1 [serve-dynamism], [moe])")
+            f"(ROADMAP Queue 1 [serve-dynamism])")
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +136,20 @@ def init_dyn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
              device=None) -> Dict[str, torch.Tensor]:
     check_ported(cfg, dyncfg)
     S, L_max = dcfg.num_stages, dcfg.slots_for(cfg)
-    return {
+    dyn = {
         "ff_mask": torch.ones((S, L_max, B.n_prune_blocks(cfg)),
                               device=device),
         "frozen": torch.zeros((S, L_max), device=device),
     }
+    if dyncfg.expert_relayout and cfg.num_experts:
+        # logical expert -> physical kernel group, per slot (identity at
+        # init), float32 as in the reference; its [S, L_max] leading dims
+        # migrate with every other dyn leaf.  Only the pallas grouped path
+        # reads it, and the placement never changes the model function.
+        dyn["expert_map"] = torch.arange(
+            cfg.num_experts, dtype=torch.float32, device=device).repeat(
+                S, L_max, 1)
+    return dyn
 
 
 def cache_spec(cfg: ModelConfig, dcfg: DistConfig, num_micro: int, mb: int,

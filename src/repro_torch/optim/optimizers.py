@@ -50,10 +50,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_scale(grads, max_norm):
+    """(the factor that clips ``grads`` to ``max_norm`` global norm, the
+    norm); the update applies it leaf by leaf, so no clipped copy of the
+    whole gradient tree is ever held (one fp32 leaf at a time)."""
     n = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
-    return _map(lambda _, g: g.float() * scale, grads), n
+    return torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0), n
 
 
 # ---------------------------------------------------------------------------
@@ -75,9 +77,11 @@ def _adamw_update(cfg: OptConfig, g, m, v, p, t):
                            device=t.device) ** t
     bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32,
                            device=t.device) ** t
-    upd = (m / bc1) / ((v / bc2).sqrt() + cfg.eps)
+    # in place on fresh temporaries: the same values with fewer full-size
+    # fp32 buffers alive at once (an expert leaf is ~1e9 entries)
+    upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
     if p.dim() >= 2:
-        upd = upd + cfg.weight_decay * p.float()
+        upd.add_(p.float() * cfg.weight_decay)   # p.float() may alias p
     return upd
 
 
@@ -136,11 +140,11 @@ def make_optimizer(cfg: OptConfig):
 
     @torch.no_grad()
     def update_fn(grads, state, params, lr, frozen=None):
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        scale, gnorm = clip_scale(grads, cfg.clip_norm)
         t = state["count"] + 1
         flat_g = dict(_leaves(grads))
         for path, p in _leaves(params):
-            g = flat_g[path]
+            g = flat_g[path].float() * scale
             if cfg.name == "adamw":
                 upd = _adamw_update(cfg, g, _get(state["m"], path),
                                     _get(state["v"], path), p, t)
@@ -149,8 +153,8 @@ def make_optimizer(cfg: OptConfig):
             if frozen is not None and "stages" in path:
                 keep = (1.0 - frozen).reshape(
                     frozen.shape + (1,) * (upd.dim() - 2))
-                upd = upd * keep
-            p.copy_((p.float() - lr * upd).to(p.dtype))
+                upd.mul_(keep)
+            p.copy_((p.float() - upd.mul_(lr)).to(p.dtype))
         state["count"] = t
         return params, state, gnorm
 

@@ -63,7 +63,9 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                     paged: bool = False, temperature: float = 0.0,
                     num_micro: Optional[int] = None, hash_proj=None):
     """Returns decode_fn(params, assignment, dyn, cache, tokens, pos[,
-    page_table]) -> (next_ids [m, B] i32, logprobs [m, B] f32, cache).
+    page_table]) -> (next_ids [m, B] i32, logprobs [m, B] f32, cache,
+    moe_drop_sum f32 — the MoE capacity-drop fractions summed over every
+    slot of every valid tick, 0 for non-MoE archs).
 
     tokens: [m, B] current token per request; pos: a scalar position (every
     lane at the same point) or [m, B] per-lane absolute positions.
@@ -101,6 +103,7 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                               device=device)
         lp_out = torch.zeros((shapes.num_micro, B), dtype=torch.float32,
                              device=device)
+        drop = torch.zeros((), device=device)
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m_live, S):
             if idx == 0:
@@ -119,11 +122,13 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
             else:
                 cache_mb = {k: v[idx][:, mi] for k, v in cache.items()}
             pos_mb = pos[mi] if per_lane else pos
-            carry, _, _, _ = M.stage_forward(
+            carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "decode", _stage_slice(params["stages"],
                                                           idx),
                 params["shared"], tags[idx], _stage_slice(dyn, idx), carry,
                 cache_mb, pos_mb, idx * L_m, hash_proj=hash_proj)
+            if cfg.num_experts:
+                drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:
                 logits = M.lm_logits(params, cfg, carry["x"][:, 0])
                 nid = torch.argmax(logits, dim=-1)
@@ -132,7 +137,7 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                 lp_out[mi] = lp.gather(-1, nid[:, None])[:, 0]
             else:
                 buf[idx + 1] = carry          # the ring roll
-        return ids_out, lp_out, cache
+        return ids_out, lp_out, cache, drop
 
     return decode_fn
 
@@ -144,7 +149,7 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
                      dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
                      hash_proj=None):
     """Returns prefill_fn(params, assignment, dyn, cache, batch)
-    -> (last_ids [m, B] i32, cache).
+    -> (last_ids [m, B] i32, cache, moe_drop_sum f32 as in decode).
 
     batch = {"tokens": [m, B, seq] int}; cache: the dense {k, v:
     [S, L_max, m, B, cap, kv, hd]}, whose lane lines are written in place
@@ -162,6 +167,7 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
         pos = torch.arange(shapes.seq, device=device)
         ids_out = torch.zeros((m, shapes.mb_global), dtype=torch.int32,
                               device=device)
+        drop = torch.zeros((), device=device)
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m, S):
             if idx == 0:
@@ -170,17 +176,19 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
             else:
                 carry = buf.pop(idx)
             cache_mb = {k: v[idx][:, mi] for k, v in cache.items()}
-            carry, _, _, _ = M.stage_forward(
+            carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "prefill", _stage_slice(params["stages"],
                                                            idx),
                 params["shared"], tags[idx], _stage_slice(dyn, idx), carry,
                 cache_mb, pos, depth_base[idx], hash_proj=hash_proj)
+            if cfg.num_experts:
+                drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:
                 logits = M.lm_logits(params, cfg, carry["x"][:, -1])
                 ids_out[mi] = torch.argmax(logits, dim=-1).to(torch.int32)
             else:
                 buf[idx + 1] = carry          # the ring roll
-        return ids_out, cache
+        return ids_out, cache, drop
 
     return prefill_fn
 
@@ -297,10 +305,12 @@ def value_and_grad(loss_fn, params, assignment, dyn, batch):
             flat += list(v.values())
         else:
             flat.append(v)
-    got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    got = list(torch.autograd.grad(loss, flat, allow_unused=True))
+    got.reverse()
 
     def take(t):
-        g = next(got)
+        # pop, so each slot's gradient is freed once it is stacked
+        g = got.pop()
         return torch.zeros_like(t) if g is None else g
 
     grads = {}

@@ -104,6 +104,7 @@ class ElasticServer:
         peak_lanes = 0
         peak_pages = 0
         tiles_live = tiles_total = 0
+        moe_drops = []   # device scalars; synced once after the trace drains
         t_run = time.perf_counter()
         while tick < max_ticks and not sched.done:
             t0 = time.perf_counter()
@@ -124,6 +125,8 @@ class ElasticServer:
                                  adm.admit_mask)
                 sched.note_prefill(adm, ids.cpu().numpy(), tick)
                 emitted += len(adm.full_len_lanes)
+                if self.engine.last_moe_drop is not None:
+                    moe_drops.append(self.engine.last_moe_drop)
             dec = sched.plan_decode()
             if dec is not None:
                 for src, dst in dec.copies:      # CoW forks land on device
@@ -144,6 +147,8 @@ class ElasticServer:
                         dec.pos.reshape(-1) + 1, alloc.page_size)
                     tiles_live += lv
                     tiles_total += tt
+                if self.engine.last_moe_drop is not None:
+                    moe_drops.append(self.engine.last_moe_drop)
             perm = sched.maybe_defrag(tick)
             if perm is not None and alloc is None:
                 # dense lines move with their lanes; the paged pool never
@@ -186,7 +191,11 @@ class ElasticServer:
             "latency_p95_s": _pct(token_lat, 95),
             "measured_stage_times": None,
             "stage_time_source": None,
-            "moe_dropped_mean": None,
+            # MoE capacity-overflow telemetry: mean drop fraction over every
+            # prefill / decode call of the trace (None for non-MoE archs)
+            "moe_dropped_mean": (float(np.mean([float(d)
+                                                for d in moe_drops]))
+                                 if moe_drops else None),
             "peak_live_lanes": peak_lanes,
             "page_occupancy_history": page_occ_hist,
             "kv_page_size": alloc.page_size if alloc is not None else 0,

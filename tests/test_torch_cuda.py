@@ -10,6 +10,10 @@ Tolerances: fp32 kernels vs plain at 1e-4 (attention, paged attention) and
 order.  The backward sweeps (K2a / K2b, K3's backward products) sum over
 the sequence (up to 1024 rows) or the token count (up to 2048): 2e-4
 relative to the largest entry in fp32, 3e-2 in bf16 (its 8-bit mantissa).
+The grouped expert matmul (K4, K5) against its plain version: 1e-4
+relative to the largest entry in fp32 (sums over K up to 4096 or over up to
+640 routed rows), one bf16 rounding (2^-7 relative, plus 1e-2 absolute near
+zero) when the output is bf16; a placement gives bitwise-equal results.
 """
 import copy
 
@@ -18,6 +22,8 @@ import torch
 
 from repro_torch.kernels.block_sparse_attention import ops as bsa
 from repro_torch.kernels.block_sparse_attention import ref as bsa_ref
+from repro_torch.kernels.grouped_matmul import ops as gm
+from repro_torch.kernels.grouped_matmul import ref as gm_ref
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.pruned_matmul import ops as pm
@@ -221,3 +227,177 @@ def test_reduced_serve_on_the_card_matches_the_cpu(cuda):
         out[dev] = {c["rid"]: c["tokens"] for c in rep["completions"]}
     assert len(out["cuda"]) == 8
     assert out["cuda"] == out["cpu"]
+
+
+def _counts(g, G, cap, pattern):
+    """Per-group live rows: random, plus an empty and a full group."""
+    c = torch.randint(0, cap + 1, (G,), generator=g, device=g.device)
+    if pattern == "edges":
+        c[0], c[1] = 0, cap
+    return c.to(torch.int32)
+
+
+@pytest.mark.parametrize("G,E,cap,K,N,dt,wmap,trans", [
+    (16, 8, 320, 512, 640, torch.float32, False, False),
+    (16, 8, 200, 384, 300, torch.float32, True, False),    # cap % 128 != 0
+    (32, 8, 8, 256, 384, torch.float32, True, False),      # decode: 16-row
+    (8, 4, 136, 200, 260, torch.bfloat16, False, False),
+    (16, 8, 320, 384, 512, torch.float32, True, True),     # dx: w^T view
+    (16, 8, 96, 256, 384, torch.bfloat16, False, True),
+])
+def test_grouped_matmul_matches_plain(cuda, G, E, cap, K, N, dt, wmap,
+                                      trans):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    counts = _counts(g, G, cap, "edges")
+    x = torch.randn((G * cap, K), generator=g, device=cuda).to(dt)
+    w = (torch.randn((E, N, K) if trans else (E, K, N), generator=g,
+                     device=cuda) * K ** -0.5).to(dt)
+    if trans:
+        w = w.transpose(1, 2)                 # read in place, no copy
+    live = (torch.arange(G * cap, device=cuda) % cap
+            < counts.repeat_interleave(cap))
+    x[~live] = 1e3                            # garbage in dead rows
+    m = (torch.randperm(E, generator=g, device=cuda).to(torch.int32)
+         if wmap else None)
+    before = gm.KERNEL.launches
+    out = gm.grouped_product(x, w, counts, cap, m)
+    assert gm.KERNEL.launches == before + 1
+    want = gm_ref.grouped_product_ref(x, w, counts, cap, m)
+    assert not out[~live].any()               # dead rows are zero
+    if dt == torch.float32:
+        _rel_close(out, want, 1e-4)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("G,E,cap,K,N,dt,out_dt,gmap", [
+    (16, 8, 320, 512, 640, torch.float32, torch.float32, False),
+    (16, 8, 200, 300, 260, torch.float32, torch.float32, True),
+    (32, 8, 8, 256, 384, torch.bfloat16, torch.float32, True),
+    (8, 4, 136, 256, 384, torch.bfloat16, torch.bfloat16, False),
+])
+def test_grouped_matmul_dw_matches_plain(cuda, G, E, cap, K, N, dt, out_dt,
+                                         gmap):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    counts = _counts(g, G, cap, "edges")
+    x = torch.randn((G * cap, K), generator=g, device=cuda).to(dt)
+    gr = torch.randn((G * cap, N), generator=g, device=cuda).to(dt)
+    live = (torch.arange(G * cap, device=cuda) % cap
+            < counts.repeat_interleave(cap))
+    x[~live] = 1e3                            # garbage in dead rows of both
+    gr[~live] = -1e3
+    m = (torch.randperm(E, generator=g, device=cuda).to(torch.int32)
+         if gmap else None)
+    before = gm.KERNEL_DW.launches
+    dw = gm.grouped_product_dw(x, gr, counts, cap, E, m, out_dtype=out_dt)
+    assert gm.KERNEL_DW.launches == before + 1 and dw.dtype == out_dt
+    want = gm_ref.grouped_product_dw_ref(x, gr, counts, cap, E, m)
+    if out_dt == torch.float32:
+        _rel_close(dw, want, 1e-4)
+    else:
+        torch.testing.assert_close(dw.float(), want, atol=1e-2,
+                                   rtol=2 ** -7)
+    # the same bits every run: no atomics
+    assert torch.equal(gm.grouped_product_dw(x, gr, counts, cap, E, m,
+                                             out_dtype=out_dt), dw)
+
+
+def test_grouped_matmul_grads_match_plain(cuda):
+    """The autograd Function's backward (K4 as dx, K5 as dw) against
+    autograd of the plain version, with a placement."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    G, E, cap, K, N = 16, 8, 100, 256, 384
+    counts = _counts(g, G, cap, "edges")
+    x = torch.randn((G, cap, K), generator=g, device=cuda)
+    w = torch.randn((E, K, N), generator=g, device=cuda) * K ** -0.5
+    cot = torch.randn((G, cap, N), generator=g, device=cuda)
+    em = torch.randperm(E, generator=g, device=cuda).float()
+    grads = []
+    for kernel in (True, False):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        if kernel:
+            n0 = (gm.KERNEL.launches, gm.KERNEL_DW.launches)
+            out = gm.grouped_matmul(xx, ww, counts, expert_map=em)
+        else:
+            inv = torch.argsort(em)
+            out = gm_ref.grouped_matmul_ref(xx, ww[inv], counts)
+        (out * cot).sum().backward()
+        if kernel:
+            assert (gm.KERNEL.launches, gm.KERNEL_DW.launches) == (
+                n0[0] + 2, n0[1] + 1)
+        grads.append((xx.grad, ww.grad))
+    for got, want in zip(*grads):
+        _rel_close(got, want, 1e-4)
+
+
+def test_moe_ffn_placement_is_bit_neutral_on_the_card(cuda):
+    """Through the kernels, any expert placement gives the same y, load,
+    drop fraction and weight gradients, bit for bit."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.blocks import moe_ffn
+    cfg = reduced_config(get_config("mixtral-8x7b"), num_layers=2,
+                         d_model=256, d_ff=512)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    p = {"router": torch.randn((d, E), generator=g, device=cuda) * 0.4,
+         "ewi": torch.randn((E, d, ff), generator=g, device=cuda) * 0.06,
+         "ewg": torch.randn((E, d, ff), generator=g, device=cuda) * 0.06,
+         "ewo": torch.randn((E, ff, d), generator=g, device=cuda) * 0.04}
+    x = torch.randn((2, 256, d), generator=g, device=cuda)
+
+    def run(em):
+        pp = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        y, load, aux, drop = moe_ffn(pp, x, cfg, kernel_impl="pallas",
+                                     expert_map=em)
+        ((y ** 2).sum() + aux).backward()
+        return [y.detach(), load, drop] + [pp[k].grad for k in sorted(p)]
+
+    base = run(None)
+    for perm in ([1, 0, 3, 2], [3, 2, 0, 1]):
+        got = run(torch.tensor(perm, dtype=torch.float32, device=cuda))
+        for a, b in zip(got, base):
+            assert torch.equal(a, b), perm
+
+
+def test_reduced_moe_train_and_serve_on_the_card_match_the_cpu(cuda):
+    """Reduced Mixtral through the port's CLIs from the same params: the
+    card (K4, K5) and the CPU (plain versions) give train losses within
+    1e-4 — with live re-layouts on the card run — and the same serve
+    tokens."""
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.launch.serve import run as serve_run
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.models import model as M
+    cfg = reduced_config(get_config("mixtral-8x7b"), num_layers=4,
+                         d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                         vocab_size=256)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg,
+                           DistConfig(num_stages=2, slot_slack=2,
+                                      param_dtype="float32"))
+    common = ["--arch", "mixtral-8x7b", "--layers", "4", "--d-model", "64",
+              "--d-ff", "128", "--vocab-size", "256", "--stages", "2",
+              "--kernel-impl", "pallas"]
+    train = common + ["--seq", "32", "--num-micro", "2", "--mb-global", "2",
+                      "--steps", "6", "--dynamism", "moe",
+                      "--rebalance-every", "2", "--log-every", "100",
+                      "--dynamics.expert_watermark", "1.01",
+                      "--dynamics.expert_min_tokens", "1"]
+    cpu = train_run(train + ["--device", "cpu"],
+                    params=copy.deepcopy(params))
+    n0 = (gm.KERNEL.launches, gm.KERNEL_DW.launches)
+    card = train_run(train + ["--dynamics.expert_relayout"],
+                     params=copy.deepcopy(params))
+    assert gm.KERNEL.launches > n0[0] and gm.KERNEL_DW.launches > n0[1]
+    assert card["relayouts"] and not cpu["relayouts"]
+    torch.testing.assert_close(torch.tensor(card["losses"]),
+                               torch.tensor(cpu["losses"]), atol=1e-4,
+                               rtol=0)
+    serve = common + ["--elastic", "--prompt-len", "16", "--gen", "6",
+                      "--requests", "6"]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        rep = serve_run(serve + ["--device", dev],
+                        params=copy.deepcopy(params))
+        toks[dev] = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    assert len(toks["cuda"]) == 6 and toks["cuda"] == toks["cpu"]

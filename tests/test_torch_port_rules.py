@@ -2,7 +2,9 @@
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither jax nor the JAX
   package — checked in the source and in ``sys.modules`` after a CPU serve
-  and a CPU train.
+  and a CPU train, of smollm and of the MoE slice (reduced Mixtral through
+  the grouped-matmul kernels, the expert layout and the Mixtral config).
+* ``chip_smoke.py``'s MoE phases require K4 and K5 launches.
 * Entry points run on CUDA and raise without a card unless the caller asks
   for the CPU; features outside the slice raise ``NotImplementedError``.
 * ``chip_smoke.py`` fails, and prints no result, without a card or outside
@@ -78,10 +80,48 @@ def test_cpu_train_imports_no_jax_and_no_reference():
     assert "CLEAN 2" in out.stdout
 
 
+MOE_MODULES = ("repro_torch.kernels.grouped_matmul.ops",
+               "repro_torch.kernels.grouped_matmul.backward",
+               "repro_torch.core.expert_layout",
+               "repro_torch.configs.mixtral_8x7b")
+MOE_COMMON = ["--arch", "mixtral-8x7b", "--layers", "4", "--d-model", "64",
+              "--d-ff", "128", "--vocab-size", "256", "--stages", "2",
+              "--kernel-impl", "pallas", "--device", "cpu"]
+
+
+def test_cpu_moe_train_and_serve_import_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.serve import run as serve\n"
+        "from repro_torch.launch.train import run as train\n"
+        f"rep = train({MOE_COMMON!r} + ['--seq', '16', '--num-micro', '2',"
+        " '--mb-global', '2', '--steps', '3', '--dynamism', 'moe',"
+        " '--rebalance-every', '1', '--dynamics.expert_relayout',"
+        " '--dynamics.expert_watermark', '1.01',"
+        " '--dynamics.expert_min_tokens', '1'])\n"
+        "assert len(rep['losses']) == 3 and rep['relayouts'], rep\n"
+        f"srv = serve(['--elastic', '--prompt-len', '8', '--gen', '4',"
+        f" '--requests', '4'] + {MOE_COMMON!r})\n"
+        "assert srv['moe_dropped_mean'] is not None\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        f"missing = [m for m in {MOE_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "print('CLEAN', len(rep['relayouts']))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN" in out.stdout
+
+
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
+    for mod in MOE_MODULES:
+        assert mod.replace(".", "/") + ".py" in names, mod
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
@@ -146,7 +186,7 @@ def test_features_outside_the_slice_raise(extra, what):
     (["--in-step-timing"], "in-step"),
     (["--dynamism", "early_exit"], "early_exit"),
     (["--dynamism", "mod"], "mod"),
-    (["--dynamism", "moe"], "moe"),
+    (["--arch", "mixtral-8x7b", "--dynamism", "pruning"], "moe"),
 ])
 def test_train_features_outside_the_slice_raise(extra, what):
     from repro_torch.launch.train import run
@@ -192,6 +232,29 @@ def test_chip_smoke_counts_device_time_once():
     assert smoke.device_times(ev) == {"pm_kernel<float>": 5.0, "sgemm": 2.5}
 
 
+def test_chip_smoke_moe_phases_require_k4_and_k5():
+    """The MoE train phase holds K4 and K5 to their launches per step (48
+    and 24 at 2 layers x 4 microbatches) and the MoE serve phase requires
+    K4; the check fails a run in which either launched no time."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    per_step = smoke.MOE_TRAIN_LAUNCHES_PER_STEP
+    assert per_step["grouped_matmul"] == 48
+    assert per_step["grouped_matmul_dw"] == 24
+    assert "grouped_matmul" in smoke.MOE_SERVE_PATH
+    steps = 8
+    good = {"grouped_matmul": 48 * steps, "grouped_matmul_dw": 24 * steps,
+            "block_sparse_attention": 0}
+    smoke.check_launches("moe train", good, per_step, steps)
+    for name in ("grouped_matmul", "grouped_matmul_dw"):
+        with pytest.raises(AssertionError, match=name):
+            smoke.check_launches("moe train", {**good, name: 0}, per_step,
+                                 steps)
+
+
 @pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
 def test_convert_round_trips_reference_params_bit_exactly(param_dtype):
     pytest.importorskip("jax")
@@ -208,6 +271,49 @@ def test_convert_round_trips_reference_params_bit_exactly(param_dtype):
     want_dt = torch.bfloat16 if param_dtype == "bfloat16" else torch.float32
     assert tree["stages"]["wq"].dtype == want_dt
     assert tree["embed"].dtype == torch.float32
+    back = convert.to_numpy(tree, like=ref)
+    flat_ref = jax.tree_util.tree_leaves_with_path(ref)
+    flat_back = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_ref) == len(flat_back)
+    for path, a in flat_ref:
+        b = flat_back[path]
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+
+
+def test_convert_carries_reference_moe_trees_bit_exactly():
+    """A reference Mixtral tree (bf16 experts, the fp32 router) and its
+    ``expert_map`` dyn leaf reach the port bit-exactly, in the dtypes and
+    shapes the port's own spec gives them."""
+    pytest.importorskip("jax")
+    import jax
+    from repro.configs import DistConfig, get_config, reduced_config
+    from repro.dynamics.config import DynamicsConfig
+    from repro.models import model as JM
+    from repro_torch import convert
+    from repro_torch.configs import DistConfig as TDist
+    from repro_torch.configs import get_config as tget
+    from repro_torch.configs import reduced_config as treduce
+    from repro_torch.dynamics.config import DynamicsConfig as TDyn
+    from repro_torch.launch.engine import _check_tree
+    from repro_torch.models import model as TM
+
+    cfg = reduced_config(get_config("mixtral-8x7b"))
+    dcfg = DistConfig(num_stages=2, param_dtype="bfloat16")
+    ref = jax.tree.map(np.asarray, {
+        "params": JM.init_params(jax.random.PRNGKey(4), cfg, dcfg),
+        "dyn": JM.init_dyn(cfg, dcfg, DynamicsConfig(
+            kind="moe", expert_relayout=True))})
+    tree = convert.to_torch(ref, "cpu")
+    st = tree["params"]["stages"]
+    assert st["router"].dtype == torch.float32
+    assert st["ewg"].dtype == st["ewo"].dtype == torch.bfloat16
+    tcfg = treduce(tget("mixtral-8x7b"))
+    tdcfg = TDist(num_stages=2, param_dtype="bfloat16")
+    _check_tree(tree["params"], TM.param_spec(tcfg, tdcfg))
+    tdyn = TM.init_dyn(tcfg, tdcfg, TDyn(kind="moe", expert_relayout=True))
+    assert set(tdyn) == set(tree["dyn"])
+    assert torch.equal(tdyn["expert_map"], tree["dyn"]["expert_map"])
     back = convert.to_numpy(tree, like=ref)
     flat_ref = jax.tree_util.tree_leaves_with_path(ref)
     flat_back = dict(jax.tree_util.tree_leaves_with_path(back))

@@ -91,11 +91,13 @@ def test_prefill_and_decode_fns_match_reference():
             jcfg, jd, DynamicsConfig(kind="pruning"), mesh, jshapes))(
             params, assign, dyn, JM.init_cache(jcfg, jd, m, B, cap),
             {"tokens": jnp.asarray(tokens)})
-    tids, tcache = TP.build_prefill_fn(tcfg, td, TDyn(kind="pruning"),
-                                       tshapes)(
+    tids, tcache, tdrop = TP.build_prefill_fn(tcfg, td,
+                                              TDyn(kind="pruning"),
+                                              tshapes)(
         tparams, tas, tdyn, TM.init_cache(tcfg, td, m, B, cap),
         {"tokens": torch.from_numpy(tokens)})
     assert np.array_equal(tids.numpy(), np.asarray(jids))
+    assert float(tdrop) == 0.0                # a dense arch drops nothing
     for k in "kv":
         close(tcache[k], jcache[k], **BF16)
 
@@ -129,9 +131,10 @@ def test_prefill_and_decode_fns_match_reference():
                                    paged=paged, num_micro=live)
         t_cache = {k: v.clone() for k, v in (tpool if paged
                                              else tcache).items()}
-        t_ids, t_lp, t_c = t_dec(tparams, tas, tdyn, t_cache,
-                                 torch.from_numpy(nxt), torch.from_numpy(pos),
-                                 torch.from_numpy(table) if paged else None)
+        t_ids, t_lp, t_c, _ = t_dec(
+            tparams, tas, tdyn, t_cache, torch.from_numpy(nxt),
+            torch.from_numpy(pos),
+            torch.from_numpy(table) if paged else None)
         rows = slice(None) if live is None else slice(0, live)
         assert np.array_equal(t_ids.numpy()[rows], np.asarray(j_ids)[rows])
         close(t_lp[rows], np.asarray(j_lp)[rows])

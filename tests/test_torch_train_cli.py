@@ -35,9 +35,10 @@ PORT_WIDTHS = ["--num-heads", "4", "--num-kv-heads", "2", "--d-ff", "256",
                "--vocab-size", "256"]
 
 
-def reference_run(argv, tmp_path):
+def reference_run(argv, tmp_path, keys=()):
     """Run the reference CLI's Session on ``argv``; returns (report
-    summary, initial params as a numpy tree)."""
+    summary — losses, final split, events and the report's ``keys`` —,
+    initial params as a numpy tree)."""
     npz = os.path.join(str(tmp_path), "init.npz")
     out = run_in_subprocess(f"""
 import argparse, json
@@ -72,7 +73,8 @@ put("params", params)
 np.savez({npz!r}, **flat)
 print("REPORT " + json.dumps({{
     "losses": rep["losses"], "final_lps": rep["final_lps"],
-    "events": [[e.iteration, e.moved_layers] for e in rep["events"]]}}))
+    "events": [[e.iteration, e.moved_layers] for e in rep["events"]],
+    **{{k: rep[k] for k in {tuple(keys)!r}}}}}))
 """, devices=2)
     line = [ln for ln in out.splitlines() if ln.startswith("REPORT ")][-1]
     tree = {"params": {"shared": {}}}
