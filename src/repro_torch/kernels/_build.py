@@ -3,11 +3,11 @@
 Each kernel package keeps its sources under ``csrc/``.  On first use, one
 ``nvcc`` per source compiles a shared library with a plain C interface for
 ``sm_90a`` (Hopper) into ``build/repro_torch_kernels/`` at the repository
-root; the file name carries a hash of the source, the headers beside it,
-the shared header and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  Kernels that share a source (K2a and K2b) share
-one library, built once.  ``build`` starts
-every missing compile at once and waits for all of them.  The libraries are
+root; the file name carries a hash of the source, every header (``*.cuh``)
+under ``kernels/`` and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  Kernels that share a source (K2a
+and K2b, K4 and K5) share one library, built once.  ``build`` starts every
+missing compile at once and waits for all of them.  The libraries are
 loaded with ``ctypes``: pointers and the CUDA stream go in as
 ``c_void_p``, every launcher returns ``cudaGetLastError()`` and ``launch``
 raises when that is not 0.
@@ -32,7 +32,6 @@ import torch
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
-COMMON_HEADER = KERNELS_DIR / "common.cuh"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -58,7 +57,8 @@ class Kernel:
     ``launches`` is a plain int that ``launch`` raises by one for every
     kernel launch and nothing else touches, so a run can show that its main
     path really went through the kernel; ``launches_bwd`` counts the subset
-    launched by a backward pass (K3's backward products)."""
+    launched by a backward pass (K3's backward products), ``launches_tc``
+    the subset that went to a tensor-core variant (K4, K5)."""
 
     def __init__(self, name: str, source: str, replaces: str,
                  functions: Dict[str, Sequence]):
@@ -68,18 +68,19 @@ class Kernel:
         self.functions = dict(functions)     # C symbol -> ctypes argtypes
         self.launches = 0
         self.launches_bwd = 0
+        self.launches_tc = 0
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset(self) -> None:
         """Zero the launch counters."""
         self.launches = 0
         self.launches_bwd = 0
+        self.launches_tc = 0
 
     # -- build ---------------------------------------------------------------
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for p in (self.source, COMMON_HEADER,
-                  *sorted(self.source.parent.glob("*.cuh"))):
+        for p in (self.source, *sorted(KERNELS_DIR.rglob("*.cuh"))):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
@@ -105,9 +106,11 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, symbol: str, *args, bwd: bool = False) -> None:
+    def launch(self, symbol: str, *args, bwd: bool = False,
+               tc: bool = False) -> None:
         """Call one C launcher on the current stream and raise if the launch
-        was refused (``cudaGetLastError`` != 0)."""
+        was refused (``cudaGetLastError`` != 0); ``bwd`` / ``tc`` count it
+        as a backward / tensor-core launch too."""
         fn = getattr(self.lib(), symbol)
         err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err != 0:
@@ -116,6 +119,8 @@ class Kernel:
         self.launches += 1
         if bwd:
             self.launches_bwd += 1
+        if tc:
+            self.launches_tc += 1
 
 
 def build(kernels: Iterable[Kernel]) -> Dict[str, float]:

@@ -13,6 +13,21 @@ The expert placement (``expert_map``: logical expert -> physical group) is
 folded into the kernels' weight index instead of gathering the weights.
 Counts stay an int32 tensor on the device (the reference's float32 counts
 were a ``custom_vjp`` workaround) and are not a gradient input.
+
+Each CUDA call goes to one of two variants of its kernel, chosen by
+``gm_variant`` from dtype, shape and strides alone:
+
+- ``"tc"`` — the tensor-core variant (``gm_fwd_tc`` / ``gm_dw_tc``:
+  wgmma on TMA-fed shared memory): bf16 operands, ``cap > 16``, K and N
+  multiples of 8 (TMA needs rows of 16 bytes), every pointer 16-byte
+  aligned, and for K4 w either N-contiguous (the forward) or K-contiguous
+  (the dx view ``w.transpose(1, 2)``) with its other strides multiples of
+  8.  ``wgmma`` has no fp32 form, and TF32 would change fp32's numerics.
+- ``"simt"`` — the CUDA-core variant (``gm_fwd`` / ``gm_dw``): every fp32
+  call, the decode tile (``cap <= 16``), and any other shape or stride.
+
+A call that meets the tensor-core conditions launches that variant or
+raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -31,13 +46,38 @@ _SRC = "grouped_matmul/csrc/grouped_matmul.cu"
 KERNEL = Kernel(
     "grouped_matmul", _SRC,
     replaces="src/repro/kernels/grouped_matmul/grouped_matmul.py:67",
-    functions={"gm_fwd": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_I, _P]})
+    functions={"gm_fwd": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_I, _P],
+               "gm_fwd_tc": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_P]})
 KERNEL_DW = Kernel(
     "grouped_matmul_dw", _SRC,
     replaces="src/repro/kernels/grouped_matmul/grouped_matmul.py:115",
-    functions={"gm_dw": [_P] * 5 + [_I] * 5 + [_I, _I, _P]})
+    functions={"gm_dw": [_P] * 5 + [_I] * 5 + [_I, _I, _P],
+               "gm_dw_tc": [_P] * 5 + [_I] * 5 + [_I, _P]})
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gm_variant(dtype, cap: int, K: int, N: int, w_stride=None,
+               aligned: bool = True) -> str:
+    """Which variant of K4 (``w_stride`` = w's (expert, k, n) strides in
+    elements) or K5 (``w_stride`` None) serves a CUDA call: "tc" or
+    "simt" (module docstring).  ``aligned``: every pointer of the call is
+    16-byte aligned."""
+    if not (dtype == torch.bfloat16 and cap > 16 and K > 0 and N > 0
+            and K % 8 == 0 and N % 8 == 0 and aligned):
+        return "simt"
+    if w_stride is None:
+        return "tc"
+    se, sk, sn = w_stride
+    if sn == 1 and sk % 8 == 0 and se % 8 == 0 and sk > 0 and se > 0:
+        return "tc"
+    if sk == 1 and sn % 8 == 0 and se % 8 == 0 and sn > 0 and se > 0:
+        return "tc"
+    return "simt"
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _shapes(x, cap: int, E: int) -> Tuple[int, int]:
@@ -86,9 +126,12 @@ def grouped_product(x, w, counts, cap: int, wmap=None, *,
     c, c_ptr = _index(counts, x.device)
     m, m_ptr = _index(wmap, x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    KERNEL.launch("gm_fwd", x.data_ptr(), w.data_ptr(), c_ptr, m_ptr,
-                  out.data_ptr(), G, cap, K, N, E, *w.stride(),
-                  dtype_code(x.dtype), bwd=bwd)
+    args = (x.data_ptr(), w.data_ptr(), c_ptr, m_ptr, out.data_ptr(), G, cap,
+            K, N, E, *w.stride())
+    if gm_variant(x.dtype, cap, K, N, w.stride(), _aligned(x, w)) == "tc":
+        KERNEL.launch("gm_fwd_tc", *args, bwd=bwd, tc=True)
+    else:
+        KERNEL.launch("gm_fwd", *args, dtype_code(x.dtype), bwd=bwd)
     return out
 
 
@@ -113,9 +156,14 @@ def grouped_product_dw(x, g, counts, cap: int, num_experts: int,
     c, c_ptr = _index(counts, x.device)
     m, m_ptr = _index(gmap, x.device)
     dw = torch.empty((E, K, N), dtype=out_dtype, device=x.device)
-    KERNEL_DW.launch("gm_dw", x.data_ptr(), g.data_ptr(), c_ptr, m_ptr,
-                     dw.data_ptr(), G, cap, K, N, E, dtype_code(x.dtype),
-                     dtype_code(out_dtype), bwd=True)
+    args = (x.data_ptr(), g.data_ptr(), c_ptr, m_ptr, dw.data_ptr(), G, cap,
+            K, N, E)
+    if gm_variant(x.dtype, cap, K, N, aligned=_aligned(x, g)) == "tc":
+        KERNEL_DW.launch("gm_dw_tc", *args, dtype_code(out_dtype), bwd=True,
+                         tc=True)
+    else:
+        KERNEL_DW.launch("gm_dw", *args, dtype_code(x.dtype),
+                         dtype_code(out_dtype), bwd=True)
     return dw
 
 

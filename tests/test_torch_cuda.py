@@ -14,6 +14,9 @@ The grouped expert matmul (K4, K5) against its plain version: 1e-4
 relative to the largest entry in fp32 (sums over K up to 4096 or over up to
 640 routed rows), one bf16 rounding (2^-7 relative, plus 1e-2 absolute near
 zero) when the output is bf16; a placement gives bitwise-equal results.
+bf16 calls with cap > 16 and K, N multiples of 8 run the tensor-core
+variant (wgmma on TMA-fed shared memory) under the same tolerances; each
+case checks that the variant ``ops.gm_variant`` chose is the one that ran.
 """
 import copy
 
@@ -244,6 +247,12 @@ def _counts(g, G, cap, pattern):
     (8, 4, 136, 200, 260, torch.bfloat16, False, False),
     (16, 8, 320, 384, 512, torch.float32, True, True),     # dx: w^T view
     (16, 8, 96, 256, 384, torch.bfloat16, False, True),
+    # the tensor-core variant: ragged cap / K / N edges, a placement, both
+    # weight layouts (forward: N-contiguous; dx: the K-contiguous w^T view)
+    (16, 8, 200, 328, 392, torch.bfloat16, True, False),
+    (16, 8, 200, 328, 392, torch.bfloat16, True, True),
+    (16, 8, 320, 512, 640, torch.bfloat16, False, False),
+    (16, 8, 320, 384, 512, torch.bfloat16, False, True),
 ])
 def test_grouped_matmul_matches_plain(cuda, G, E, cap, K, N, dt, wmap,
                                       trans):
@@ -259,9 +268,11 @@ def test_grouped_matmul_matches_plain(cuda, G, E, cap, K, N, dt, wmap,
     x[~live] = 1e3                            # garbage in dead rows
     m = (torch.randperm(E, generator=g, device=cuda).to(torch.int32)
          if wmap else None)
-    before = gm.KERNEL.launches
+    before, tc0 = gm.KERNEL.launches, gm.KERNEL.launches_tc
     out = gm.grouped_product(x, w, counts, cap, m)
     assert gm.KERNEL.launches == before + 1
+    tc = gm.gm_variant(dt, cap, K, N, w.stride()) == "tc"
+    assert gm.KERNEL.launches_tc == tc0 + tc
     want = gm_ref.grouped_product_ref(x, w, counts, cap, m)
     assert not out[~live].any()               # dead rows are zero
     if dt == torch.float32:
@@ -276,6 +287,10 @@ def test_grouped_matmul_matches_plain(cuda, G, E, cap, K, N, dt, wmap,
     (16, 8, 200, 300, 260, torch.float32, torch.float32, True),
     (32, 8, 8, 256, 384, torch.bfloat16, torch.float32, True),
     (8, 4, 136, 256, 384, torch.bfloat16, torch.bfloat16, False),
+    # the tensor-core variant at ragged cap / K / N edges
+    (16, 8, 200, 328, 392, torch.bfloat16, torch.float32, True),
+    (16, 8, 200, 328, 392, torch.bfloat16, torch.bfloat16, True),
+    (16, 8, 320, 512, 640, torch.bfloat16, torch.float32, False),
 ])
 def test_grouped_matmul_dw_matches_plain(cuda, G, E, cap, K, N, dt, out_dt,
                                          gmap):
@@ -289,9 +304,11 @@ def test_grouped_matmul_dw_matches_plain(cuda, G, E, cap, K, N, dt, out_dt,
     gr[~live] = -1e3
     m = (torch.randperm(E, generator=g, device=cuda).to(torch.int32)
          if gmap else None)
-    before = gm.KERNEL_DW.launches
+    before, tc0 = gm.KERNEL_DW.launches, gm.KERNEL_DW.launches_tc
     dw = gm.grouped_product_dw(x, gr, counts, cap, E, m, out_dtype=out_dt)
     assert gm.KERNEL_DW.launches == before + 1 and dw.dtype == out_dt
+    tc = gm.gm_variant(dt, cap, K, N) == "tc"
+    assert gm.KERNEL_DW.launches_tc == tc0 + tc
     want = gm_ref.grouped_product_dw_ref(x, gr, counts, cap, E, m)
     if out_dt == torch.float32:
         _rel_close(dw, want, 1e-4)
@@ -331,9 +348,11 @@ def test_grouped_matmul_grads_match_plain(cuda):
         _rel_close(got, want, 1e-4)
 
 
-def test_moe_ffn_placement_is_bit_neutral_on_the_card(cuda):
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_moe_ffn_placement_is_bit_neutral_on_the_card(cuda, dt):
     """Through the kernels, any expert placement gives the same y, load,
-    drop fraction and weight gradients, bit for bit."""
+    drop fraction and weight gradients, bit for bit (bf16 experts run the
+    tensor-core variant)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.blocks import moe_ffn
     cfg = reduced_config(get_config("mixtral-8x7b"), num_layers=2,
@@ -344,7 +363,9 @@ def test_moe_ffn_placement_is_bit_neutral_on_the_card(cuda):
          "ewi": torch.randn((E, d, ff), generator=g, device=cuda) * 0.06,
          "ewg": torch.randn((E, d, ff), generator=g, device=cuda) * 0.06,
          "ewo": torch.randn((E, ff, d), generator=g, device=cuda) * 0.04}
-    x = torch.randn((2, 256, d), generator=g, device=cuda)
+    p.update({k: v.to(dt) for k, v in p.items() if k != "router"})
+    x = torch.randn((2, 256, d), generator=g, device=cuda).to(dt)
+    tc0 = gm.KERNEL.launches_tc
 
     def run(em):
         pp = {k: v.clone().requires_grad_(True) for k, v in p.items()}
@@ -354,6 +375,7 @@ def test_moe_ffn_placement_is_bit_neutral_on_the_card(cuda):
         return [y.detach(), load, drop] + [pp[k].grad for k in sorted(p)]
 
     base = run(None)
+    assert (gm.KERNEL.launches_tc > tc0) == (dt == torch.bfloat16)
     for perm in ([1, 0, 3, 2], [3, 2, 0, 1]):
         got = run(torch.tensor(perm, dtype=torch.float32, device=cuda))
         for a, b in zip(got, base):
