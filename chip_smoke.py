@@ -13,11 +13,20 @@ final line:
                card at the main path's full-width shapes and at edge shapes,
                with the tolerance stated; kernel / plain / library times
                (CUDA events, warmed up, L2 warm) and the roofline bound;
+               each K3 case names its variant ("tc": 3xTF32 mma.sync, every
+               mask block of 128; "simt": the 64 and 48 edge cases), is
+               bitwise equal on a repeat, and at the main shapes K3's
+               distance from a float64 product must be at most twice
+               torch.matmul's (fp32, allow_tf32 False); K3 and K2b also
+               print the bound of the 3xTF32 route (three TF32 passes);
   3c.        the backward sweeps K2a (dq) and K2b (dk/dv) at the training
                shapes (dense causal, a 512-block mask with dead tiles,
-               partial blocks, fully masked rows, bf16);
+               partial blocks, fully masked rows, bf16); K2b on the tensor
+               cores over its work schedule, bitwise equal on a repeat;
   3d.        K3's backward products (dx, dw for a mask over N and over K,
-               dense and 87 % pruned) against torch.matmul;
+               dense and 87 % pruned) against torch.matmul, all on the
+               tensor-core variant, bitwise on a repeat, within twice
+               torch.matmul's distance from float64;
   3e.        the grouped expert matmul K4 (forward and as dx on a
                transposed weight view) and its weight gradient K5 at the
                Mixtral-8x7B training shapes (b 2, s 1024, cap 320, 16
@@ -35,7 +44,8 @@ final line:
                full-width smollm-360m, one stage, paged KV + prefix cache,
                sparse attention, kernel_impl "pallas"; launch counters are
                zeroed just before and read just after, and every kernel of
-               the path must have launched;
+               the path must have launched, every K3 launch on the tensor
+               cores;
   4b. profile — device time by kernel over a shorter serve (4 requests)
                under torch.profiler, and the device's busy share against
                the same serve's wall time without the profiler;
@@ -45,7 +55,8 @@ final line:
                step 10 and a rebalance cadence every 5 steps under a 2x
                straggler; counters zeroed just before and read just after:
                per step K1 128, K2a 128, K2b 128, K3 384 forward + 768
-               backward launches; a migration must move layers;
+               backward launches, every K3 and K2b launch on the tensor
+               cores; a migration must move layers;
   4d. profile — two train steps under torch.profiler: busy share and
                device time by kernel;
   4e. moe train — the training CLI on full-width Mixtral-8x7B cut to 2
@@ -97,6 +108,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet) used for the roofline bound
 PEAK_FP32_FLOPS = 67e12      # fp32 on the CUDA cores
 PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores (dense)
+PEAK_TF32_FLOPS = 495e12     # TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12         # HBM3
 
 def serve_args(requests: int):
@@ -136,6 +148,9 @@ MOE_TRAIN_LAUNCHES_PER_STEP = {"grouped_matmul": 48,
                                "block_sparse_attention_bwd_dkv": 0,
                                "pruned_matmul": 0}
 MOE_SERVE_PATH = ("grouped_matmul",)
+# the kernels every launch of which on the smollm paths (phases 4, 4c) must
+# take the 3xTF32 tensor-core variant
+FP32_TC_PATH = ("pruned_matmul", "block_sparse_attention_bwd_dkv")
 
 
 def moe_arch(layers: int) -> str:
@@ -305,6 +320,26 @@ def check_block_sparse_attention(torch, F):
                 shape=f"b{b} s{s} hq{hq} hkv{hkv} d{d} block{block} fp32")
 
 
+def k3_variant(name: str, pm, before: int, x, w, axis: str, blk: int,
+               launches: int = 1) -> str:
+    """The variant a K3 call ran, from its tensor-core launch count: it
+    must be the one ``ops.pm_variant`` chose for these strides."""
+    decided = pm.pm_variant(x.dtype, axis, blk, x.stride(), w.stride(),
+                            x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    ran = pm.KERNEL.launches_tc - before
+    got = "tc" if ran == launches else "simt" if ran == 0 else "mixed"
+    if got != decided:
+        raise AssertionError(f"{name}: {ran} of {launches} launches took the "
+                             f"tensor cores, dispatch chose {decided}")
+    return got
+
+
+def tf32x3_bound(flops: float, nbytes: float):
+    """The bound of the 3xTF32 route: three TF32 passes at the tensor
+    cores' TF32 rate, or the bytes."""
+    return bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+
+
 def check_pruned_matmul(torch, F):
     from repro_torch.kernels.pruned_matmul import ops, ref
     dev = "cuda"
@@ -319,12 +354,38 @@ def check_pruned_matmul(torch, F):
         if density < 1.0:
             bm[0] = 1.0
         kw = dict(mask_axis=axis, bn=blk, bk=blk)
+        tc0 = ops.KERNEL.launches_tc
         out = ops.pruned_matmul(x, w, bm, **kw)
+        again = ops.pruned_matmul(x, w, bm, **kw)
         torch.cuda.synchronize()
+        variant = k3_variant(f"K3 {label}", ops, tc0, x, w, axis, blk, 2)
+        if blk == 128 and variant != "tc":
+            raise AssertionError(f"K3 {label}: a main-path mask block ran "
+                                 f"{variant}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K3 {label}: a repeat is not bitwise "
+                                 f"equal")
         want = ref.pruned_matmul_ref(x, w, bm, **kw)
         e = check_close(f"K3 {label}", out, want, atol, atol)
+        extra = {}
+        if label.startswith("main"):
+            # K3 and torch.matmul (fp32, allow_tf32 False) against float64
+            m = bm.repeat_interleave(blk)
+            md = m.double()
+            exact = ((x.double() * md) @ w.double() if axis == "k"
+                     else (x.double() @ w.double()) * md)
+            lib = (x * m) @ w if axis == "k" else (x @ w) * m
+            k3_64 = float((out.double() - exact).abs().max())
+            lib_64 = float((lib.double() - exact).abs().max())
+            if k3_64 > 2 * lib_64:
+                raise AssertionError(f"K3 {label}: {k3_64:.3e} from float64, "
+                                     f"more than 2x torch.matmul's "
+                                     f"{lib_64:.3e}")
+            extra = dict(f64_err=f"{k3_64:.3e}",
+                         matmul_f64_err=f"{lib_64:.3e}")
         say("kernels", kernel="K3", case=label.replace(" ", "_"),
-            max_abs_err=f"{e:.3e}", tol=atol)
+            variant=variant, max_abs_err=f"{e:.3e}", tol=atol,
+            repeat="bitwise", **extra)
         return (e if path else 0.0), (x, w, bm, kw)
 
     cases = [
@@ -357,6 +418,7 @@ def check_pruned_matmul(torch, F):
     nbytes = 4.0 * (M * K + K * N + M * N)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 max_abs_err=worst, tol=2e-4, bound=bound(flops, nbytes),
+                bound_tf32x3=tf32x3_bound(flops, nbytes),
                 shape=f"M{M} K{K} N{N} mask n all-live fp32")
 
 
@@ -490,9 +552,18 @@ def check_attention_backward(torch, F):
                  .contiguous())
         dq = ops.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
                                                block=block)
+        tc0 = ops.KERNEL_DKV.launches_tc
         dk, dv = ops.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse,
                                                     delta, block=block)
+        dk2, dv2 = ops.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse,
+                                                      delta, block=block)
         torch.cuda.synchronize()
+        if ops.KERNEL_DKV.launches_tc != tc0 + 2:
+            raise AssertionError(f"K2b {label}: not on the tensor cores")
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"K2b {label}: a repeat is not bitwise "
+                                 f"equal")
+        del dk2, dv2
         rdq, rdk, rdv = ref.block_sparse_attention_bwd_ref(
             q, k, v, m, dout, lse, delta, block=block)
         e_dq = rel_err(f"K2a {label} dq", dq, rdq, rtol)
@@ -504,9 +575,13 @@ def check_attention_backward(torch, F):
         if path:
             worst["dq"] = max(worst["dq"], e_dq)
             worst["dkv"] = max(worst["dkv"], e_dkv)
+        sch = ops.dkv_schedule(b, s, s, hq, hkv, True)
+        steps = sch.items[:, 2] - sch.items[:, 1]
         say("kernels", kernel="K2a/K2b", case=label.replace(" ", "_"),
             dq_err=f"{e_dq:.3e}", dkv_err=f"{e_dkv:.3e}",
-            tol=f"{rtol}*max|plain|")
+            tol=f"{rtol}*max|plain|", dkv_variant="tc", repeat="bitwise",
+            dkv_items=len(steps),
+            dkv_steps_max_over_mean=f"{steps.max() / steps.mean():.3f}")
         if timed is None:
             timed = (q, k, v, m, dout, lse, delta, block)
     q, k, v, m, dout, lse, delta, block = timed
@@ -555,6 +630,8 @@ def check_attention_backward(torch, F):
         "block_sparse_attention_bwd_dkv": dict(
             ms=ms_dkv, plain_ms=plain_dkv, max_abs_err=worst["dkv"],
             bound=bound(4 * flop, in_bytes + 8.0 * b * s * hkv * d),
+            bound_tf32x3=tf32x3_bound(4 * flop,
+                                      in_bytes + 8.0 * b * s * hkv * d),
             **common),
     }
 
@@ -578,11 +655,21 @@ def check_pruned_matmul_backward(torch):
             m = (torch.rand((FF // 128,), generator=g, device=dev)
                  < dens).float()
             m[0] = 1.0
-            b0 = ops.KERNEL.launches_bwd
+            b0, tc0 = ops.KERNEL.launches_bwd, ops.KERNEL.launches_tc
             dx, dw = pruned_matmul_bwd(x, w, m, gr, mask_axis=axis, blk=128)
+            dx2, dw2 = pruned_matmul_bwd(x, w, m, gr, mask_axis=axis,
+                                         blk=128)
             torch.cuda.synchronize()
-            if ops.KERNEL.launches_bwd != b0 + 2:
+            if ops.KERNEL.launches_bwd != b0 + 4:
                 raise AssertionError("K3 backward did not launch twice")
+            if ops.KERNEL.launches_tc != tc0 + 4:
+                raise AssertionError(f"K3 backward {axis}: "
+                                     f"{ops.KERNEL.launches_tc - tc0} of 4 "
+                                     f"launches on the tensor cores")
+            if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                raise AssertionError(f"K3 backward {axis}: a repeat is not "
+                                     f"bitwise equal")
+            del dx2, dw2
             me = m.repeat_interleave(128)
             if axis == "n":
                 wx, ww = (gr * me) @ w.T, x.T @ (gr * me)
@@ -591,8 +678,24 @@ def check_pruned_matmul_backward(torch):
             e = max(rel_err(f"K3 bwd {axis} {dens} dx", dx, wx, 2e-4),
                     rel_err(f"K3 bwd {axis} {dens} dw", dw, ww, 2e-4))
             worst = max(worst, e)
+            extra = {}
+            if dens == 1.0:
+                # both products and torch.matmul against float64
+                xd, wd, gd = x.double(), w.double(), gr.double()
+                ex, ew = gd @ wd.T, xd.T @ gd
+                k3_64 = max(float((dx.double() - ex).abs().max()),
+                            float((dw.double() - ew).abs().max()))
+                lib_64 = max(float(((gr @ w.T).double() - ex).abs().max()),
+                             float(((x.T @ gr).double() - ew).abs().max()))
+                if k3_64 > 2 * lib_64:
+                    raise AssertionError(
+                        f"K3 bwd {axis}: {k3_64:.3e} from float64, more "
+                        f"than 2x torch.matmul's {lib_64:.3e}")
+                extra = dict(f64_err=f"{k3_64:.3e}",
+                             matmul_f64_err=f"{lib_64:.3e}")
             say("kernels", kernel="K3-bwd", case=f"mask_{axis}_keep{dens}",
-                max_abs_err=f"{e:.3e}", tol="2e-4*max|plain|")
+                variant="tc", max_abs_err=f"{e:.3e}",
+                tol="2e-4*max|plain|", repeat="bitwise", **extra)
             if axis == "n":
                 kw = dict(mask_axis=axis, blk=128)
                 keep = float(m.mean())
@@ -603,11 +706,16 @@ def check_pruned_matmul_backward(torch):
                     library_ms=cuda_ms(lambda: (gr @ w.T, x.T @ gr)),
                     bound=bound(2 * 2.0 * M * K * N * keep,
                                 4.0 * (2 * M * K + 2 * K * N + M * N)),
+                    bound_tf32x3=tf32x3_bound(
+                        2 * 2.0 * M * K * N * keep,
+                        4.0 * (2 * M * K + 2 * K * N + M * N)),
                     keep=keep)
     dense, pruned = times[1.0], times[0.13]
     return dict(bwd_ms=dense["ms"], bwd_plain_ms=dense["plain_ms"],
                 bwd_library_ms=dense["library_ms"],
-                bwd_bound=dense["bound"], bwd_max_abs_err=worst,
+                bwd_bound=dense["bound"],
+                bwd_bound_tf32x3=dense["bound_tf32x3"],
+                bwd_max_abs_err=worst,
                 bwd_pruned_ms=pruned["ms"],
                 bwd_pruned_bound=pruned["bound"],
                 bwd_pruned_keep=pruned["keep"],
@@ -909,8 +1017,9 @@ def check_grouped_matmul(torch):
 # ---------------------------------------------------------------------------
 # phase 4b: device time by kernel over a short serve
 # ---------------------------------------------------------------------------
-OURS = re.compile(r"\b(bsa_fwd_kernel|bsa_dq_kernel|bsa_dkv_kernel|"
-                  r"pm_kernel|paged_attn_kernel|gm_kernel|gm_dw_kernel|"
+OURS = re.compile(r"\b(bsa_fwd_kernel|bsa_dq_kernel|bsa_dkv_tc_kernel|"
+                  r"bsa_dkv_sum_kernel|pm_kernel|pm_tc_kernel|"
+                  r"paged_attn_kernel|gm_kernel|gm_dw_kernel|"
                   r"gm_tc_kernel|gm_dw_tc_kernel)<")
 
 
@@ -1614,16 +1723,20 @@ def main() -> int:
     # 3e. the grouped expert matmul and its weight gradient
     results.update(check_grouped_matmul(torch))
     for name, r in results.items():
+        extra = ({"bound_tf32x3_ms": f"{r['bound_tf32x3'][0]:.4f}"}
+                 if "bound_tf32x3" in r else {})
         say("kernels", kernel=name, shape=repr(r["shape"]),
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             library_ms=f"{r['library_ms']:.4f}",
-            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
+            **extra)
     r = results["pruned_matmul"]
     say("kernels", kernel="pruned_matmul(backward dx+dw)",
         shape=repr(r["bwd_shape"]), ms=f"{r['bwd_ms']:.4f}",
         plain_ms=f"{r['bwd_plain_ms']:.4f}",
         library_ms=f"{r['bwd_library_ms']:.4f}",
         bound_ms=f"{r['bwd_bound'][0]:.4f}", bound_by=r["bwd_bound"][1],
+        bound_tf32x3_ms=f"{r['bwd_bound_tf32x3'][0]:.4f}",
         pruned_keep=f"{r['bwd_pruned_keep']:.3f}",
         pruned_ms=f"{r['bwd_pruned_ms']:.4f}",
         pruned_bound_ms=f"{r['bwd_pruned_bound'][0]:.4f}")
@@ -1661,6 +1774,7 @@ def main() -> int:
     missing = [n for n in serve_path if launches[n] <= 0]
     if missing:
         raise AssertionError(f"serve never launched {missing}: {launches}")
+    check_tensor_core("serve", launches, tc, FP32_TC_PATH)
     say("serve", requests=len(comps), tokens=rep["total_tokens"],
         ticks=rep["ticks"], tokens_per_s=f"{rep['tokens_per_s']:.1f}",
         p50_ms=f"{rep['latency_p50_s'] * 1e3:.1f}",
@@ -1679,6 +1793,8 @@ def main() -> int:
     # 4c. train: the training path, counters zeroed just before, read
     # just after
     train_launches, train_bwd = run_train_phase(torch, kernels)
+    train_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    check_tensor_core("train", train_launches, train_tc, FP32_TC_PATH)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
 
@@ -1733,8 +1849,11 @@ def main() -> int:
         for key in ("library_covers", "cases"):
             if key in r:
                 entry[key] = r[key]
+        if "bound_tf32x3" in r:
+            entry["bound_tf32x3_ms"] = r["bound_tf32x3"][0]
         if k.name == "pruned_matmul":
             entry.update(
+                bwd_bound_tf32x3_ms=r["bwd_bound_tf32x3"][0],
                 launches_train_bwd=train_bwd, bwd_ms=r["bwd_ms"],
                 bwd_plain_ms=r["bwd_plain_ms"],
                 bwd_library_ms=r["bwd_library_ms"],

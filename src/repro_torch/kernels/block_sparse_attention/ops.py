@@ -13,11 +13,21 @@ Function saves (q, k, v, out, lse), computes ``delta = rowsum(dout ⊙ out)``
 in torch and hands the rest to the backward sweeps, as the reference's
 ``_bsa_flat`` custom VJP does.  ``attention_tile_work`` is the reference's
 tile accounting, unchanged.
+
+K2b runs on the tensor cores (3xTF32 ``mma.sync``) over a work schedule
+that ``dkv_schedule`` computes from the shapes and causality alone (never
+from the mask's values, so nothing is copied from the device): each item
+is a run of (q head of the GQA group, q tile) steps of one kv tile, the
+items near-equal in steps and run longest first.  Each item writes fp32
+partial dk / dv into a scratch buffer the wrapper allocates; a second
+kernel of the same launch sums each kv tile's partials in a fixed order.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,9 +53,77 @@ KERNEL_DKV = Kernel(
     "block_sparse_attention_bwd_dkv",
     "block_sparse_attention/csrc/block_sparse_attention_bwd.cu",
     replaces=_SRC + "backward.py:164",
-    functions={"bsa_bwd_dkv": [_P] * 9 + _TAIL})
+    functions={"bsa_bwd_dkv": [_P] * 13 + [_I] + _TAIL})
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# K2b's tiles (bsa_dkv_tc_kernel's BQ, BK) and how finely its schedule cuts
+# the work: about 8 items per SM of an H100 (132 SMs, 2 blocks each: four
+# waves), so that no SM waits long on the last wave
+DKV_TILE = 64
+DKV_ITEMS_PER_SM, DKV_SMS = 8, 132
+
+
+class DkvSchedule(NamedTuple):
+    """K2b's work items and where their partials go.
+
+    ``items`` int32 [n, 4]: (kv tile id, first step, end step, slot),
+    longest first; kv tile id = (batch * hkv + kv head) * n_kv_tiles + kv
+    tile, and step s of a kv tile is (q head of the group s // nq, q tile
+    qt0 + s % nq), where q tiles before qt0 lie wholly above the causal
+    diagonal.  ``offsets`` int32 [tiles + 1]: the slots of kv tile i are
+    offsets[i] .. offsets[i + 1] - 1, in step order.  Both arrays are
+    read-only: the schedule is cached and shared."""
+    items: np.ndarray
+    offsets: np.ndarray
+
+
+def dkv_tile_steps(sq: int, sk: int, rep: int, causal: bool):
+    """[(kv tile, first live q tile qt0, steps)] for every kv tile: the
+    group's ``rep`` q heads times the q tiles that reach the kv tile."""
+    n_qt, n_kt = -(-sq // DKV_TILE), -(-sk // DKV_TILE)
+    out = []
+    for kt in range(n_kt):
+        qt0 = min(kt, n_qt) if causal else 0     # BQ == BK
+        out.append((kt, qt0, rep * (n_qt - qt0)))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def dkv_schedule(b: int, sq: int, sk: int, hq: int, hkv: int,
+                 causal: bool) -> DkvSchedule:
+    """Cut K2b's work into near-equal items (the module docstring): each kv
+    tile's steps are split into ceil(steps / T) runs as equal as possible,
+    T chosen so that the whole has about DKV_ITEMS_PER_SM items per SM."""
+    per_tile = dkv_tile_steps(sq, sk, hq // hkv, causal)
+    n_tiles = b * hkv * len(per_tile)
+    total = b * hkv * sum(n for _, _, n in per_tile)
+    T = max(1, -(-total // (DKV_ITEMS_PER_SM * DKV_SMS)))
+    items, offsets, slot = [], [0], 0
+    for tile in range(n_tiles):
+        steps = per_tile[tile % len(per_tile)][2]
+        parts = -(-steps // T)
+        s0 = 0
+        for p in range(parts):
+            n = steps // parts + (p < steps % parts)
+            items.append((tile, s0, s0 + n, slot))
+            s0, slot = s0 + n, slot + 1
+        offsets.append(slot)
+    items.sort(key=lambda it: (it[1] - it[2], it[0], it[1]))
+    arrays = (np.asarray(items, np.int32).reshape(-1, 4),
+              np.asarray(offsets, np.int32))
+    for a in arrays:
+        a.setflags(write=False)
+    return DkvSchedule(*arrays)
+
+
+@functools.lru_cache(maxsize=64)
+def _dkv_schedule_on(device, *shape):
+    """The schedule's int32 tensors on ``device`` (copied there once)."""
+    sch = dkv_schedule(*shape)
+    return (torch.tensor(sch.items, device=device),
+            torch.tensor(sch.offsets, device=device), sch.items.shape[0],
+            int(sch.offsets[-1]))
 
 
 def _check_shapes(q, k, v, block_mask, block):
@@ -123,33 +201,45 @@ def _bwd_prep(q, k, v, block_mask, dout, lse, delta, block):
     return dout, mask, msb, msh, nkb
 
 
-def _sweep(kernel, symbol, outs, q, k, v, block_mask, dout, lse, delta,
-           causal, block):
+def _sweep(kernel, symbol, outs, extra, q, k, v, block_mask, dout, lse,
+           delta, causal, block, tc=False):
     dout, mask, msb, msh, nkb = _bwd_prep(q, k, v, block_mask, dout, lse,
                                           delta, block)
     if q.shape[1] == 0:
         return outs
     kernel.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), *(t.data_ptr() for t in outs),
+                  delta.data_ptr(), *(t.data_ptr() for t in outs), *extra,
                   *_dims(q, k, block, nkb), msb, msh, int(causal),
-                  1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype))
+                  1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype),
+                  tc=tc)
     return outs
 
 
 def block_sparse_attention_bwd_dq(q, k, v, block_mask, dout, lse, delta, *,
                                   causal: bool = True, block: int = 128):
     """K2a, the dq sweep (CUDA tensors only)."""
-    return _sweep(KERNEL_DQ, "bsa_bwd_dq", (torch.empty_like(q),), q, k, v,
-                  block_mask, dout, lse, delta, causal, block)[0]
+    return _sweep(KERNEL_DQ, "bsa_bwd_dq", (torch.empty_like(q),), (), q, k,
+                  v, block_mask, dout, lse, delta, causal, block)[0]
 
 
 def block_sparse_attention_bwd_dkv(q, k, v, block_mask, dout, lse, delta, *,
                                    causal: bool = True, block: int = 128):
-    """K2b, the dk / dv sweep (CUDA tensors only)."""
+    """K2b, the dk / dv sweep (CUDA tensors only): one launch of the
+    tensor-core item kernel and its fixed-order sum over ``dkv_schedule``;
+    the fp32 partials live in scratch allocated here."""
+    b, sq, hq, d = q.shape
+    if sq == 0:
+        return torch.zeros_like(k), torch.zeros_like(v)
+    items, offsets, n_items, slots = _dkv_schedule_on(
+        q.device, b, sq, k.shape[1], hq, k.shape[2], bool(causal))
+    part = torch.empty((2, max(slots, 1), DKV_TILE, d), dtype=torch.float32,
+                       device=q.device)
+    extra = (items.data_ptr(), offsets.data_ptr(), part[0].data_ptr(),
+             part[1].data_ptr(), n_items)
     return _sweep(KERNEL_DKV, "bsa_bwd_dkv",
-                  (torch.zeros_like(k), torch.zeros_like(v)), q, k, v,
-                  block_mask, dout, lse, delta, causal, block)
+                  (torch.empty_like(k), torch.empty_like(v)), extra, q, k,
+                  v, block_mask, dout, lse, delta, causal, block, tc=True)
 
 
 def block_sparse_attention_bwd(q, k, v, block_mask, dout, lse, delta, *,

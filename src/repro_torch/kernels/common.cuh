@@ -17,6 +17,14 @@ __device__ __forceinline__ float rt_to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// two consecutive elements (8-byte aligned fp32, 4-byte aligned bf16)
+__device__ __forceinline__ float2 rt_to_f32x2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 rt_to_f32x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 template <typename T>
 __device__ __forceinline__ T rt_from_f32(float x);
 template <>

@@ -32,7 +32,7 @@ def pruned_matmul_bwd(x, w, block_mask, g, *, mask_axis: str = "n",
     needed (``need_dx`` / ``need_dw`` False: a frozen weight) is not
     computed and comes back as None."""
     dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype), g.dtype)
-    xs, ws, gs = x.to(dt), w.to(dt), g.to(dt)
+    xs, ws, gs = x.to(dt), w.to(dt), g.to(dt).contiguous()
     dx = dw = None
     if mask_axis == "n":
         if need_dx:

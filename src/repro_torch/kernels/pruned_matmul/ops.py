@@ -10,6 +10,24 @@ autograd Function whose backward is the reference's ``pruned_matmul_bwd_p``
 ``pruned_swiglu`` is three such calls with ``silu(a)·b`` between them,
 exactly as the reference composes it, and differentiable through them.
 ``matmul_tile_work`` is the reference's tile accounting, unchanged.
+
+Each CUDA product goes to one of two variants of K3, chosen by
+``pm_variant`` from dtype, mask block and strides alone, before the
+launch:
+
+- ``"tc"`` — the tensor-core variant (``pm_fwd_tc``: 3xTF32 ``mma.sync``
+  on a ``cp.async`` ring, fp32-accurate; one pass for bf16): a mask block
+  that is a multiple of the 128-wide output tile (mask over N) or of the
+  64-deep k chunk (mask over K), x and w 16-byte aligned, each with a
+  unit-stride axis and its other stride a multiple of 16 bytes.  Every
+  product of the forward and backward main paths meets these.  An fp32
+  product whose grid would leave the card's last wave mostly idle is cut
+  along K (``pm_splits``) into fp32 slices summed in a fixed order.
+- ``"simt"`` — the CUDA-core kernel (``pm_fwd``): any other mask block
+  (64 over N, 32 or 48 over K) or stride.
+
+A call that meets the tensor-core conditions launches that variant or
+raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -26,9 +44,51 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel(
     "pruned_matmul", "pruned_matmul/csrc/pruned_matmul.cu",
     replaces="src/repro/kernels/pruned_matmul/pruned_matmul.py:83",
-    functions={"pm_fwd": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_I, _P]})
+    functions={"pm_fwd": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_I, _P],
+               "pm_fwd_tc": [_P] * 4 + [_I] * 5 + [_L] * 6
+               + [_P, _I, _I, _P]})
 
 _DTYPES = (torch.float32, torch.bfloat16)
+TC_TILE, TC_CHUNK_K = 128, 64        # pm_tc_kernel's TBM = TBN and TBK
+TC_SMS = 132                         # an H100 SXM's SMs: one tile each
+
+
+def pm_variant(dtype, mask_axis: str, blk: int, x_stride, w_stride,
+               aligned: bool = True) -> str:
+    """Which variant of K3 serves a CUDA product (module docstring): "tc"
+    or "simt".  ``x_stride`` / ``w_stride``: the (row, column) strides of
+    x [M, K] and w [K, N] in elements; ``aligned``: x and w start on 16
+    bytes."""
+    if dtype not in _DTYPES or not aligned or blk <= 0:
+        return "simt"
+    if blk % (TC_TILE if mask_axis == "n" else TC_CHUNK_K):
+        return "simt"
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+
+    def unit_axis(rows, cols):   # one unit-stride axis, the other 16-byte
+        return ((cols == 1 and rows % vec == 0)
+                or (rows == 1 and cols % vec == 0))
+
+    return "tc" if unit_axis(*x_stride) and unit_axis(*w_stride) else "simt"
+
+
+def pm_splits(M: int, K: int, N: int, dtype) -> int:
+    """How many ranges of k chunks a tensor-core product is cut into (fp32
+    only; each range's sum goes to an fp32 slice, added in order by a
+    second kernel).  The card runs one 128 x 128 tile a SM, so a grid that
+    leaves most of its last wave empty (dw of the SwiGLU backward: 160
+    tiles on 132 SMs) is cut along K: the split with the fewest chunk
+    steps on the busiest SM, when that saves at least a fifth."""
+    if dtype != torch.float32:
+        return 1
+    tiles = -(-M // TC_TILE) * -(-N // TC_TILE)
+    nch = -(-K // TC_CHUNK_K)
+
+    def steps(s):
+        return -(-tiles * s // TC_SMS) * -(-nch // s)
+
+    best = min(range(1, 5), key=lambda s: (steps(s), s))
+    return best if steps(best) <= 0.8 * steps(1) else 1
 
 
 def product(x, w, block_mask, mask_axis: str, blk: int, *,
@@ -55,10 +115,20 @@ def product(x, w, block_mask, mask_axis: str, blk: int, *,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} != "
                          f"{(M, N)} {x.dtype}")
     mask = block_mask.to(device=x.device, dtype=torch.int32).contiguous()
-    KERNEL.launch("pm_fwd", x.data_ptr(), w.data_ptr(), mask.data_ptr(),
-                  out.data_ptr(), M, K, N, int(mask_axis == "n"), blk,
-                  *x.stride(), *w.stride(), *out.stride(),
-                  dtype_code(x.dtype), bwd=bwd)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    args = (x.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(), M,
+            K, N, int(mask_axis == "n"), blk, *x.stride(), *w.stride(),
+            *out.stride())
+    if pm_variant(x.dtype, mask_axis, blk, x.stride(), w.stride(),
+                  aligned) == "simt":
+        KERNEL.launch("pm_fwd", *args, dtype_code(x.dtype), bwd=bwd)
+        return out
+    splits = pm_splits(M, K, N, x.dtype)
+    part = (torch.empty((splits, M, N), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    KERNEL.launch("pm_fwd_tc", *args,
+                  None if part is None else part.data_ptr(), splits,
+                  dtype_code(x.dtype), bwd=bwd, tc=True)
     return out
 
 

@@ -17,6 +17,10 @@ zero) when the output is bf16; a placement gives bitwise-equal results.
 bf16 calls with cap > 16 and K, N multiples of 8 run the tensor-core
 variant (wgmma on TMA-fed shared memory) under the same tolerances; each
 case checks that the variant ``ops.gm_variant`` chose is the one that ran.
+K3's tensor-core variant (3xTF32 ``mma.sync``) is held to the same fp32
+tolerances in each of its five operand layouts, bf16 within one bf16
+rounding; K2b (3xTF32 over a work schedule, fixed-order partial sums) at
+2e-4 of the largest entry; both bitwise equal on a repeat.
 """
 import copy
 
@@ -174,6 +178,129 @@ def test_pruned_matmul_backward_bf16(cuda):
     me = m.repeat_interleave(128)
     _rel_close(dx, (gr * me) @ w.float().T, 1e-2)
     _rel_close(dw, x.float().T @ (gr * me), 1e-2)
+
+
+def _pm_layout(cuda, layout, axis, dt, M=333, D=256, F=384):
+    """Operands of one K3 product as the forward or backward lays it out
+    (``ops.pruned_matmul`` / ``backward.py``): (x view, w view, mask axis
+    of the launch, out view or None, plain result in fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    K, N = (D, F) if axis == "n" else (F, D)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dt)
+    w = (torch.randn((K, N), generator=g, device=cuda) * K ** -0.5).to(dt)
+    gr = torch.randn((M, N), generator=g, device=cuda).to(dt)
+    m = torch.tensor([1.0, 0.0, 1.0], device=cuda)
+    me = m.repeat_interleave(128)
+    xf, wf, gf = x.float(), w.float(), gr.float()
+    if layout == "fwd":
+        want = xf @ wf * me if axis == "n" else (xf * me) @ wf
+        return x, w, axis, None, want, m
+    if layout == "dx":
+        want = (gf * me) @ wf.T if axis == "n" else (gf @ wf.T) * me
+        return gr, w.T, "k" if axis == "n" else "n", None, want, m
+    if axis == "n":                                      # dw = xᵀ·(g ⊙ m)
+        return x.T, gr, "n", None, xf.T @ gf * me, m
+    out = torch.empty((K, N), dtype=dt, device=cuda)     # dw.T = gᵀ·x
+    return gr.T, x, "n", out.T, gf.T @ xf * me[None, :], m
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["fwd", "dx", "dw"])
+@pytest.mark.parametrize("axis", ["n", "k"])
+def test_pruned_matmul_tensor_core_layouts(cuda, layout, axis, dt):
+    """Each of K3's five operand layouts (and ``out=dw.T``) on the
+    tensor-core variant, fp32 (3xTF32) and bf16 (one pass), against the
+    plain product and bitwise equal on a repeat."""
+    x, w, launch_axis, out, want, m = _pm_layout(cuda, layout, axis, dt)
+    assert pm.pm_variant(dt, launch_axis, 128, x.stride(), w.stride()) == "tc"
+    tc0 = pm.KERNEL.launches_tc
+    got = pm.product(x, w, m, launch_axis, 128, out=out)
+    again = pm.product(x, w, m, launch_axis, 128,
+                       out=None if out is None else torch.empty_like(out))
+    torch.cuda.synchronize()
+    assert pm.KERNEL.launches_tc == tc0 + 2
+    assert torch.equal(got, again)
+    if dt == torch.float32:
+        _rel_close(got, want, 2e-4)
+    else:          # one bf16 rounding of an fp32 sum of exact products
+        torch.testing.assert_close(got.float(), want, atol=1e-2,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan"), 3.4e38])
+def test_pruned_matmul_tensor_cores_pass_non_finite_as_fp32(cuda, bad):
+    """An operand the 3xTF32 split cannot carry (inf, NaN, or so close to
+    FLT_MAX that hi rounds to inf) sends its tile to plain fp32 sums: the
+    inf / NaN pattern of the output is fp32's, the rest within 2e-4."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((300, 256), generator=g, device=cuda)
+    w = torch.randn((256, 384), generator=g, device=cuda) * 0.06
+    x[5, 17] = bad
+    m = torch.ones(3, device=cuda)
+    tc0 = pm.KERNEL.launches_tc
+    got = pm.product(x, w, m, "n", 128)
+    torch.cuda.synchronize()
+    assert pm.KERNEL.launches_tc == tc0 + 1
+    want = x @ w
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("blk,axis", [(64, "n"), (48, "k")])
+def test_pruned_matmul_simt_edge_blocks(cuda, blk, axis):
+    """Mask blocks the tensor-core tile or chunk does not divide run the
+    SIMT kernel, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    M, K, N = 77, 192, 192
+    x = torch.randn((M, K), generator=g, device=cuda)
+    w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+    m = (torch.arange((N if axis == "n" else K) // blk, device=cuda) % 2
+         ).float()
+    assert pm.pm_variant(x.dtype, axis, blk, x.stride(), w.stride()) == "simt"
+    n0, tc0 = pm.KERNEL.launches, pm.KERNEL.launches_tc
+    got = pm.pruned_matmul(x, w, m, mask_axis=axis, bn=blk, bk=blk)
+    assert (pm.KERNEL.launches, pm.KERNEL.launches_tc) == (n0 + 1, tc0)
+    torch.testing.assert_close(got, pm_ref.pruned_matmul_ref(
+        x, w, m, mask_axis=axis, bn=blk, bk=blk), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["dense", "dead-tiles", "masked-rows",
+                                  "bf16"])
+def test_attention_dkv_tensor_cores_bitwise(cuda, case):
+    """K2b on the tensor cores over its schedule: against the plain
+    version, every launch on the tensor-core variant, a repeat bitwise
+    equal (fixed-order partial sums, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dt = torch.bfloat16 if case == "bf16" else torch.float32
+    b, s, hq, hkv, d = 2, 1000 if case == "masked-rows" else 1024, 15, 5, 64
+    block = 512 if case == "dead-tiles" else 128
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda)
+               .mul(0.5).to(dt) for h in (hq, hkv, hkv))
+    n = -(-s // block)
+    m = (torch.rand((b, 1, n, n), generator=g, device=cuda)
+         < (0.5 if case == "dead-tiles" else 1.0)).int()
+    m[..., 0, 0] = 1
+    if case == "masked-rows":
+        m[:, :, 2, :] = 0
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, m, block=block)
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(dt)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    n0, tc0 = bsa.KERNEL_DKV.launches, bsa.KERNEL_DKV.launches_tc
+    dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse, delta,
+                                                block=block)
+    dk2, dv2 = bsa.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse,
+                                                  delta, block=block)
+    torch.cuda.synchronize()
+    assert (bsa.KERNEL_DKV.launches, bsa.KERNEL_DKV.launches_tc) == (
+        n0 + 2, tc0 + 2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rdk, rdv = bsa_ref.block_sparse_attention_bwd_dkv_ref(
+        q, k, v, m, dout, lse, delta, block=block)
+    for got, want in ((dk, rdk), (dv, rdv)):
+        assert got.dtype == dt
+        _rel_close(got, want, 2e-4 if dt == torch.float32 else 3e-2)
 
 
 def test_paged_attention_matches_plain(cuda):
