@@ -13,16 +13,21 @@ final line:
                card at the main path's full-width shapes and at edge shapes,
                with the tolerance stated; kernel / plain / library times
                (CUDA events, warmed up, L2 warm) and the roofline bound;
-               each K3 case names its variant ("tc": 3xTF32 mma.sync, every
-               mask block of 128; "simt": the 64 and 48 edge cases), is
-               bitwise equal on a repeat, and at the main shapes K3's
-               distance from a float64 product must be at most twice
-               torch.matmul's (fp32, allow_tf32 False); K3 and K2b also
-               print the bound of the 3xTF32 route (three TF32 passes);
+               each K1 and K3 case names its variant ("tc": 3xTF32
+               mma.sync — every K1 call, every K3 mask block of 128;
+               "simt": K3's 64 and 48 edge cases), is bitwise equal on a
+               repeat, and at the main shapes the distance of K1's output
+               and K3's product from a float64 computation must be at most
+               twice that of the fp32 plain version (torch.matmul for K3;
+               allow_tf32 False); K1, K2a, K2b and K3 also print the bound
+               of the 3xTF32 route (three TF32 passes);
   3c.        the backward sweeps K2a (dq) and K2b (dk/dv) at the training
                shapes (dense causal, a 512-block mask with dead tiles,
-               partial blocks, fully masked rows, bf16); K2b on the tensor
-               cores over its work schedule, bitwise equal on a repeat;
+               partial blocks, fully masked rows, d 128, bf16), both on
+               the tensor cores (K2a names its variant, K2b runs over its
+               work schedule), both bitwise equal on a repeat; at the main
+               shape K2a's dq at most twice the fp32 plain version's
+               distance from a float64 dq from the same lse and delta;
   3d.        K3's backward products (dx, dw for a mask over N and over K,
                dense and 87 % pruned) against torch.matmul, all on the
                tensor-core variant, bitwise on a repeat, within twice
@@ -44,8 +49,8 @@ final line:
                full-width smollm-360m, one stage, paged KV + prefix cache,
                sparse attention, kernel_impl "pallas"; launch counters are
                zeroed just before and read just after, and every kernel of
-               the path must have launched, every K3 launch on the tensor
-               cores;
+               the path must have launched, every K1 and K3 launch on the
+               tensor cores;
   4b. profile — device time by kernel over a shorter serve (4 requests)
                under torch.profiler, and the device's busy share against
                the same serve's wall time without the profiler;
@@ -55,8 +60,8 @@ final line:
                step 10 and a rebalance cadence every 5 steps under a 2x
                straggler; counters zeroed just before and read just after:
                per step K1 128, K2a 128, K2b 128, K3 384 forward + 768
-               backward launches, every K3 and K2b launch on the tensor
-               cores; a migration must move layers;
+               backward launches, every K1, K2a, K2b and K3 launch on the
+               tensor cores; a migration must move layers;
   4d. profile — two train steps under torch.profiler: busy share and
                device time by kernel;
   4e. moe train — the training CLI on full-width Mixtral-8x7B cut to 2
@@ -150,7 +155,8 @@ MOE_TRAIN_LAUNCHES_PER_STEP = {"grouped_matmul": 48,
 MOE_SERVE_PATH = ("grouped_matmul",)
 # the kernels every launch of which on the smollm paths (phases 4, 4c) must
 # take the 3xTF32 tensor-core variant
-FP32_TC_PATH = ("pruned_matmul", "block_sparse_attention_bwd_dkv")
+FP32_TC_PATH = ("block_sparse_attention", "block_sparse_attention_bwd_dq",
+                "block_sparse_attention_bwd_dkv", "pruned_matmul")
 
 
 def moe_arch(layers: int) -> str:
@@ -266,6 +272,8 @@ def check_block_sparse_attention(torch, F):
          torch.float32, 1e-4, True),
         ("d16 s77", 2, 77, 4, 2, 16, 64, 1.0, True, torch.float32, 1e-4,
          True),
+        ("d128 s300", 2, 300, 4, 2, 128, 128, 0.7, True, torch.float32,
+         1e-4, False),
         ("bf16 s256", 2, 256, 15, 5, 64, 128, 0.7, True, torch.bfloat16,
          2e-2, False),
     ]
@@ -277,12 +285,17 @@ def check_block_sparse_attention(torch, F):
         bm = mask(b, s, block, dens)
         if label.startswith("ragged"):
             bm[:, :, 1, :] = 0                  # fully masked q rows
-        out, lse = ops.block_sparse_attention_fwd(q, k, v, bm, causal=causal,
-                                                  block=block)
+        kw = dict(causal=causal, block=block)
+        tc0 = ops.KERNEL.launches_tc
+        out, lse = ops.block_sparse_attention_fwd(q, k, v, bm, **kw)
+        out2, lse2 = ops.block_sparse_attention_fwd(q, k, v, bm, **kw)
         torch.cuda.synchronize()
-        rout, rlse = ref.block_sparse_attention_ref(q, k, v, bm,
-                                                    causal=causal,
-                                                    block=block)
+        variant = tc_variant(f"K1 {label}", ops.KERNEL, tc0, 2, path)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"K1 {label}: a repeat is not bitwise "
+                                 f"equal")
+        del out2, lse2
+        rout, rlse = ref.block_sparse_attention_ref(q, k, v, bm, **kw)
         e = check_close(f"K1 {label} out", out, rout, atol, atol)
         live = rlse > -1e29
         check_close(f"K1 {label} lse", lse[live], rlse[live], atol, atol)
@@ -292,10 +305,17 @@ def check_block_sparse_attention(torch, F):
         if label.startswith("ragged") and float(
                 out[:, 128:256].abs().max()) != 0.0:
             raise AssertionError("K1 fully masked rows are not zero")
+        extra = {}
+        if label.startswith("main"):
+            exact, _ = ref.block_sparse_attention_ref(
+                q, k, v, bm, compute_dtype=torch.float64, **kw)
+            extra = f64_distance(f"K1 {label}", out, rout, exact)
+            del exact
         if path:
             worst = max(worst, e)
         say("kernels", kernel="K1", case=label.replace(" ", "_"),
-            max_abs_err=f"{e:.3e}", tol=atol)
+            variant=variant, max_abs_err=f"{e:.3e}", tol=atol,
+            repeat="bitwise", **extra)
         if timed is None:
             timed = (q, k, v, bm, block)
     q, k, v, bm, block = timed
@@ -317,7 +337,32 @@ def check_block_sparse_attention(torch, F):
     nbytes = 4.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d + b * hq * s)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 max_abs_err=worst, tol=1e-4, bound=bound(flops, nbytes),
+                bound_tf32x3=tf32x3_bound(flops, nbytes),
                 shape=f"b{b} s{s} hq{hq} hkv{hkv} d{d} block{block} fp32")
+
+
+def tc_variant(name: str, kernel, before: int, launches: int,
+               path: bool) -> str:
+    """The variant ``launches`` calls of ``kernel`` ran, from its
+    tensor-core launch count ("tc", "simt" or "mixed"); a main-path case
+    (``path``) must have run "tc"."""
+    ran = kernel.launches_tc - before
+    got = "tc" if ran == launches else "simt" if ran == 0 else "mixed"
+    if path and got != "tc":
+        raise AssertionError(f"{name}: {ran} of {launches} launches took "
+                             f"the tensor cores")
+    return got
+
+
+def f64_distance(name: str, got, plain, exact) -> dict:
+    """The kernel's max distance from a float64 computation against the
+    fp32 plain version's (allow_tf32 off); it must be at most 2x."""
+    k_64 = float((got.double() - exact).abs().max())
+    p_64 = float((plain.double() - exact).abs().max())
+    if k_64 > 2 * p_64:
+        raise AssertionError(f"{name}: {k_64:.3e} from float64, more than "
+                             f"2x the fp32 plain version's {p_64:.3e}")
+    return dict(f64_err=f"{k_64:.3e}", plain_f64_err=f"{p_64:.3e}")
 
 
 def k3_variant(name: str, pm, before: int, x, w, axis: str, blk: int,
@@ -531,6 +576,8 @@ def check_attention_backward(torch, F):
          2e-4, True),
         ("partial s1000 masked-rows", 2, 1000, 15, 5, 64, 128, 0.6,
          torch.float32, 2e-4, True),
+        ("d128 s300", 2, 300, 4, 2, 128, 128, 0.7, torch.float32, 2e-4,
+         False),
         ("bf16 s1024", 2, 1024, 15, 5, 64, 128, 1.0, torch.bfloat16, 3e-2,
          False),
     ]
@@ -550,8 +597,11 @@ def check_attention_backward(torch, F):
         dout = torch.randn(out.shape, generator=g, device=dev).to(dt)
         delta = ((dout.float() * out.float()).sum(-1).transpose(1, 2)
                  .contiguous())
+        dq_tc0 = ops.KERNEL_DQ.launches_tc
         dq = ops.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
                                                block=block)
+        dq2 = ops.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
+                                                block=block)
         tc0 = ops.KERNEL_DKV.launches_tc
         dk, dv = ops.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse,
                                                     delta, block=block)
@@ -563,10 +613,23 @@ def check_attention_backward(torch, F):
         if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             raise AssertionError(f"K2b {label}: a repeat is not bitwise "
                                  f"equal")
-        del dk2, dv2
+        dq_variant = tc_variant(f"K2a {label}", ops.KERNEL_DQ, dq_tc0, 2,
+                                path)
+        if not torch.equal(dq, dq2):
+            raise AssertionError(f"K2a {label}: a repeat is not bitwise "
+                                 f"equal")
+        del dk2, dv2, dq2
         rdq, rdk, rdv = ref.block_sparse_attention_bwd_ref(
             q, k, v, m, dout, lse, delta, block=block)
         e_dq = rel_err(f"K2a {label} dq", dq, rdq, rtol)
+        extra = {}
+        if label.startswith("main"):
+            # dq from the same (lse, delta) in float64
+            exact = ref.block_sparse_attention_bwd_dq_ref(
+                q, k, v, m, dout, lse, delta, block=block,
+                compute_dtype=torch.float64)
+            extra = f64_distance(f"K2a {label}", dq, rdq, exact)
+            del exact
         e_dkv = max(rel_err(f"K2b {label} dk", dk, rdk, rtol),
                     rel_err(f"K2b {label} dv", dv, rdv, rtol))
         if label.startswith("partial") and bool(
@@ -579,9 +642,10 @@ def check_attention_backward(torch, F):
         steps = sch.items[:, 2] - sch.items[:, 1]
         say("kernels", kernel="K2a/K2b", case=label.replace(" ", "_"),
             dq_err=f"{e_dq:.3e}", dkv_err=f"{e_dkv:.3e}",
-            tol=f"{rtol}*max|plain|", dkv_variant="tc", repeat="bitwise",
-            dkv_items=len(steps),
-            dkv_steps_max_over_mean=f"{steps.max() / steps.mean():.3f}")
+            tol=f"{rtol}*max|plain|", dq_variant=dq_variant,
+            dkv_variant="tc", repeat="bitwise", dkv_items=len(steps),
+            dkv_steps_max_over_mean=f"{steps.max() / steps.mean():.3f}",
+            **extra)
         if timed is None:
             timed = (q, k, v, m, dout, lse, delta, block)
     q, k, v, m, dout, lse, delta, block = timed
@@ -625,6 +689,8 @@ def check_attention_backward(torch, F):
         "block_sparse_attention_bwd_dq": dict(
             ms=ms_dq, plain_ms=plain_dq, max_abs_err=worst["dq"],
             bound=bound(3 * flop, in_bytes + 4.0 * b * s * hq * d),
+            bound_tf32x3=tf32x3_bound(3 * flop,
+                                      in_bytes + 4.0 * b * s * hq * d),
             **common),
         # K2b needs s, dp, dk and dv: four
         "block_sparse_attention_bwd_dkv": dict(
@@ -1017,10 +1083,25 @@ def check_grouped_matmul(torch):
 # ---------------------------------------------------------------------------
 # phase 4b: device time by kernel over a short serve
 # ---------------------------------------------------------------------------
-OURS = re.compile(r"\b(bsa_fwd_kernel|bsa_dq_kernel|bsa_dkv_tc_kernel|"
-                  r"bsa_dkv_sum_kernel|pm_kernel|pm_tc_kernel|"
-                  r"paged_attn_kernel|gm_kernel|gm_dw_kernel|"
-                  r"gm_tc_kernel|gm_dw_tc_kernel)<")
+# the port's CUDA kernels by profiler name, and the kernel id each is part of
+PORT_KERNELS = {"bsa_fwd_tc_kernel": "K1", "bsa_dq_tc_kernel": "K2a",
+                "bsa_dkv_tc_kernel": "K2b", "bsa_dkv_sum_kernel": "K2b",
+                "pm_kernel": "K3", "pm_tc_kernel": "K3", "pm_sum_kernel": "K3",
+                "gm_kernel": "K4", "gm_tc_kernel": "K4", "gm_dw_kernel": "K5",
+                "gm_dw_tc_kernel": "K5", "paged_attn_kernel": "K6"}
+OURS = re.compile(r"\b(" + "|".join(PORT_KERNELS) + r")<")
+
+
+def port_kernel_ms(dev) -> str:
+    """Device ms by port kernel id (K1 .. K6) from ``device_times``."""
+    by_id = {}
+    for name, ms in dev.items():
+        m = OURS.search(name)
+        if m:
+            kid = PORT_KERNELS[m.group(1)]
+            by_id[kid] = by_id.get(kid, 0.0) + ms
+    return json.dumps({k: round(v, 2) for k, v in sorted(by_id.items())}
+                      ).replace(" ", "")
 
 
 def device_times(events):
@@ -1067,6 +1148,7 @@ def profile_serve(torch):
             "device_busy_ms": f"{busy:.1f}",
             "busy_share": f"{busy / wall_ms:.3f}",
             "port_kernels_ms": f"{ours:.1f}",
+            "by_kernel_ms": port_kernel_ms(dev),
             "top": json.dumps([[k[:48], round(v, 2)] for k, v in top])
             .replace(" ", "")}
 
@@ -1101,6 +1183,7 @@ def profile_train(torch, args_fn=None):
             "device_busy_ms": f"{busy:.1f}",
             "busy_share": f"{busy / wall_ms:.3f}",
             "port_kernels_ms": f"{ours:.1f}",
+            "by_kernel_ms": port_kernel_ms(dev),
             "top": json.dumps([[k[:48], round(v, 2)] for k, v in top])
             .replace(" ", "")}
 

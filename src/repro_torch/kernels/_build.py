@@ -58,7 +58,8 @@ class Kernel:
     kernel launch and nothing else touches, so a run can show that its main
     path really went through the kernel; ``launches_bwd`` counts the subset
     launched by a backward pass (K3's backward products), ``launches_tc``
-    the subset that went to a tensor-core variant (K2b, K3, K4, K5)."""
+    the subset that went to a tensor-core variant (K1, K2a, K2b, K3, K4,
+    K5)."""
 
     def __init__(self, name: str, source: str, replaces: str,
                  functions: Dict[str, Sequence]):

@@ -16,16 +16,34 @@
 //
 // What bounds it on an H100: operations.  Per live (q, k) pair the two
 // sweeps do five d-long products (s and dp twice, dq, dk, dv) against a
-// handful of bytes: at b2 s1024 hq15 d64, causal, K2b's four products are
-// 8.06 GFLOP, 0.120 ms on the fp32 CUDA cores (67 TFLOP/s) and 0.049 ms
-// through 3xTF32 on the tensor cores (tf32x3.cuh: fp32-level error at
-// 165 TFLOP/s).
+// handful of bytes: at b2 s1024 hq15 d64, causal, K2a's three products are
+// 6.05 GFLOP, 0.090 ms on the fp32 CUDA cores (67 TFLOP/s) and 0.037 ms
+// through 3xTF32 on the tensor cores (tf32x3.cuh: fp32-level error from
+// three TF32 passes at 495 TFLOP/s); K2b's four are 8.06 GFLOP, 0.120 and
+// 0.049 ms.
 //
-// K2a: blocks of 256 threads, 64 x 64 tiles, each thread a 4 x 4 patch of
-//   the score tile and a 4 x D/16 slice of dq; one block per (batch, q
-//   head, 64-row q tile); Q and dO stay in shared memory, the loop walks
-//   the live kv tiles (the TPU grid's sequential kv axis), dS goes through
-//   shared memory into dq; fp32 on the CUDA cores.
+// Both sweeps run every product on mma.sync m16n8k8 TF32, three passes
+// (one for bf16 operands, whose lo is 0), 4 warps of 16 rows a block, the
+// operand tiles stored swizzled (bsa_tile.cuh) so that the K-major and the
+// row-pair fragment reads are free of bank conflicts.  The tensor core's
+// own fp32 sums truncate, so each accumulator runs over at most 64 terms
+// (K2a) or one work item's steps (K2b) and fp32 adds the rest.
+// K2a: one block per (q head, batch, 64-row q tile), the q tiles last first
+//   (the causal tiles with the most kv tiles start first); 4 warps, each 16
+//   q rows.  Q and dO stay in swizzled tiles for the whole block; the live
+//   kv tiles (bsa_tile_live; dead ones are never loaded) stream through a
+//   two-stage cp.async buffer of K and V.  Per kv tile a warp forms S =
+//   Q·Kᵀ, then dP = dO·Vᵀ (16 x 64, each 64-deep chunk of d from zero,
+//   the hi·hi pass and the two small passes in separate accumulators added
+//   in fp32: with one accumulator, dq landed more than twice as far from
+//   float64 as the fp32 plain version's) in accumulator fragments, P and
+//   dS there from the row's lse and delta —
+//   the element predicate only on tiles the diagonal, a partial mask block
+//   or Sk cuts — and feeds dS straight back as the A fragment of dS·K (the
+//   accumulator's columns 2t, 2t + 1 are the MMA's k slots t, t + 4, and K
+//   is read at the same kv rows), so dS never touches shared memory.  Each
+//   kv tile's dS·K is summed from zero in the tensor cores and added to dq
+//   in fp32.  dq has no cross-block sum: a repeat is bitwise equal.
 // K2b: the TPU kernel walks, for one kv tile, every q tile of one q head
 //   in its sequential grid axis.  One block per (batch, kv head, kv tile)
 //   walking the whole GQA group gave 160 blocks on 132 SMs with the
@@ -39,162 +57,171 @@
 //   (bsa_tile_live), and writes fp32 partial dk, dv to a scratch buffer;
 //   a second kernel sums each kv tile's partials in the schedule's fixed
 //   order and writes dk, dv in k's dtype — no atomics, so a repeat is
-//   bitwise equal.  The four products run on mma.sync m16n8k8 TF32, three
-//   passes (one for bf16), one accumulator (small terms first): 4 warps,
-//   each 16 kv rows of the 64 x 64 tile.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ come
-//   out in accumulator fragments; P and dS are formed there and fed
-//   straight back as the A fragments of dV += Pᵀ·dO and dK += dSᵀ·Q (the
-//   accumulator's columns 2t, 2t+1 become the MMA's k slots t, t+4, and
-//   dO / Q are read at the same rows), so they never touch shared memory.
-//   The element predicate runs only on tiles the diagonal or a partial
-//   mask block cuts.  Tiles are stored with row pitch max(D, 32) floats
-//   and the 16-byte pieces of row r XOR-swizzled by (r & 7): the K-major
-//   reads (Sᵀ, dPᵀ) and the row-pair reads (dV, dK) are both free of bank
-//   conflicts.
+//   bitwise equal.  4 warps, each 16 kv rows of the 64 x 64 tile, one
+//   accumulator (small terms first).  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ come out
+//   in accumulator fragments; P and dS are formed there and fed straight
+//   back as the A fragments of dV += Pᵀ·dO and dK += dSᵀ·Q (dO / Q read
+//   at the same q rows), so they never touch shared memory.
 // Ragged edges are bounds-checked (zero-filled) in the loads and stores;
 // nothing is padded.
 #include "common.cuh"
 #include "bsa_mask.cuh"
+#include "bsa_tile.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;      // q rows per tile
-constexpr int BK = 64;      // kv rows per tile
-constexpr int NT = 256;     // threads: 16 x 16, each 4 x 4 of a tile
-constexpr int PS = BK + 4;  // padded row stride of the P / dS tiles
+using bsa::sw;
+
+
+constexpr int BQ = 64;       // q rows per tile
+constexpr int BK = 64;       // kv rows per tile
+constexpr int NT = 128;      // K2a, K2b: 4 warps, each 16 rows of a tile
+constexpr int NT_SUM = 256;  // K2b's partial sum
 
 // ---------------------------------------------------------------------------
 // K2a: dq
 // ---------------------------------------------------------------------------
+template <int D>
+struct DqLayout {
+  static constexpr int TILE = bsa::Tile<D>::FLOATS;
+  // Q, dO, then two stages of (K, V)
+  static constexpr size_t SMEM = sizeof(float) * 6 * TILE;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) bsa_dq_kernel(
+__global__ void __launch_bounds__(NT) bsa_dq_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int32_t* __restrict__ mask,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
     int Hq, int Hkv, int block, int nkb, long long mask_sb,
     long long mask_sh, int causal, float scale) {
-  constexpr int DC = D / 16;  // dq columns per thread
-  constexpr int QS = D + 1;   // padded row stride of the Q/dO/K/V tiles
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][QS]
-  float* Os = Qs + BQ * QS;    // [BQ][QS]  dout
-  float* Ks = Os + BQ * QS;    // [BK][QS]
-  float* Vs = Ks + BK * QS;    // [BK][QS]
-  float* Ss = Vs + BK * QS;    // [BQ][PS]  ds
+  constexpr int TILE = DqLayout<D>::TILE;
+  constexpr int ND = D / 8;               // 8-wide blocks of d
+  constexpr bool SPLIT = sizeof(T) == 4;  // fp32 operands: three passes
+  extern __shared__ __align__(16) float smem_dq[];
+  float* Qs = smem_dq;
+  float* Os = Qs + TILE;        // dout
+  float* stages = Os + TILE;    // 2 x [K, V]
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, R0 = warp * 16;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int hk = h / (Hq / Hkv);
   const long long q_row = (long long)Hq * D;    // token stride of q / dout
   const long long kv_row = (long long)Hkv * D;  // token stride of k / v
   const long long qoff = ((long long)b * Sq * Hq + h) * D;
-  const T* kb = k + ((long long)b * Sk * Hkv + hk) * D;
-  const T* vb = v + ((long long)b * Sk * Hkv + hk) * D;
+  const long long kvoff = ((long long)b * Sk * Hkv + hk) * D;
   const int32_t* mb = mask + b * mask_sb + h * mask_sh;
   const long long row_base = ((long long)b * Hq + h) * Sq;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const bool ok = q0 + r < Sq;
-    const long long off = qoff + (long long)(q0 + r) * q_row + d;
-    Qs[r * QS + d] = ok ? rt_to_f32(q[off]) : 0.f;
-    Os[r * QS + d] = ok ? rt_to_f32(dout[off]) : 0.f;
-  }
-  float l_r[4], dl_r[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    l_r[i] = row < Sq ? lse[row_base + row] : RT_NEG_INF;
-    dl_r[i] = row < Sq ? delta[row_base + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
-
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
-  const bool uniform = (block % BQ == 0) && (block % BK == 0);
   const int n_tiles = (kv_end + BK - 1) / BK;
+  const bool uniform = (block % BQ == 0) && (block % BK == 0);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int c0 = kt * BK;
-    const int c_last = min(c0 + BK, Sk) - 1;
-    if (!bsa_tile_live(mb, nkb, block, q0, q_last, c0, c_last, causal))
-      continue;
-    __syncthreads();  // previous tile's K/V/dS reads done; Q/dO visible
-    for (int i = tid; i < BK * D; i += NT) {
-      const int c = i / D, d = i % D;
-      const bool ok = c0 + c < Sk;
-      const long long off = (long long)(c0 + c) * kv_row + d;
-      Ks[c * QS + d] = ok ? rt_to_f32(kb[off]) : 0.f;
-      Vs[c * QS + d] = ok ? rt_to_f32(vb[off]) : 0.f;
-    }
-    __syncthreads();
+  auto next_live = [&](int kt) {
+    while (kt < n_tiles &&
+           !bsa_tile_live(mb, nkb, block, q0, q_last, kt * BK,
+                          min(kt * BK + BK, Sk) - 1, causal))
+      ++kt;
+    return kt;
+  };
+  auto load_kv = [&](int kt, int stage) {
+    float* st = stages + stage * 2 * TILE;
+    bsa::load_tile<T, D, NT>(st, k + kvoff, kv_row, kt * BK, Sk);
+    bsa::load_tile<T, D, NT>(st + TILE, v + kvoff, kv_row, kt * BK, Sk);
+  };
 
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], g[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty * 4 + i) * QS + kk];
-        g[i] = Os[(ty * 4 + i) * QS + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = Ks[(tx + 16 * j) * QS + kk];
-        bv[j] = Vs[(tx + 16 * j) * QS + kk];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        const bool live = bsa_elem_live(mb, nkb, block, row, col, Sq, Sk,
-                                        causal, uniform) &&
-                          l_r[i] > RT_NEG_INF / 4;
-        const float p = live ? expf(s[i][j] * scale - l_r[i]) : 0.f;
-        Ss[(ty * 4 + i) * PS + tx + 16 * j] =
-            p * (dp[i][j] - dl_r[i]) * scale;
-      }
-    }
-    __syncthreads();
+  bsa::load_tile<T, D, NT>(Qs, q + qoff, q_row, q0, Sq);
+  bsa::load_tile<T, D, NT>(Os, dout + qoff, q_row, q0, Sq);
+  tf32x3::cp_async_commit();
+  int kt = next_live(0);
+  if (kt < n_tiles) load_kv(kt, 0);
+  tf32x3::cp_async_commit();
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float kv[DC];
+  // this thread's rows: R0 + g (fragment elements 0, 1) and R0 + g + 8
+  // (elements 2, 3); +inf lse gives p = 0 for rows past Sq or fully masked
+  float L[2], Dl[2];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) kv[j] = Ks[c * QS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = Ss[(ty * 4 + i) * PS + c];
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + R0 + g + 8 * r;
+    const bool ok = row < Sq;
+    const float l = ok ? lse[row_base + row] : RT_NEG_INF;
+    L[r] = l > RT_NEG_INF / 4 ? l : INFINITY;
+    Dl[r] = ok ? delta[row_base + row] : 0.f;
   }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; kt < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int kt_next = next_live(kt + 1);
+    if (kt_next < n_tiles) load_kv(kt_next, stage ^ 1);
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<1>();  // this tile's K and V (and Q, dO) landed
+    __syncthreads();
+    const float* Ks = stages + stage * 2 * TILE;
+    const float* Vs = Ks + TILE;
+    const int c0 = kt * BK, c_last = min(c0 + BK, Sk) - 1;
+
+    // P = exp(S·scale − lse) from S = Q·Kᵀ, then dS = P·(dP − delta)·scale
+    // from dP = dO·Vᵀ (16 q rows x 64 kv columns a warp), in the
+    // accumulator fragments; the element predicate only where the
+    // diagonal, a partial mask block or Sk cuts the tile
+    const bool whole =
+        uniform && c0 + BK <= Sk && (!causal || q0 >= c_last);
+    float p[8][4], ds[8][4];
+    bsa::qk_tile<SPLIT, D>(
+        p, [&](tf32x3::FragA& f, int kk) {
+          bsa::tile_frag<SPLIT, D>(f, Qs, R0 + g, kk, t);
+        }, Ks, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = q0 + R0 + g + (e >= 2 ? 8 : 0);
+        const int col = c0 + j * 8 + 2 * t + (e & 1);
+        const bool live =
+            whole || bsa_elem_live(mb, nkb, block, row, col, Sq, Sk, causal,
+                                   uniform);
+        p[j][e] = live ? expf(p[j][e] * scale - L[e >> 1]) : 0.f;
+      }
+    bsa::qk_tile<SPLIT, D>(
+        ds, [&](tf32x3::FragA& f, int kk) {
+          bsa::tile_frag<SPLIT, D>(f, Os, R0 + g, kk, t);
+        }, Vs, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[j][e] = p[j][e] * (ds[j][e] - Dl[e >> 1]) * scale;
+
+    // dq += dS·K over the tile's 64 kv rows, summed from zero, added in
+    // fp32
+    float part[ND][4];
+    bsa::pv_tile<SPLIT, D>(part, ds, Ks, g, t);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+    __syncthreads();  // every warp is done with this stage
+    kt = kt_next;
+  }
+  tf32x3::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + R0 + g + 8 * r;
     if (row >= Sq) continue;
     T* drow = dq + qoff + (long long)row * q_row;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) drow[tx + 16 * j] = rt_from_f32<T>(acc[i][j]);
+    for (int n = 0; n < ND; ++n)
+      bsa::store2(drow + n * 8 + 2 * t, acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
@@ -202,50 +229,17 @@ __global__ void __launch_bounds__(NT) bsa_dq_kernel(
 // ---------------------------------------------------------------------------
 // K2b: dk, dv partials per work item, then their fixed-order sum
 // ---------------------------------------------------------------------------
-constexpr int NT2 = 128;  // 4 warps, each 16 kv rows of the 64-row tile
-
 template <int D>
 struct DkvLayout {
-  static constexpr int LD = D < 32 ? 32 : D;  // row pitch, floats
-  static constexpr int TILE = 64 * LD;
+  static constexpr int LD = bsa::Tile<D>::LD;  // row pitch, floats
+  static constexpr int TILE = bsa::Tile<D>::FLOATS;
   // K, V, then two stages of (Q, dO, lse, delta)
   static constexpr size_t SMEM =
       sizeof(float) * (2 * TILE + 2 * (2 * TILE + 2 * BQ));
 };
 
-// float offset of element (r, c) in a swizzled tile: 16-byte piece
-// (c / 4) of row r is stored at piece (c / 4) ^ (r & 7)
-template <int LD>
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * LD + (c ^ ((r & 7) << 2));
-}
-
-// rows [r0, r0 + 64) of a [rows][D] operand (row pitch `row` elements,
-// rows past `n` zero) into a swizzled fp32 tile; fp32 through cp.async,
-// bf16 converted through registers
 template <typename T, int D>
-__device__ __forceinline__ void dkv_load(float* sm, const T* __restrict__ g,
-                                         long long row, int r0, int n) {
-  constexpr int LD = DkvLayout<D>::LD, PIECES = 64 * D / 4;
-  static_assert(PIECES % NT2 == 0, "whole pieces per thread");
-#pragma unroll
-  for (int j = 0; j < PIECES / NT2; ++j) {
-    const int i = threadIdx.x + j * NT2;
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool ok = r0 + r < n;
-    const T* src = g + (ok ? (long long)(r0 + r) * row + c : 0);
-    float* dst = sm + sw<LD>(r, c);
-    if constexpr (sizeof(T) == 4) {
-      tf32x3::cp_async16(dst, src, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = ok ? rt_to_f32(src[e]) : 0.f;
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT2) bsa_dkv_tc_kernel(
+__global__ void __launch_bounds__(NT) bsa_dkv_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int32_t* __restrict__ mask,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -287,8 +281,8 @@ __global__ void __launch_bounds__(NT2) bsa_dkv_tc_kernel(
     const int h = hk * rep + s / nq, q0 = (qt0 + s % nq) * BQ;
     const long long qoff = ((long long)b * Sq * Hq + h) * D;
     float* st = stage_base + stage * STAGE;
-    dkv_load<T, D>(st, q + qoff, q_row, q0, Sq);
-    dkv_load<T, D>(st + L::TILE, dout + qoff, q_row, q0, Sq);
+    bsa::load_tile<T, D, NT>(st, q + qoff, q_row, q0, Sq);
+    bsa::load_tile<T, D, NT>(st + L::TILE, dout + qoff, q_row, q0, Sq);
     if (tid < BQ) {  // +inf lse: p = 0 for rows past Sq or fully masked
       const long long rb = ((long long)b * Hq + h) * Sq + q0 + tid;
       const bool ok = q0 + tid < Sq;
@@ -299,8 +293,8 @@ __global__ void __launch_bounds__(NT2) bsa_dkv_tc_kernel(
   };
 
   const long long kvoff = ((long long)b * Sk * Hkv + hk) * D;
-  dkv_load<T, D>(Ks, k + kvoff, kv_row, c0, Sk);
-  dkv_load<T, D>(Vs, v + kvoff, kv_row, c0, Sk);
+  bsa::load_tile<T, D, NT>(Ks, k + kvoff, kv_row, c0, Sk);
+  bsa::load_tile<T, D, NT>(Vs, v + kvoff, kv_row, c0, Sk);
   int s = next_live(item.y);
   if (s < item.z) load_step(s, 0);
   tf32x3::cp_async_commit();
@@ -414,7 +408,7 @@ __global__ void __launch_bounds__(NT2) bsa_dkv_tc_kernel(
 // dk, dv of kv tile blockIdx.x: the sum of its partials offsets[tile] ..
 // offsets[tile + 1] - 1, in that order; rows with none are zero
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) bsa_dkv_sum_kernel(
+__global__ void __launch_bounds__(NT_SUM) bsa_dkv_sum_kernel(
     const float* __restrict__ pdk, const float* __restrict__ pdv,
     const int32_t* __restrict__ offsets, T* __restrict__ dk,
     T* __restrict__ dv, int Sk, int Hkv) {
@@ -424,7 +418,7 @@ __global__ void __launch_bounds__(NT) bsa_dkv_sum_kernel(
   const int p0 = offsets[tile], p1 = offsets[tile + 1];
   const long long kvoff = ((long long)b * Sk * Hkv + hk) * D;
   const long long kv_row = (long long)Hkv * D;
-  for (int i = threadIdx.x; i < BK * D; i += NT) {
+  for (int i = threadIdx.x; i < BK * D; i += NT_SUM) {
     const int r = i / D, d = i % D;
     if (c0 + r >= Sk) break;
     float sk = 0.f, sv = 0.f;
@@ -457,11 +451,10 @@ struct Sched {
 
 template <typename T, int D>
 cudaError_t run(const Args& a, const Sched* sc, cudaStream_t st) {
-  constexpr int QS = D + 1;
   if (sc == nullptr) {
-    const size_t smem = sizeof(float) * (4 * BQ * QS + BQ * PS);
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.Hq, a.B);
-    return rt_launch(bsa_dq_kernel<T, D>, grid, dim3(NT), smem, st,
+    dim3 grid(a.Hq, a.B, (a.Sq + BQ - 1) / BQ);
+    return rt_launch(bsa_dq_tc_kernel<T, D>, grid, dim3(NT),
+                     DqLayout<D>::SMEM, st,
                      (const T*)a.q, (const T*)a.k, (const T*)a.v,
                      (const int32_t*)a.mask, (const T*)a.dout,
                      (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
@@ -470,7 +463,7 @@ cudaError_t run(const Args& a, const Sched* sc, cudaStream_t st) {
   }
   if (sc->n_items > 0) {
     cudaError_t e = rt_launch(
-        bsa_dkv_tc_kernel<T, D>, dim3(sc->n_items), dim3(NT2),
+        bsa_dkv_tc_kernel<T, D>, dim3(sc->n_items), dim3(NT),
         DkvLayout<D>::SMEM, st, (const T*)a.q, (const T*)a.k,
         (const T*)a.v, (const int32_t*)a.mask, (const T*)a.dout,
         (const float*)a.lse, (const float*)a.delta, (const int4*)sc->items,
@@ -479,7 +472,7 @@ cudaError_t run(const Args& a, const Sched* sc, cudaStream_t st) {
     if (e != cudaSuccess) return e;
   }
   const int tiles = a.B * a.Hkv * ((a.Sk + BK - 1) / BK);
-  return rt_launch(bsa_dkv_sum_kernel<T, D>, dim3(tiles), dim3(NT), 0, st,
+  return rt_launch(bsa_dkv_sum_kernel<T, D>, dim3(tiles), dim3(NT_SUM), 0, st,
                    (const float*)sc->pdk, (const float*)sc->pdv,
                    (const int32_t*)sc->offsets, (T*)a.dk, (T*)a.dv, a.Sk,
                    a.Hkv);

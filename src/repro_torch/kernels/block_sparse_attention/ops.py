@@ -14,13 +14,19 @@ in torch and hands the rest to the backward sweeps, as the reference's
 ``_bsa_flat`` custom VJP does.  ``attention_tile_work`` is the reference's
 tile accounting, unchanged.
 
-K2b runs on the tensor cores (3xTF32 ``mma.sync``) over a work schedule
-that ``dkv_schedule`` computes from the shapes and causality alone (never
-from the mask's values, so nothing is copied from the device): each item
-is a run of (q head of the GQA group, q tile) steps of one kv tile, the
-items near-equal in steps and run longest first.  Each item writes fp32
-partial dk / dv into a scratch buffer the wrapper allocates; a second
-kernel of the same launch sums each kv tile's partials in a fixed order.
+All three run on the TF32 tensor cores at fp32 accuracy (3xTF32
+``mma.sync``, ``kernels/tf32x3.cuh``; one pass for bf16 operands), for every
+head dim the kernels take (16, 32, 64, 128) and both dtypes, so every launch
+counts as a tensor-core launch (``launch(..., tc=True)``).  K1 and K2a run
+one block per (q head, batch, 64-row q tile) over the live kv tiles.  K2b
+runs over a work schedule that ``dkv_schedule`` computes from the shapes
+and causality alone (never from the mask's values, so nothing is copied
+from the device): each item is a run of (q head of the GQA group, q tile)
+steps of one kv tile, the items near-equal in steps and run longest first.
+Each item writes fp32 partial dk / dv into a scratch buffer the wrapper
+allocates; a second kernel of the same launch sums each kv tile's partials
+in a fixed order.  fp32 operands are read with 16-byte ``cp.async``
+copies, so their data must be 16-byte aligned (a wrapper raises if not).
 """
 from __future__ import annotations
 
@@ -141,6 +147,17 @@ def _check_shapes(q, k, v, block_mask, block):
     return nkb
 
 
+def _check_operands(named, dtype):
+    """Device, dtype, rank and contiguity of each operand, one dtype for
+    all, and the 16-byte alignment the fp32 tile loads need."""
+    for name, t in named:
+        require(t, name, _DTYPES, 4)
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
+        if t.dtype == torch.float32 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: fp32 data must be 16-byte aligned")
+
+
 def _device_mask(block_mask, q):
     """int32 mask on q's device with its batch / head strides (0 where the
     mask broadcasts)."""
@@ -169,10 +186,7 @@ def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
     if not q.is_cuda:
         return block_sparse_attention_ref(q, k, v, block_mask, causal=causal,
                                           block=block)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t, name, _DTYPES, 4)
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    _check_operands((("q", q), ("k", k), ("v", v)), q.dtype)
     mask, msb, msh = _device_mask(block_mask, q)
     b, sq, hq = q.shape[:3]
     out = torch.empty_like(q)
@@ -180,7 +194,7 @@ def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
     KERNEL.launch("bsa_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
                   *_dims(q, k, block, nkb), msb, msh, int(causal),
-                  1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype))
+                  1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype), tc=True)
     return out, lse
 
 
@@ -188,10 +202,7 @@ def _bwd_prep(q, k, v, block_mask, dout, lse, delta, block):
     """Checks shared by both sweeps; returns (dout, mask, msb, msh, nkb)."""
     nkb = _check_shapes(q, k, v, block_mask, block)
     dout = dout.to(q.dtype).contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        require(t, name, _DTYPES, 4)
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    _check_operands((("q", q), ("k", k), ("v", v), ("dout", dout)), q.dtype)
     b, sq, hq = q.shape[:3]
     for name, t in (("lse", lse), ("delta", delta)):
         require(t, name, (torch.float32,), 3)
@@ -202,7 +213,7 @@ def _bwd_prep(q, k, v, block_mask, dout, lse, delta, block):
 
 
 def _sweep(kernel, symbol, outs, extra, q, k, v, block_mask, dout, lse,
-           delta, causal, block, tc=False):
+           delta, causal, block):
     dout, mask, msb, msh, nkb = _bwd_prep(q, k, v, block_mask, dout, lse,
                                           delta, block)
     if q.shape[1] == 0:
@@ -212,7 +223,7 @@ def _sweep(kernel, symbol, outs, extra, q, k, v, block_mask, dout, lse,
                   delta.data_ptr(), *(t.data_ptr() for t in outs), *extra,
                   *_dims(q, k, block, nkb), msb, msh, int(causal),
                   1.0 / math.sqrt(q.shape[-1]), dtype_code(q.dtype),
-                  tc=tc)
+                  tc=True)
     return outs
 
 
@@ -239,7 +250,7 @@ def block_sparse_attention_bwd_dkv(q, k, v, block_mask, dout, lse, delta, *,
              part[1].data_ptr(), n_items)
     return _sweep(KERNEL_DKV, "bsa_bwd_dkv",
                   (torch.empty_like(k), torch.empty_like(v)), extra, q, k,
-                  v, block_mask, dout, lse, delta, causal, block, tc=True)
+                  v, block_mask, dout, lse, delta, causal, block)
 
 
 def block_sparse_attention_bwd(q, k, v, block_mask, dout, lse, delta, *,

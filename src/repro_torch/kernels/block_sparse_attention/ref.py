@@ -16,18 +16,26 @@ import torch
 NEG_INF = -1e30
 
 
+def _out_dtype(x, compute_dtype):
+    """The plain versions return the input dtype when they compute in fp32
+    and their compute dtype otherwise (float64: the accuracy yardstick)."""
+    return x.dtype if compute_dtype == torch.float32 else compute_dtype
+
+
 def block_sparse_attention_ref(q, k, v, block_mask, *, causal: bool = True,
-                               block: int = 128):
+                               block: int = 128,
+                               compute_dtype=torch.float32):
     """q: [b, sq, hq, d]; k, v: [b, sk, hkv, d]; block_mask: [b|1, hq|1,
     nqb, nkb] (0/1, square blocks of ``block`` tokens).
 
     Returns (out [b, sq, hq, d] in q.dtype, lse [b, hq, sq] float32); a row
-    with no live entry gives zeros and lse ≈ -1e30."""
+    with no live entry gives zeros and lse ≈ -1e30.  ``compute_dtype``
+    float64 computes and returns both in float64."""
     b, sq, hq, d = q.shape
     rep = hq // k.shape[2]
-    qf = q.float().transpose(1, 2)                                # [b,h,sq,d]
-    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
-    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    qf = q.to(compute_dtype).transpose(1, 2)                      # [b,h,sq,d]
+    kf = k.to(compute_dtype).repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.to(compute_dtype).repeat_interleave(rep, dim=2).transpose(1, 2)
     s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     mask = live_elements(block_mask, sq, k.shape[1], causal, block)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -37,7 +45,7 @@ def block_sparse_attention_ref(q, k, v, block_mask, *, causal: bool = True,
     out = (p @ vf) / l.clamp_min(1e-30)
     out = torch.where(l > 0, out, torch.zeros_like(out))
     lse = m[..., 0] + torch.log(l[..., 0].clamp_min(1e-30))
-    return out.transpose(1, 2).to(q.dtype), lse
+    return out.transpose(1, 2).to(_out_dtype(q, compute_dtype)), lse
 
 
 def live_elements(block_mask, sq: int, sk: int, causal: bool, block: int):
@@ -51,17 +59,20 @@ def live_elements(block_mask, sq: int, sk: int, causal: bool, block: int):
     return mask
 
 
-def _recompute(q, k, v, block_mask, dout, lse, delta, causal, block):
-    """The backward's recomputed tiles, dense: (p, ds, q, k, dout) in fp32
-    with heads second ([b, h, s, ...]; k repeated over the GQA group)."""
+def _recompute(q, k, v, block_mask, dout, lse, delta, causal, block,
+               compute_dtype=torch.float32):
+    """The backward's recomputed tiles, dense: (p, ds, q, k, dout) in
+    ``compute_dtype`` with heads second ([b, h, s, ...]; k repeated over the
+    GQA group)."""
     b, sq, hq, d = q.shape
     sk = k.shape[1]
     rep = hq // k.shape[2]
     scale = 1.0 / math.sqrt(d)
-    qf = q.float().transpose(1, 2)                                # [b,h,sq,d]
-    of = dout.float().transpose(1, 2)
-    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
-    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    qf = q.to(compute_dtype).transpose(1, 2)                      # [b,h,sq,d]
+    of = dout.to(compute_dtype).transpose(1, 2)
+    kf = k.to(compute_dtype).repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.to(compute_dtype).repeat_interleave(rep, dim=2).transpose(1, 2)
+    lse, delta = lse.to(compute_dtype), delta.to(compute_dtype)
     s = (qf @ kf.transpose(-1, -2)) * scale
     live = live_elements(block_mask, sq, sk, causal, block)
     live = live & (lse[..., None] > NEG_INF / 4)
@@ -79,11 +90,13 @@ def _group_sum(t, hkv):
 
 def block_sparse_attention_bwd_dq_ref(q, k, v, block_mask, dout, lse, delta,
                                       *, causal: bool = True,
-                                      block: int = 128):
-    """dq alone (the plain version of the dq sweep, K2a)."""
+                                      block: int = 128,
+                                      compute_dtype=torch.float32):
+    """dq alone (the plain version of the dq sweep, K2a); ``compute_dtype``
+    float64 computes and returns it in float64."""
     _, ds, _, kf, _ = _recompute(q, k, v, block_mask, dout, lse, delta,
-                                 causal, block)
-    return (ds @ kf).transpose(1, 2).to(q.dtype)
+                                 causal, block, compute_dtype)
+    return (ds @ kf).transpose(1, 2).to(_out_dtype(q, compute_dtype))
 
 
 def block_sparse_attention_bwd_dkv_ref(q, k, v, block_mask, dout, lse,

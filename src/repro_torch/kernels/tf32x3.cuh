@@ -1,5 +1,6 @@
 // fp32-accurate matrix products on Hopper's TF32 tensor cores ("3xTF32"),
-// shared by K3 (pruned_matmul.cu) and K2b (block_sparse_attention_bwd.cu).
+// shared by K3 (pruned_matmul.cu), K1 (block_sparse_attention.cu), K2a and
+// K2b (block_sparse_attention_bwd.cu).
 //
 // One TF32 pass keeps 10 of fp32's 23 mantissa bits.  3xTF32 splits each
 // fp32 operand x into
@@ -26,8 +27,8 @@
 // the sign.  So the split takes finite operands only.  For every other x
 // (inf, NaN, |x| > TF32_MAX) x - hi is inf or NaN, which the four-argument
 // split() folds into `check` with one FMA; K3 sums a tile that saw one
-// again in plain fp32.  K2b's operands (q, k, v, dout and the
-// probabilities) are finite.
+// again in plain fp32.  The attention kernels' operands (q, k, v, dout,
+// the probabilities and dS) are finite.
 //
 // The MMA is mma.sync m16n8k8 (row.col, tf32 in, fp32 accumulate).  Its
 // fragments, with g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix Fragments

@@ -296,9 +296,11 @@ def _attn_fwd(x, wq, wk, wv, wo, *, cfg, mode, cache, pos, rope: bool = True,
             if cap >= s:
                 kc[:, :s] = k.to(kc.dtype)
                 vc[:, :s] = v.to(vc.dtype)
-            else:                       # ring buffer: keep last `cap`
-                kc.copy_(k[:, -cap:].to(kc.dtype))
-                vc.copy_(v[:, -cap:].to(vc.dtype))
+            else:
+                # ring buffer: keep the last `cap` positions, position q at
+                # slot q % cap, where decode writes it
+                kc.copy_(torch.roll(k[:, -cap:], s % cap, dims=1))
+                vc.copy_(torch.roll(v[:, -cap:], s % cap, dims=1))
     out = matmul(out.reshape(b, out.shape[1], nq * hd), wo)
     return out, cache, density
 

@@ -20,7 +20,11 @@ case checks that the variant ``ops.gm_variant`` chose is the one that ran.
 K3's tensor-core variant (3xTF32 ``mma.sync``) is held to the same fp32
 tolerances in each of its five operand layouts, bf16 within one bf16
 rounding; K2b (3xTF32 over a work schedule, fixed-order partial sums) at
-2e-4 of the largest entry; both bitwise equal on a repeat.
+2e-4 of the largest entry; both bitwise equal on a repeat.  K1 and K2a
+run on the tensor cores (3xTF32) for every head dim (16, 32, 64, 128) and
+both dtypes: every launch counts as a tensor-core launch, a repeat is
+bitwise equal, and the results keep the tolerances above (bf16: 2e-2 for
+K1 as chip_smoke.py holds it, 3e-2 of the largest entry for dq).
 """
 import copy
 
@@ -58,10 +62,11 @@ def test_block_sparse_attention_matches_plain(cuda):
         v = torch.randn((b, s, hkv, d), generator=g, device=cuda)
         n = -(-s // block)
         m = (torch.rand((b, hq, n, n), generator=g, device=cuda) < 0.6).int()
-        before = bsa.KERNEL.launches
+        before, tc0 = bsa.KERNEL.launches, bsa.KERNEL.launches_tc
         out, lse = bsa.block_sparse_attention_fwd(q, k, v, m, causal=causal,
                                                   block=block)
         assert bsa.KERNEL.launches == before + 1
+        assert bsa.KERNEL.launches_tc == tc0 + 1
         rout, rlse = bsa_ref.block_sparse_attention_ref(q, k, v, m,
                                                         causal=causal,
                                                         block=block)
@@ -264,6 +269,63 @@ def test_pruned_matmul_simt_edge_blocks(cuda, blk, axis):
     assert (pm.KERNEL.launches, pm.KERNEL.launches_tc) == (n0 + 1, tc0)
     torch.testing.assert_close(got, pm_ref.pruned_matmul_ref(
         x, w, m, mask_axis=axis, bn=blk, bk=blk), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_attention_fwd_and_dq_tensor_cores_bitwise(cuda, d, dt):
+    """K1 and K2a on the tensor cores at every head dim and dtype: each
+    launch counted as a tensor-core launch, a repeat bitwise equal, the
+    plain versions' tolerances kept; a ragged length, a fully masked q
+    block and a mask with dead blocks."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    b, s, hq, hkv, block = 2, 300, 4, 2, 128
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda)
+               .mul(0.5).to(dt) for h in (hq, hkv, hkv))
+    n = -(-s // block)
+    m = (torch.rand((b, hq, n, n), generator=g, device=cuda) < 0.7).int()
+    m[:, :, 1, :] = 0
+    fp32 = dt == torch.float32
+    n0, tc0 = bsa.KERNEL.launches, bsa.KERNEL.launches_tc
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, m, block=block)
+    out2, lse2 = bsa.block_sparse_attention_fwd(q, k, v, m, block=block)
+    torch.cuda.synchronize()
+    assert (bsa.KERNEL.launches, bsa.KERNEL.launches_tc) == (n0 + 2,
+                                                             tc0 + 2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    rout, rlse = bsa_ref.block_sparse_attention_ref(q, k, v, m, block=block)
+    tol = 1e-4 if fp32 else 2e-2
+    torch.testing.assert_close(out.float(), rout.float(), atol=tol,
+                               rtol=tol)
+    live = rlse > -1e29
+    torch.testing.assert_close(lse[live], rlse[live], atol=tol, rtol=tol)
+    assert bool((lse[~live] < -1e29).all())
+    assert float(out[:, block:2 * block].abs().max()) == 0.0
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(dt)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    n0, tc0 = bsa.KERNEL_DQ.launches, bsa.KERNEL_DQ.launches_tc
+    dq = bsa.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
+                                           block=block)
+    dq2 = bsa.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
+                                            block=block)
+    torch.cuda.synchronize()
+    assert (bsa.KERNEL_DQ.launches, bsa.KERNEL_DQ.launches_tc) == (
+        n0 + 2, tc0 + 2)
+    assert torch.equal(dq, dq2) and dq.dtype == dt
+    rdq = bsa_ref.block_sparse_attention_bwd_dq_ref(q, k, v, m, dout, lse,
+                                                    delta, block=block)
+    _rel_close(dq, rdq, 2e-4 if fp32 else 3e-2)
+    assert float(dq[:, block:2 * block].abs().max()) == 0.0
+
+
+def test_attention_kernels_refuse_misaligned_fp32(cuda):
+    """The fp32 tile loads are 16-byte cp.async copies: a view whose data
+    is not 16-byte aligned is refused, not read."""
+    q = torch.zeros(2 * 64 * 4 * 16 + 1, device=cuda)[1:].view(2, 64, 4, 16)
+    k = torch.zeros((2, 64, 2, 16), device=cuda)
+    m = torch.ones((1, 1, 1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        bsa.block_sparse_attention_fwd(q, k, k, m, block=64)
 
 
 @pytest.mark.parametrize("case", ["dense", "dead-tiles", "masked-rows",

@@ -255,6 +255,27 @@ def test_chip_smoke_moe_phases_require_k4_and_k5():
                                  steps)
 
 
+@pytest.mark.parametrize("name", ["block_sparse_attention",
+                                  "block_sparse_attention_bwd_dq",
+                                  "block_sparse_attention_bwd_dkv",
+                                  "pruned_matmul"])
+def test_chip_smoke_requires_the_tensor_cores_on_the_smollm_paths(name):
+    """Phases 4 and 4c fail unless every launch of K1, K2a, K2b and K3 on
+    the smollm paths took the 3xTF32 tensor-core variant."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert name in smoke.FP32_TC_PATH
+    launched = {n: 128 for n in smoke.FP32_TC_PATH}
+    smoke.check_tensor_core("train", launched, dict(launched),
+                            smoke.FP32_TC_PATH)
+    with pytest.raises(AssertionError, match=name):
+        smoke.check_tensor_core("train", launched, {**launched, name: 127},
+                                smoke.FP32_TC_PATH)
+
+
 @pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
 def test_convert_round_trips_reference_params_bit_exactly(param_dtype):
     pytest.importorskip("jax")

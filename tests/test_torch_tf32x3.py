@@ -1,22 +1,41 @@
-"""The 3xTF32 arithmetic of the tensor-core kernels (K3, K2b), modelled on
-the CPU by ``repro_torch.kernels.tf32x3`` and held to fp32 here.
+"""The 3xTF32 arithmetic of the tensor-core kernels (K1, K2a, K2b, K3),
+modelled on the CPU by ``repro_torch.kernels.tf32x3`` and held to fp32
+here.
 
 ``split_tf32`` rounds on the fp32 bits as ``cvt.rna.tf32.f32`` does; the
 3-term product hi·hi + hi·lo + lo·hi must land within K3's fp32 tolerance
 (2e-4, as ``test_torch_cuda.py`` holds the kernel to its plain version) of
 a float64 product and of the JAX package's ``pruned_matmul_p`` run in
 interpret mode, under a mask over N and over K with a ragged M.
+
+The attention models (K1's forward, K2a's dq: per 64-row kv tile, each
+product summed from zero and added in fp32 through the online softmax's
+rescale or dq's running sum) are held to the JAX package's block-sparse
+attention and its gradient, run in interpret mode as
+``tests/test_kernel_grads.py`` runs them, on the same seeded inputs: GQA
+4/2, d 16, 32 and 64, ragged lengths with a fully masked q block, mask
+blocks of 32 (cut inside the 64-row tile: the per-element path) and 128,
+causal and not.  Tolerances are the ones ``chip_smoke.py`` holds the
+kernels to: K1 1e-4 absolute plus 1e-4 relative, K2a 2e-4 of dq's largest
+entry.
 """
 import numpy as np
 import pytest
 
 pytest.importorskip("jax")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from repro.kernels.block_sparse_attention import (  # noqa: E402
+    block_sparse_attention as jax_bsa)
+from repro.kernels.block_sparse_attention.block_sparse_attention import (  # noqa: E402
+    block_sparse_attention_p)
 from repro.kernels.pruned_matmul import pruned_matmul as jax_pm  # noqa: E402
-from repro_torch.kernels.tf32x3 import (split_tf32, tf32x3_matmul_ref,  # noqa: E402
-                                        to_tf32)
+from repro_torch.kernels.block_sparse_attention import ref as bsa_ref  # noqa: E402
+from repro_torch.kernels.tf32x3 import (bsa_dq_tf32x3_ref,  # noqa: E402
+                                        bsa_fwd_tf32x3_ref, split_tf32,
+                                        tf32x3_matmul_ref, to_tf32)
 
 torch.set_num_threads(1)
 
@@ -131,3 +150,105 @@ def test_three_term_product_is_fp32_accurate(M, K, N, axis, density):
                   mask_axis=axis, interpret=True, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64),
                                atol=2e-4, rtol=2e-4)
+
+
+# (label, s, mask block): a ragged length whose mask blocks (32) cut the
+# 64-row kernel tile, and one with 128-blocks and a ragged last block
+ATTN_CASES = [("s100 blk32", 100, 32), ("s200 blk128", 200, 128)]
+ATTN_B, ATTN_HQ, ATTN_HKV = 2, 4, 2
+
+
+def _attention_inputs(s, d, block, causal):
+    rng = np.random.RandomState(s + d + block + causal)
+    q, k, v = ((rng.randn(ATTN_B, s, h, d) * 0.5).astype(np.float32)
+               for h in (ATTN_HQ, ATTN_HKV, ATTN_HKV))
+    n = -(-s // block)
+    mask = (rng.rand(ATTN_B, ATTN_HQ, n, n) < 0.7).astype(np.int32)
+    mask[:, :, 1, :] = 0                    # a fully masked q block
+    dout = rng.randn(ATTN_B, s, ATTN_HQ, d).astype(np.float32)
+    return q, k, v, mask, dout
+
+
+def _jax_attention(q, k, v, mask, causal, block):
+    return lambda q_: jax_bsa(q_, jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(mask), causal=causal,
+                              block_q=block, block_k=block, interpret=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("label,s,block", ATTN_CASES)
+def test_attention_forward_model_matches_pallas(label, s, block, d, causal):
+    q, k, v, mask, _ = _attention_inputs(s, d, block, causal)
+    out, lse = bsa_fwd_tf32x3_ref(*map(torch.from_numpy, (q, k, v, mask)),
+                                  causal=causal, block=block)
+    want = _jax_attention(q, k, v, mask, causal, block)(jnp.asarray(q))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    # the lse from the kernel itself, flattened and padded like its wrapper
+    n = -(-s // block)
+    rep = ATTN_HQ // ATTN_HKV
+
+    def flat(a, r=1):
+        a = np.pad(np.repeat(a, r, axis=2),
+                   ((0, 0), (0, n * block - s), (0, 0), (0, 0)))
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(
+            ATTN_B * ATTN_HQ, n * block, d))
+    _, klse = block_sparse_attention_p(
+        flat(q), flat(k, rep), flat(v, rep),
+        jnp.asarray(mask.reshape(ATTN_B * ATTN_HQ, n, n)), causal=causal,
+        block_q=block, block_k=block, kv_len=s, interpret=True)
+    klse = np.asarray(klse).reshape(ATTN_B, ATTN_HQ, n * block)[:, :, :s]
+    live = klse > -1e29
+    np.testing.assert_allclose(lse.numpy()[live], klse[live], atol=1e-4,
+                               rtol=1e-4)
+    assert (lse.numpy()[~live] < -1e29).all()
+    # the fully masked q block: zeros
+    assert float(out[:, block:2 * block].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("label,s,block", ATTN_CASES)
+def test_attention_dq_model_matches_pallas(label, s, block, d, causal):
+    q, k, v, mask, dout = _attention_inputs(s, d, block, causal)
+    tq, tk, tv, tm, tdo = map(torch.from_numpy, (q, k, v, mask, dout))
+    # K1 then K2a, as the card runs them: delta from K1's output
+    out, lse = bsa_fwd_tf32x3_ref(tq, tk, tv, tm, causal=causal, block=block)
+    delta = (tdo * out).sum(-1).transpose(1, 2).contiguous()
+    got = bsa_dq_tf32x3_ref(tq, tk, tv, tm, tdo, lse, delta, causal=causal,
+                            block=block)
+    _, vjp = jax.vjp(_jax_attention(q, k, v, mask, causal, block),
+                     jnp.asarray(q))
+    want = np.asarray(vjp(jnp.asarray(dout))[0])
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= 2e-4 * scale
+    assert float(got[:, block:2 * block].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("which", ["forward", "dq"])
+def test_attention_models_are_fp32_accurate(which):
+    """At least as close to a float64 computation as twice the plain fp32
+    version's distance (the criterion chip_smoke.py holds the kernels to
+    at the main shapes), causal, dense, d 64."""
+    s, d, block = 256, 64, 128
+    q, k, v, _, dout = _attention_inputs(s, d, block, True)
+    mask = torch.ones((1, 1, 2, 2), dtype=torch.int32)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = bsa_fwd_tf32x3_ref(tq, tk, tv, mask, block=block)
+    if which == "forward":
+        got = out
+        plain, _ = bsa_ref.block_sparse_attention_ref(tq, tk, tv, mask,
+                                                      block=block)
+        exact, _ = bsa_ref.block_sparse_attention_ref(
+            tq, tk, tv, mask, block=block, compute_dtype=torch.float64)
+    else:
+        delta = (tdo * out).sum(-1).transpose(1, 2).contiguous()
+        args = (tq, tk, tv, mask, tdo, lse, delta)
+        got = bsa_dq_tf32x3_ref(*args, block=block)
+        plain = bsa_ref.block_sparse_attention_bwd_dq_ref(*args, block=block)
+        exact = bsa_ref.block_sparse_attention_bwd_dq_ref(
+            *args, block=block, compute_dtype=torch.float64)
+    got_64 = float((got.double() - exact).abs().max())
+    plain_64 = float((plain.double() - exact).abs().max())
+    assert got_64 <= 2 * plain_64, (got_64, plain_64)
