@@ -12,7 +12,8 @@ final line:
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at the main path's full-width shapes and at edge shapes,
                with the tolerance stated; kernel / plain / library times
-               (CUDA events, warmed up, L2 warm) and the roofline bound;
+               (CUDA events, warmed up, L2 warm; K6 below) and the roofline
+               bound;
                each K1 and K3 case names its variant ("tc": 3xTF32
                mma.sync — every K1 call, every K3 mask block of 128;
                "simt": K3's 64 and 48 edge cases), is bitwise equal on a
@@ -21,6 +22,21 @@ final line:
                twice that of the fp32 plain version (torch.matmul for K3;
                allow_tf32 False); K1, K2a, K2b and K3 also print the bound
                of the 3xTF32 route (three TF32 passes);
+  3b.        the paged decode attention K6 (its pages cut into
+               ``pa_splits`` ranges merged in a fixed order) at the serve's
+               decode shape (b 4, nq 15, nkv 5, hd 64, page 16, J 66),
+               holes and an empty lane, page 4 / hd 16 fp32, page 64 /
+               hd 128 (G 8), lanes shorter than the split count, bf16 q,
+               and the long shape (every lane at 2048 tokens, J 128): each
+               prints its split count and blocks, within 1e-4 of the plain
+               version (bf16 out: one bf16 rounding), bitwise on a repeat,
+               empty lanes exactly 0; the main shape must split and run at
+               least 132 blocks.  Times by CUDA-graph replay: 32 launches
+               over 32 distinct pools (~347 MB, past the 50 MB L2: cold)
+               and over one pool (warm) at the main and the long shape,
+               replay bitwise equal to eager; SDPA on pre-gathered pages
+               graph-replayed (warm) as the library time; the eager times
+               on a line of their own;
   3c.        the backward sweeps K2a (dq) and K2b (dk/dv) at the training
                shapes (dense causal, a 512-block mask with dead tiles,
                partial blocks, fully masked rows, d 128, bf16), both on
@@ -50,7 +66,8 @@ final line:
                sparse attention, kernel_impl "pallas"; launch counters are
                zeroed just before and read just after, and every kernel of
                the path must have launched, every K1 and K3 launch on the
-               tensor cores;
+               tensor cores, every K6 launch cut into splits
+               (``k6_split_launches``);
   4b. profile — device time by kernel over a shorter serve (4 requests)
                under torch.profiler, and the device's busy share against
                the same serve's wall time without the profiler;
@@ -93,8 +110,18 @@ final line:
                placements, fp32 and bf16, y, load and drop fraction bitwise
                equal;
   6. the kernels line (JSON: per kernel its launches on the main paths
-     and, as launches_tc, how many of them took a tensor-core variant), the
-     card line, and the last line {"ok": true, "device": {...}}.
+     and, as launches_tc, how many of them took a tensor-core variant; K6's
+     ms is its cold graph-replay time at the main shape, its library_ms
+     SDPA's graph-replay time, and "timing" holds both shapes' cold, warm
+     and eager times and bounds, "launches_split" its split launches in
+     the serve), the card line, and the last line {"ok": true, "device":
+     {...}}.
+
+    python3 chip_smoke.py --k6-time ROOT
+
+times the K6 of the port under ROOT/src by the same graph replay (and,
+for a kernel that takes a split count, across split counts), so that two
+versions can be compared on one card, each in its own process.
 """
 from __future__ import annotations
 
@@ -197,6 +224,13 @@ def check_launches(label: str, launched, per_step, steps: int) -> None:
         if got != n * steps:
             raise AssertionError(f"{label}: {name} launched {got} times in "
                                  f"{steps} steps, expected {n} a step")
+
+
+def check_k6_split(launched: int, split: int) -> None:
+    """Phase 4: K6 launched, and every launch cut its pages into splits."""
+    if launched <= 0 or split != launched:
+        raise AssertionError(f"K6: {split} of {launched} serve launches cut "
+                             f"the pages into splits")
 
 
 def say(phase: str, **kv) -> None:
@@ -467,60 +501,173 @@ def check_pruned_matmul(torch, F):
                 shape=f"M{M} K{K} N{N} mask n all-live fp32")
 
 
+# K6 timing: CUDA graphs, so the host's enqueue rate is not what is timed;
+# "cold" replays one launch over each of K6_POOLS distinct pools (~10.8 MB
+# each at the main shape, ~347 MB in all, past the 50 MB L2), as the serve
+# meets a different layer's pool on every call; "warm" replays as many
+# launches over one pool
+K6_POOLS = 32
+# (b lanes' cache lengths, n_q, n_kv, hd, page, J, pool blocks): the serve's
+# decode shape (smollm-360m, 4 lanes, prompts 512-1024 + 32 generated) and
+# every lane at smollm-360m's published context of 2048 tokens
+K6_SHAPES = {"main": ([1056, 700, 1024, 513], 15, 5, 64, 16, 66, 528),
+             "long": ([2048] * 4, 15, 5, 64, 16, 128, 512)}
+
+
+def paged_inputs(torch, g, clens, n_q, n_kv, hd, page, J, pool, kv_dt,
+                 holes=False, q_dt=None, pools=1):
+    """Seeded K6 inputs on the card: q, ``pools`` (kp, vp) pairs that share
+    one page table (each lane's pages at random blocks), cache_len."""
+    dev = "cuda"
+    b = len(clens)
+    q = torch.randn((b, n_q, hd), generator=g, device=dev).to(
+        q_dt or torch.float32)
+    kvs = [tuple(torch.randn((pool + 1, page, n_kv, hd), generator=g,
+                             device=dev).to(kv_dt) for _ in range(2))
+           for _ in range(pools)]
+    perm = torch.randperm(pool, generator=g, device=dev).cpu()
+    pt = torch.full((b, J), -1, dtype=torch.int32)
+    n = 0
+    for i, cl in enumerate(clens):
+        for j in range(-(-cl // page)):
+            pt[i, j] = int(perm[n])
+            n += 1
+    if holes:
+        pt[0, 1] = -1                         # an unmapped page inside clen
+    cl = torch.tensor(clens, dtype=torch.int32, device=dev)
+    return q, kvs, pt.to(dev), cl
+
+
+def paged_bound(q, kp, pt, cl):
+    """K6's least time (ms, "bytes"/"operations"): what the kernel must
+    read once and write once at 3.35 TB/s -- the K/V rows below each lane's
+    length in its mapped pages (the rows past it in the tail page are
+    zero-filled, not read), the page-table entries of its live pages, the
+    lengths, q and the output -- and 4 FLOPs a read position and head dim
+    per q head at the fp32 peak."""
+    b, n_q, hd = q.shape
+    page, n_kv = kp.shape[1], kp.shape[2]
+    rows = entries = 0
+    for lane, c in zip(pt.tolist(), cl.tolist()):
+        n = min(len(lane), -(-c // page))
+        entries += n
+        rows += sum(min(page, c - j * page) for j in range(n) if lane[j] >= 0)
+    nbytes = (2.0 * rows * n_kv * hd * kp.element_size()
+              + 2 * q.numel() * q.element_size() + 4.0 * (entries + b))
+    return bound(4.0 * hd * n_q * rows, nbytes)
+
+
+def graph_ms(torch, calls, reps: int = 20):
+    """Device ms per call of ``calls`` (thunks) captured in order into one
+    CUDA graph and replayed ``reps`` times between two CUDA events, after
+    one eager run of each (builds the kernel, makes its split counters) and
+    one warm-up replay; returns (ms, the captured calls' outputs)."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * len(calls)), outs
+
+
+def k6_graph_times(torch, fwd, shape: str) -> dict:
+    """K6 (``fwd(q, kp, vp, pt, cl)``) at one of K6_SHAPES: graph replay
+    over K6_POOLS pools (cold L2) and over one pool (warm), each replayed
+    output bitwise equal to an eager call on the same pool."""
+    clens, n_q, n_kv, hd, page, J, pool = K6_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, kvs, pt, cl = paged_inputs(torch, g, clens, n_q, n_kv, hd, page, J,
+                                  pool, torch.bfloat16, pools=K6_POOLS)
+    cold, outs_c = graph_ms(torch, [
+        (lambda kp=kp, vp=vp: fwd(q, kp, vp, pt, cl)) for kp, vp in kvs])
+    kp, vp = kvs[0]
+    warm, outs_w = graph_ms(torch, [lambda: fwd(q, kp, vp, pt, cl)] *
+                            K6_POOLS)
+    for i in (0, K6_POOLS - 1):
+        eager = fwd(q, kvs[i][0], kvs[i][1], pt, cl)
+        if not torch.equal(outs_c[i], eager):
+            raise AssertionError(f"K6 {shape}: graph replay differs from "
+                                 f"eager (pool {i})")
+    if not all(torch.equal(o, outs_c[0]) for o in outs_w):
+        raise AssertionError(f"K6 {shape}: warm replay differs from eager")
+    r = dict(cold_ms=cold, warm_ms=warm, eager_ms=cuda_ms(
+        lambda: fwd(q, kp, vp, pt, cl)), bound=paged_bound(q, kp, pt, cl),
+        shape=f"b{len(clens)} nq{n_q} nkv{n_kv} hd{hd} page{page} J{J} "
+              f"q fp32 pool bf16, lengths {min(clens)}-{max(clens)}",
+        inputs=(q, kp, vp, pt, cl))
+    del kvs, outs_c, outs_w
+    return r
+
+
 def check_paged_attention(torch, F):
     from repro_torch.kernels.paged_attention import ops, ref
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    main_args = K6_SHAPES["main"]
 
     def run_case(label, clens, n_q, n_kv, hd, page, J, pool, kv_dt, holes,
-                 atol, path):
+                 q_dt=None):
+        q, ((kp, vp),), pt, cl = paged_inputs(torch, g, clens, n_q, n_kv,
+                                              hd, page, J, pool, kv_dt,
+                                              holes, q_dt)
         b = len(clens)
-        q = torch.randn((b, n_q, hd), generator=g, device=dev)
-        kp = torch.randn((pool + 1, page, n_kv, hd), generator=g,
-                         device=dev).to(kv_dt)
-        vp = torch.randn((pool + 1, page, n_kv, hd), generator=g,
-                         device=dev).to(kv_dt)
-        perm = torch.randperm(pool, generator=g, device=dev).cpu()
-        pt = torch.full((b, J), -1, dtype=torch.int32)
-        n = 0
-        for i, cl in enumerate(clens):
-            for j in range(-(-cl // page)):
-                pt[i, j] = int(perm[n])
-                n += 1
-        if holes:
-            pt[0, 1] = -1                     # an unmapped page inside clen
-        pt = pt.to(dev)
-        cl = torch.tensor(clens, dtype=torch.int32, device=dev)
+        splits = ops.pa_splits(b, n_kv, J, page)
+        n0, s0 = ops.KERNEL.launches, ops.KERNEL.launches_split
         out = ops.paged_attention_fwd(q, kp, vp, pt, cl)
+        again = ops.paged_attention_fwd(q, kp, vp, pt, cl)
         torch.cuda.synchronize()
-        want = ref.paged_attention_fwd_ref(q, kp, vp, pt, cl)
-        e = check_close(f"K6 {label}", out, want, atol, atol)
+        if (ops.KERNEL.launches - n0, ops.KERNEL.launches_split - s0) != (
+                2, 2 if splits > 1 else 0):
+            raise AssertionError(f"K6 {label}: launch counts moved by "
+                                 f"{ops.KERNEL.launches - n0} / "
+                                 f"{ops.KERNEL.launches_split - s0}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K6 {label}: a repeat is not bitwise equal")
+        # fp32 out: 1e-4; bf16 out: one bf16 rounding of the fp32 result
+        want = ref.paged_attention_fwd_ref(q.float(), kp, vp, pt, cl)
+        tol = (1e-4, 1e-4) if out.dtype == torch.float32 else (1e-4, 2**-8)
+        e = check_close(f"K6 {label}", out, want, *tol)
         for i, c in enumerate(clens):
             if c == 0 and float(out[i].abs().max()) != 0.0:
                 raise AssertionError("K6: a lane with no live page is not 0")
+        blocks = ops.pa_blocks(b, n_q, n_kv, splits)
         say("kernels", kernel="K6", case=label.replace(" ", "_"),
-            max_abs_err=f"{e:.3e}", tol=atol)
-        return (e if path else 0.0), (q, kp, vp, pt, cl)
+            splits=splits, blocks=blocks, max_abs_err=f"{e:.3e}",
+            tol=repr(tol), bitwise_repeat=True)
+        return (e if out.dtype == torch.float32 else 0.0), splits, blocks
 
+    bf = torch.bfloat16
     cases = [
-        ("main b4 J66 page16", [1056, 700, 1024, 513], 15, 5, 64, 16, 66,
-         528, torch.bfloat16, False, 1e-4, True),
-        ("holes empty-lane", [37, 0, 1, 64], 15, 5, 64, 16, 66, 528,
-         torch.bfloat16, True, 1e-4, True),
+        ("main b4 J66 page16", *main_args, bf, False),
+        ("holes empty-lane", [37, 0, 1, 64], 15, 5, 64, 16, 66, 528, bf,
+         True),
         ("page4 hd16 fp32", [4, 7, 13, 16], 4, 2, 16, 4, 4, 12,
-         torch.float32, False, 1e-4, True),
-        ("page64 hd128", [300, 129], 8, 1, 128, 64, 8, 16, torch.bfloat16,
-         False, 1e-4, True),
+         torch.float32, False),
+        ("page64 hd128", [300, 129], 8, 1, 128, 64, 8, 16, bf, False),
+        ("short lanes", [1056, 17, 1, 0], 15, 5, 64, 16, 66, 528, bf, False),
+        ("bf16 q", *main_args, bf, False, bf),
+        ("long b4 2048", *K6_SHAPES["long"], bf, False),
     ]
-    worst, timed = 0.0, None
+    worst = 0.0
     for c in cases:
-        e, inp = run_case(*c)
-        worst = max(worst, e)
-        timed = timed or inp
-    q, kp, vp, pt, cl = timed
-    b, n_q, hd = q.shape
-    page, n_kv = kp.shape[1], kp.shape[2]
-    ms = cuda_ms(lambda: ops.paged_attention_fwd(q, kp, vp, pt, cl))
+        e, splits, blocks = run_case(*c)
+        if c[0].startswith("main") and (splits <= 1 or blocks < 132):
+            raise AssertionError(f"K6 main shape: {splits} splits, {blocks} "
+                                 f"blocks (want > 1 and >= 132)")
+        worst = max(worst, e)            # over the fp32-output cases
+    times = {k: k6_graph_times(torch, ops.paged_attention_fwd, k)
+             for k in K6_SHAPES}
+    q, kp, vp, pt, cl = times["main"]["inputs"]
+    n_q, n_kv = q.shape[1], kp.shape[2]
     plain_ms = cuda_ms(lambda: ref.paged_attention_fwd_ref(q, kp, vp, pt,
                                                            cl))
     # library yardstick: SDPA over the pages gathered beforehand (the
@@ -528,19 +675,78 @@ def check_paged_attention(torch, F):
     kg, vg = (t.float().repeat_interleave(n_q // n_kv, dim=2).transpose(1, 2)
               for t in ref.gather_pages(kp, vp, pt))
     T = kg.shape[2]
-    am = (torch.arange(T, device=dev)[None, :] < cl[:, None])[:, None, None]
+    am = (torch.arange(T, device="cuda")[None, :] < cl[:, None])[:, None,
+                                                                 None]
     qs = q[:, :, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=am))
-    live_tok = float(cl.sum())
-    live_pages = float(sum(-(-int(c) // page) for c in cl.tolist()))
-    kv_bytes = 2.0 * live_pages * page * n_kv * hd * kp.element_size()
-    nbytes = kv_bytes + 4.0 * (2 * b * n_q * hd + pt.numel() + b)
-    flops = 4.0 * hd * n_q * live_tok
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                max_abs_err=worst, tol=1e-4, bound=bound(flops, nbytes),
-                shape=f"b{b} nq{n_q} nkv{n_kv} hd{hd} page{page} "
-                      f"J{pt.shape[1]} q fp32 pool bf16")
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=am)
+    lib_eager = cuda_ms(lib)
+    lib_graph, _ = graph_ms(torch, [lib] * K6_POOLS)
+    for k, r in times.items():
+        clens, _, n_kv_k, _, page, J, _ = K6_SHAPES[k]
+        say("kernels", kernel="K6", timing="graph", shape_name=k,
+            shape=repr(r["shape"]),
+            splits=ops.pa_splits(len(clens), n_kv_k, J, page),
+            cold_ms=f"{r['cold_ms']:.4f}", warm_ms=f"{r['warm_ms']:.4f}",
+            eager_ms=f"{r['eager_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
+            cold_over_bound=f"{r['cold_ms'] / r['bound'][0]:.2f}",
+            graph_equals_eager=True)
+    m = times["main"]
+    say("kernels", kernel="K6", timing="eager", ms=f"{m['eager_ms']:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_eager:.4f}",
+        library_graph_ms=f"{lib_graph:.4f}")
+    timing = {k: {key: r[key] for key in ("cold_ms", "warm_ms", "eager_ms",
+                                          "shape")}
+              | {"bound_ms": r["bound"][0]} for k, r in times.items()}
+    timing["library_eager_ms"] = lib_eager
+    del times, kg, vg
+    free_cuda(torch)
+    return dict(ms=m["cold_ms"], plain_ms=plain_ms, library_ms=lib_graph,
+                max_abs_err=worst, tol=1e-4, bound=m["bound"],
+                shape=m["shape"] + " (graph replay, cold L2)",
+                library_covers="SDPA on pre-gathered pages, graph replay, "
+                               "warm", timing=timing)
+
+
+def k6_time_only(root: str) -> int:
+    """``--k6-time ROOT``: K6's graph-replay times (chip_smoke's method) for
+    the port under ROOT/src, so that two versions of the kernel can be timed
+    the same way on one card, each in its own process."""
+    import hashlib
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA card", flush=True)
+        return 1
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import ops
+    _build.build([ops.KERNEL])
+    src = hashlib.sha256(ops.KERNEL.source.read_bytes()).hexdigest()[:12]
+    for k in K6_SHAPES:
+        r = k6_graph_times(torch, ops.paged_attention_fwd, k)
+        say("k6_time", root=root, source_sha=src, shape_name=k,
+            cold_ms=f"{r['cold_ms']:.4f}", warm_ms=f"{r['warm_ms']:.4f}",
+            eager_ms=f"{r['eager_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}")
+    # a kernel that splits its pages: its cold time across split counts,
+    # each forced by replacing the wrapper's ``pa_splits``
+    if hasattr(ops, "pa_splits"):
+        chosen = ops.pa_splits
+        for k in K6_SHAPES:
+            cold = {}
+            for sp in (1, 2, 4, 7, 10, 14, 20, 33):
+                ops.pa_splits = lambda *shape, sp=sp: sp
+                cold[sp] = k6_graph_times(torch, ops.paged_attention_fwd,
+                                          k)["cold_ms"]
+            ops.pa_splits = chosen
+            say("k6_time", root=root, source_sha=src, shape_name=k,
+                cold_ms_by_splits=json.dumps(
+                    {sp: round(t, 4) for sp, t in cold.items()}
+                ).replace(" ", ""))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1857,6 +2063,9 @@ def main() -> int:
     missing = [n for n in serve_path if launches[n] <= 0]
     if missing:
         raise AssertionError(f"serve never launched {missing}: {launches}")
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    k6_split = pa_ops.KERNEL.launches_split
+    check_k6_split(launches["paged_attention"], k6_split)
     check_tensor_core("serve", launches, tc, FP32_TC_PATH)
     say("serve", requests=len(comps), tokens=rep["total_tokens"],
         ticks=rep["ticks"], tokens_per_s=f"{rep['tokens_per_s']:.1f}",
@@ -1865,6 +2074,7 @@ def main() -> int:
         wall_s=f"{rep['wall_s']:.2f}",
         max_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=json.dumps(launches).replace(" ", ""),
+        k6_split_launches=k6_split,
         tiles_live=f"{rep['page_tile_live']}/{rep['page_tile_total']}")
     del rep
 
@@ -1929,11 +2139,13 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]}
-        for key in ("library_covers", "cases"):
+        for key in ("library_covers", "cases", "timing"):
             if key in r:
                 entry[key] = r[key]
         if "bound_tf32x3" in r:
             entry["bound_tf32x3_ms"] = r["bound_tf32x3"][0]
+        if k.name == "paged_attention":
+            entry["launches_split"] = k6_split
         if k.name == "pruned_matmul":
             entry.update(
                 bwd_bound_tf32x3_ms=r["bwd_bound_tf32x3"][0],
@@ -1957,4 +2169,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--k6-time":
+        sys.exit(k6_time_only(sys.argv[2]))
     sys.exit(main())

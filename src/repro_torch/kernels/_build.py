@@ -59,7 +59,8 @@ class Kernel:
     path really went through the kernel; ``launches_bwd`` counts the subset
     launched by a backward pass (K3's backward products), ``launches_tc``
     the subset that went to a tensor-core variant (K1, K2a, K2b, K3, K4,
-    K5)."""
+    K5), ``launches_split`` the subset that cut its work across more than
+    one block per output row (K6's page splits)."""
 
     def __init__(self, name: str, source: str, replaces: str,
                  functions: Dict[str, Sequence]):
@@ -70,6 +71,7 @@ class Kernel:
         self.launches = 0
         self.launches_bwd = 0
         self.launches_tc = 0
+        self.launches_split = 0
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset(self) -> None:
@@ -77,6 +79,7 @@ class Kernel:
         self.launches = 0
         self.launches_bwd = 0
         self.launches_tc = 0
+        self.launches_split = 0
 
     # -- build ---------------------------------------------------------------
     def library_path(self) -> Path:
@@ -108,10 +111,10 @@ class Kernel:
         return self._lib
 
     def launch(self, symbol: str, *args, bwd: bool = False,
-               tc: bool = False) -> None:
+               tc: bool = False, split: bool = False) -> None:
         """Call one C launcher on the current stream and raise if the launch
-        was refused (``cudaGetLastError`` != 0); ``bwd`` / ``tc`` count it
-        as a backward / tensor-core launch too."""
+        was refused (``cudaGetLastError`` != 0); ``bwd`` / ``tc`` / ``split``
+        count it as a backward / tensor-core / split launch too."""
         fn = getattr(self.lib(), symbol)
         err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err != 0:
@@ -122,6 +125,8 @@ class Kernel:
             self.launches_bwd += 1
         if tc:
             self.launches_tc += 1
+        if split:
+            self.launches_split += 1
 
 
 def build(kernels: Iterable[Kernel]) -> Dict[str, float]:

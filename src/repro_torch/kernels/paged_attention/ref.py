@@ -6,6 +6,10 @@ row and run the unmodified dense ``decode_attention`` — bit-identical to a
 contiguous cache.  ``paged_attention_fwd_ref`` is the plain version of the
 kernel itself (fp32 softmax and output, unmapped pages masked): the CPU path
 of ``ops.paged_attention`` and the oracle the CUDA kernel is held against.
+``paged_attention_split_ref`` is the kernel's own order of arithmetic: the
+same function through per-split softmax states merged in split order (the
+tests hold it to the reference's Pallas kernel; the main path never runs
+it).
 """
 from __future__ import annotations
 
@@ -57,3 +61,44 @@ def paged_attention_fwd_ref(q, kp, vp, page_table, cache_len):
     l = p.sum(-1, keepdim=True)
     out = torch.einsum("bht,bthd->bhd", p, vf)
     return (out / torch.where(l > 0, l, torch.ones_like(l))).to(q.dtype)
+
+
+def paged_attention_split_ref(q, kp, vp, page_table, cache_len, splits):
+    """``paged_attention_fwd_ref`` in the CUDA kernel's order: lane i's live
+    pages n = min(J, ceil(cache_len[i] / page)) are cut into ``splits``
+    contiguous ranges of ceil(n / splits) pages; each range keeps its own
+    online-softmax state (m, l, acc) — the empty state (NEG_INF, 0, 0) when
+    it holds no live position — and the states are merged in split order:
+    M = max m, L = sum l * exp(m - M), out = sum acc * exp(m - M) / L."""
+    b, n_q, hd = q.shape
+    page, n_kv = kp.shape[1], kp.shape[2]
+    J = page_table.shape[1]
+    k, v = gather_pages(kp, vp, page_table)
+    rep = n_q // n_kv
+    kf = k.float().repeat_interleave(rep, dim=2)            # [b, T, n_q, hd]
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q.float(), kf) / math.sqrt(hd)
+    t = torch.arange(k.shape[1], device=q.device)
+    cl = cache_len.reshape(-1, 1).long()
+    live = (t[None, :] < cl) & (page_table >= 0).repeat_interleave(page,
+                                                                   dim=1)
+    n_pages = ((cl + page - 1) // page).clamp(0, J)
+    pps = ((n_pages + splits - 1) // splits).clamp(min=1)
+    split_of = (t // page)[None, :] // pps                   # [b, T]
+    M = torch.full((b, n_q, 1), NEG_INF, device=q.device)
+    states = []
+    for sp in range(splits):
+        mask = (live & (split_of == sp))[:, None, :]         # [b, 1, T]
+        ss = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = ss.amax(-1, keepdim=True)
+        p = torch.where(mask, torch.exp(ss - m), torch.zeros_like(s))
+        states.append((m, p.sum(-1, keepdim=True),
+                       torch.einsum("bht,bthd->bhd", p, vf)))
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    acc = torch.zeros((b, n_q, hd), device=q.device)
+    for m, l, a in states:
+        f = torch.exp(m - M)
+        L = L + l * f
+        acc = acc + a * f
+    return (acc / torch.where(L > 0, L, torch.ones_like(L))).to(q.dtype)

@@ -24,7 +24,11 @@ rounding; K2b (3xTF32 over a work schedule, fixed-order partial sums) at
 run on the tensor cores (3xTF32) for every head dim (16, 32, 64, 128) and
 both dtypes: every launch counts as a tensor-core launch, a repeat is
 bitwise equal, and the results keep the tolerances above (bf16: 2e-2 for
-K1 as chip_smoke.py holds it, 3e-2 of the largest entry for dq).
+K1 as chip_smoke.py holds it, 3e-2 of the largest entry for dq).  K6
+(paged decode attention, its pages cut into splits merged in a fixed
+order) is held at 1e-4 to both the unsplit plain version and the
+split-order one at the same split count (bf16 output: one bf16 rounding),
+bitwise on a repeat and under CUDA-graph replay.
 """
 import copy
 
@@ -388,6 +392,93 @@ def test_paged_attention_matches_plain(cuda):
         assert pa.KERNEL.launches == before + 1
         want = pa_ref.paged_attention_fwd_ref(args[0][:, 0], *args[1:])
         torch.testing.assert_close(out[:, 0], want, atol=1e-4, rtol=1e-4)
+
+
+def _paged_case(cuda, seed, clen, n_q, n_kv, hd, page, J, kv_dt,
+                hole=False, q_dt=torch.float32):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pool = sum(-(-c // page) for c in clen) + 2
+    q = torch.randn((len(clen), n_q, hd), generator=g).to(q_dt)
+    kp, vp = (torch.randn((pool + 1, page, n_kv, hd), generator=g).to(kv_dt)
+              for _ in range(2))
+    pt = torch.full((len(clen), J), -1, dtype=torch.int32)
+    perm, n = torch.randperm(pool, generator=g), 0
+    for i, c in enumerate(clen):
+        for j in range(-(-c // page)):
+            pt[i, j] = int(perm[n])
+            n += 1
+    if hole:
+        pt[0, 1] = -1
+    return [t.to(cuda) for t in (q, kp, vp, pt,
+                                 torch.tensor(clen, dtype=torch.int32))]
+
+
+@pytest.mark.parametrize("clen,n_q,n_kv,hd,page,J,kv_dt,hole,q_dt", [
+    # the serve's shape with lanes shorter than the split count
+    ([1056, 17, 1, 0], 15, 5, 64, 16, 66, torch.bfloat16, False,
+     torch.float32),
+    ([61, 0, 1, 33], 6, 2, 64, 8, 8, torch.float32, True, torch.float32),
+    ([29, 3], 8, 1, 16, 4, 8, torch.bfloat16, True, torch.float32),
+    ([300, 129], 8, 1, 128, 64, 8, torch.bfloat16, False, torch.bfloat16),
+    ([47, 1, 0], 16, 1, 32, 16, 3, torch.float32, True, torch.float32),
+    ([16, 9, 31], 2, 2, 128, 4, 8, torch.float32, False, torch.float32),
+])
+def test_paged_attention_splits_match_plain(cuda, monkeypatch, clen, n_q,
+                                            n_kv, hd, page, J, kv_dt, hole,
+                                            q_dt):
+    """K6 at split counts from 1 to more than a lane has pages, and at
+    pa_splits' choice: within 1e-4 of the split-order plain version at the
+    same count and of the unsplit plain version (bf16 out: one bf16
+    rounding), bitwise equal on a repeat, empty lanes exactly 0, one launch
+    a call, counted as split when it cut the pages."""
+    q, kp, vp, pt, cl = _paged_case(cuda, len(clen) + hd, clen, n_q, n_kv,
+                                    hd, page, J, kv_dt, hole, q_dt)
+    want = pa_ref.paged_attention_fwd_ref(q.float(), kp, vp, pt, cl)
+    tol = (dict(atol=1e-4, rtol=1e-4) if q_dt == torch.float32
+           else dict(atol=1e-4, rtol=2 ** -8))
+    for splits in (1, 2, 3, pa.pa_splits(len(clen), n_kv, J, page), 40):
+        monkeypatch.setattr(pa, "pa_splits", lambda *shape: splits)
+        n0, s0 = pa.KERNEL.launches, pa.KERNEL.launches_split
+        out = pa.paged_attention_fwd(q, kp, vp, pt, cl)
+        again = pa.paged_attention_fwd(q, kp, vp, pt, cl)
+        torch.cuda.synchronize()
+        assert pa.KERNEL.launches == n0 + 2
+        assert pa.KERNEL.launches_split == s0 + (2 if splits > 1 else 0)
+        assert torch.equal(out, again)
+        split = pa_ref.paged_attention_split_ref(q.float(), kp, vp, pt, cl,
+                                                 splits)
+        torch.testing.assert_close(out.float(), split, **tol)
+        torch.testing.assert_close(out.float(), want, **tol)
+        for i, c in enumerate(clen):
+            if c == 0:
+                assert float(out[i].abs().max()) == 0.0
+
+
+def test_paged_attention_graph_replay_equals_eager(cuda):
+    """Captured in a CUDA graph (after one eager call made the split
+    counters), K6 replays to the eager result bit for bit, repeatedly: the
+    counters are back at 0 after every launch."""
+    q, kp, vp, pt, cl = _paged_case(cuda, 4, [1056, 700, 1024, 513], 15, 5,
+                                    64, 16, 66, torch.bfloat16)
+    eager = pa.paged_attention_fwd(q, kp, vp, pt, cl)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [pa.paged_attention_fwd(q, kp, vp, pt, cl) for _ in range(3)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, eager) for o in outs)
+
+
+def test_paged_attention_refuses_misaligned_pool(cuda):
+    """K/V rows arrive as 16-byte cp.async copies: a pool view that is not
+    16-byte aligned is refused, not read."""
+    q, kp, vp, pt, cl = _paged_case(cuda, 6, [20, 7], 4, 2, 16, 4, 8,
+                                    torch.bfloat16)
+    flat = torch.zeros(kp.numel() + 1, dtype=kp.dtype, device=cuda)
+    bad = flat[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_attention_fwd(q, bad, vp, pt, cl)
 
 
 def test_reduced_serve_on_the_card_matches_the_cpu(cuda):

@@ -4,7 +4,8 @@
   package — checked in the source and in ``sys.modules`` after a CPU serve
   and a CPU train, of smollm and of the MoE slice (reduced Mixtral through
   the grouped-matmul kernels, the expert layout and the Mixtral config).
-* ``chip_smoke.py``'s MoE phases require K4 and K5 launches.
+* ``chip_smoke.py``'s MoE phases require K4 and K5 launches, its serve
+  phase every K6 launch split; its K6 bound counts the live pages.
 * Entry points run on CUDA and raise without a card unless the caller asks
   for the CPU; features outside the slice raise ``NotImplementedError``.
 * ``chip_smoke.py`` fails, and prints no result, without a card or outside
@@ -274,6 +275,52 @@ def test_chip_smoke_requires_the_tensor_cores_on_the_smollm_paths(name):
     with pytest.raises(AssertionError, match=name):
         smoke.check_tensor_core("train", launched, {**launched, name: 127},
                                 smoke.FP32_TC_PATH)
+
+
+def test_chip_smoke_requires_every_serve_k6_launch_split():
+    """Phase 4 fails unless K6 launched and every launch of the serve cut
+    its pages into splits (the serve's b 4, n_kv 5, J 66 gives 10)."""
+    import importlib.util
+    from repro_torch.kernels.paged_attention import ops as pa
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.check_k6_split(2272, 2272)
+    for launched, split in ((2272, 2271), (0, 0)):
+        with pytest.raises(AssertionError, match="K6"):
+            smoke.check_k6_split(launched, split)
+    assert pa.pa_splits(4, 5, 66, 16) > 1
+
+
+@pytest.mark.parametrize("shape,mbytes", [("main", 4.246604),
+                                          ("long", 10.518544)])
+def test_chip_smoke_k6_byte_bound(shape, mbytes):
+    """K6's bound counts once the K/V rows below each lane's length in its
+    mapped pages, the page-table entries of its live pages, the lengths, q
+    and the output: 3,293 rows (not the 207 x 16 of whole pages) of 5 kv
+    heads x 64 bf16 K and V at the serve's decode shape, 8,192 (~3.1 us at
+    3.35 TB/s) with every lane at 2048 tokens."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    clens, n_q, n_kv, hd, page, J, pool = smoke.K6_SHAPES[shape]
+    q = torch.zeros((len(clens), n_q, hd))
+    kp = torch.zeros((pool + 1, page, n_kv, hd), dtype=torch.bfloat16)
+    pt = torch.full((len(clens), J), -1, dtype=torch.int32)
+    n = 0
+    for i, c in enumerate(clens):
+        for j in range(-(-c // page)):
+            pt[i, j] = n
+            n += 1
+    ms, by = smoke.paged_bound(q, kp, pt, torch.tensor(clens))
+    assert by == "bytes"
+    assert ms == pytest.approx(mbytes * 1e6 / smoke.PEAK_BYTES * 1e3,
+                               rel=1e-9)
+    pt[0, 1] = -1                  # an unmapped page is not read
+    assert smoke.paged_bound(q, kp, pt, torch.tensor(clens))[0] < ms
 
 
 @pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
