@@ -96,6 +96,32 @@ final line:
                window forbids paging); K4 in every prefill and decode;
                moe_dropped_mean in [0, 1);
   4g. profile — two MoE train steps under torch.profiler;
+  4h. elastic train — the training CLI on full-width smollm-360m with 4
+               stage buffers of 16 slots (--slot-slack 8), 4 microbatches
+               of 2 x 1024 tokens, 24 steps, the prune at step 10,
+               --repack at the default memory cap and --grow-back 5;
+               counters zeroed just before and read just after: the
+               controller's own repack decision must shrink 4 -> 2 and the
+               grow-back restore 4, the pool log release the tail workers
+               and grant them back, every loss finite, every K1, K2a, K2b
+               and K3 launch on the tensor cores at the 4c per-step counts;
+               prints per resize its seconds (the card synchronized),
+               ticks and torch.cuda.memory_allocated before and after
+               (which must fall after the shrink), and the step ms in each
+               world;
+  4i. elastic serve — the serve CLI's server on full-width smollm-360m with
+               4 stage buffers, paged KV (page 16), 8 requests with prompts
+               of 512-1024 tokens, once fixed and once with resize_at
+               {8: 2, 16: 4}: completions token-identical, the page pool
+               bitwise equal after one more shrink / grow cycle on the live
+               state (the trash block excluded), every K6 launch split;
+  4j. early exit — the training CLI with --dynamism early_exit (2 stage
+               buffers, 8 steps, the exited share printed every step; K1,
+               K2a, K2b and K3 at the 4c per-step counts on the tensor
+               cores) and the serve CLI with --dynamism early_exit
+               --early-exit-frac 0.5 (K1 and K3 on the tensor cores, every
+               K6 launch split), the counts zeroed just before each of the
+               two and read just after;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
   5b. train parity — loss and every gradient of one training step (full
@@ -109,6 +135,22 @@ final line:
                largest entry); moe_ffn under the identity and two expert
                placements, fp32 and bf16, y, load and drop fraction bitwise
                equal;
+  5d. ee / mod parity — one early-exit training step (32 layers, 2 stage
+               buffers; every token exits at the default threshold 0.98,
+               and a second case at 0.982 must leave some tokens live and
+               exit others) through the kernels and the plain versions,
+               each case: the loss within 1e-4 relative; the plain
+               versions replaying the kernel run's exit marks (the same
+               function) within 1e-4 (loss) and 1e-3 of each gradient
+               leaf's largest entry; printed: the least |cos - threshold|
+               of each run's exit decisions, how many exit marks the two
+               free runs set differently and the free runs' worst leaf
+               (a token within ~1e-7 of the threshold may exit a layer
+               apart), the exited share and the exits by layer; one
+               --dynamism mod step's loss and stage gradients bitwise the
+               none step's from the same params; an early-exit prefill + 8
+               decode steps, ids equal where the plain run's top-2 gap
+               exceeds 1e-3;
   6. the kernels line (JSON: per kernel its launches on the main paths
      and, as launches_tc, how many of them took a tensor-core variant; K6's
      ms is its cold graph-replay time at the main shape, its library_ms
@@ -125,6 +167,7 @@ versions can be compared on one card, each in its own process.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -133,6 +176,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -184,6 +228,57 @@ MOE_SERVE_PATH = ("grouped_matmul",)
 # take the 3xTF32 tensor-core variant
 FP32_TC_PATH = ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                 "block_sparse_attention_bwd_dkv", "pruned_matmul")
+
+
+def elastic_train_args(steps: int = 24):
+    """Phase 4h's CLI flags: full-width smollm-360m on 4 stage buffers of
+    16 slots (``--slot-slack 8``: two merged stages' 16 layers must fit one
+    buffer, or the repack policy can merge none), the prune at step 10,
+    ``--repack`` at the default memory cap and ``--grow-back 5``."""
+    return ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
+            "--mb-global", "2", "--seq", "1024", "--steps", str(steps),
+            "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
+            "--grow-back", "5", "--kernel-impl", "pallas", "--param-dtype",
+            "float32", "--seed", "0", "--log-every", "5"]
+
+
+def elastic_serve_args():
+    """Phase 4i's serve flags: full-width smollm-360m on 4 stage buffers,
+    paged KV (page 16), 8 requests with prompts of 512-1024 tokens."""
+    return ["--elastic", "--stages", "4", "--micro", "2", "--mb-global",
+            "4", "--prompt-len", "1024", "--gen", "32", "--requests", "8",
+            "--kv-page-size", "16", "--kernel-impl", "pallas",
+            "--param-dtype", "float32", "--seed", "0"]
+
+
+# phase 4i's scripted resizes: {tick: stage buffers}
+ELASTIC_SERVE_RESIZE_AT = {8: 2, 16: 4}
+
+
+def ee_train_args(kind: str, steps: int = 8):
+    """Phase 4j's training flags: full-width smollm-360m, 2 stage buffers,
+    ``--dynamism early_exit`` (or mod), the exited share logged every
+    step."""
+    return ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+            "--seq", "1024", "--steps", str(steps), "--rebalance-every",
+            "5", "--dynamism", kind, "--kernel-impl", "pallas",
+            "--param-dtype", "float32", "--seed", "0", "--log-every", "1"]
+
+
+def ee_serve_args():
+    """Phase 4j's serve flags: early exit in the prefill, half the
+    requests tagged early_exit (short generations)."""
+    return ["--elastic", "--stages", "1", "--micro", "2", "--mb-global",
+            "4", "--prompt-len", "1024", "--gen", "32", "--requests", "8",
+            "--kv-page-size", "16", "--dynamism", "early_exit",
+            "--early-exit-frac", "0.5", "--kernel-impl", "pallas",
+            "--param-dtype", "float32", "--seed", "0"]
+
+
+# phase 5d's second early-exit case: at the default 0.98 every token of
+# the parity batch exits; at 0.982 most do, over the last ten layers, and
+# the rest run to the head (5d prints the exits by layer of both cases)
+EE_MIXED_THRESHOLD = 0.982
 
 
 def moe_arch(layers: int) -> str:
@@ -1506,11 +1601,65 @@ class ExactKernels(PlainKernels):
         super().__exit__(*exc)
 
 
-def parity_run(torch, plain: bool, moe: bool = False):
+class EEMargin:
+    """Record, over every early-exit decision of a run, the least
+    |cos - ee_threshold| of a token that could exit (past the minimum
+    depth, not exited yet), the number of exits and each call's exit marks
+    (``decisions``, to count the tokens two runs decided differently): how
+    far the run's decisions were from a flip; ``by_layer`` counts the exits
+    at each layer.  With ``replay`` (another
+    run's ``decisions``) the run takes those marks instead of its own, so
+    it computes the same function as that run whatever a flip would do.  A
+    no-op for the other dynamism kinds."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import model as M
+        self.M, self.orig = M, M._ee_update
+        self.margin, self.exits, self.decisions = math.inf, 0, []
+        self.by_layer = {}
+
+        def recording(cfg, dyncfg, carry_in, carry_out, depth_frac):
+            out, frac = self.orig(cfg, dyncfg, carry_in, carry_out,
+                                  depth_frac)
+            ex = carry_in.get("exited")
+            if ex is not None and depth_frac >= dyncfg.ee_min_layer_frac:
+                xi = carry_in["x"].detach().float()
+                xo = carry_out["x"].detach().float()
+                cos = (xi * xo).sum(-1) / torch.clamp(
+                    torch.linalg.vector_norm(xi, dim=-1)
+                    * torch.linalg.vector_norm(xo, dim=-1), min=1e-6)
+                live = ex == 0
+                if bool(live.any()):
+                    self.margin = min(self.margin, float(
+                        (cos[live] - dyncfg.ee_threshold).abs().min()))
+                if self.replay is not None:
+                    marks = self.replay[len(self.decisions)]
+                    out = {**out, "exited": marks.to(out["exited"])}
+                new = int((out["exited"] - ex).sum())
+                self.exits += new
+                if new:
+                    layer = int(round(depth_frac * cfg.num_layers))
+                    self.by_layer[layer] = self.by_layer.get(layer, 0) + new
+                self.decisions.append(out["exited"].detach().bool().cpu())
+            return out, frac
+
+        M._ee_update = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.M._ee_update = self.orig
+
+
+def parity_run(torch, plain: bool, moe: bool = False,
+               kind: str = "sparse_attention"):
     """Prefill [2, 4, 1024] tokens and 8 teacher-forced decode steps at
-    full width — smollm-360m with paged KV, or (``moe``) Mixtral-8x7B cut
-    to 2 layers with contiguous KV; returns (prefill ids, decode ids [8, m,
-    B], decode logprobs, decode logits)."""
+    full width — smollm-360m with paged KV under dynamism ``kind``, or
+    (``moe``) Mixtral-8x7B cut to 2 layers with contiguous KV; returns
+    (prefill ids, decode ids [8, m, B], decode logprobs, decode logits)."""
     from repro_torch import kernels
     from repro_torch.configs import DistConfig, get_config
     from repro_torch.dynamics.config import DynamicsConfig
@@ -1528,7 +1677,7 @@ def parity_run(torch, plain: bool, moe: bool = False):
     J = shapes.cache_len // page
     paged = None if moe else PagedKVConfig(page_size=page,
                                            pool_pages=m * B * J)
-    dyncfg = DynamicsConfig(kind="moe" if moe else "sparse_attention")
+    dyncfg = DynamicsConfig(kind="moe" if moe else kind)
     eng = ElasticEngine(cfg, dcfg, dyncfg, shapes, paged=paged,
                         device="cuda")
     st = eng.init_state(0, with_cache=True)
@@ -1581,10 +1730,13 @@ def parity_run(torch, plain: bool, moe: bool = False):
 
 
 def train_parity_run(torch, plain: bool, moe: bool = False,
-                     param_dtype: str = "float32"):
+                     param_dtype: str = "float32", kind: str = "pruning",
+                     layers: int = 4, ee_threshold: float = None):
     """Loss and gradients of one training step (value_and_grad of the
-    pipelined loss) at full widths: smollm-360m with 4 layers, 2 stage
-    buffers, 4 x 2 x 1024 tokens, half the FFN blocks pruned — or (``moe``)
+    pipelined loss) at full widths: smollm-360m with ``layers`` layers, 2
+    stage buffers, 4 x 2 x 1024 tokens, half the FFN blocks pruned (early
+    exit: at ``ee_threshold``, the config's default if None) — or
+    (``moe``)
     Mixtral-8x7B cut to 2 layers, one per stage buffer, 2 x 2 x 1024
     tokens, params in ``param_dtype``; returns (loss, grads)."""
     from repro_torch import kernels
@@ -1602,10 +1754,13 @@ def train_parity_run(torch, plain: bool, moe: bool = False,
         dyncfg = DynamicsConfig(kind="moe")
         shapes = PipelineShapes(2, 2, 1024)
     else:
-        cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=4)
+        cfg = dataclasses.replace(get_config("smollm-360m"),
+                                  num_layers=layers)
         dcfg = DistConfig(num_stages=2, slot_slack=2, remat="none",
                           param_dtype="float32", kernel_impl="pallas")
-        dyncfg = DynamicsConfig(kind="pruning")
+        dyncfg = DynamicsConfig(kind=kind)
+        if ee_threshold is not None:
+            dyncfg = dataclasses.replace(dyncfg, ee_threshold=ee_threshold)
         shapes = PipelineShapes(4, 2, 1024)
     eng = ElasticEngine(cfg, dcfg, dyncfg, shapes, device="cuda")
     st = eng.init_state(0)
@@ -1722,13 +1877,16 @@ def run_train_phase(torch, kernels):
     return launched, k3_bwd
 
 
-def serve_parity(torch, moe: bool = False) -> None:
+def serve_parity(torch, moe: bool = False,
+                 kind: str = "sparse_attention") -> None:
     """Phases 5 / 5c: decode ids equal wherever the plain run's top-2 gap
     exceeds 1e-3, logprobs within 1e-3 where the ids agree."""
-    k_pf, k_ids, k_lp, _ = parity_run(torch, plain=False, moe=moe)
+    k_pf, k_ids, k_lp, _ = parity_run(torch, plain=False, moe=moe,
+                                      kind=kind)
     free_cuda(torch)
     with PlainKernels():
-        p_pf, p_ids, p_lp, p_logits = parity_run(torch, plain=True, moe=moe)
+        p_pf, p_ids, p_lp, p_logits = parity_run(torch, plain=True, moe=moe,
+                                                 kind=kind)
     free_cuda(torch)
     top2 = p_logits.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > 1e-3
@@ -1739,7 +1897,8 @@ def serve_parity(torch, moe: bool = False) -> None:
     lp_err = float((k_lp - p_lp).abs()[same].max())
     if lp_err > 1e-3:
         raise AssertionError(f"decode logprobs differ by {lp_err:.3e}")
-    say("moe_parity" if moe else "parity",
+    say("moe_parity" if moe else
+        ("parity" if kind == "sparse_attention" else f"parity_{kind}"),
         prefill_ids_equal=bool((k_pf == p_pf).all()),
         decode_ids_equal=f"{int(same.sum())}/{same.numel()}",
         decided=int(decided.sum()), max_logprob_err=f"{lp_err:.3e}",
@@ -1753,9 +1912,10 @@ def leaf_err(got, want) -> float:
         float(want.abs().max()) or 1.0)
 
 
-def train_parity(torch, moe: bool = False,
-                 param_dtype: str = "float32") -> None:
-    """Phases 5b / 5c: one step's loss within 1e-4 relative and every
+def train_parity(torch, moe: bool = False, param_dtype: str = "float32",
+                 kind: str = "pruning", layers: int = 4,
+                 ee_threshold: float = None) -> None:
+    """Phases 5b / 5c / 5d: one step's loss within 1e-4 relative and every
     gradient leaf within 1e-3 of its largest entry (fp32).
 
     bf16 (the MoE path on the tensor-core variant): the loss within 1e-3
@@ -1771,17 +1931,66 @@ def train_parity(torch, moe: bool = False,
     rounded every product exactly.  Each leaf is
     therefore held within max(2e-2, 1.5 x the exact run's distance from
     the plain version) of the plain version: two roundings that each sit
-    about d from the exact result are typically about sqrt(2) d apart."""
+    about d from the exact result are typically about sqrt(2) d apart.
+
+    Early exit at ``ee_threshold`` (set only for a case meant to mix exited
+    and live tokens): the kernel run must leave some tokens live and exit
+    others."""
     bf16 = param_dtype == "bfloat16"
     tol_loss, tol_grad = (1e-3, 2e-2) if bf16 else (1e-4, 1e-3)
     free_cuda(torch)
-    k_loss, k_grads = train_parity_run(torch, plain=False, moe=moe,
-                                       param_dtype=param_dtype)
+    with EEMargin() as k_margin:
+        k_loss, k_grads = train_parity_run(torch, plain=False, moe=moe,
+                                           param_dtype=param_dtype, kind=kind,
+                                           layers=layers,
+                                           ee_threshold=ee_threshold)
     free_cuda(torch)
-    with PlainKernels():
+    with PlainKernels(), EEMargin() as p_margin:
         p_loss, p_grads = train_parity_run(torch, plain=True, moe=moe,
-                                           param_dtype=param_dtype)
+                                           param_dtype=param_dtype, kind=kind,
+                                           layers=layers,
+                                           ee_threshold=ee_threshold)
     free_cuda(torch)
+    ee = {}
+    if kind == "early_exit":
+        # how close the runs' exit decisions came to flipping (the least
+        # |cos - threshold| of a token that could exit), the exits, and
+        # how many exit marks the two free runs set differently: a token
+        # within ~1e-7 of the threshold may exit a layer apart, and its
+        # gradient then lands in another layer's weights
+        tokens = 4 * 2 * 1024
+        ee = dict(ee_threshold=ee_threshold or "default",
+                  ee_share=f"{k_margin.exits / tokens:.6f}",
+                  ee_exits_by_layer=json.dumps(dict(sorted(
+                      k_margin.by_layer.items()))).replace(" ", ""),
+                  ee_min_margin=f"{k_margin.margin:.3e}",
+                  ee_plain_min_margin=f"{p_margin.margin:.3e}",
+                  ee_exits=k_margin.exits, ee_plain_exits=p_margin.exits,
+                  ee_marks_differ=sum(
+                      int((a != b).sum()) for a, b in
+                      zip(k_margin.decisions, p_margin.decisions)))
+        if ee_threshold is not None and not 0 < k_margin.exits < tokens:
+            raise AssertionError(f"early exit at {ee_threshold}: "
+                                 f"{k_margin.exits} of {tokens} tokens "
+                                 f"exited, not a mix {ee}")
+        free_rel = abs(k_loss - p_loss) / abs(p_loss)
+        if not (math.isfinite(k_loss) and free_rel <= tol_loss):
+            raise AssertionError(f"train loss {k_loss} vs plain {p_loss} "
+                                 f"{ee}")
+        pg = dict(leaves(p_grads))
+        free_leaf = max(leaf_err(g, pg[q]) for q, g in leaves(k_grads))
+        ee.update(free_loss_rel_err=f"{free_rel:.3e}",
+                  free_worst_leaf_rel_err=f"{free_leaf:.3e}")
+        # the arithmetic: the plain versions replaying the kernel run's
+        # exit marks compute the same function, held to the 4c tolerances
+        del p_grads, pg
+        free_cuda(torch)
+        with PlainKernels(), EEMargin(replay=k_margin.decisions):
+            p_loss, p_grads = train_parity_run(torch, plain=True, moe=moe,
+                                               param_dtype=param_dtype,
+                                               kind=kind, layers=layers,
+                                               ee_threshold=ee_threshold)
+        free_cuda(torch)
     x_grads = {}
     if bf16:
         with ExactKernels():
@@ -1790,7 +1999,7 @@ def train_parity(torch, moe: bool = False,
         x_grads = dict(leaves(x_grads))
     loss_rel = abs(k_loss - p_loss) / abs(p_loss)
     if not (math.isfinite(k_loss) and loss_rel <= tol_loss):
-        raise AssertionError(f"train loss {k_loss} vs plain {p_loss}")
+        raise AssertionError(f"train loss {k_loss} vs plain {p_loss} {ee}")
     worst_leaf, worst_exact, n_leaves = 0.0, 0.0, 0
     pg = dict(leaves(p_grads))
     for path, kg in leaves(k_grads):
@@ -1802,10 +2011,11 @@ def train_parity(torch, moe: bool = False,
             worst_exact = max(worst_exact, exact)
         if not (err <= tol):
             raise AssertionError(f"grad {path}: max |err| / max |plain| = "
-                                 f"{err:.3e} > {tol:.3e}")
+                                 f"{err:.3e} > {tol:.3e} {ee}")
         worst_leaf = max(worst_leaf, err)
         n_leaves += 1
-    line = dict(loss=f"{k_loss:.6f}", plain_loss=f"{p_loss:.6f}",
+    line = dict(layers=layers, loss=f"{k_loss:.6f}",
+                plain_loss=f"{p_loss:.6f}",
                 loss_rel_err=f"{loss_rel:.3e}", tol_loss=tol_loss,
                 leaves=n_leaves, worst_leaf_rel_err=f"{worst_leaf:.3e}",
                 tol_grad=f"{tol_grad}*max|plain|")
@@ -1813,8 +2023,11 @@ def train_parity(torch, moe: bool = False,
         line.update(exact_loss=f"{x_loss:.6f}",
                     worst_exact_vs_plain=f"{worst_exact:.3e}",
                     tol_grad=f"max({tol_grad},1.5*exact_vs_plain)*max|plain|")
+    line.update(ee)
     say(("moe_train_parity" if moe else "train_parity")
-        + ("_bf16" if bf16 else ""), **line)
+        + ("_bf16" if bf16 else "")
+        + ("" if moe or kind == "pruning" else f"_{kind}")
+        + ("" if ee_threshold is None else "_mixed"), **line)
     del k_grads, p_grads, pg, x_grads
     free_cuda(torch)
 
@@ -1966,6 +2179,286 @@ def run_moe_serve_phase(torch, kernels):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phases 4h / 4i / 4j: live resizes, early exit and MoD
+# ---------------------------------------------------------------------------
+def world_ms(step_times, stages_hist) -> dict:
+    """Mean wall ms of the steps (ticks) spent in each world, the world's
+    first step (its warm-up) and the run's first step excluded; keys
+    ``S<stages>_<n>``, n counting the stretches of the run in order."""
+    out, start = {}, 0
+    for i in range(1, len(stages_hist) + 1):
+        if i == len(stages_hist) or stages_hist[i] != stages_hist[start]:
+            ts = step_times[start + 1:i]
+            key = f"S{stages_hist[start]}_{len(out) + 1}"
+            out[key] = (round(sum(ts) / len(ts) * 1e3, 1) if ts
+                        else None)
+            start = i
+    return out
+
+
+def run_elastic_train_phase(torch, kernels):
+    """Phase 4h: the training CLI's ``run`` at elastic_train_args(): the
+    controller's repack decision shrinks 4 -> 2 stage buffers after the
+    prune, --grow-back restores 4; returns the launch counts ({name: n})."""
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        rep = train_run(elastic_train_args())
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    steps = rep["args"]["steps"]
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite elastic training loss: {losses}")
+    check_launches("elastic train", launched, TRAIN_LAUNCHES_PER_STEP, steps)
+    if pm.KERNEL.launches_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"elastic train: K3 backward launches "
+                             f"{pm.KERNEL.launches_bwd}")
+    check_tensor_core("elastic train", launched, launched_tc, FP32_TC_PATH)
+    rz = rep["resizes"]
+    got = [(r["kind"], r["from_stages"], r["to_stages"]) for r in rz]
+    if got != [("shrink", 4, 2), ("grow", 2, 4)]:
+        raise AssertionError(f"elastic train resizes {got}: the controller "
+                             f"must shrink 4 -> 2 and grow back to 4")
+    if rep["pool_log"] != ["release:2", "release:3", "grant:2", "grant:3"]:
+        raise AssertionError(f"pool log {rep['pool_log']}")
+    if rep["final_stages"] != 4:
+        raise AssertionError(f"final stages {rep['final_stages']}")
+    mem = rep["resize_memory"]
+    if not mem[0]["allocated_after"] < mem[0]["allocated_before"]:
+        raise AssertionError(f"the shrink freed no memory: {mem[0]}")
+    for r, m in zip(rz, mem):
+        say("elastic_train_resize", kind=r["kind"], step=r["step"],
+            stages=f"{r['from_stages']}->{r['to_stages']}",
+            workers=r["workers"], seconds=f"{r['seconds']:.4f}",
+            ticks=f"{r['ticks_before']}->{r['ticks_after']}",
+            allocated_gb_before=f"{m['allocated_before'] / 1e9:.3f}",
+            allocated_gb_after=f"{m['allocated_after'] / 1e9:.3f}")
+    say("elastic_train", steps=steps,
+        tokens_per_step=rep["tokens_per_step"],
+        step_ms_by_world=json.dumps(world_ms(rep["step_times"],
+                                             rep["stages_history"]))
+        .replace(" ", ""),
+        stages=json.dumps(rep["stages_history"]).replace(" ", ""),
+        step_ms=json.dumps([round(t * 1e3, 1) for t in rep["step_times"]])
+        .replace(" ", ""),
+        wall_s=f"{rep['wall_s']:.2f}",
+        losses=json.dumps([round(x, 4) for x in losses]).replace(" ", ""),
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""))
+    del rep
+    free_cuda(torch)
+    return launched
+
+
+def run_elastic_serve_phase(torch, kernels):
+    """Phase 4i: the serve CLI's server at elastic_serve_args(), once on a
+    fixed world and once with ``resize_at`` (4 -> 2 -> 4): completions
+    token-identical; the page pool bitwise equal after one more shrink /
+    grow cycle on the live state (the trash block excluded); every K6
+    launch split.  Returns the elastic serve's launch counts."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.serve import build_parser, build_server
+    args = build_parser().parse_args(elastic_serve_args())
+    free_cuda(torch)
+    srv, trace = build_server(args)
+    fixed = srv.serve(copy.deepcopy(trace))
+    del srv
+    free_cuda(torch)
+    srv, trace = build_server(args)
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = srv.serve(copy.deepcopy(trace),
+                    resize_at=ELASTIC_SERVE_RESIZE_AT)
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    k6_split = pa_ops.KERNEL.launches_split
+    check_k6_split(launched["paged_attention"], k6_split)
+    check_tensor_core("elastic serve", launched, launched_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul",
+                           "paged_attention") if launched[n] <= 0]
+    if missing:
+        raise AssertionError(f"elastic serve never launched {missing}")
+    want = {c["rid"]: c["tokens"] for c in fixed["completions"]}
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if got != want or len(got) != args.requests:
+        raise AssertionError(f"resized serve differs from the fixed one: "
+                             f"{got} != {want}")
+    kinds = [(r["kind"], r["from_stages"], r["to_stages"])
+             for r in rep["resizes"]]
+    if kinds != [("shrink", 4, 2), ("grow", 2, 4)]:
+        raise AssertionError(f"serve resizes {kinds}")
+    # one more shrink / grow cycle on the live state: the pool bitwise
+    before = {k: v.clone() for k, v in srv.state.cache.items()}
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated()]
+    srv.state = srv.engine.shrink(srv.state, 2, step=1000)
+    mem.append(torch.cuda.memory_allocated())
+    srv.state = srv.engine.grow(srv.state, 2, step=1001)
+    mem.append(torch.cuda.memory_allocated())
+    for k, v in before.items():
+        if not torch.equal(srv.state.cache[k][:, :, :-1], v[:, :, :-1]):
+            raise AssertionError(f"page pool leaf {k} changed through a "
+                                 f"shrink / grow cycle")
+    if not mem[1] < mem[0]:
+        raise AssertionError(f"the serving shrink freed no memory: {mem}")
+    for r in srv.engine.resizes:
+        say("elastic_serve_resize", kind=r.kind, tick=r.step,
+            stages=f"{r.from_stages}->{r.to_stages}", workers=r.workers,
+            seconds=f"{r.seconds:.4f}",
+            ticks=f"{r.ticks_before}->{r.ticks_after}")
+    say("elastic_serve", requests=len(got), tokens=rep["total_tokens"],
+        ticks=rep["ticks"], resize_at=json.dumps(ELASTIC_SERVE_RESIZE_AT)
+        .replace(" ", ""), tokens_equal_fixed=True, pool_bitwise=True,
+        tick_ms_by_world=json.dumps(world_ms(rep["tick_wall_s"],
+                                             rep["stages_history"]))
+        .replace(" ", ""),
+        fixed_tokens_per_s=f"{fixed['tokens_per_s']:.1f}",
+        tokens_per_s=f"{rep['tokens_per_s']:.1f}",
+        allocated_gb_cycle=json.dumps([round(m / 1e9, 3) for m in mem])
+        .replace(" ", ""),
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""),
+        k6_split_launches=k6_split)
+    del srv, rep, fixed, before
+    free_cuda(torch)
+    return launched
+
+
+def run_ee_train_phase(torch, kernels):
+    """Phase 4j: train 2 stage buffers with --dynamism early_exit (the
+    exited share of every step printed); returns the run's launch counts
+    ({name: n})."""
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = train_run(ee_train_args("early_exit"))
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    steps = rep["args"]["steps"]
+    if not all(math.isfinite(x) for x in rep["losses"]):
+        raise AssertionError(f"non-finite EE loss: {rep['losses']}")
+    frac = rep["exited_frac"]
+    if sorted(frac) != list(range(steps)):
+        raise AssertionError(f"exited share not logged every step: {frac}")
+    # every block still runs on every token (exits are an output mask, as
+    # in the reference), so the per-step counts are phase 4c's
+    check_launches("ee train", launched, TRAIN_LAUNCHES_PER_STEP, steps)
+    if pm.KERNEL.launches_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"ee train: K3 backward launches "
+                             f"{pm.KERNEL.launches_bwd}")
+    check_tensor_core("ee train", launched, launched_tc, FP32_TC_PATH)
+    st = rep["step_times"]
+    say("ee_train", steps=steps, tokens_per_step=rep["tokens_per_step"],
+        exited_frac=json.dumps([round(frac[i], 6) for i in range(steps)])
+        .replace(" ", ""),
+        step_ms_1_n=f"{sum(st[1:]) / (len(st) - 1) * 1e3:.1f}",
+        losses=json.dumps([round(x, 4) for x in rep["losses"]])
+        .replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""))
+    del rep
+    free_cuda(torch)
+    return launched
+
+
+def run_ee_serve_phase(torch, kernels):
+    """Phase 4j: the serve CLI with --dynamism early_exit --early-exit-frac
+    0.5; returns the run's launch counts ({name: n})."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.serve import run as serve_run
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    srv = serve_run(ee_serve_args())
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    k6_split = pa_ops.KERNEL.launches_split
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul",
+                           "paged_attention") if launched[n] <= 0]
+    if missing:
+        raise AssertionError(f"EE serve never launched {missing}")
+    check_tensor_core("ee serve", launched, launched_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    check_k6_split(launched["paged_attention"], k6_split)
+    comps = srv["completions"]
+    kinds = sorted({c["kind"] for c in comps})
+    if len(comps) != 8 or kinds != ["early_exit", "none"]:
+        raise AssertionError(f"EE serve: {len(comps)} completions, kinds "
+                             f"{kinds}")
+    if not all(0 <= t < 49152 for c in comps for t in c["tokens"]):
+        raise AssertionError("EE serve: token out of vocab")
+    say("ee_serve", requests=len(comps), tokens=srv["total_tokens"],
+        ticks=srv["ticks"], tokens_per_s=f"{srv['tokens_per_s']:.1f}",
+        kinds=json.dumps({k: sum(c["kind"] == k for c in comps)
+                          for k in kinds}).replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""),
+        k6_split_launches=k6_split)
+    del srv
+    free_cuda(torch)
+    return launched
+
+
+def mod_bitwise(torch) -> None:
+    """Phase 4j: one training step's loss and gradients with --dynamism
+    mod from the same params and batch as with none, through the kernels:
+    the loss and every stage gradient bitwise equal (``mod_on`` is zero, as
+    in the reference, so MoD's mix passes every block output unchanged).
+    The embedding's gradient is a scatter-add over the batch's tokens whose
+    order is not fixed (two "none" steps differ in it too), so it is held
+    within 1e-6 of its largest entry."""
+    from repro_torch.configs import DistConfig, get_config
+    from repro_torch.data.loader import DataConfig, make_loader
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline import (PipelineShapes,
+                                               build_loss_fn,
+                                               value_and_grad)
+    free_cuda(torch)
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=4)
+    dcfg = DistConfig(num_stages=2, slot_slack=2, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    shapes = PipelineShapes(4, 2, 1024)
+    eng = ElasticEngine(cfg, dcfg, DynamicsConfig(), shapes, device="cuda")
+    st = eng.init_state(0)
+    batch = eng._batch(next(make_loader(cfg, DataConfig(4, 2, 1024))))
+    out = {}
+    for kind in ("none", "mod"):
+        dyncfg = DynamicsConfig(kind=kind)
+        dyn = M.init_dyn(cfg, dcfg, dyncfg, "cuda")
+        out[kind] = value_and_grad(build_loss_fn(cfg, dcfg, dyncfg, shapes),
+                                   st.params, st.assignment, dyn, batch)
+    (l0, _, g0), (l1, _, g1) = out["none"], out["mod"]
+    if not torch.equal(l0, l1):
+        raise AssertionError(f"mod loss {float(l1)} != none {float(l0)}")
+    n, embed_err = 0, 0.0
+    for (path, a), (_, b) in zip(leaves(g0), leaves(g1)):
+        if path in ("/embed", "/head"):
+            embed_err = max(embed_err, leaf_err(b, a))
+            if embed_err > 1e-6:
+                raise AssertionError(f"mod grad {path}: {embed_err:.3e}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"mod grad {path} differs from none")
+        else:
+            n += 1
+    say("mod_bitwise", loss=f"{float(l0):.6f}", loss_equal=True,
+        grad_leaves_equal=n, embed_grad_rel_err=f"{embed_err:.3e}")
+    del eng, st, batch, out, g0, g1
+    free_cuda(torch)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2106,6 +2599,21 @@ def main() -> int:
     # 4g. where the time goes in MoE training
     say("profile_moe_train", **profile_train(torch, moe_train_args))
 
+    # 4h / 4i / 4j. live resizes in training and serving, early exit and
+    # MoD: counters zeroed just before each path and read just after
+    elastic_train_launches = run_elastic_train_phase(torch, kernels)
+    for k in kernels.KERNELS:
+        tc[k.name] += k.launches_tc
+    elastic_serve_launches = run_elastic_serve_phase(torch, kernels)
+    for k in kernels.KERNELS:
+        tc[k.name] += k.launches_tc
+    ee_train_launches = run_ee_train_phase(torch, kernels)
+    for k in kernels.KERNELS:
+        tc[k.name] += k.launches_tc
+    ee_serve_launches = run_ee_serve_phase(torch, kernels)
+    for k in kernels.KERNELS:
+        tc[k.name] += k.launches_tc
+
     # 5. parity of the path: kernels vs plain versions from one state
     serve_parity(torch)
 
@@ -2119,6 +2627,18 @@ def main() -> int:
     moe_placement_neutrality(torch)
     moe_placement_neutrality(torch, torch.bfloat16)
 
+    # 5d. early exit and MoD: a train step (all 32 layers: at 4 the
+    # random-weight blocks stay too far from the identity for a token to
+    # exit) and a prefill + decode with early exit, kernels vs plain
+    # versions; MoD bitwise the none step
+    train_parity(torch, kind="early_exit", layers=32)
+    # ... and at a threshold where exited and live tokens sit side by side
+    # from layer 22 on and some never exit
+    train_parity(torch, kind="early_exit", layers=32,
+                 ee_threshold=EE_MIXED_THRESHOLD)
+    mod_bitwise(torch)
+    serve_parity(torch, kind="early_exit")
+
     # 6. the kernels line, the card line, the last line
     line = []
     for k in kernels.KERNELS:
@@ -2128,12 +2648,20 @@ def main() -> int:
             "replaces": k.replaces, "tpu_kernel": k.replaces,
             "launches": (launches[k.name] + train_launches[k.name]
                          + moe_train_launches[k.name]
-                         + moe_serve_launches[k.name]),
+                         + moe_serve_launches[k.name]
+                         + elastic_train_launches[k.name]
+                         + elastic_serve_launches[k.name]
+                         + ee_train_launches[k.name]
+                         + ee_serve_launches[k.name]),
             "launches_tc": tc[k.name],
             "launches_serve": launches[k.name],
             "launches_train": train_launches[k.name],
             "launches_moe_train": moe_train_launches[k.name],
             "launches_moe_serve": moe_serve_launches[k.name],
+            "launches_elastic_train": elastic_train_launches[k.name],
+            "launches_elastic_serve": elastic_serve_launches[k.name],
+            "launches_ee_train": ee_train_launches[k.name],
+            "launches_ee_serve": ee_serve_launches[k.name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "tolerance": r["tol"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

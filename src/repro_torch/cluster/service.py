@@ -4,22 +4,25 @@
 The training loop talks to the controller only through ``ControlPlane``:
 it *publishes* a host-side ``StatsSnapshot`` on controller cadence, *polls*
 the finished ``DecisionPlan`` at its next safe point, and *applies* the
-plan's migration there.  Plans are fenced by the engine's world epoch, so a
-plan decided against another world is never applied.  With
-``async_mode=False`` (the only mode of this slice) the decision runs on the
-publishing thread — the reference's inline path, bit-identical to its
-asynchronous one by construction.  The background thread waits for ROADMAP
-Queue 1 [training] (async control plane).
+plan there (a migration, or a live shrink for a ``ResizePlan``).  Epoch
+fencing: every engine resize (shrink / grow / evict) advances the world
+epoch, and a plan decided against an older world is rejected at ``poll``
+(or not decided at all, when the plane sees the live epoch through
+``epoch_fn``).  With ``async_mode=False`` (the only mode here) the decision
+runs on the publishing thread — the reference's inline path, bit-identical
+to its asynchronous one by construction.  The background thread waits for
+ROADMAP Queue 1 [control-timing].
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core.controller import ControllerEvent, DynMoController
+from repro_torch.core.controller import (ControllerEvent, DynMoController,
+                                         ResizePlan)
 from repro_torch.core.expert_layout import ExpertRelayoutPlan
 from repro_torch.core.profiler import profile_from_stats
 
@@ -43,13 +46,15 @@ class StatsSnapshot:
 @dataclasses.dataclass
 class DecisionPlan:
     """One controller decision, fenced by the epoch of the world it was
-    decided against.  ``new_lps`` is the in-mesh migration's split (None:
-    keep the current one); ``expert_relayout`` is orthogonal (it moves no
-    stage state, only the expert_map dyn leaf)."""
+    decided against.  Either ``new_lps`` (in-mesh migration; None: keep the
+    current split) or ``resize`` (live shrink) is set, never both;
+    ``expert_relayout`` is orthogonal (it moves no stage state, only the
+    expert_map dyn leaf)."""
     epoch: int
     iteration: int
     new_lps: Optional[List[int]]
-    event: ControllerEvent
+    resize: Optional[ResizePlan]
+    event: Optional[ControllerEvent]
     decide_s: float
     expert_relayout: Optional[ExpertRelayoutPlan] = None
 
@@ -63,7 +68,7 @@ class ControlPlane:
             raise NotImplementedError(
                 "the asynchronous control plane (decisions on a background "
                 "thread) is not in repro_torch yet (ROADMAP Queue 1 "
-                "[training]: async ControlPlane)")
+                "[control-timing])")
         self.ctrl = ctrl
         self.async_mode = False
         self.epoch_fn = epoch_fn
@@ -89,9 +94,32 @@ class ControlPlane:
             return None
         return plan
 
+    def inject_resize(self, epoch: int, target_stages: int, *,
+                      policy: str = "preempt") -> DecisionPlan:
+        """Put an externally originated shrink into the outbox: it reaches
+        the training loop's safe point through the same epoch-fenced
+        mailbox as the controller's decisions (latest wins)."""
+        plan = DecisionPlan(
+            epoch=epoch, iteration=-1, new_lps=None,
+            resize=ResizePlan(iteration=-1, target_stages=target_stages,
+                              layers_per_stage=None, released_stages=[],
+                              policy=policy, mem_per_stage=[]),
+            event=None, decide_s=0.0)
+        self._outbox = plan
+        return plan
+
     def apply(self, plan: DecisionPlan, params, opt_state, dyn, cache=None):
         """Apply a rebalance plan's migration at a safe point."""
         return self.ctrl.apply(plan.new_lps, params, opt_state, dyn, cache)
+
+    def rebind(self, dcfg, layers_per_stage) -> None:
+        """Re-anchor the controller after an engine resize (new world)."""
+        self.ctrl.rebind(dcfg, layers_per_stage)
+
+    def with_ctrl(self, fn: Callable[[DynMoController], Any]) -> Any:
+        """Run ``fn(ctrl)`` — any other controller mutation the training
+        loop makes (e.g. latching repack off after a grow)."""
+        return fn(self.ctrl)
 
     def _decide(self, snap: StatsSnapshot) -> Optional[DecisionPlan]:
         if self.epoch_fn is not None and self.epoch_fn() != snap.epoch:
@@ -106,9 +134,10 @@ class ControlPlane:
             snap.seq, frozen=snap.frozen,
             bytes_per_param=ctrl.dcfg.bytes_per_param)
         new_lps, ev = ctrl.decide(profile, snap.iteration)
+        resize = ctrl.take_resize()
         relayout = ctrl.take_expert_relayout()
         self.decided += 1
         return DecisionPlan(epoch=snap.epoch, iteration=snap.iteration,
-                            new_lps=new_lps, event=ev,
+                            new_lps=new_lps, resize=resize, event=ev,
                             decide_s=time.perf_counter() - t0,
                             expert_relayout=relayout)

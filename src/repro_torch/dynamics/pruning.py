@@ -26,7 +26,7 @@ def block_magnitudes(cfg: ModelConfig, stage_params: Dict[str, torch.Tensor]
         raise NotImplementedError(
             "block magnitudes of MoE experts and other non-dense block "
             "families are not in repro_torch yet (ROADMAP Queue 1 "
-            "[moe-pruning], [block-families])")
+            "[moe-rest], [block-families])")
     npb = n_prune_blocks(cfg)
     tot = None
     for name, axis in (("wi", "col"), ("wg", "col"), ("wof", "row")):

@@ -1,20 +1,33 @@
-"""Training and serving engine on one fixed execution world — the
-one-world subset of ``repro.launch.engine.ElasticEngine``.
+"""Elastic training and serving engine (paper §3.4, Alg. 2 — live
+consolidation), ported from ``repro.launch.engine.ElasticEngine``.
 
-The reference's engine owns one execution world per stage count (a mesh
-over a device subset, jitted step/serving fns) and resizes live between
-them.  This port trains and serves on ONE world: ``dcfg.num_stages`` stage
-buffers on one card.  The state keeps the reference's stacked ``[S, L_max,
-...]`` layout, which the controller's migration gathers along.  Resizes
-(shrink / grow / evict) and in-step timing raise ``NotImplementedError``.
+The engine owns one execution *world* per stage count — the stage count's
+``DistConfig``, its train step, loss, prefill and decode fns — built lazily
+and cached.  A repack decision from the controller triggers a **live
+shrink** in the same process: the stage-keyed state (params, optimizer
+moments, dyn state and any serving KV cache) is flattened to global layer
+order and re-split for the smaller stage count by one gather per leaf
+(``checkpoint.elastic``), and training continues in the smaller world.
+All stage buffers live on one card, so a world is a stage-buffer count,
+not a device subset: a worker id names a stage buffer, and a shrink frees
+the old ``[S, L_max, ...]`` buffers (nothing keeps them: the worlds cache
+functions only) and releases the tail of the stage -> worker map to the
+``WorkerPool``.  ``grow`` requests workers back; ``evict`` drops failed
+ones wherever they sit.  Every resize bumps ``epoch``, which fences the
+control plane's plans.  In-step stage timing waits for ROADMAP Queue 1
+[control-timing].
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.checkpoint.elastic import (_resplit_stage_tree,
+                                            elastic_restore)
+from repro_torch.cluster.rpc import InProcessJobManager
 from repro_torch.configs.base import BLOCK_MOE, DistConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
@@ -24,6 +37,7 @@ from repro_torch.optim.optimizers import OptConfig, make_optimizer
 from repro_torch.pipeline.pipeline import (PipelineShapes, build_decode_fn,
                                            build_loss_fn, build_prefill_fn,
                                            value_and_grad)
+from repro_torch.runtime.fault_tolerance import WorkerPool
 
 
 def make_train_step(cfg: ModelConfig, dcfg: DistConfig,
@@ -83,9 +97,26 @@ def _copy_block(pool, src: int, dst: int):
 
 
 @dataclasses.dataclass
+class EngineWorld:
+    """Everything tied to one stage count, built once and cached: its
+    ``DistConfig`` and functions (no tensors — a world outlives the state
+    it ran on)."""
+    stages: int
+    dcfg: DistConfig
+    init_opt: Any
+    step: Any
+    eval_loss: Any = None     # lazily built loss-only fn (no update)
+    prefill: Any = None       # lazily built serving prefill
+    decode: Any = None        # {live_micros: decode fn}
+    stepped: bool = False     # the first step() on this world warms up
+
+
+@dataclasses.dataclass
 class EngineState:
-    """The serving state: params, dyn state, host-side assignment and the
-    stacked KV cache (``[S, L_max, ...]`` leaves)."""
+    """The training / serving state the engine threads through worlds:
+    params, optimizer state, dyn state, host-side assignment and the
+    stacked KV cache (``[S, L_max, ...]`` leaves), which re-split with the
+    rest on every resize."""
     params: Any
     opt_state: Any
     dyn: Any
@@ -95,9 +126,23 @@ class EngineState:
     cache: Any = None
 
 
+@dataclasses.dataclass
+class ResizeEvent:
+    step: int
+    kind: str                  # shrink | grow | evict
+    from_stages: int
+    to_stages: int
+    workers: List[int]         # released (shrink), granted (grow) or lost
+    seconds: float
+    ticks_before: int
+    ticks_after: int
+
+
 class ElasticEngine:
-    """Train step, serving fns and device helpers for one fixed stage
-    count."""
+    """Owns the per-stage-count worlds and the live resize paths.  Stage s
+    runs on worker ``stage_workers[s]``; shrinking keeps a prefix of the
+    map and releases the tail to the ``WorkerPool``, growing requests
+    workers back."""
 
     def __init__(self, cfg: ModelConfig, dcfg: DistConfig,
                  dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
@@ -120,18 +165,39 @@ class ElasticEngine:
         self.hash_proj = (None if hash_proj is None
                           else hash_proj.to(self.device, torch.float32))
         self.opt_cfg = opt_cfg
-        self._prefill = None
-        self._decode: Dict[int, Any] = {}
-        self._train = None
-        self._eval_loss = None
-        # world epoch (the control plane fences its plans with it); a
-        # resize would bump it — one world here, so it stays 0
-        self.epoch = 0
-        self.stepped = False
+        self._worlds: Dict[int, EngineWorld] = {}
         self.last_step_compiled = False
         # serve telemetry: the last prefill / decode call's mean MoE
         # capacity-drop fraction (a device scalar; None for non-MoE archs)
         self.last_moe_drop = None
+        self.pool = WorkerPool(dcfg.num_stages)
+        self.jm = InProcessJobManager(self.pool)
+        self.stage_workers: List[int] = list(range(dcfg.num_stages))
+        self.resizes: List[ResizeEvent] = []
+        self.last_shrink_step: Optional[int] = None
+        # world epoch: bumped by every resize; the control plane fences
+        # its plans with it
+        self.epoch = 0
+
+    # -- worlds --------------------------------------------------------------
+    def dcfg_for(self, stages: int) -> DistConfig:
+        return dataclasses.replace(self.base_dcfg, num_stages=stages)
+
+    def ticks(self, stages: int) -> int:
+        return self.shapes.num_micro + stages - 1
+
+    def world(self, stages: int) -> EngineWorld:
+        """The world of ``stages`` stage buffers, built on first use."""
+        w = self._worlds.get(stages)
+        if w is None:
+            dcfg = self.dcfg_for(stages)
+            init_opt, step = make_train_step(
+                self.cfg, dcfg, self.dyncfg, self.shapes, self.opt_cfg,
+                device=self.device, hash_proj=self.hash_proj)
+            w = EngineWorld(stages=stages, dcfg=dcfg, init_opt=init_opt,
+                            step=step)
+            self._worlds[stages] = w
+        return w
 
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, seed: int = 0, *, with_opt: bool = False,
@@ -161,35 +227,24 @@ class ElasticEngine:
                                            self.paged.page_size, dev)
             else:
                 cache = self.make_dense_scratch(dcfg.num_stages)
-        opt_state = self.train_fns()[0](params) if with_opt else None
+        opt_state = (self.world(dcfg.num_stages).init_opt(params)
+                     if with_opt else None)
         return EngineState(params, opt_state, dyn, assignment, lps,
                            dcfg.num_stages, cache)
 
     # -- training ------------------------------------------------------------
-    def train_fns(self):
-        """(init_opt, train_step) of this engine's world, built once."""
-        if self._train is None:
-            self._train = make_train_step(
-                self.cfg, self.base_dcfg, self.dyncfg, self.shapes,
-                self.opt_cfg, device=self.device, hash_proj=self.hash_proj)
-        return self._train
-
     def _batch(self, batch):
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
     def step(self, state: EngineState, batch, lr):
-        """One train step; updates ``state.params`` / ``state.opt_state``
-        in place and returns (loss, stats, gnorm) on the device (the caller
-        decides when to pay the host sync)."""
-        if state.stages != self.base_dcfg.num_stages:
-            raise NotImplementedError(
-                "training on another stage count needs live resizes, not in "
-                "repro_torch yet (ROADMAP Queue 1 [training]: live resize)")
-        _, train_step = self.train_fns()
-        self.last_step_compiled = not self.stepped
-        self.stepped = True
-        params, opt_state, loss, stats, gnorm = train_step(
+        """One train step in the state's world; updates ``state.params`` /
+        ``state.opt_state`` in place and returns (loss, stats, gnorm) on the
+        device (the caller decides when to pay the host sync)."""
+        w = self.world(state.stages)
+        self.last_step_compiled = not w.stepped
+        w.stepped = True
+        params, opt_state, loss, stats, gnorm = w.step(
             state.params, state.opt_state, state.assignment, state.dyn,
             batch, lr)
         state.params, state.opt_state = params, opt_state
@@ -203,35 +258,35 @@ class ElasticEngine:
 
     @torch.no_grad()
     def eval_loss(self, state: EngineState, batch):
-        """Loss only (no update) in the current world."""
-        if self._eval_loss is None:
-            self._eval_loss = build_loss_fn(
-                self.cfg, self.base_dcfg, self.dyncfg, self.shapes,
+        """Loss only (no update) in the state's world."""
+        w = self.world(state.stages)
+        if w.eval_loss is None:
+            w.eval_loss = build_loss_fn(
+                self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 hash_proj=self.hash_proj)
-        loss, _ = self._eval_loss(state.params, state.assignment, state.dyn,
-                                  self._batch(batch))
+        loss, _ = w.eval_loss(state.params, state.assignment, state.dyn,
+                              self._batch(batch))
         return loss
 
     # -- serving -------------------------------------------------------------
     def serve_fns(self, stages: int, live_micros: Optional[int] = None):
-        """(prefill, decode) for this engine's world.  Decode variants are
-        kept per live microbatch count: a variant for ``live_micros <
-        num_micro`` runs ``live + S - 1`` ticks."""
-        if stages != self.base_dcfg.num_stages:
-            raise NotImplementedError(
-                "serving on another stage count needs live resizes, not in "
-                "repro_torch yet (ROADMAP Queue 1 [serve-elastic])")
+        """(prefill, decode) for the world of ``stages``, built lazily next
+        to its train step.  Decode variants are kept per (stage count, live
+        microbatch count): a variant for ``live_micros < num_micro`` runs
+        ``live + S - 1`` ticks."""
+        w = self.world(stages)
         mv = self.shapes.num_micro if live_micros is None else live_micros
-        if self._prefill is None:
-            self._prefill = build_prefill_fn(
-                self.cfg, self.base_dcfg, self.dyncfg, self.shapes,
+        if w.prefill is None:
+            w.prefill = build_prefill_fn(
+                self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 hash_proj=self.hash_proj)
-        if mv not in self._decode:
-            self._decode[mv] = build_decode_fn(
-                self.cfg, self.base_dcfg, self.dyncfg, self.shapes,
+            w.decode = {}
+        if mv not in w.decode:
+            w.decode[mv] = build_decode_fn(
+                self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 paged=self.paged is not None, num_micro=mv,
                 hash_proj=self.hash_proj)
-        return self._prefill, self._decode[mv]
+        return w.prefill, w.decode[mv]
 
     def prefill(self, state: EngineState, batch, cache=None):
         """Run prefill; returns (last_ids, cache).  The target cache
@@ -305,6 +360,94 @@ class ElasticEngine:
         """Copy-on-write fork: duplicate one physical block across every
         stage-slot pool."""
         return _copy_block(state.cache, int(src), int(dst))
+
+    # -- live resize ---------------------------------------------------------
+    def resize(self, state: EngineState, new_stages: int,
+               new_lps: Optional[Sequence[int]] = None) -> EngineState:
+        """Re-split all stage-keyed state to ``new_stages`` stage buffers
+        — no checkpoint, no restart, no host round trip.  A serving cache
+        rides the same re-split plan (its [S, L_max] leading dims gather
+        like params), so in-flight KV state survives bit for bit.  Falls
+        back to a uniform split when ``new_lps`` does not fit the target
+        world's slot capacity.  Returns a new state; the caller drops the
+        old one, and with it the old buffers."""
+        world = self.world(new_stages)
+        L_new = world.dcfg.slots_for(self.cfg)
+        if new_lps is not None and (len(new_lps) != new_stages
+                                    or max(new_lps) > L_new):
+            new_lps = None
+        params, opt_state, dyn, assignment, lps = elastic_restore(
+            self.cfg, self.dcfg_for(state.stages), world.dcfg,
+            state.params, state.opt_state, state.dyn, state.lps, new_lps)
+        cache = state.cache
+        if cache is not None:
+            cache = _resplit_stage_tree(cache, state.lps, lps, L_new)
+        self.epoch += 1
+        return EngineState(params, opt_state, dyn, assignment, lps,
+                           new_stages, cache)
+
+    def _event(self, step: int, kind: str, state: EngineState, to: int,
+               workers: Sequence[int], t0: float) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # the gathers are done
+        self.resizes.append(ResizeEvent(
+            step=step, kind=kind, from_stages=state.stages, to_stages=to,
+            workers=list(workers), seconds=time.perf_counter() - t0,
+            ticks_before=self.ticks(state.stages),
+            ticks_after=self.ticks(to)))
+
+    def shrink(self, state: EngineState, target_stages: int,
+               new_lps: Optional[Sequence[int]] = None,
+               step: int = -1) -> EngineState:
+        """Live consolidation: rebuild on fewer stage buffers and release
+        the tail of the stage -> worker map to the job manager."""
+        assert target_stages < state.stages
+        t0 = time.perf_counter()
+        new_state = self.resize(state, target_stages, new_lps)
+        released = self.stage_workers[target_stages:]
+        self.stage_workers = self.stage_workers[:target_stages]
+        self.jm.release(released)
+        self._event(step, "shrink", state, target_stages, released, t0)
+        self.last_shrink_step = step
+        return new_state
+
+    def evict(self, state: EngineState, workers: Sequence[int],
+              step: int = -1) -> EngineState:
+        """Failure path: rebuild WITHOUT ``workers`` (reported to the job
+        manager as failed, not released: they are not grantable until the
+        manager revives them).  The lost workers may sit anywhere in the
+        stage -> worker map; the survivors keep their order."""
+        lost = [w for w in workers if w in self.stage_workers]
+        if not lost:
+            return state
+        target = len(self.stage_workers) - len(lost)
+        assert target >= 1, "cannot evict every worker"
+        t0 = time.perf_counter()
+        new_state = self.resize(state, target)
+        self.stage_workers = [w for w in self.stage_workers
+                              if w not in set(lost)]
+        for w in lost:
+            self.jm.fail(w)
+        self._event(step, "evict", state, target, lost, t0)
+        self.last_shrink_step = step
+        return new_state
+
+    def grow(self, state: EngineState, n_workers: int,
+             step: int = -1) -> EngineState:
+        """Re-expansion: request workers back from the pool and rebuild
+        over more stage buffers.  Grows by however many the pool grants
+        (possibly none).  The pool grants only ids this engine released;
+        each takes a stage buffer at the tail, and as every buffer shares
+        the one card, binding a worker is recording its id."""
+        t0 = time.perf_counter()
+        granted = self.jm.request(n_workers)
+        if not granted:
+            return state
+        target = state.stages + len(granted)
+        new_state = self.resize(state, target)
+        self.stage_workers = self.stage_workers + granted
+        self._event(step, "grow", state, target, granted, t0)
+        return new_state
 
 
 def _check_tree(tree, spec, path="params"):

@@ -1,5 +1,5 @@
 """Serving CLI of the port — ``repro.launch.serve --elastic`` and
-``Session.serve`` on one fixed world.
+``Session.serve``.
 
   python -m repro_torch.launch.serve --elastic --stages 1 --micro 2 \\
       --mb-global 4 --prompt-len 1024 --gen 32 --requests 12 \\
@@ -30,7 +30,7 @@ from repro_torch.serve.server import ElasticServer
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="DynMo continuous-batching serving on the PyTorch/CUDA "
-                    "port (one fixed execution world)")
+                    "port")
     a = ap.add_argument
     a("--elastic", action="store_true",
       help="serve a request trace through the continuous-batching "
@@ -54,7 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
       choices=["reference", "scan", "pallas"])
     a("--dynamism", default="none",
       help="dynamism scheme (none | moe | pruning | freezing | "
-           "sparse_attention)")
+           "sparse_attention | early_exit | mod)")
+    a("--dynamics.ee_threshold", dest="ee_threshold", type=float,
+      default=0.98, help="early exit: cosine of a block's input and "
+                         "output above which a token exits")
     # serve.*
     a("--requests", type=int, default=16)
     a("--prompt-len", type=int, default=32)
@@ -88,15 +91,15 @@ def _reject_unported(args) -> None:
     if not args.elastic:
         raise NotImplementedError(
             "the port serves through --elastic only; the legacy one-shot "
-            "generator is not ported (ROADMAP Queue 1 [control-plane])")
+            "generator is not ported (ROADMAP Queue 1 [faults-obs])")
     if args.autoscale or args.job_manager != "inproc":
         raise NotImplementedError(
             "autoscaling and job managers are not in repro_torch yet "
-            "(ROADMAP Queue 1 [serve-elastic])")
+            "(ROADMAP Queue 1 [cluster])")
     if args.chaos:
         raise NotImplementedError(
             "fault injection is not in repro_torch yet (ROADMAP Queue 1 "
-            "[control-plane])")
+            "[faults-obs])")
 
 
 def model_config(args):
@@ -120,7 +123,8 @@ def build_server(args, params=None) -> (ElasticServer, list):
     dcfg = DistConfig(num_stages=args.stages, slot_slack=args.slot_slack,
                       remat="none", param_dtype=args.param_dtype,
                       kernel_impl=args.kernel_impl)
-    dyncfg = DynamicsConfig(kind=args.dynamism)
+    dyncfg = DynamicsConfig(kind=args.dynamism,
+                            ee_threshold=args.ee_threshold)
     shapes = PipelineShapes(args.num_micro, args.mb_global, args.prompt_len,
                             cache_len=args.prompt_len + args.gen)
     paged = None

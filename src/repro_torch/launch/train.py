@@ -1,5 +1,4 @@
-"""Training CLI of the port — ``repro.launch.train`` and ``Session.train``
-on one fixed world.
+"""Training CLI of the port — ``repro.launch.train`` and ``Session.train``.
 
   python -m repro_torch.launch.train --stages 2 --num-micro 4 \\
       --mb-global 2 --seq 1024 --steps 15 --dynamism pruning \\
@@ -12,11 +11,16 @@ reduces to 8 layers by default; this one trains the full model unless
 asked).  The loop is ``Session.train``'s, in its order: a step (pipelined
 loss, backward, clipped AdamW), the pruning / freezing events, stats
 published to the control plane on its cadence, the decision polled at the
-safe point and its migration applied — and, for an MoE arch with
+safe point and its migration applied, or — with ``--repack`` — the
+controller's repack decision executed as a live shrink onto fewer stage
+buffers (``--grow-back N`` grows back N steps later); for an MoE arch with
 ``--dynamics.expert_relayout``, the new expert placement broadcast into
 ``dyn["expert_map"]`` and committed.  The run is on the CUDA card unless
-``--device cpu``.  Flags of features outside this slice raise
+``--device cpu``.  Flags of features outside the port so far raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+  python -m repro_torch.launch.train --stages 4 --dynamism pruning \
+      --repack --grow-back 6 --rebalance-every 5
 
   python -m repro_torch.launch.train --arch mixtral-8x7b --layers 4 \
       --stages 2 --dynamism moe --kernel-impl pallas \
@@ -27,13 +31,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.cluster.service import ControlPlane, StatsSnapshot
 from repro_torch.configs.base import DistConfig, get_config, reduced_config
 from repro_torch.core.controller import ControllerConfig, DynMoController
+from repro_torch.core.cost_model import stage_memory_budget
 from repro_torch.data.loader import DataConfig, make_loader
 from repro_torch.dynamics import pruning as prn
 from repro_torch.dynamics.config import DynamicsConfig
@@ -43,36 +50,26 @@ from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.pipeline.pipeline import PipelineShapes
 from repro_torch.runtime.fault_tolerance import StragglerDetector
 
-# flags of features outside this slice: accepted so they fail loudly
+# flags of features not in the port yet: accepted so they fail loudly
 _NOT_IN_SLICE = {
-    "repack": "live worker consolidation (ROADMAP Queue 1 [training]: "
-              "repack, live resize)",
-    "autoscale": "autoscaling (ROADMAP Queue 1 [training]: heartbeats / "
-                 "autoscaler / job managers)",
+    "autoscale": "autoscaling (ROADMAP Queue 1 [cluster])",
     "async_controller": "the asynchronous control plane (ROADMAP Queue 1 "
-                        "[training]: async ControlPlane)",
-    "resume": "checkpoint resume (ROADMAP Queue 1 [training]: checkpoint / "
-              "safepoint / resume)",
-    "ckpt_dir": "checkpoints (ROADMAP Queue 1 [training]: checkpoint / "
-                "safepoint / resume)",
-    "ckpt_every": "safe points (ROADMAP Queue 1 [training]: checkpoint / "
-                  "safepoint / resume)",
-    "chaos": "fault injection (ROADMAP Queue 1 [control-plane])",
+                        "[control-timing])",
+    "resume": "checkpoint resume (ROADMAP Queue 1 [checkpoint])",
+    "ckpt_dir": "checkpoints (ROADMAP Queue 1 [checkpoint])",
+    "ckpt_every": "safe points (ROADMAP Queue 1 [checkpoint])",
+    "chaos": "fault injection (ROADMAP Queue 1 [faults-obs])",
     "measure_stage_times": "the stage-time probe (ROADMAP Queue 1 "
-                           "[serve-timing])",
+                           "[control-timing])",
     "in_step_timing": "in-step stage timing (ROADMAP Queue 1 "
-                      "[serve-timing])",
-    "grow_back": "fixed-step re-expansion (ROADMAP Queue 1 [training]: "
-                 "live resize)",
-    "simulate_recover": "heartbeat recovery (ROADMAP Queue 1 [training]: "
-                        "heartbeats / autoscaler / job managers)",
+                      "[control-timing])",
+    "simulate_recover": "heartbeat recovery (ROADMAP Queue 1 [cluster])",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="DynMo trainer on the PyTorch/CUDA port (one fixed "
-                    "execution world)")
+        description="DynMo trainer on the PyTorch/CUDA port")
     a = ap.add_argument
     # model (spec fields model.*)
     a("--arch", default="smollm-360m")
@@ -95,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
       choices=["reference", "scan", "pallas"])
     a("--dynamism", default="none",
       help="dynamism scheme (none | moe | pruning | freezing | "
-           "sparse_attention)")
+           "sparse_attention | early_exit | mod)")
     # dynamics.* spec fields, spelled as the reference's dotted flags
     a("--dynamics.expert_relayout", dest="expert_relayout", nargs="?",
       const="true", default="false", type=_bool,
@@ -104,20 +101,34 @@ def build_parser() -> argparse.ArgumentParser:
       default=2.0, help="max/mean routed-load skew that triggers it")
     a("--dynamics.expert_min_tokens", dest="expert_min_tokens", type=int,
       default=16, help="ignore windows with fewer routed tokens")
+    a("--dynamics.ee_threshold", dest="ee_threshold", type=float,
+      default=0.98, help="early exit: cosine of a block's input and "
+                         "output above which a token exits")
     # controller.*
     a("--balancer", default="diffusion", choices=["diffusion", "partition"])
     a("--rebalance-every", type=int, default=10)
     a("--straggler", default=None,
       help="simulate slow workers, e.g. '1:2.0' (worker 1 runs 2x slow); "
            "the detector feeds the balancer")
+    a("--repack", action="store_true",
+      help="enable live worker consolidation (paper Alg. 2)")
+    a("--repack-policy", default="adjacent",
+      choices=["adjacent", "first_fit"])
+    a("--repack-mem-cap", type=float, default=1.1,
+      help="per-worker memory budget as a multiple of the unpruned "
+           "per-stage footprint")
+    a("--repack-target", type=int, default=1,
+      help="never consolidate below this many workers")
+    a("--grow-back", type=int, default=None,
+      help="DEPRECATED: re-expand N steps after a shrink")
     a("--steps", type=int, default=50)
     a("--seed", type=int, default=0)
     a("--log-every", type=int, default=10)
-    # outside this slice: accepted so they fail loudly, never ignored
-    for flag in ("--repack", "--autoscale", "--async-controller", "--chaos",
+    # not in the port yet: accepted so they fail loudly, never ignored
+    for flag in ("--autoscale", "--async-controller", "--chaos",
                  "--measure-stage-times", "--in-step-timing"):
         a(flag, action="store_true")
-    for flag in ("--resume", "--ckpt-dir", "--ckpt-every", "--grow-back",
+    for flag in ("--resume", "--ckpt-dir", "--ckpt-every",
                  "--simulate-recover"):
         a(flag, default=None)
     a("--job-manager", default="inproc")
@@ -155,8 +166,8 @@ def check_slice(args) -> None:
             raise NotImplementedError(f"{what} is not in repro_torch yet")
     if args.job_manager != "inproc":
         raise NotImplementedError(
-            "job managers are not in repro_torch yet (ROADMAP Queue 1 "
-            "[training]: heartbeats / autoscaler / job managers)")
+            "job managers other than the in-process one are not in "
+            "repro_torch yet (ROADMAP Queue 1 [cluster])")
 
 
 def model_config(args):
@@ -180,11 +191,12 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
     if args.dynamism == "pruning" and cfg.num_experts:
         raise NotImplementedError(
             "pruning an MoE arch's experts is not in repro_torch yet "
-            "(ROADMAP Queue 1 [moe-pruning])")
+            "(ROADMAP Queue 1 [moe-rest])")
     dcfg = DistConfig(num_stages=args.stages, slot_slack=args.slot_slack,
                       remat=args.remat, param_dtype=args.param_dtype,
                       kernel_impl=args.kernel_impl)
     dyncfg = DynamicsConfig(kind=args.dynamism,
+                            ee_threshold=args.ee_threshold,
                             expert_relayout=args.expert_relayout,
                             expert_watermark=args.expert_watermark,
                             expert_min_tokens=args.expert_min_tokens)
@@ -192,22 +204,51 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
     shapes = PipelineShapes(num_micro=args.num_micro,
                             mb_global=args.mb_global, seq=seq)
     tokens_per_step = args.num_micro * args.mb_global * seq
+    grow_back = args.grow_back
+    if grow_back is not None:
+        warnings.warn(
+            "cluster.grow_back / --grow-back is deprecated: fixed-step "
+            "re-expansion is superseded by signal-driven scaling "
+            "(cluster.autoscale / --autoscale)", DeprecationWarning,
+            stacklevel=2)
 
     engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, device=args.device)
     state = engine.init_state(args.seed, with_opt=True, params=params)
-    stage_workers = list(range(stages))
     ccfg = ControllerConfig(method=args.balancer,
                             rebalance_every=args.rebalance_every,
+                            repack=args.repack,
+                            repack_policy=args.repack_policy,
+                            repack_target=max(1, args.repack_target),
                             expert_relayout=dyncfg.expert_relayout,
                             expert_watermark=dyncfg.expert_watermark,
                             expert_min_tokens=dyncfg.expert_min_tokens)
+    if args.repack:
+        # per-worker memory budget: the capacity factor x the per-stage
+        # footprint of the UNPRUNED model under a uniform split, so a
+        # consolidation becomes feasible once dynamism shrinks the model
+        ccfg.repack_mem_cap = stage_memory_budget(
+            cfg, tokens_per_step, seq, dcfg.bytes_per_param, stages,
+            cap_factor=args.repack_mem_cap)
     det = StragglerDetector(stages) if straggler else None
     ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det)
     cp = ControlPlane(ctrl, async_mode=False, epoch_fn=lambda: engine.epoch)
     loader = make_loader(cfg, DataConfig(args.num_micro, args.mb_global, seq,
                                          seed=args.seed))
 
+    def after_resize(step: int, kind: str, mem_before) -> None:
+        cp.rebind(engine.dcfg_for(state.stages), state.lps)
+        rz = engine.resizes[-1]
+        resize_mem.append({"step": step, "kind": rz.kind,
+                           "allocated_before": mem_before,
+                           "allocated_after": _allocated(engine)})
+        print(f"step {step:4d} {kind.upper()} {rz.from_stages}->"
+              f"{rz.to_stages} stages; workers {rz.workers}; "
+              f"pool active={engine.jm.num_active}; schedule "
+              f"{rz.ticks_before}->{rz.ticks_after} ticks", flush=True)
+
     losses, gnorms, events, step_times, stages_hist = [], [], [], [], []
+    resize_mem: List[Dict[str, Any]] = []
+    exited_frac: Dict[int, float] = {}
     relayouts: List[Dict[str, Any]] = []
     expert_skew_last = moe_dropped_last = None
     warmup_steps, warmup_s, decide_s = 0, 0.0, 0.0
@@ -238,10 +279,9 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                     dyncfg, prune_start_iter=0, prune_end_iter=steps * 100,
                     prune_frequency=1))
             keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
-            dyn = dict(state.dyn)
-            dyn["ff_mask"] = prn.global_block_prune(
-                cfg, state.params["stages"], state.assignment["tags"], keep)
-            state.dyn = dyn
+            state.dyn = {**state.dyn, "ff_mask": prn.global_block_prune(
+                cfg, state.params["stages"], state.assignment["tags"],
+                keep)}
         if args.dynamism == "freezing" and step and step % 10 == 0:
             front = int(cfg.total_blocks() * min(0.6, step / steps))
             tags_np = state.assignment["tags"].numpy()
@@ -253,9 +293,8 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                         if g < front:
                             fr[s, l] = 1.0
                         g += 1
-            dyn = dict(state.dyn)
-            dyn["frozen"] = dyn["frozen"].new_tensor(fr)
-            state.dyn = dyn
+            state.dyn = {**state.dyn,
+                         "frozen": state.dyn["frozen"].new_tensor(fr)}
 
         # ---- publish stats to the control plane on cadence (the only
         # device -> host stats sync)
@@ -268,7 +307,7 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                 share = np.asarray(state.lps, np.float64)
                 measured = share / share.sum() * step_times[-1]
                 measured = measured * np.array(
-                    [straggler.get(stage_workers[s], 1.0)
+                    [straggler.get(engine.stage_workers[s], 1.0)
                      for s in range(state.stages)])
             cp.publish(StatsSnapshot(
                 iteration=step + 1, epoch=engine.epoch,
@@ -279,7 +318,8 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                 stage_times=measured))
             decide_s += time.perf_counter() - t_decide
 
-        # ---- safe point: apply the newest finished plan
+        # ---- safe point: apply the newest finished plan (epoch-fenced:
+        # a plan decided against a pre-resize world is rejected)
         plan = cp.poll(engine.epoch)
         if plan is not None:
             if plan.event is not None:
@@ -287,11 +327,18 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                 moe_dropped_last = plan.event.expert_dropped
             if plan.event is not None and plan.event.rebalanced:
                 events.append(plan.event)
-            if plan.new_lps is not None:
-                p, o, d, new_assignment, _ = cp.apply(
-                    plan, state.params, state.opt_state, state.dyn)
-                state.params, state.opt_state, state.dyn = p, o, d
-                state.assignment = new_assignment
+            if (plan.resize is not None
+                    and plan.resize.target_stages < state.stages):
+                mem_before = _allocated(engine)
+                state = engine.shrink(state, plan.resize.target_stages,
+                                      plan.resize.layers_per_stage,
+                                      step=step)
+                after_resize(step, f"shrink[{plan.resize.policy}]",
+                             mem_before)
+            elif plan.new_lps is not None:
+                (state.params, state.opt_state, state.dyn, state.assignment,
+                 _) = cp.apply(plan, state.params, state.opt_state,
+                               state.dyn)
                 state.lps = list(cp.ctrl.lps)
             # expert re-layout: orthogonal to the stage plan above (it
             # rewrites only the expert_map dyn leaf)
@@ -310,11 +357,28 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
                 print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
                       f"{rl.moved_experts} experts -> "
                       f"{list(rl.new.placement)}", flush=True)
+        # ---- legacy fixed-step growth (deprecated)
+        if (grow_back and engine.last_shrink_step is not None
+                and state.stages < stages
+                and step >= engine.last_shrink_step + grow_back):
+            prev_stages = state.stages
+            mem_before = _allocated(engine)
+            state = engine.grow(state, stages - state.stages, step=step)
+            if state.stages > prev_stages:
+                # granted workers stay: stop planning resizes
+                cp.with_ctrl(lambda c: setattr(c.ccfg, "repack", False))
+                after_resize(step, "grow", mem_before)
         gnorms.append(float(gnorm))
         if step % args.log_every == 0:
+            ee = ""
+            if "exited_frac" in stats:
+                # early exit's share of exited tokens: a host read on the
+                # log cadence only
+                exited_frac[step] = float(stats["exited_frac"])
+                ee = f" exited {exited_frac[step]:.4f}"
             print(f"step {step:4d} loss {float(loss):.4f} "
                   f"gnorm {float(gnorm):.3f} S={state.stages} "
-                  f"lps={state.lps}", flush=True)
+                  f"lps={state.lps}{ee}", flush=True)
     wall = time.perf_counter() - t0
     steady_s = float(sum(steady_times))
     steady_tok_s = (tokens_per_step * len(steady_times) / steady_s
@@ -334,6 +398,11 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         "dyn": state.dyn, "tokens_per_step": tokens_per_step,
         "step_times": step_times, "stages_history": stages_hist,
         "final_stages": state.stages, "timing": timing,
+        "resizes": [dataclasses.asdict(e) for e in engine.resizes],
+        "pool_log": list(engine.jm.log),
+        # torch.cuda.memory_allocated around each resize (None on the CPU)
+        "resize_memory": resize_mem,
+        "exited_frac": exited_frac,
         "steady_tokens_per_s": steady_tok_s,
         "controller": {"mode": "inline", "published": cp.published,
                        "decided": cp.decided, "dropped": cp.dropped,
@@ -348,6 +417,13 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
     }
 
 
+def _allocated(engine: ElasticEngine) -> Optional[int]:
+    """Bytes of live tensors on the engine's card (None on the CPU)."""
+    if engine.device.type != "cuda":
+        return None
+    return torch.cuda.memory_allocated(engine.device)
+
+
 def main(argv=None):
     out = run(argv)
     ctl = out["controller"]
@@ -359,6 +435,10 @@ def main(argv=None):
         print(f"  rebalance @iter {ev.iteration}: imbalance "
               f"{ev.imbalance_before:.3f} -> {ev.imbalance_after:.3f}, "
               f"moved {ev.moved_layers} layers")
+    for rz in out["resizes"]:
+        print(f"  {rz['kind']} @step {rz['step']}: {rz['from_stages']} -> "
+              f"{rz['to_stages']} stages, workers {rz['workers']}, "
+              f"{rz['seconds']:.3f}s")
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ Assignment — host tensors (it steers host control flow: which slot runs)
 
 Dynamism state
   dyn = {"ff_mask": f32 [S, L_max, npb], "frozen": f32 [S, L_max],
+         "mod_router": f32 [S, L_max, d], "mod_on": f32 [S, L_max]   (mod),
          "expert_map": f32 [S, L_max, E]   (MoE archs with expert_relayout)}
 
 For training, ``params["stages"]`` may also hold, per field, nested lists
@@ -36,16 +37,16 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (cross_entropy_with_head, matmul,
                                       rms_norm)
 
-# what the port's slices serve so far; the other kinds raise
-PORTED_DYNAMICS = ("none", "moe", "pruning", "freezing", "sparse_attention")
+# every dynamism kind of the reference
+PORTED_DYNAMICS = ("none", "moe", "pruning", "freezing", "sparse_attention",
+                   "early_exit", "mod")
 
 
 def check_ported(cfg: ModelConfig, dyncfg: DynamicsConfig) -> None:
     B.check_ported(cfg)
     if dyncfg.kind not in PORTED_DYNAMICS:
-        raise NotImplementedError(
-            f"dynamism kind {dyncfg.kind!r} is not in repro_torch yet "
-            f"(ROADMAP Queue 1 [serve-dynamism])")
+        raise ValueError(f"unknown dynamism kind {dyncfg.kind!r}; have "
+                         f"{PORTED_DYNAMICS}")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +142,12 @@ def init_dyn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
                               device=device),
         "frozen": torch.zeros((S, L_max), device=device),
     }
+    if dyncfg.uses_mod:
+        # the router and the per-slot switch, zeros as in the reference
+        # (nothing there sets mod_on, so MoD's output mix stays off)
+        dyn["mod_router"] = torch.zeros((S, L_max, cfg.d_model),
+                                        device=device)
+        dyn["mod_on"] = torch.zeros((S, L_max), device=device)
     if dyncfg.expert_relayout and cfg.num_experts:
         # logical expert -> physical kernel group, per slot (identity at
         # init), float32 as in the reference; its [S, L_max] leading dims
@@ -216,8 +223,16 @@ def stage_forward(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
     Training: a frozen slot (freezing dynamism) runs on detached params, so
     the backward computes its input gradient and no weight gradient — the
     reference's ``blocks.freezable``.  ``dcfg.remat == "block"`` recomputes
-    each slot in the backward (``torch.utils.checkpoint``)."""
+    each slot in the backward (``torch.utils.checkpoint``).
+
+    Mixture-of-Depths (``train`` mode) and early exit (every mode) wrap
+    each active slot's output as the reference's ``slot_fn`` does; early
+    exit's depth fraction is ``(stage_depth_base + l) / total_blocks``.
+    Both executors of the reference (``slot_exec`` "masked_scan" and
+    "bounded_loop") are this one loop: PAD slots are skipped on the host,
+    so the loop's trip count is the stage's active slots either way."""
     zero = _stat_zeros(cfg, carry["x"].device)
+    total = max(1, cfg.total_blocks())
     per_slot = []
     aux = 0.0
     frozen = None
@@ -235,11 +250,17 @@ def stage_forward(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
                       else {k: v[l] for k, v in cache_stage.items()})
 
         def run(carry, p=p, dyn_slot=dyn_slot, cache_slot=cache_slot,
-                tag=tag):
-            return B.apply_block(
+                tag=tag, l=l):
+            out, c, st, a = B.apply_block(
                 cfg, dyncfg, mode, p, shared, carry, tag, dyn_slot,
                 cache_slot, pos, kernel_impl=dcfg.kernel_impl,
                 hash_proj=hash_proj)
+            if dyncfg.uses_mod and mode == "train":
+                out, _ = _mod_wrap(cfg, dyncfg, dyn_slot, carry, out)
+            if dyncfg.uses_early_exit:
+                out, _ = _ee_update(cfg, dyncfg, carry, out,
+                                    (stage_depth_base + l) / total)
+            return out, c, st, a
 
         if mode == "train" and dcfg.remat == "block":
             carry, _, st, a = checkpoint(run, carry, use_reentrant=False)
@@ -250,6 +271,48 @@ def stage_forward(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
     stats = {k: torch.stack([st.get(k, z) for st in per_slot])
              for k, z in zero.items()}
     return carry, cache_stage, stats, aux
+
+
+def _mod_wrap(cfg: ModelConfig, dyncfg: DynamicsConfig, dyn_slot,
+              carry_in, carry_out):
+    """Mixture-of-Depths as the reference's output mix: where the slot's
+    ``mod_on`` is set, the top ``mod_capacity`` share of tokens (by the
+    slot's router score) take the block's output and the rest keep their
+    input; elsewhere the output passes unchanged.  Returns (carry, the
+    processed token fraction)."""
+    x_in, x_out = carry_in["x"], carry_out["x"]
+    s = x_in.shape[1]
+    k = max(1, int(dyncfg.mod_capacity * s))
+    scores = torch.einsum("bsd,d->bs", x_in.float(), dyn_slot["mod_router"])
+    thresh = torch.topk(scores, k, dim=-1).values[:, -1:]
+    sel = (scores >= thresh)[..., None]
+    on = dyn_slot["mod_on"] > 0
+    new_x = torch.where(on, torch.where(sel, x_out, x_in), x_out)
+    return {**carry_out, "x": new_x}, torch.where(on, k / s, 1.0)
+
+
+def _ee_update(cfg: ModelConfig, dyncfg: DynamicsConfig, carry_in,
+               carry_out, depth_frac: float):
+    """Early exit: a token whose block output is within ``ee_threshold``
+    cosine of its input (at a depth fraction of at least
+    ``ee_min_layer_frac``) is marked in ``carry["exited"]`` [b, s]; a token
+    already marked keeps its input activation.  A carry without
+    ``exited`` (decode) passes unchanged.  Returns (carry, the active
+    token fraction)."""
+    x_in, x_out = carry_in["x"], carry_out["x"]
+    exited = carry_in.get("exited")
+    if exited is None:
+        return carry_out, 1.0
+    xi, xo = x_in.float(), x_out.float()
+    cos = (xi * xo).sum(-1) / torch.clamp(
+        torch.linalg.vector_norm(xi, dim=-1)
+        * torch.linalg.vector_norm(xo, dim=-1), min=1e-6)
+    newly = (cos > dyncfg.ee_threshold) & (
+        depth_frac >= dyncfg.ee_min_layer_frac)
+    exited_new = torch.maximum(exited, newly.to(exited.dtype))
+    x_keep = torch.where(exited[..., None] > 0, x_in, x_out)
+    return ({**carry_out, "x": x_keep, "exited": exited_new},
+            1.0 - exited.mean())
 
 
 def _stat_zeros(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
@@ -278,15 +341,20 @@ def reference_loss(cfg: ModelConfig, dcfg: DistConfig,
     tags = assignment["tags"].tolist()
     carry = embed(params, cfg, tokens)
     carry["x"] = carry["x"].to(param_dtype(dcfg))
+    if dyncfg.uses_early_exit:
+        carry["exited"] = torch.zeros(carry["x"].shape[:2],
+                                      device=carry["x"].device)
     pos = torch.arange(carry["x"].shape[1], device=carry["x"].device)
     aux_total = 0.0
+    depth = 0       # blocks applied so far: early exit's global depth
     for s, row in enumerate(tags):
         stage_params = {k: v[s] for k, v in params["stages"].items()}
         dyn_stage = {k: v[s] for k, v in dyn.items()}
         carry, _, _, aux = stage_forward(
             cfg, dcfg, dyncfg, "train", stage_params, params["shared"], row,
-            dyn_stage, carry, None, pos, 0, hash_proj=hash_proj)
+            dyn_stage, carry, None, pos, depth, hash_proj=hash_proj)
         aux_total = aux_total + aux
+        depth += sum(1 for t in row if t != BLOCK_PAD)
     h = carry["x"]
     if label_mask is None:
         label_mask = torch.ones(labels.shape, device=h.device)

@@ -163,7 +163,6 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
         device = tokens.device
         m = shapes.num_micro
         tags = assignment["tags"].tolist()
-        depth_base = assignment["depth_base"].tolist()
         pos = torch.arange(shapes.seq, device=device)
         ids_out = torch.zeros((m, shapes.mb_global), dtype=torch.int32,
                               device=device)
@@ -171,16 +170,17 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m, S):
             if idx == 0:
-                carry = M.embed(params, cfg, tokens[mi])
-                carry["x"] = carry["x"].to(dt)
+                carry = _ingest(params, cfg, dyncfg, tokens[mi], dt)
             else:
                 carry = buf.pop(idx)
             cache_mb = {k: v[idx][:, mi] for k, v in cache.items()}
+            # the reference's prefill passes idx * L_max as the stage's depth
+            # base (its loss passes depth_base); early exit reads it
             carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "prefill", _stage_slice(params["stages"],
                                                            idx),
                 params["shared"], tags[idx], _stage_slice(dyn, idx), carry,
-                cache_mb, pos, depth_base[idx], hash_proj=hash_proj)
+                cache_mb, pos, idx * len(tags[idx]), hash_proj=hash_proj)
             if cfg.num_experts:
                 drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:
@@ -219,11 +219,11 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
         per_stage = [None] * S
         aux_acc = 0.0
         h_seq = [None] * m
+        exited = []
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m, S):
             if idx == 0:
-                carry = M.embed(params, cfg, tokens[mi])
-                carry["x"] = carry["x"].to(dt)
+                carry = _ingest(params, cfg, dyncfg, tokens[mi], dt)
             else:
                 carry = buf.pop(idx)
 
@@ -246,6 +246,8 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
             aux_acc = aux_acc + aux
             if idx == S - 1:
                 h_seq[mi] = carry["x"]
+                if "exited" in carry:
+                    exited.append(carry["exited"].detach().mean())
             else:
                 buf[idx + 1] = carry          # the ring roll
         head = M.head_weight(params)
@@ -261,9 +263,24 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
             1, cfg.total_blocks()))
         stats = {k: torch.stack([st[k] for st in per_stage])
                  for k in per_stage[0]}
+        if exited:
+            # early exit: the share of tokens marked exited after the last
+            # stage, over the step's microbatches (a device scalar)
+            stats["exited_frac"] = torch.stack(exited).mean()
         return loss, stats
 
     return loss_fn
+
+
+def _ingest(params, cfg: ModelConfig, dyncfg: DynamicsConfig, tokens, dt):
+    """Stage 0's fresh carry for one microbatch: the embedding and, under
+    early exit, the ``exited`` [b, seq] marks (zeros) that ride the
+    stage-to-stage hand-off with it."""
+    carry = M.embed(params, cfg, tokens)
+    carry["x"] = carry["x"].to(dt)
+    if dyncfg.uses_early_exit:
+        carry["exited"] = torch.zeros(tokens.shape, device=tokens.device)
+    return carry
 
 
 def _micro_loss(final_norm, head, h, labels, label_mask, eps):

@@ -1,7 +1,10 @@
-"""Straggler detection — the training slice's part of
-``repro.runtime.fault_tolerance`` (heartbeats, the worker pool and the rest
-of the fault layer wait for ROADMAP Queue 1 [control-plane])."""
+"""Straggler detection and the worker pool — the parts of
+``repro.runtime.fault_tolerance`` the trainer and the elastic engine use
+(heartbeats wait for ROADMAP Queue 1 [cluster])."""
 from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Set
 
 import numpy as np
 
@@ -45,3 +48,57 @@ class StragglerDetector:
         if scale <= 0:
             return np.ones_like(expected)
         return np.maximum(1.0, self.times / (expected * scale))
+
+
+@dataclasses.dataclass
+class WorkerPool:
+    """Job-manager facing pool: re-packing calls ``release``, failures call
+    ``fail``, elastic growth calls ``request``, which grants released
+    workers back.  Every transition is appended to ``log`` as
+    ``"event:worker"``."""
+    total: int
+    active: Optional[Set[int]] = None
+
+    def __post_init__(self):
+        if self.active is None:
+            self.active = set(range(self.total))
+        self.released: Set[int] = set()
+        self.dead: Set[int] = set()
+        self.log: List[str] = []
+
+    def release(self, workers) -> None:
+        for w in workers:
+            if w in self.active:
+                self.active.discard(w)
+                self.released.add(w)
+                self.log.append(f"release:{w}")
+
+    def fail(self, worker: int) -> None:
+        # a machine can die while idle too: scrub it from every live set,
+        # so a later request() never re-grants a dead id
+        self.active.discard(worker)
+        self.released.discard(worker)
+        self.dead.add(worker)
+        self.log.append(f"fail:{worker}")
+
+    def request(self, n: int) -> List[int]:
+        grant = sorted(self.released)[:n]
+        for w in grant:
+            self.released.discard(w)
+            self.active.add(w)
+            self.log.append(f"grant:{w}")
+        return grant
+
+    def check_consistent(self) -> None:
+        """Every worker id lives in exactly one of active / released /
+        dead."""
+        for a, b in (("active", "released"), ("active", "dead"),
+                     ("released", "dead")):
+            both = getattr(self, a) & getattr(self, b)
+            if both:
+                raise AssertionError(
+                    f"worker(s) {sorted(both)} in both {a} and {b}")
+
+    @property
+    def num_active(self) -> int:
+        return len(self.active)

@@ -1,16 +1,21 @@
-"""Continuous-batching server on one ``ElasticEngine`` world — the fixed-world
-part of ``repro.serve.server.ElasticServer``.
+"""Elastic continuous-batching server on ``ElasticEngine`` worlds, ported
+from ``repro.serve.server.ElasticServer``.
 
 The server owns one ``EngineState`` whose ``cache`` is the live KV state.
 Each tick admits queued requests (prefill into a dense scratch, then a merge
 of the admitted lanes' lines — dense — or a scatter of their prompt pages
 into the block pool — paged), applies copy-on-write forks, decodes every
-live lane at its own position and, on cadence, defragments the lanes.  The
-report keeps every key of the reference's; resizes, autoscaling and the
-job-manager pool are not in this slice, so their entries stay empty.
+live lane at its own position and, on cadence, defragments the lanes.
+Resizes happen at the safe point between ticks: no microbatch is in
+flight, so the engine's re-split carries every lane's KV (dense lines or
+the page pool; the page tables are host-side and stay) onto the new stage
+count bit for bit.  ``serve(resize_at=...)`` scripts them; load-driven
+autoscaling and worker crashes wait for ROADMAP Queue 1 [cluster] and
+[faults-obs].  The report keeps every key of the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -68,18 +73,40 @@ class ElasticServer:
         self.eos_id = eos_id
         self.defrag_every = defrag_every
         # prefill scratch: a dense cache prefill writes whole lanes into
-        # before the admitted lanes are merged (dense) or packed (paged)
+        # before the admitted lanes are merged (dense) or packed (paged);
+        # rebuilt when the stage count changes
         self._scratch = None
+
+    # -- safe-point resize ---------------------------------------------------
+    def resize(self, target_stages: int, tick: int, reason: str) -> bool:
+        """Shrink or grow between decode ticks.  Returns True if the world
+        changed (the job manager may deny a grow)."""
+        prev = self.state.stages
+        if target_stages < prev:
+            self.state = self.engine.shrink(self.state, target_stages,
+                                            step=tick)
+        elif target_stages > prev:
+            self.state = self.engine.grow(self.state, target_stages - prev,
+                                          step=tick)
+        changed = self.state.stages != prev
+        if changed:
+            self._scratch = None      # the old world's scratch goes too
+            rz = self.engine.resizes[-1]
+            print(f"tick {tick:4d} {rz.kind.upper()} {rz.from_stages}->"
+                  f"{rz.to_stages} stages ({reason}); workers {rz.workers}; "
+                  f"pool active={self.engine.jm.num_active}")
+        return changed
 
     # -- main loop ------------------------------------------------------------
     def serve(self, requests: List[Request], *, max_ticks: int = 100000,
               resize_at: Optional[Dict[int, int]] = None,
               autoscale: bool = False) -> Dict[str, Any]:
-        """Drive the request trace to completion."""
-        if resize_at or autoscale:
+        """Drive the request trace to completion.  ``resize_at`` scripts
+        {tick: target_stages} safe-point resizes."""
+        if autoscale:
             raise NotImplementedError(
-                "serving resizes and autoscaling are not in repro_torch yet "
-                "(ROADMAP Queue 1 [serve-elastic])")
+                "load-driven serving autoscaling is not in repro_torch yet "
+                "(ROADMAP Queue 1 [cluster])")
         alloc = None
         if self.paged is not None:
             from repro_torch.serve.kv import PageAllocator
@@ -93,6 +120,7 @@ class ElasticServer:
                           RequestQueue(requests), eos_id=self.eos_id,
                           defrag_every=self.defrag_every, allocator=alloc)
         m, B = self.shapes.num_micro, self.shapes.mb_global
+        resizes_before = len(self.engine.resizes)
         tick = 0
         tick_wall: List[float] = []
         tick_tokens: List[int] = []
@@ -164,6 +192,9 @@ class ElasticServer:
             if alloc is not None:
                 page_occ_hist.append(alloc.occupancy)
                 peak_pages = max(peak_pages, alloc.live_pages)
+            # ---- safe point: the tick's flight is fully retired
+            if resize_at and tick in resize_at:
+                self.resize(resize_at[tick], tick, "scripted")
             tick += 1
         wall_s = time.perf_counter() - t_run
         total_tokens = sum(len(r.tokens) for r in sched.completions)
@@ -180,8 +211,9 @@ class ElasticServer:
             "stages_history": stages_hist,
             "queue_depth_history": depth_hist,
             "occupancy_history": occ_hist,
-            "resizes": [],
-            "pool_log": [],
+            "resizes": [dataclasses.asdict(e)
+                        for e in self.engine.resizes[resizes_before:]],
+            "pool_log": list(self.engine.jm.log),
             "autoscale_decisions": [],
             "requeued_total": sched.requeued_total,
             "total_tokens": total_tokens,

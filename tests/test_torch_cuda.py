@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version, and a reduced serve on the card against the same serve on the CPU.
+version; reduced serves, trainings and live resizes on the card against
+the same runs on the CPU.
 
 Every test here needs a CUDA card and skips without one (the CPU tests in
 ``test_torch_kernels.py`` hold the plain versions to the JAX package).
@@ -703,3 +704,58 @@ def test_reduced_moe_train_and_serve_on_the_card_match_the_cpu(cuda):
                         params=copy.deepcopy(params))
         toks[dev] = {c["rid"]: c["tokens"] for c in rep["completions"]}
     assert len(toks["cuda"]) == 6 and toks["cuda"] == toks["cpu"]
+
+
+def test_reduced_elastic_train_and_serve_on_the_card_match_the_cpu(cuda):
+    """Live resizes through the kernels on the card: the train CLI's
+    ``--repack --grow-back`` run (reduced smollm, 4 stage buffers) gives
+    the CPU run's losses within 1e-4 and the same resizes, and its shrink
+    frees device memory; early exit trains to the CPU's losses; a serve
+    resized 4 -> 2 -> 4 emits the CPU's fixed serve's tokens."""
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    from repro_torch.serve import ElasticServer
+    from repro_torch.serve.kv import PagedKVConfig
+    from repro_torch.serve.requests import make_trace
+    cfg = reduced_config(get_config("smollm-360m"), num_layers=8,
+                         d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                         vocab_size=512)
+    dcfg = DistConfig(num_stages=4, slot_slack=2, param_dtype="float32",
+                      kernel_impl="pallas")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, dcfg)
+    train = ["--layers", "8", "--d-model", "128", "--d-ff", "256",
+             "--vocab-size", "512", "--stages", "4", "--num-micro", "4",
+             "--mb-global", "2", "--seq", "32", "--steps", "26",
+             "--rebalance-every", "5", "--kernel-impl", "pallas",
+             "--log-every", "100"]
+    for extra in (["--dynamism", "pruning", "--repack", "--grow-back", "6"],
+                  ["--dynamism", "early_exit", "--steps", "8",
+                   "--dynamics.ee_threshold", "0.95"]):
+        cpu = train_run(train + extra + ["--device", "cpu"],
+                        params=copy.deepcopy(params))
+        card = train_run(train + extra, params=copy.deepcopy(params))
+        torch.testing.assert_close(torch.tensor(card["losses"]),
+                                   torch.tensor(cpu["losses"]), atol=1e-4,
+                                   rtol=0)
+        assert [(r["kind"], r["step"], r["to_stages"])
+                for r in card["resizes"]] == [
+            (r["kind"], r["step"], r["to_stages"]) for r in cpu["resizes"]]
+    shrink, = train_run(train + ["--dynamism", "pruning", "--repack"],
+                        params=copy.deepcopy(params))["resize_memory"]
+    assert shrink["allocated_after"] < shrink["allocated_before"]
+    trace = make_trace(8, prompt_len=24, max_gen=8, vocab_size=512, seed=1,
+                       min_prompt=12)
+    out = {}
+    for dev, resize_at in (("cpu", None), ("cuda", {2: 2, 5: 4})):
+        srv = ElasticServer(cfg, dcfg, DynamicsConfig(),
+                            PipelineShapes(2, 2, 24, cache_len=32),
+                            paged=PagedKVConfig(4, 64), device=dev,
+                            params=copy.deepcopy(params))
+        rep = srv.serve(copy.deepcopy(trace), resize_at=resize_at)
+        out[dev] = {c["rid"]: c["tokens"] for c in rep["completions"]}
+        if resize_at:
+            assert [r["kind"] for r in rep["resizes"]] == ["shrink", "grow"]
+    assert len(out["cuda"]) == 8 and out["cuda"] == out["cpu"]

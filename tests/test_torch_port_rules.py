@@ -7,7 +7,9 @@
 * ``chip_smoke.py``'s MoE phases require K4 and K5 launches, its serve
   phase every K6 launch split; its K6 bound counts the live pages.
 * Entry points run on CUDA and raise without a card unless the caller asks
-  for the CPU; features outside the slice raise ``NotImplementedError``.
+  for the CPU; features not ported yet raise ``NotImplementedError``, and
+  every ROADMAP item such a message (or any other text of the port) names
+  is a current item of ``ROADMAP.md``'s Queue 1.
 * ``chip_smoke.py`` fails, and prints no result, without a card or outside
   the repository.
 * ``convert`` round-trips a reference param tree bit-exactly.
@@ -81,6 +83,34 @@ def test_cpu_train_imports_no_jax_and_no_reference():
     assert "CLEAN 2" in out.stdout
 
 
+ELASTIC_MODULES = ("repro_torch.checkpoint.elastic",
+                   "repro_torch.cluster.rpc", "repro_torch.core.repack")
+
+
+def test_cpu_elastic_train_imports_no_jax_and_no_reference():
+    """A live shrink and grow back (``--repack --grow-back``) loads the
+    elastic modules and nothing of jax or the reference."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.train import run\n"
+        "rep = run(['--layers', '8', '--d-model', '64', '--d-ff', '256',"
+        " '--vocab-size', '256', '--stages', '4', '--seq', '16',"
+        " '--num-micro', '2', '--mb-global', '2', '--steps', '18',"
+        " '--dynamism', 'pruning', '--repack', '--grow-back', '2',"
+        " '--rebalance-every', '5', '--device', 'cpu'])\n"
+        "assert [r['kind'] for r in rep['resizes']] == ['shrink', 'grow']\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        f"missing = [m for m in {ELASTIC_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "print('CLEAN', rep['pool_log'])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN" in out.stdout
+
+
 MOE_MODULES = ("repro_torch.kernels.grouped_matmul.ops",
                "repro_torch.kernels.grouped_matmul.backward",
                "repro_torch.core.expert_layout",
@@ -121,7 +151,7 @@ def test_no_jax_or_reference_imports_in_the_port():
         REPO / "chip_smoke.py"]
     assert len(files) > 20
     names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
-    for mod in MOE_MODULES:
+    for mod in MOE_MODULES + ELASTIC_MODULES:
         assert mod.replace(".", "/") + ".py" in names, mod
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
@@ -163,8 +193,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--dynamism", "early_exit"], "early_exit"),
-    (["--dynamism", "mod"], "mod"),
+    (["--job-manager", "file"], "job managers"),
+    (["--job-manager", "http"], "job managers"),
     (["--temperature", "0.7"], "temperature"),
     (["--autoscale"], "autoscal"),
     (["--chaos"], "fault"),
@@ -176,7 +206,7 @@ def test_features_outside_the_slice_raise(extra, what):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--repack"], "consolidation"),
+    (["--ckpt-every", "5"], "safe points"),
     (["--autoscale"], "autoscal"),
     (["--async-controller"], "asynchronous"),
     (["--job-manager", "file"], "job managers"),
@@ -185,8 +215,8 @@ def test_features_outside_the_slice_raise(extra, what):
     (["--chaos"], "fault"),
     (["--measure-stage-times"], "stage-time"),
     (["--in-step-timing"], "in-step"),
-    (["--dynamism", "early_exit"], "early_exit"),
-    (["--dynamism", "mod"], "mod"),
+    (["--simulate-recover", "3"], "heartbeat"),
+    (["--job-manager", "http"], "job managers"),
     (["--arch", "mixtral-8x7b", "--dynamism", "pruning"], "moe"),
 ])
 def test_train_features_outside_the_slice_raise(extra, what):
@@ -293,6 +323,54 @@ def test_chip_smoke_requires_every_serve_k6_launch_split():
     assert pa.pa_splits(4, 5, 66, 16) > 1
 
 
+@pytest.mark.parametrize("serve_k1", [1, 0])
+def test_chip_smoke_ee_serve_reads_its_own_launches(monkeypatch, serve_k1):
+    """Phase 4j zeroes every count just before the early-exit serve and
+    reads it just after: launches left from the early-exit train run (K1
+    and K3 included) neither show in the serve's counts nor hide a kernel
+    the serve missed; every K6 launch of the serve must be split."""
+    import importlib.util
+    import types
+    from repro_torch import kernels
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.launch import serve as serve_cli
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    by_name = {k.name: k for k in kernels.KERNELS}
+    for k in kernels.KERNELS:          # what the train run left behind
+        k.launches = k.launches_tc = 1000
+
+    def fake_serve(argv):
+        assert "early_exit" in argv
+        for name, n in (("block_sparse_attention", serve_k1),
+                        ("pruned_matmul", 6), ("paged_attention", 5)):
+            by_name[name].launches += n
+            by_name[name].launches_tc += n
+        pa.KERNEL.launches_split += 5
+        comps = [{"kind": "early_exit" if i < 2 else "none",
+                  "tokens": [1, 2]} for i in range(8)]
+        return {"completions": comps, "total_tokens": 16, "ticks": 4,
+                "tokens_per_s": 1.0}
+
+    fake_torch = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, empty_cache=lambda: None))
+    monkeypatch.setattr(serve_cli, "run", fake_serve)
+    try:
+        if serve_k1:
+            got = smoke.run_ee_serve_phase(fake_torch, kernels)
+            assert got["block_sparse_attention"] == 1
+            assert got["pruned_matmul"] == 6 and got["paged_attention"] == 5
+            assert got["block_sparse_attention_bwd_dq"] == 0
+        else:
+            with pytest.raises(AssertionError, match="never launched"):
+                smoke.run_ee_serve_phase(fake_torch, kernels)
+    finally:
+        for k in kernels.KERNELS:
+            k.reset()
+
+
 @pytest.mark.parametrize("shape,mbytes", [("main", 4.246604),
                                           ("long", 10.518544)])
 def test_chip_smoke_k6_byte_bound(shape, mbytes):
@@ -390,3 +468,67 @@ def test_convert_carries_reference_moe_trees_bit_exactly():
         b = flat_back[path]
         assert a.dtype == b.dtype and a.shape == b.shape, path
         assert a.tobytes() == b.tobytes(), path
+
+
+def _roadmap_items():
+    """The tags of ``ROADMAP.md``'s Queue 1 items (``1. **[tag] ...``)."""
+    text = (REPO / "ROADMAP.md").read_text()
+    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
+    return set(re.findall(r"^\d+\. \*\*\[([a-z0-9-]+)\]", queue, re.M))
+
+
+def _port_strings():
+    """(file, line, text) of every string constant in the port, f-string
+    parts joined."""
+    import ast
+    for f in sorted((SRC / "repro_torch").rglob("*.py")):
+        tree = ast.parse(f.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.JoinedStr):
+                text = "".join(v.value for v in node.values
+                               if isinstance(v, ast.Constant))
+            elif (isinstance(node, ast.Constant)
+                  and isinstance(node.value, str)):
+                text = node.value
+            else:
+                continue
+            yield f.relative_to(REPO), node.lineno, text
+
+
+def test_roadmap_tags_in_the_port_are_current_items():
+    """Every ``[tag]`` the port names next to ``ROADMAP`` — in a
+    ``NotImplementedError`` message, a flag table or a docstring — is an
+    item of ROADMAP.md's Queue 1, so a user who follows it finds it."""
+    items = _roadmap_items()
+    assert {"checkpoint", "cluster", "control-timing", "faults-obs",
+            "serve-sampling", "moe-rest", "block-families"} <= items, items
+    stale, seen = [], 0
+    for path, line, text in _port_strings():
+        if "ROADMAP" not in text:
+            continue
+        for tag in re.findall(r"\[([a-z][a-z0-9-]*)\]",
+                              text.split("ROADMAP", 1)[1]):
+            seen += 1
+            if tag not in items:
+                stale.append(f"{path}:{line} [{tag}]")
+    assert seen > 10
+    assert not stale, stale
+
+
+def test_not_implemented_errors_name_a_roadmap_item():
+    """Each ``raise NotImplementedError`` of the port names its ROADMAP
+    item in its message (or in the flag table it formats)."""
+    import ast
+    bare = []
+    for f in sorted((SRC / "repro_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if not (isinstance(node, ast.Raise) and isinstance(
+                    node.exc, ast.Call) and getattr(
+                    node.exc.func, "id", None) == "NotImplementedError"):
+                continue
+            text = ast.unparse(node.exc)
+            if "ROADMAP" not in text and "what" not in text:
+                bare.append(f"{f.relative_to(REPO)}:{node.lineno} {text}")
+    # configs.base keeps the reference's guard against a per-model call
+    assert bare == ["src/repro_torch/configs/base.py:235 "
+                    "NotImplementedError('use slots_for(model_cfg)')"], bare

@@ -35,10 +35,11 @@ PORT_WIDTHS = ["--num-heads", "4", "--num-kv-heads", "2", "--d-ff", "256",
                "--vocab-size", "256"]
 
 
-def reference_run(argv, tmp_path, keys=()):
-    """Run the reference CLI's Session on ``argv``; returns (report
-    summary — losses, final split, events and the report's ``keys`` —,
-    initial params as a numpy tree)."""
+def reference_run(argv, tmp_path, keys=(), devices=2):
+    """Run the reference CLI's Session on ``argv`` (in a subprocess with
+    ``devices`` host devices); returns (report summary — losses, final
+    split, events and the report's ``keys`` —, initial params as a numpy
+    tree)."""
     npz = os.path.join(str(tmp_path), "init.npz")
     out = run_in_subprocess(f"""
 import argparse, json
@@ -75,7 +76,7 @@ print("REPORT " + json.dumps({{
     "losses": rep["losses"], "final_lps": rep["final_lps"],
     "events": [[e.iteration, e.moved_layers] for e in rep["events"]],
     **{{k: rep[k] for k in {tuple(keys)!r}}}}}))
-""", devices=2)
+""", devices=devices)
     line = [ln for ln in out.splitlines() if ln.startswith("REPORT ")][-1]
     tree = {"params": {"shared": {}}}
     with np.load(npz) as z:
