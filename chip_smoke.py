@@ -122,6 +122,42 @@ final line:
                --early-exit-frac 0.5 (K1 and K3 on the tensor cores, every
                K6 launch split), the counts zeroed just before each of the
                two and read just after;
+  4k. safe points — the training CLI at 4h's flags without --grow-back,
+               20 steps, --ckpt-every 8 into a temporary directory (the
+               roomier of TMPDIR and build/, deleted at the end): safe
+               points after step 7 (4 buffers) and 15 (2, after the
+               controller's shrink at 14); then resumed from 15 and from 7
+               (which must prune at 10 and shrink at 14 on its own
+               decision): both tails' losses, resizes, pool log, final
+               params and Adam moments bitwise the uninterrupted run's (on
+               a difference the phase names the first differing step and
+               the largest leaf difference, runs the uninterrupted run
+               twice more and prints whether it repeats itself); prints
+               each safe point's bytes and save seconds (device -> host,
+               npz, sha256), each restore's seconds, memory_allocated after
+               it and its growth over the phase's live state (the
+               restored world alone); K1, K2a, K2b and K3 at the 4c counts
+               a step over
+               the 36 steps, all on the tensor cores;
+  4l. control timing — (i) an engine with in-step timing (CUDA events
+               around each stage's forward) on a [26, 2, 2, 2] split over
+               4 buffers, 4 steps: the in-step times and the isolated probe
+               must both rank stage 0 slowest, strictly above each 2-layer
+               stage; (ii) the training CLI on 2 buffers, 12 steps,
+               --straggler 1:2.0 --rebalance-every 4 --in-step-timing
+               --measure-stage-times, inline and with --async-controller
+               --async-drain (bitwise equal where their decisions agree:
+               measured times differ from run to run), and the same flags
+               untimed, inline and async + drain: losses, events and stage
+               history bitwise equal; (iii) async without the drain must
+               decide; the untimed inline run against the timed one is the
+               events' overhead; the probe alone; prints per-stage in-step
+               and probe seconds at each
+               cadence beside the cost model's per-stage loads, step ms at
+               the cadence steps and after them in each mode, the training
+               thread's decide seconds; (ii), (iii) and the untimed run
+               launch K1-K3 at the 4c counts a step, all on the tensor
+               cores;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
   5b. train parity — loss and every gradient of one training step (full
@@ -2410,6 +2446,357 @@ def run_ee_serve_phase(torch, kernels):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phases 4k / 4l: safe points and resume; the control plane's inputs
+# ---------------------------------------------------------------------------
+def ckpt_train_args(steps: int = 20):
+    """Phase 4k's flags: phase 4h's without --grow-back (4 stage buffers of
+    16 slots, 8192 tokens a step, --repack, the prune at step 10), 20
+    steps; the phase adds --ckpt-dir and --ckpt-every 8."""
+    return ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
+            "--mb-global", "2", "--seq", "1024", "--steps", str(steps),
+            "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
+            "--kernel-impl", "pallas", "--param-dtype", "float32", "--seed",
+            "0", "--log-every", "5"]
+
+
+CKPT_EVERY = 8
+# the safe points of a 20-step run: after steps 7 (4 buffers) and 15 (2,
+# after the controller's shrink at step 14); run (b) resumes from 15 and
+# (a) from 7, 4 + 12 steps
+CKPT_RESUMES = ((15, 2), (7, 4))
+
+
+def ctl_train_args(steps: int = 12):
+    """Phase 4l's flags: full-width smollm-360m on 2 stage buffers, 8192
+    tokens a step, the prune at step 10, a cadence every 4 steps under a
+    2x straggler on worker 1; the phase adds the timing and controller
+    flags."""
+    return ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+            "--seq", "1024", "--steps", str(steps), "--rebalance-every", "4",
+            "--straggler", "1:2.0", "--dynamism", "pruning", "--kernel-impl",
+            "pallas", "--param-dtype", "float32", "--seed", "0",
+            "--log-every", "4"]
+
+
+CTL_TIMED = ["--in-step-timing", "--measure-stage-times"]
+CTL_ASYNC = ["--async-controller", "--async-drain"]
+# phase 4l's skewed split of the 32 layers over 4 buffers (slot slack 18:
+# 26 slots a buffer)
+CTL_SKEW = [26, 2, 2, 2]
+
+
+def _window(torch, kernels):
+    torch.cuda.synchronize()
+    return ({k.name: k.launches for k in kernels.KERNELS},
+            {k.name: k.launches_tc for k in kernels.KERNELS})
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _tree_diff(torch, got, want) -> tuple:
+    """(largest |difference| over the leaves, its leaf)."""
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(leaves(got), leaves(want)):
+        if a is None or not a.is_floating_point():
+            continue
+        d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+        if d > worst:
+            worst, where = d, path
+    return worst, where
+
+
+def _bitwise(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(leaves(got), leaves(want)))
+
+
+def run_ckpt_phase(torch, kernels):
+    """Phase 4k: a 20-step run of ckpt_train_args() writing safe points
+    every 8 steps into a temporary directory, then resumed from step 15
+    (2 buffers) and from step 7 (4 buffers, which must prune at 10 and
+    shrink 4 -> 2 at 14 on its own decision); both tails must equal the
+    uninterrupted run's losses, resizes, pool log, final params and
+    moments bitwise.  Counts zeroed before the first run and read after
+    the last (36 steps).  Returns the launch counts."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    # the safe points take ~16 GB: the roomier of TMPDIR and build/
+    roots = [tempfile.gettempdir(), str(ROOT / "build")]
+    os.makedirs(roots[1], exist_ok=True)
+    free = {r: shutil.disk_usage(r).free for r in roots}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                           dir=max(roots, key=free.get))
+    say("ckpt_disk", dir=tmp, free_gb=json.dumps(
+        {r: round(f / 1e9, 1) for r, f in free.items()}).replace(" ", ""))
+    ck = os.path.join(tmp, "ck")
+    try:
+        for k in kernels.KERNELS:
+            k.reset()
+        full = train_run(ckpt_train_args() + [
+            "--ckpt-dir", ck, "--ckpt-every", str(CKPT_EVERY)])
+        torch.cuda.synchronize()
+        got = [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
+               for r in full["resizes"]]
+        if got != [("shrink", 14, 4, 2)]:
+            raise AssertionError(f"ckpt train resizes {got}: the controller "
+                                 f"must shrink 4 -> 2 at step 14")
+        if full["pool_log"] != ["release:2", "release:3"]:
+            raise AssertionError(f"pool log {full['pool_log']}")
+        saved = sorted(os.listdir(ck))
+        if saved != ["step_00000007", "step_00000015"]:
+            raise AssertionError(f"safe points {saved}")
+        sizes = {d: _dir_bytes(os.path.join(ck, d)) for d in saved}
+        for d, secs in zip(saved, full["timing"]["safepoint_s"]):
+            with open(os.path.join(ck, d, "index.json")) as fh:
+                idx = json.load(fh)
+            say("ckpt_save", safepoint=d, stages=idx["num_stages"],
+                lps=json.dumps(idx["layers_per_stage"]).replace(" ", ""),
+                gb=f"{sizes[d] / 1e9:.3f}", seconds=f"{secs:.2f}",
+                gb_per_s=f"{sizes[d] / 1e9 / secs:.2f}",
+                epoch=idx["meta"]["epoch"],
+                workers=json.dumps(idx["meta"]["stage_workers"])
+                .replace(" ", ""))
+        results = {}
+        for at, stages in CKPT_RESUMES:
+            free_cuda(torch)
+            # the uninterrupted run's final state is still alive here: the
+            # restore's memory is the growth over this
+            base = torch.cuda.memory_allocated()
+            rep = train_run([], resume=ck, resume_step=at)
+            torch.cuda.synchronize()
+            restored = rep["timing"]["restore_allocated"] - base
+            tail = full["losses"][at + 1:]
+            rz = [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
+                  for r in rep["resizes"]]
+            same = (rep["losses"] == tail and rz == [r for r in got
+                                                     if r[1] > at]
+                    and rep["pool_log"] == full["pool_log"]
+                    and rep["stages_history"]
+                    == full["stages_history"][at + 1:])
+            params_same = _bitwise(torch, rep["params"], full["params"])
+            opt_same = _bitwise(torch, rep["opt_state"], full["opt_state"])
+            diff = [i for i, (a, b) in enumerate(zip(rep["losses"], tail))
+                    if a != b]
+            say("ckpt_resume", from_step=at, stages=stages,
+                restore_s=f"{rep['timing']['restore_s']:.2f}",
+                allocated_gb_after_restore=(
+                    f"{rep['timing']['restore_allocated'] / 1e9:.3f}"),
+                restored_gb=f"{restored / 1e9:.3f}",
+                losses_bitwise=rep["losses"] == tail,
+                first_diff_step=(at + 1 + diff[0]) if diff else None,
+                max_loss_diff=max([abs(a - b) for a, b in
+                                   zip(rep["losses"], tail)] or [0.0]),
+                params_bitwise=params_same, moments_bitwise=opt_same,
+                resizes=json.dumps(rz).replace(" ", ""),
+                pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+                wall_s=f"{rep['wall_s']:.2f}")
+            if not (same and params_same and opt_same):
+                worst = _tree_diff(torch, rep["params"], full["params"])
+                results[at] = (diff, worst)
+            del rep
+        launched, launched_tc = _window(torch, kernels)
+        k3_bwd = pm.KERNEL.launches_bwd
+        say("ckpt_train", steps=20,
+            step_ms=json.dumps([round(t * 1e3, 1)
+                                for t in full["step_times"]])
+            .replace(" ", ""),
+            losses=json.dumps([round(x, 4) for x in full["losses"]])
+            .replace(" ", ""), wall_s=f"{full['wall_s']:.2f}",
+            launches=json.dumps(launched).replace(" ", ""))
+        if results:
+            # is the uninterrupted run itself repeatable?
+            del full
+            free_cuda(torch)
+            again = train_run(ckpt_train_args())
+            first = train_run(ckpt_train_args())
+            same = again["losses"] == first["losses"]
+            spread = max(abs(a - b) for a, b in zip(again["losses"],
+                                                    first["losses"]))
+            say("ckpt_repeat", runs_bitwise=same, loss_spread=spread,
+                params_max_diff=_tree_diff(torch, again["params"],
+                                           first["params"])[0])
+            raise AssertionError(
+                f"resumed runs differ from the uninterrupted one: "
+                f"{ {a: (d[:3], w) for a, (d, w) in results.items()} }")
+        steps = 20 + sum(20 - at - 1 for at, _ in CKPT_RESUMES)
+        check_launches("ckpt train", launched, TRAIN_LAUNCHES_PER_STEP,
+                       steps)
+        if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+            raise AssertionError(f"ckpt train: K3 backward launches {k3_bwd}")
+        check_tensor_core("ckpt train", launched, launched_tc, FP32_TC_PATH)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_cuda(torch)
+    return launched
+
+
+def _stage_times(rep) -> str:
+    return json.dumps([
+        {"step": e["step"], "src": e["source"],
+         "s": [round(x, 4) for x in e["seconds"]],
+         "expected": ([round(x, 6) for x in e["expected"]]
+                      if e.get("expected") else None)}
+        for e in rep["stage_times"]]).replace(" ", "")
+
+
+def run_ctl_phase(torch, kernels):
+    """Phase 4l: (i) an engine with in-step timing on a [26, 2, 2, 2]
+    split over 4 buffers, 4 steps, then the in-step times and the probe:
+    both must rank stage 0 slowest, strictly above every 2-layer stage;
+    (ii) ctl_train_args() with --in-step-timing --measure-stage-times
+    inline and with --async-controller --async-drain: losses, events and
+    stage history bitwise equal; (iii) async without the drain: it
+    decides; the same flags untimed, inline and async + drain: bitwise
+    equal (measured times are decision inputs that differ from run to run,
+    so the timed pair must agree bitwise only where its decisions agree),
+    and the untimed inline run beside the timed one is the events'
+    overhead; the probe alone gives its times before and after the prune.
+    Returns the launch counts of (ii), (iii) and the untimed runs (60
+    steps, exactly the 4c counts a step) plus (i) and the probe run."""
+    import numpy as np
+    from repro_torch.configs import DistConfig, get_config
+    from repro_torch.data.loader import DataConfig, make_loader
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    free_cuda(torch)
+    # (i) the ranking on a skewed split
+    for k in kernels.KERNELS:
+        k.reset()
+    cfg = get_config("smollm-360m")
+    dcfg = DistConfig(num_stages=4, slot_slack=18, param_dtype="float32",
+                      kernel_impl="pallas")
+    shapes = PipelineShapes(num_micro=4, mb_global=2, seq=1024)
+    eng = ElasticEngine(cfg, dcfg, DynamicsConfig(), shapes,
+                        in_step_timing=True)
+    state = eng.init_state(0, with_opt=True, lps=CTL_SKEW)
+    batch = next(make_loader(cfg, DataConfig(4, 2, 1024)))
+    if eng.in_step_stage_times(state) is not None:
+        raise AssertionError("in-step times before any step")
+    for _ in range(4):
+        loss, _, _ = eng.step(state, batch, 1e-4)
+        float(loss)
+    in_step = eng.in_step_stage_times(state)
+    probe = eng.measure_stage_times(state, batch)
+    rank_launches, rank_tc = _window(torch, kernels)
+    say("ctl_rank", lps=json.dumps(CTL_SKEW).replace(" ", ""),
+        in_step_s=json.dumps([round(float(x), 5) for x in in_step])
+        .replace(" ", ""),
+        probe_s=json.dumps([round(float(x), 5) for x in probe])
+        .replace(" ", ""),
+        launches=json.dumps(rank_launches).replace(" ", ""))
+    for name, t in (("in-step", in_step), ("probe", probe)):
+        if not (int(np.argmax(t)) == 0
+                and all(t[0] > t[i] for i in range(1, 4))):
+            raise AssertionError(f"{name} times {list(t)} do not rank the "
+                                 f"26-layer stage slowest")
+    for name in ("block_sparse_attention", "pruned_matmul"):
+        if rank_launches[name] <= 0:
+            raise AssertionError(f"ranking never launched {name}")
+    check_tensor_core("ctl rank", rank_launches, rank_tc, FP32_TC_PATH)
+    del eng, state
+    free_cuda(torch)
+
+    # (ii) / (iii) / untimed: one window, no probe runs in it (the in-step
+    # times are there at every cadence)
+    for k in kernels.KERNELS:
+        k.reset()
+    runs = {}
+    for label, extra in (("inline", CTL_TIMED),
+                         ("async_drain", CTL_TIMED + CTL_ASYNC),
+                         ("async", CTL_TIMED + ["--async-controller"]),
+                         ("untimed", []),
+                         ("untimed_async_drain", CTL_ASYNC)):
+        rep = train_run(ctl_train_args() + extra)
+        torch.cuda.synchronize()
+        runs[label] = {
+            "losses": rep["losses"], "step_times": rep["step_times"],
+            "events": [(e.iteration, e.moved_layers) for e in rep["events"]],
+            "stages_history": rep["stages_history"],
+            "controller": rep["controller"],
+            "decide_s": rep["timing"]["decide_s"],
+            "steady_ms": rep["timing"]["steady_step_mean_s"] * 1e3,
+            "stage_times": _stage_times(rep),
+            "source": rep["stage_time_source"]}
+        del rep
+        free_cuda(torch)
+    launched, launched_tc = _window(torch, kernels)
+    for label, r in runs.items():
+        say("ctl_train", run=label, mode=r["controller"]["mode"],
+            decided=r["controller"]["decided"],
+            dropped=r["controller"]["dropped"],
+            stale_rejected=r["controller"]["stale_rejected"],
+            decide_s=f"{r['decide_s']:.4f}",
+            steady_step_ms=f"{r['steady_ms']:.1f}",
+            step_ms=json.dumps([round(t * 1e3, 1) for t in r["step_times"]])
+            .replace(" ", ""),
+            events=json.dumps(r["events"]).replace(" ", ""),
+            source=r["source"], stage_times=r["stage_times"])
+    # measured stage times are decision inputs that differ from run to
+    # run, so the bitwise pair is the untimed one (the straggler knob
+    # alone is scale-free, hence deterministic); the timed pair must be
+    # bitwise equal whenever its decisions agree
+    a, b = runs["untimed"], runs["untimed_async_drain"]
+    if not (a["losses"] == b["losses"] and a["events"] == b["events"]
+            and a["stages_history"] == b["stages_history"] and a["events"]):
+        raise AssertionError(f"async + drain differs from inline: "
+                             f"{a['losses']} {b['losses']} {a['events']} "
+                             f"{b['events']}")
+    a, b = runs["inline"], runs["async_drain"]
+    same_events = a["events"] == b["events"]
+    if same_events and a["losses"] != b["losses"]:
+        raise AssertionError(f"timed async + drain: the inline run's "
+                             f"decisions, other losses: {a['losses']} "
+                             f"{b['losses']}")
+    say("ctl_timed_pair", same_events=same_events,
+        losses_bitwise=a["losses"] == b["losses"])
+    if a["source"] != "in_step":
+        raise AssertionError(f"inline: source {a['source']}")
+    if runs["async"]["controller"]["decided"] < 1:
+        raise AssertionError("async without drain decided nothing")
+    check_launches("ctl train", launched, TRAIN_LAUNCHES_PER_STEP,
+                   12 * len(runs))
+    check_tensor_core("ctl train", launched, launched_tc, FP32_TC_PATH)
+    cad = [s for s in range(12) if (s + 1) % 4 == 0]
+    say("ctl_cadence", cadence_steps=cad,
+        **{f"{k}_ms": json.dumps([round(r["step_times"][s] * 1e3, 1)
+                                  for s in cad] + ["next:"] + [
+            round(r["step_times"][s + 1] * 1e3, 1) for s in cad[:-1]])
+           .replace(" ", "") for k, r in runs.items()},
+        in_step_overhead_ms=(
+            f"{runs['inline']['steady_ms'] - runs['untimed']['steady_ms']:.1f}"))
+    # the probe alone: its times before and after the prune (its extra
+    # forward launches in a window of their own)
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = train_run(ctl_train_args() + ["--measure-stage-times"])
+    probe_launches, probe_tc = _window(torch, kernels)
+    say("ctl_probe", source=rep["stage_time_source"],
+        steady_step_ms=f"{rep['timing']['steady_step_mean_s'] * 1e3:.1f}",
+        stage_times=_stage_times(rep),
+        launches=json.dumps(probe_launches).replace(" ", ""))
+    if rep["stage_time_source"] != "probe":
+        raise AssertionError(f"probe run source {rep['stage_time_source']}")
+    for name, n in TRAIN_LAUNCHES_PER_STEP.items():
+        if probe_launches[name] < n * 12:
+            raise AssertionError(f"probe run: {name} {probe_launches[name]}")
+    check_tensor_core("ctl probe", probe_launches, probe_tc, FP32_TC_PATH)
+    del rep
+    free_cuda(torch)
+    return {n: launched[n] + rank_launches[n] + probe_launches[n]
+            for n in launched}
+
+
 def mod_bitwise(torch) -> None:
     """Phase 4j: one training step's loss and gradients with --dynamism
     mod from the same params and batch as with none, through the kernels:
@@ -2614,6 +3001,15 @@ def main() -> int:
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
 
+    # 4k / 4l. safe points and resume; async control plane and stage
+    # timing: counters zeroed just before each path and read just after
+    ckpt_launches = run_ckpt_phase(torch, kernels)
+    for n in ckpt_launches:
+        tc[n] += ckpt_launches[n]      # every launch checked on the TCs
+    ctl_launches = run_ctl_phase(torch, kernels)
+    for n in ctl_launches:
+        tc[n] += ctl_launches[n]
+
     # 5. parity of the path: kernels vs plain versions from one state
     serve_parity(torch)
 
@@ -2652,7 +3048,8 @@ def main() -> int:
                          + elastic_train_launches[k.name]
                          + elastic_serve_launches[k.name]
                          + ee_train_launches[k.name]
-                         + ee_serve_launches[k.name]),
+                         + ee_serve_launches[k.name]
+                         + ckpt_launches[k.name] + ctl_launches[k.name]),
             "launches_tc": tc[k.name],
             "launches_serve": launches[k.name],
             "launches_train": train_launches[k.name],
@@ -2662,6 +3059,8 @@ def main() -> int:
             "launches_elastic_serve": elastic_serve_launches[k.name],
             "launches_ee_train": ee_train_launches[k.name],
             "launches_ee_serve": ee_serve_launches[k.name],
+            "launches_ckpt_train": ckpt_launches[k.name],
+            "launches_ctl_train": ctl_launches[k.name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "tolerance": r["tol"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

@@ -1,0 +1,85 @@
+"""Safe-point checkpoints, ported from ``repro.checkpoint.safepoint``:
+everything a crashed trainer needs to resume bit-identically.
+
+A *safe point* is an ordinary checkpoint (params, optimizer and dynamism
+state in stage shards, published by write-then-rename) whose index
+metadata also holds the run's control-plane state:
+
+  * ``args`` — the train CLI's parsed flags (the reference stores its
+    ``RunSpec`` as ``spec``; the port has no ``RunSpec`` until ROADMAP
+    Queue 1 [api]), so ``--resume DIR`` rebuilds the run from the safe
+    point alone;
+  * the step, the stage count, the split and the stage -> worker map;
+  * the world epoch and the worker pool (its sets and its log);
+  * ``scaler`` (always None: autoscaling waits for [cluster]) and the
+    controller's repack latch (``repack_enabled``).
+
+The loader position and the LR schedule are functions of (flags, step),
+so restoring the step restores them; the tensors restore bit-exactly from
+the shards.  Not in the safe point, as in the reference: the engine's last
+shrink step (a resumed run does not grow back), the straggler detector's
+EMA and the controller's logical expert layout (it lives only in
+``dyn["expert_map"]``).
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional
+
+from repro_torch.checkpoint.checkpoint import (_gc, latest_index,
+                                               load_checkpoint,
+                                               save_checkpoint)
+
+
+class SafepointManager:
+    """Periodic safe points under ``path``; keeps the newest ``keep``."""
+
+    def __init__(self, path: str, every: int, keep: int = 3):
+        assert every > 0
+        self.path, self.every, self.keep = path, every, keep
+        self.saved: List[str] = []
+        os.makedirs(path, exist_ok=True)
+
+    def due(self, step: int) -> bool:
+        return (step + 1) % self.every == 0
+
+    def save(self, step: int, state, *, args: Dict[str, Any], engine,
+             scaler=None, repack_enabled: Optional[bool] = None) -> str:
+        """Write the safe point of a fully completed ``step``."""
+        meta: Dict[str, Any] = {
+            "kind": "safepoint",
+            "args": dict(args),
+            "step": step,
+            "stage_workers": [int(w) for w in engine.stage_workers],
+            "epoch": int(engine.epoch),
+            "pool": engine.pool.state_dict(),
+            "scaler": scaler.state_dict() if scaler is not None else None,
+            "repack_enabled": repack_enabled,
+        }
+        out = save_checkpoint(self.path, step, state.params, state.opt_state,
+                              state.dyn, state.lps, extra_meta=meta)
+        self.saved.append(out)
+        self._gc()
+        return out
+
+    def _gc(self) -> None:
+        _gc(self.path, self.keep)
+
+
+def peek(path: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """Index (with the safe-point metadata) of the newest complete safe
+    point, or of ``step`` when that one is complete."""
+    idx = latest_index(path, step)
+    if idx is None:
+        raise FileNotFoundError(f"no complete safe point under {path}")
+    if idx.get("meta", {}).get("kind") != "safepoint":
+        raise ValueError(
+            f"checkpoint under {path} is not a safe point (plain "
+            f"checkpoints lack the control-plane state resume needs)")
+    return idx
+
+
+def restore(path: str, templates, step: Optional[int] = None, device=None):
+    """(params, opt_state, dyn, index) of the newest complete safe point
+    (or of ``step``), on ``device``."""
+    return load_checkpoint(path, templates, step, device)

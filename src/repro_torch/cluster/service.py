@@ -1,21 +1,36 @@
 """The DynMo decision service (paper §3.3.1), ported from
-``repro.cluster.service`` in its synchronous mode.
+``repro.cluster.service``.
 
-The training loop talks to the controller only through ``ControlPlane``:
-it *publishes* a host-side ``StatsSnapshot`` on controller cadence, *polls*
-the finished ``DecisionPlan`` at its next safe point, and *applies* the
-plan there (a migration, or a live shrink for a ``ResizePlan``).  Epoch
-fencing: every engine resize (shrink / grow / evict) advances the world
-epoch, and a plan decided against an older world is rejected at ``poll``
-(or not decided at all, when the plane sees the live epoch through
-``epoch_fn``).  With ``async_mode=False`` (the only mode here) the decision
-runs on the publishing thread — the reference's inline path, bit-identical
-to its asynchronous one by construction.  The background thread waits for
-ROADMAP Queue 1 [control-timing].
+The profile -> decide loop stays off the training critical path.
+``ControlPlane`` runs ``DynMoController.decide`` on a background thread
+behind a latest-wins mailbox:
+
+  * the training thread *publishes* the host-side ``StatsSnapshot`` on
+    controller cadence (a pointer swap, never a wait on the decision);
+  * the worker thread folds the snapshot through the profiler, runs the
+    balancer / repack decision and posts the plan into a latest-wins
+    outbox;
+  * the training thread *polls* the outbox at its next safe point and
+    applies the plan there (a migration, or a live shrink for a
+    ``ResizePlan``).
+
+The worker thread touches only host numpy: ``apply``, which migrates the
+device tensors, runs on the training thread.  Every controller access is
+serialized on one lock (``_ctrl_lock``: decide vs apply, rebind,
+``with_ctrl``).  Epoch fencing: every engine resize (shrink / grow /
+evict) advances the world epoch, and a plan decided against an older world
+is rejected at ``poll`` (or not decided at all, when the plane sees the
+live epoch through ``epoch_fn``).  With ``async_mode=False`` the same
+``_decide`` runs on the publishing thread, so the inline and asynchronous
+paths decide bit-identically from the same snapshot; ``drain()`` blocks
+until the worker has emptied the mailbox, which makes an asynchronous run
+step-for-step the inline one.  A worker-thread failure is raised on the
+training thread at the next ``poll`` or ``drain``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -60,38 +75,61 @@ class DecisionPlan:
 
 
 class ControlPlane:
-    """Runs the controller's decisions for the training loop."""
+    """Runs the controller's decisions off the training thread with
+    ``async_mode=True``, or on it (the default here: the reference defaults
+    to the thread, the port's callers predate it).  A context manager:
+    ``close()`` stops the worker thread."""
 
     def __init__(self, ctrl: DynMoController, *, async_mode: bool = False,
-                 epoch_fn: Optional[Callable[[], int]] = None):
-        if async_mode:
-            raise NotImplementedError(
-                "the asynchronous control plane (decisions on a background "
-                "thread) is not in repro_torch yet (ROADMAP Queue 1 "
-                "[control-timing])")
+                 epoch_fn: Optional[Callable[[], int]] = None,
+                 name: str = "dynmo-control-plane"):
         self.ctrl = ctrl
-        self.async_mode = False
+        self.async_mode = async_mode
         self.epoch_fn = epoch_fn
+        self._ctrl_lock = threading.Lock()   # decide vs apply / rebind
+        self._cv = threading.Condition()     # inbox, outbox, busy, stop
+        self._inbox: Optional[StatsSnapshot] = None
         self._outbox: Optional[DecisionPlan] = None
+        self._busy = False
+        self._stop = False
+        self._error: Optional[BaseException] = None
         self.published = 0
         self.decided = 0
-        self.dropped = 0
-        self.stale_rejected = 0
+        self.dropped = 0            # snapshots overwritten before a decide
+        self.stale_rejected = 0     # plans fenced off by epoch
+        self._thread: Optional[threading.Thread] = None
+        if async_mode:
+            self._thread = threading.Thread(target=self._loop, name=name,
+                                            daemon=True)
+            self._thread.start()
 
+    # -- training-thread API -------------------------------------------------
     def publish(self, snap: StatsSnapshot) -> None:
-        """Decide on ``snap`` now and post the plan (latest wins)."""
-        self.published += 1
-        self._outbox = self._decide(snap)
+        """Hand a snapshot to the decision worker (inline: decide now).
+        Never blocks on the decision; an unconsumed older snapshot is
+        overwritten (latest wins)."""
+        with self._cv:
+            self.published += 1
+        if not self.async_mode:
+            plan = self._decide(snap)
+            with self._cv:
+                self._outbox = plan
+            return
+        with self._cv:
+            if self._inbox is not None:
+                self.dropped += 1
+            self._inbox = snap
+            self._cv.notify_all()
 
     def poll(self, epoch: int) -> Optional[DecisionPlan]:
         """Fetch the newest finished plan, or None; a plan decided against
-        another epoch is rejected."""
-        plan, self._outbox = self._outbox, None
-        if plan is None:
-            return None
-        if plan.epoch != epoch:
-            self.stale_rejected += 1
-            return None
+        another epoch than the caller's current one is rejected."""
+        self._reraise()
+        with self._cv:
+            plan, self._outbox = self._outbox, None
+            if plan is not None and plan.epoch != epoch:
+                self.stale_rejected += 1
+                return None
         return plan
 
     def inject_resize(self, epoch: int, target_stages: int, *,
@@ -105,39 +143,110 @@ class ControlPlane:
                               layers_per_stage=None, released_stages=[],
                               policy=policy, mem_per_stage=[]),
             event=None, decide_s=0.0)
-        self._outbox = plan
+        with self._cv:
+            self._outbox = plan
         return plan
 
+    def drain(self, timeout: float = 60.0) -> None:
+        """Block until the worker has consumed the inbox and finished any
+        decision in flight: publish -> drain -> poll is step for step the
+        inline path."""
+        if not self.async_mode:
+            return
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._inbox is not None or self._busy:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError("control-plane drain timed out")
+                self._cv.wait(min(0.05, remaining))
+        self._reraise()
+
+    def _reraise(self) -> None:
+        """Raise a worker-thread failure on the training thread."""
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                "control-plane decision worker failed") from err
+
+    # -- safe-point state mutation (training thread) -------------------------
     def apply(self, plan: DecisionPlan, params, opt_state, dyn, cache=None):
-        """Apply a rebalance plan's migration at a safe point."""
-        return self.ctrl.apply(plan.new_lps, params, opt_state, dyn, cache)
+        """Apply a rebalance plan's migration at a safe point, serialized
+        against a decision in flight."""
+        with self._ctrl_lock:
+            return self.ctrl.apply(plan.new_lps, params, opt_state, dyn,
+                                   cache)
 
     def rebind(self, dcfg, layers_per_stage) -> None:
         """Re-anchor the controller after an engine resize (new world)."""
-        self.ctrl.rebind(dcfg, layers_per_stage)
+        with self._ctrl_lock:
+            self.ctrl.rebind(dcfg, layers_per_stage)
 
     def with_ctrl(self, fn: Callable[[DynMoController], Any]) -> Any:
-        """Run ``fn(ctrl)`` — any other controller mutation the training
-        loop makes (e.g. latching repack off after a grow)."""
-        return fn(self.ctrl)
+        """Run ``fn(ctrl)`` under the controller lock — any other controller
+        mutation the training loop makes (e.g. latching repack off after a
+        grow)."""
+        with self._ctrl_lock:
+            return fn(self.ctrl)
 
+    # -- decision body (inline and worker paths) -----------------------------
     def _decide(self, snap: StatsSnapshot) -> Optional[DecisionPlan]:
         if self.epoch_fn is not None and self.epoch_fn() != snap.epoch:
-            self.stale_rejected += 1
+            # the world changed under this snapshot: no decide on it
+            with self._cv:
+                self.stale_rejected += 1
             return None
         t0 = time.perf_counter()
-        ctrl = self.ctrl
-        if snap.stage_times is not None and ctrl.straggler is not None:
-            ctrl.straggler.update(snap.stage_times)
-        profile = profile_from_stats(
-            ctrl.cfg, snap.stats, snap.tags, snap.num_micro, snap.tokens,
-            snap.seq, frozen=snap.frozen,
-            bytes_per_param=ctrl.dcfg.bytes_per_param)
-        new_lps, ev = ctrl.decide(profile, snap.iteration)
-        resize = ctrl.take_resize()
-        relayout = ctrl.take_expert_relayout()
-        self.decided += 1
+        with self._ctrl_lock:
+            ctrl = self.ctrl
+            if snap.stage_times is not None and ctrl.straggler is not None:
+                ctrl.straggler.update(snap.stage_times)
+            profile = profile_from_stats(
+                ctrl.cfg, snap.stats, snap.tags, snap.num_micro,
+                snap.tokens, snap.seq, frozen=snap.frozen,
+                bytes_per_param=ctrl.dcfg.bytes_per_param)
+            new_lps, ev = ctrl.decide(profile, snap.iteration)
+            resize = ctrl.take_resize()
+            relayout = ctrl.take_expert_relayout()
+        with self._cv:      # the counters are shared by both threads
+            self.decided += 1
         return DecisionPlan(epoch=snap.epoch, iteration=snap.iteration,
                             new_lps=new_lps, resize=resize, event=ev,
                             decide_s=time.perf_counter() - t0,
                             expert_relayout=relayout)
+
+    # -- worker thread -------------------------------------------------------
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while self._inbox is None and not self._stop:
+                    self._cv.wait(0.2)
+                if self._stop:
+                    return
+                snap, self._inbox = self._inbox, None
+                self._busy = True
+            plan = None
+            try:
+                plan = self._decide(snap)
+            except BaseException as e:   # noqa: BLE001 — handed to trainer
+                self._error = e
+            finally:
+                with self._cv:
+                    if plan is not None:
+                        self._outbox = plan
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -103,6 +103,7 @@ class DynMoController:
         self.events: List[ControllerEvent] = []
         self.active_workers = dcfg.num_stages
         self.pending_resize: Optional[ResizePlan] = None
+        self.expected_loads: Optional[List[float]] = None
         # expert placement: the controller owns the LOGICAL layout; the
         # runtime mirrors it into dyn["expert_map"] at safe points, and the
         # layout advances only when a plan is applied (commit_relayout)
@@ -164,6 +165,10 @@ class DynMoController:
                     iteration=iteration)
         costs = (profile.time_per_layer if self.ccfg.cost_by == "time"
                  else profile.param_bytes)
+        # the cost model's per-stage loads of this profile, before any
+        # measured slowdown is folded in (telemetry beside measured times)
+        self.expected_loads = [float(x) for x in
+                               bal.stage_loads(costs, self.lps)]
         if (self.straggler is not None and self.ccfg.cost_by == "time"
                 and self.straggler.initialized
                 and len(self.straggler.times) == len(self.lps)):

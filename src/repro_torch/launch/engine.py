@@ -14,8 +14,16 @@ the old ``[S, L_max, ...]`` buffers (nothing keeps them: the worlds cache
 functions only) and releases the tail of the stage -> worker map to the
 ``WorkerPool``.  ``grow`` requests workers back; ``evict`` drops failed
 ones wherever they sit.  Every resize bumps ``epoch``, which fences the
-control plane's plans.  In-step stage timing waits for ROADMAP Queue 1
-[control-timing].
+control plane's plans.
+
+A safe point's resume builds the world of the checkpoint's stage count and
+split, adopts its stage -> worker map, pool and epoch, and loads the
+shards into tensors allocated from the param spec and the optimizer's zero
+tree (``restore_state``: no random init is made only to be overwritten).
+With ``in_step_timing`` each world carries an ``obs.timing.StageTimer``
+stamped around every stage's forward call inside the step
+(``in_step_stage_times``); ``measure_stage_times`` is the reference's
+isolated per-stage probe.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.elastic import (_resplit_stage_tree,
@@ -33,8 +42,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
+from repro_torch.obs.timing import StageTimer
 from repro_torch.optim.optimizers import OptConfig, make_optimizer
-from repro_torch.pipeline.pipeline import (PipelineShapes, build_decode_fn,
+from repro_torch.pipeline.pipeline import (PipelineShapes, _ingest,
+                                           _stage_slice, build_decode_fn,
                                            build_loss_fn, build_prefill_fn,
                                            value_and_grad)
 from repro_torch.runtime.fault_tolerance import WorkerPool
@@ -43,15 +54,18 @@ from repro_torch.runtime.fault_tolerance import WorkerPool
 def make_train_step(cfg: ModelConfig, dcfg: DistConfig,
                     dyncfg: DynamicsConfig, shapes: PipelineShapes,
                     opt_cfg: Optional[OptConfig] = None, *,
-                    device: DeviceLike = None, hash_proj=None):
+                    device: DeviceLike = None, hash_proj=None,
+                    stage_timer=None):
     """Returns (init_opt_fn, train_step) with
     train_step(params, opt_state, assignment, dyn, batch, lr)
       -> (params, opt_state, loss, stats, gnorm);
     params and opt_state are updated in place; the batch is moved to
-    ``device`` (the card unless ``"cpu"`` is asked for)."""
+    ``device`` (the card unless ``"cpu"`` is asked for).  ``stage_timer``
+    threads an ``obs.timing.StageTimer`` into the pipelined loss."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or OptConfig(name=dcfg.optimizer)
-    loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj)
+    loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj,
+                            stage_timer=stage_timer)
     init_fn, update_fn = make_optimizer(opt_cfg)
 
     def train_step(params, opt_state, assignment, dyn, batch, lr):
@@ -109,6 +123,7 @@ class EngineWorld:
     prefill: Any = None       # lazily built serving prefill
     decode: Any = None        # {live_micros: decode fn}
     stepped: bool = False     # the first step() on this world warms up
+    timer: Any = None         # obs.timing.StageTimer (in-step timing on)
 
 
 @dataclasses.dataclass
@@ -148,7 +163,8 @@ class ElasticEngine:
                  dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
                  opt_cfg: Optional[OptConfig] = None,
                  paged=None, temperature: float = 0.0,
-                 device: DeviceLike = None, hash_proj=None):
+                 device: DeviceLike = None, hash_proj=None,
+                 in_step_timing: bool = False):
         M.check_ported(cfg, dyncfg)
         if temperature > 0.0:
             raise NotImplementedError(
@@ -165,6 +181,7 @@ class ElasticEngine:
         self.hash_proj = (None if hash_proj is None
                           else hash_proj.to(self.device, torch.float32))
         self.opt_cfg = opt_cfg
+        self.in_step_timing = in_step_timing
         self._worlds: Dict[int, EngineWorld] = {}
         self.last_step_compiled = False
         # serve telemetry: the last prefill / decode call's mean MoE
@@ -187,28 +204,45 @@ class ElasticEngine:
         return self.shapes.num_micro + stages - 1
 
     def world(self, stages: int) -> EngineWorld:
-        """The world of ``stages`` stage buffers, built on first use."""
+        """The world of ``stages`` stage buffers, built on first use (with
+        its own stage timer when in-step timing is on: a fresh world has no
+        window yet)."""
         w = self._worlds.get(stages)
         if w is None:
             dcfg = self.dcfg_for(stages)
+            timer = (StageTimer(stages, self.device, self.shapes.num_micro)
+                     if self.in_step_timing else None)
             init_opt, step = make_train_step(
                 self.cfg, dcfg, self.dyncfg, self.shapes, self.opt_cfg,
-                device=self.device, hash_proj=self.hash_proj)
+                device=self.device, hash_proj=self.hash_proj,
+                stage_timer=timer)
             w = EngineWorld(stages=stages, dcfg=dcfg, init_opt=init_opt,
-                            step=step)
+                            step=step, timer=timer)
             self._worlds[stages] = w
         return w
 
+    def bind_workers(self, workers: Sequence[int]) -> None:
+        """Adopt a restored stage -> worker map (checkpoint resume).  Every
+        stage buffer shares the one card, so binding is recording."""
+        assert len(workers) >= 1
+        self.stage_workers = [int(w) for w in workers]
+
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, seed: int = 0, *, with_opt: bool = False,
-                   with_cache: bool = False, params=None) -> EngineState:
+                   with_cache: bool = False, params=None,
+                   stages: Optional[int] = None,
+                   lps: Optional[Sequence[int]] = None) -> EngineState:
         """``with_opt=True`` adds the optimizer state (the reference's tree:
         ``m``, ``v``, ``count`` for AdamW); ``with_cache=True`` allocates the
         stacked decode KV cache (the paged pool when the engine is paged).
         ``params`` (a converted reference tree, see ``repro_torch.convert``)
         replaces the engine's own init, which draws from a torch generator
-        seeded with ``seed``."""
-        cfg, dcfg, dev = self.cfg, self.base_dcfg, self.device
+        seeded with ``seed``.  ``stages`` / ``lps`` override the base world
+        (default: its stage count, a uniform split); with ``stages`` the
+        caller binds the matching workers first (``bind_workers``)."""
+        cfg, dev = self.cfg, self.device
+        dcfg = self.dcfg_for(stages if stages is not None
+                             else self.base_dcfg.num_stages)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = M.init_params(gen, cfg, dcfg, dev)
@@ -216,7 +250,8 @@ class ElasticEngine:
             expect = M.param_spec(cfg, dcfg)
             _check_tree(params, expect)
             params = _to(params, dev)
-        lps = M.uniform_boundaries(cfg.total_blocks(), dcfg.num_stages)
+        lps = (list(lps) if lps is not None
+               else M.uniform_boundaries(cfg.total_blocks(), dcfg.num_stages))
         assignment = M.make_assignment(cfg, dcfg, lps)
         dyn = M.init_dyn(cfg, dcfg, self.dyncfg, dev)
         cache = None
@@ -267,6 +302,87 @@ class ElasticEngine:
         loss, _ = w.eval_loss(state.params, state.assignment, state.dyn,
                               self._batch(batch))
         return loss
+
+    # -- safe-point resume ---------------------------------------------------
+    def state_templates(self, stages: int):
+        """(params, opt_state, dyn) of the world of ``stages`` as tensors on
+        the ``meta`` device: the shapes and dtypes a checkpoint restores
+        into, from the param spec and the optimizer's zero tree, with no
+        memory behind them."""
+        w = self.world(stages)
+        params = _meta(M.param_spec(self.cfg, w.dcfg))
+        dyn = M.init_dyn(self.cfg, w.dcfg, self.dyncfg, torch.device("meta"))
+        return params, w.init_opt(params), dyn
+
+    def restore_state(self, path: str, index: dict) -> EngineState:
+        """Resume from the safe point under ``path`` whose ``index``
+        (``safepoint.peek``) names it: adopt its pool, stage -> worker map
+        and epoch, and load its shards into the world of its stage count
+        and split on this engine's device."""
+        from repro_torch.checkpoint.safepoint import restore
+        meta = index["meta"]
+        if meta.get("pool"):
+            self.pool = WorkerPool.from_state(meta["pool"])
+            self.jm = InProcessJobManager(self.pool)
+        self.bind_workers(meta["stage_workers"])
+        stages = int(index["num_stages"])
+        lps = [int(x) for x in index["layers_per_stage"]]
+        params, opt, dyn, _ = restore(path, self.state_templates(stages),
+                                      int(index["step"]), device=self.device)
+        assignment = M.make_assignment(self.cfg, self.dcfg_for(stages), lps)
+        self.epoch = int(meta.get("epoch", 0))
+        return EngineState(params, opt, dyn, assignment, lps, stages)
+
+    # -- measured per-stage times ----------------------------------------------
+    def in_step_stage_times(self, state: EngineState):
+        """Per-stage busy seconds per step from the live pipelined step —
+        no extra execution: reads and resets the current world's
+        ``StageTimer``.  A stage runs ``num_micro`` forward calls a step
+        (the port skips the schedule's invalid ticks), so that is the
+        scale.  None when in-step timing is off or the world has no full
+        window yet (e.g. right after a resize onto a fresh world)."""
+        w = self.world(state.stages)
+        if w.timer is None:
+            return None
+        return w.timer.snapshot(ticks_per_step=self.shapes.num_micro)
+
+    @torch.no_grad()
+    def measure_stage_times(self, state: EngineState, batch):
+        """Measured per-stage forward wall seconds ([S] numpy): each
+        stage's forward alone over the first microbatch (live slots only:
+        the PAD slots are skipped), one warm pass, then a timed pass in
+        which the carry flows stage to stage; each call is bracketed by a
+        ``torch.cuda.synchronize`` on the card.  A host sync per stage: the
+        trainer gates it on controller cadence."""
+        w = self.world(state.stages)
+        cfg, dev = self.cfg, self.device
+        tokens = torch.as_tensor(batch["tokens"][0], device=dev)
+        carry = _ingest(state.params, cfg, self.dyncfg, tokens,
+                        M.param_dtype(w.dcfg))
+        pos = torch.arange(tokens.shape[-1], device=dev)
+        tags = state.assignment["tags"].tolist()
+        starts = np.concatenate([[0], np.cumsum(state.lps)[:-1]])
+        times = np.zeros(state.stages)
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        for warm in (True, False):
+            for s in range(state.stages):
+                sync()
+                t0 = time.perf_counter()
+                out = M.stage_forward(
+                    cfg, w.dcfg, self.dyncfg, "train",
+                    _stage_slice(state.params["stages"], s),
+                    state.params["shared"], tags[s],
+                    _stage_slice(state.dyn, s), carry, None, pos,
+                    int(starts[s]), hash_proj=self.hash_proj)[0]
+                sync()
+                if not warm:
+                    times[s] = time.perf_counter() - t0
+                    carry = out          # the carry flows stage to stage
+        return times
 
     # -- serving -------------------------------------------------------------
     def serve_fns(self, stages: int, live_micros: Optional[int] = None):
@@ -462,6 +578,13 @@ def _check_tree(tree, spec, path="params"):
     if tuple(tree.shape) != tuple(spec.shape) or tree.dtype != spec.dtype:
         raise ValueError(f"{path}: {tuple(tree.shape)} {tree.dtype} != "
                          f"{tuple(spec.shape)} {spec.dtype}")
+
+
+def _meta(spec):
+    """A spec tree as empty tensors on the ``meta`` device."""
+    if isinstance(spec, dict):
+        return {k: _meta(v) for k, v in spec.items()}
+    return torch.empty(spec.shape, dtype=spec.dtype, device="meta")
 
 
 def _to(tree, device):

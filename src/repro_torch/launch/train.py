@@ -19,12 +19,31 @@ buffers (``--grow-back N`` grows back N steps later); for an MoE arch with
 ``--device cpu``.  Flags of features outside the port so far raise
 ``NotImplementedError`` naming their ROADMAP item.
 
+Fault tolerance and the control plane's inputs (the reference's
+``Session.train`` / ``Session.resume``): ``--ckpt-dir D --ckpt-every N``
+writes a safe point after every N-th step (after the step's resize and
+grow decisions), and ``--resume D`` rebuilds the run from the newest
+complete one alone — its flags, world, pool and epoch — and continues
+bit-identically (``--device`` is the only flag it takes from the command
+line); ``--ckpt-dir`` alone writes plain checkpoints every max(10, steps
+// 5) steps.  ``--async-controller`` decides on a background thread
+(``--async-drain`` waits for each decision: the inline run step for step).
+``--in-step-timing`` (``--obs.in_step_timing``) times every stage's forward
+inside the step (CUDA events on the card), ``--measure-stage-times`` runs
+the isolated per-stage probe on cadence; in-step times come first, and the
+straggler detector (which consumes them) is built only with
+``--straggler`` or ``--measure-stage-times``.
+
   python -m repro_torch.launch.train --stages 4 --dynamism pruning \
       --repack --grow-back 6 --rebalance-every 5
 
   python -m repro_torch.launch.train --arch mixtral-8x7b --layers 4 \
       --stages 2 --dynamism moe --kernel-impl pallas \
       --dynamics.expert_relayout --dynamics.expert_watermark 1.01
+
+  python -m repro_torch.launch.train --steps 20 --ckpt-dir ck \
+      --ckpt-every 8 --in-step-timing --async-controller --async-drain
+  python -m repro_torch.launch.train --resume ck
 """
 from __future__ import annotations
 
@@ -37,6 +56,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.checkpoint.safepoint import SafepointManager, peek
 from repro_torch.cluster.service import ControlPlane, StatsSnapshot
 from repro_torch.configs.base import DistConfig, get_config, reduced_config
 from repro_torch.core.controller import ControllerConfig, DynMoController
@@ -53,16 +74,7 @@ from repro_torch.runtime.fault_tolerance import StragglerDetector
 # flags of features not in the port yet: accepted so they fail loudly
 _NOT_IN_SLICE = {
     "autoscale": "autoscaling (ROADMAP Queue 1 [cluster])",
-    "async_controller": "the asynchronous control plane (ROADMAP Queue 1 "
-                        "[control-timing])",
-    "resume": "checkpoint resume (ROADMAP Queue 1 [checkpoint])",
-    "ckpt_dir": "checkpoints (ROADMAP Queue 1 [checkpoint])",
-    "ckpt_every": "safe points (ROADMAP Queue 1 [checkpoint])",
     "chaos": "fault injection (ROADMAP Queue 1 [faults-obs])",
-    "measure_stage_times": "the stage-time probe (ROADMAP Queue 1 "
-                           "[control-timing])",
-    "in_step_timing": "in-step stage timing (ROADMAP Queue 1 "
-                      "[control-timing])",
     "simulate_recover": "heartbeat recovery (ROADMAP Queue 1 [cluster])",
 }
 
@@ -121,16 +133,32 @@ def build_parser() -> argparse.ArgumentParser:
       help="never consolidate below this many workers")
     a("--grow-back", type=int, default=None,
       help="DEPRECATED: re-expand N steps after a shrink")
+    a("--async-controller", action="store_true",
+      help="decide on a background thread (latest-wins mailbox)")
+    a("--async-drain", action="store_true",
+      help="with --async-controller: wait for each decision "
+           "(deterministic; the inline run step for step)")
+    a("--measure-stage-times", action="store_true",
+      help="time each stage alone on cadence (the probe)")
+    # obs.*
+    a("--in-step-timing", dest="in_step_timing", action="store_true",
+      help="time each stage's forward inside the step")
+    a("--obs.in_step_timing", dest="in_step_timing", nargs="?",
+      const="true", type=_bool, default=argparse.SUPPRESS)
     a("--steps", type=int, default=50)
     a("--seed", type=int, default=0)
     a("--log-every", type=int, default=10)
+    a("--ckpt-dir", default=None, help="checkpoint / safe-point directory")
+    a("--ckpt-every", type=int, default=0,
+      help="write a safe point every N steps (needs --ckpt-dir)")
+    a("--resume", default=None, metavar="CKPT_DIR",
+      help="resume from the newest complete safe point in this directory; "
+           "it carries the run's flags, so every other flag but --device "
+           "is ignored")
     # not in the port yet: accepted so they fail loudly, never ignored
-    for flag in ("--autoscale", "--async-controller", "--chaos",
-                 "--measure-stage-times", "--in-step-timing"):
+    for flag in ("--autoscale", "--chaos"):
         a(flag, action="store_true")
-    for flag in ("--resume", "--ckpt-dir", "--ckpt-every",
-                 "--simulate-recover"):
-        a(flag, default=None)
+    a("--simulate-recover", default=None)
     a("--job-manager", default="inproc")
     a("--device", default=None,
       help="cuda (default) or cpu (the kernels' plain versions)")
@@ -168,6 +196,26 @@ def check_slice(args) -> None:
         raise NotImplementedError(
             "job managers other than the in-process one are not in "
             "repro_torch yet (ROADMAP Queue 1 [cluster])")
+    if args.ckpt_every and not args.ckpt_dir:
+        raise ValueError("--ckpt-every requires --ckpt-dir (safe points "
+                         "need a directory)")
+
+
+def resume_args(argv: Optional[List[str]], resume: Optional[str] = None,
+                resume_step: Optional[int] = None):
+    """(flags, safe-point index or None): with ``--resume DIR`` (or
+    ``resume``) the flags are the safe point's own, ``--device`` aside."""
+    args = build_parser().parse_args(argv)
+    path = resume or args.resume
+    if not path:
+        return args, None
+    idx = peek(path, resume_step)
+    stored = {**vars(build_parser().parse_args([])), **idx["meta"]["args"]}
+    out = argparse.Namespace(**stored)
+    out.resume = path
+    if args.device is not None:
+        out.device = args.device
+    return out, idx
 
 
 def model_config(args):
@@ -181,10 +229,15 @@ def model_config(args):
     return cfg
 
 
-def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
+def run(argv: Optional[List[str]] = None, *, params=None,
+        resume: Optional[str] = None,
+        resume_step: Optional[int] = None) -> Dict[str, Any]:
     """Run the training loop; returns the report dict.  ``params`` (a
-    converted reference tree) replaces the engine's own init."""
-    args = build_parser().parse_args(argv)
+    converted reference tree) replaces the engine's own init.  ``resume``
+    (a safe-point directory) and ``resume_step`` continue a run from its
+    newest complete safe point, or from the one of ``resume_step``, as
+    ``Session.resume(dir, step)`` does."""
+    args, resume_idx = resume_args(argv, resume, resume_step)
     check_slice(args)
     straggler = parse_straggler(args.straggler)
     cfg = model_config(args)
@@ -212,8 +265,21 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
             "(cluster.autoscale / --autoscale)", DeprecationWarning,
             stacklevel=2)
 
-    engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, device=args.device)
-    state = engine.init_state(args.seed, with_opt=True, params=params)
+    engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, device=args.device,
+                           in_step_timing=args.in_step_timing)
+    start_step, restore_s, restore_mem, rmeta = 0, None, None, {}
+    if resume_idx is not None:
+        # rebuild the world the run was in at its safe point (stage count,
+        # split, workers, pool, epoch) and load the shards into it
+        t_restore = time.perf_counter()
+        state = engine.restore_state(args.resume, resume_idx)
+        _sync(engine)
+        restore_s = time.perf_counter() - t_restore
+        restore_mem = _allocated(engine)
+        start_step = int(resume_idx["step"]) + 1
+        rmeta = resume_idx["meta"]
+    else:
+        state = engine.init_state(args.seed, with_opt=True, params=params)
     ccfg = ControllerConfig(method=args.balancer,
                             rebalance_every=args.rebalance_every,
                             repack=args.repack,
@@ -229,11 +295,26 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         ccfg.repack_mem_cap = stage_memory_budget(
             cfg, tokens_per_step, seq, dcfg.bytes_per_param, stages,
             cap_factor=args.repack_mem_cap)
-    det = StragglerDetector(stages) if straggler else None
+    if rmeta.get("repack_enabled") is False:
+        # the crashed run had latched repack off (a grow keeps the granted
+        # workers): the resumed one must not plan a shrink again
+        ccfg.repack = False
+    det = (StragglerDetector(stages)
+           if (straggler or args.measure_stage_times) else None)
     ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det)
-    cp = ControlPlane(ctrl, async_mode=False, epoch_fn=lambda: engine.epoch)
+    cp = ControlPlane(ctrl, async_mode=args.async_controller,
+                      epoch_fn=lambda: engine.epoch)
+    if resume_idx is not None:
+        cp.rebind(engine.dcfg_for(state.stages), state.lps)
     loader = make_loader(cfg, DataConfig(args.num_micro, args.mb_global, seq,
-                                         seed=args.seed))
+                                         seed=args.seed),
+                         start_step=start_step)
+    ckpt = safept = None
+    if args.ckpt_every:
+        safept = SafepointManager(args.ckpt_dir, every=args.ckpt_every)
+    elif args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, every=max(10, steps // 5))
+    saved_args = {**vars(args), "resume": None}
 
     def after_resize(step: int, kind: str, mem_before) -> None:
         cp.rebind(engine.dcfg_for(state.stages), state.lps)
@@ -251,134 +332,177 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
     exited_frac: Dict[int, float] = {}
     relayouts: List[Dict[str, Any]] = []
     expert_skew_last = moe_dropped_last = None
+    last_measured = stage_time_source = None
+    stage_times_log: List[Dict[str, Any]] = []
+    safepoint_s: List[float] = []
     warmup_steps, warmup_s, decide_s = 0, 0.0, 0.0
     steady_times: List[float] = []
     t0 = time.perf_counter()
-    for step, batch in enumerate(loader):
-        if step >= steps:
-            break
-        t_step = time.perf_counter()
-        lr = cosine_schedule(step, steps, 3e-4, warmup=10)
-        loss, stats, gnorm = engine.step(state, batch, lr)
-        # one scalar sync for the loss curve; the per-slot stats stay on
-        # the device until controller cadence (§3.3.1)
-        losses.append(float(loss))
-        dt = time.perf_counter() - t_step
-        step_times.append(dt)
-        stages_hist.append(state.stages)
-        if engine.last_step_compiled:
-            warmup_steps += 1
-            warmup_s += dt
-        else:
-            steady_times.append(dt)
+    try:
+        for step, batch in enumerate(loader, start=start_step):
+            if step >= steps:
+                break
+            t_step = time.perf_counter()
+            lr = cosine_schedule(step, steps, 3e-4, warmup=10)
+            loss, stats, gnorm = engine.step(state, batch, lr)
+            # one scalar sync for the loss curve; the per-slot stats stay
+            # on the device until controller cadence (§3.3.1)
+            losses.append(float(loss))
+            dt = time.perf_counter() - t_step
+            step_times.append(dt)
+            stages_hist.append(state.stages)
+            if engine.last_step_compiled:
+                warmup_steps += 1
+                warmup_s += dt
+            else:
+                steady_times.append(dt)
 
-        # ---- dynamism events (black-box to the controller)
-        if args.dynamism == "pruning" and step and step % 10 == 0:
-            sp = zhu_gupta_sparsity(
-                step * 100, dataclasses.replace(
-                    dyncfg, prune_start_iter=0, prune_end_iter=steps * 100,
-                    prune_frequency=1))
-            keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
-            state.dyn = {**state.dyn, "ff_mask": prn.global_block_prune(
-                cfg, state.params["stages"], state.assignment["tags"],
-                keep)}
-        if args.dynamism == "freezing" and step and step % 10 == 0:
-            front = int(cfg.total_blocks() * min(0.6, step / steps))
-            tags_np = state.assignment["tags"].numpy()
-            fr = np.zeros(tags_np.shape, np.float32)
-            g = 0
-            for s in range(tags_np.shape[0]):
-                for l in range(tags_np.shape[1]):
-                    if tags_np[s, l] != 0:
-                        if g < front:
-                            fr[s, l] = 1.0
-                        g += 1
-            state.dyn = {**state.dyn,
-                         "frozen": state.dyn["frozen"].new_tensor(fr)}
+            # ---- dynamism events (black-box to the controller)
+            if args.dynamism == "pruning" and step and step % 10 == 0:
+                sp = zhu_gupta_sparsity(
+                    step * 100, dataclasses.replace(
+                        dyncfg, prune_start_iter=0,
+                        prune_end_iter=steps * 100, prune_frequency=1))
+                keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
+                state.dyn = {**state.dyn, "ff_mask": prn.global_block_prune(
+                    cfg, state.params["stages"], state.assignment["tags"],
+                    keep)}
+            if args.dynamism == "freezing" and step and step % 10 == 0:
+                front = int(cfg.total_blocks() * min(0.6, step / steps))
+                tags_np = state.assignment["tags"].numpy()
+                fr = np.zeros(tags_np.shape, np.float32)
+                g = 0
+                for s in range(tags_np.shape[0]):
+                    for l in range(tags_np.shape[1]):
+                        if tags_np[s, l] != 0:
+                            if g < front:
+                                fr[s, l] = 1.0
+                            g += 1
+                state.dyn = {**state.dyn,
+                             "frozen": state.dyn["frozen"].new_tensor(fr)}
 
-        # ---- publish stats to the control plane on cadence (the only
-        # device -> host stats sync)
-        if ctrl.cadence(step + 1):
-            t_decide = time.perf_counter()
-            measured = None
-            if straggler:
-                # simulation knob: a straggling WORKER multiplies its
-                # stage's wall time (the shape a per-worker timer reports)
-                share = np.asarray(state.lps, np.float64)
-                measured = share / share.sum() * step_times[-1]
-                measured = measured * np.array(
-                    [straggler.get(engine.stage_workers[s], 1.0)
-                     for s in range(state.stages)])
-            cp.publish(StatsSnapshot(
-                iteration=step + 1, epoch=engine.epoch,
-                stats=engine.stats_to_host(state, stats),
-                tags=state.assignment["tags"].numpy(),
-                num_micro=shapes.num_micro, tokens=tokens_per_step, seq=seq,
-                frozen=state.dyn["frozen"].cpu().numpy(),
-                stage_times=measured))
-            decide_s += time.perf_counter() - t_decide
+            # ---- publish stats to the control plane on cadence (the only
+            # device -> host stats sync; in async mode a pointer swap)
+            if ctrl.cadence(step + 1):
+                t_decide = time.perf_counter()
+                measured = src = None
+                if args.in_step_timing:
+                    # per-stage seconds of the live step's stage calls: no
+                    # extra execution (the probe below stays available as
+                    # the parity oracle)
+                    measured = engine.in_step_stage_times(state)
+                    if measured is not None:
+                        src = "in_step"
+                if measured is None and args.measure_stage_times:
+                    # the isolated probe: a host sync per stage, so on
+                    # cadence only
+                    measured = engine.measure_stage_times(state, batch)
+                    src = "probe"
+                if measured is not None:
+                    last_measured, stage_time_source = measured, src
+                    stage_times_log.append({
+                        "step": step, "source": src, "stages": state.stages,
+                        "seconds": [float(x) for x in measured]})
+                if straggler:
+                    # simulation knob: a straggling WORKER multiplies its
+                    # stage's time (the measured one when there is one,
+                    # else the wall time split by layer counts)
+                    if measured is None:
+                        share = np.asarray(state.lps, np.float64)
+                        measured = share / share.sum() * step_times[-1]
+                    measured = measured * np.array(
+                        [straggler.get(engine.stage_workers[s], 1.0)
+                         for s in range(state.stages)])
+                cp.publish(StatsSnapshot(
+                    iteration=step + 1, epoch=engine.epoch,
+                    stats=engine.stats_to_host(state, stats),
+                    tags=state.assignment["tags"].numpy(),
+                    num_micro=shapes.num_micro, tokens=tokens_per_step,
+                    seq=seq, frozen=state.dyn["frozen"].cpu().numpy(),
+                    stage_times=measured))
+                if args.async_drain:
+                    cp.drain()
+                if stage_times_log and stage_times_log[-1]["step"] == step \
+                        and (args.async_drain or not args.async_controller):
+                    # the cost model's per-stage loads of this decision
+                    stage_times_log[-1]["expected"] = cp.with_ctrl(
+                        lambda c: c.expected_loads)
+                decide_s += time.perf_counter() - t_decide
 
-        # ---- safe point: apply the newest finished plan (epoch-fenced:
-        # a plan decided against a pre-resize world is rejected)
-        plan = cp.poll(engine.epoch)
-        if plan is not None:
-            if plan.event is not None:
-                expert_skew_last = plan.event.expert_skew
-                moe_dropped_last = plan.event.expert_dropped
-            if plan.event is not None and plan.event.rebalanced:
-                events.append(plan.event)
-            if (plan.resize is not None
-                    and plan.resize.target_stages < state.stages):
+            # ---- safe point: apply the newest finished plan (epoch-
+            # fenced: a plan decided against a pre-resize world is
+            # rejected)
+            plan = cp.poll(engine.epoch)
+            if plan is not None:
+                if plan.event is not None:
+                    expert_skew_last = plan.event.expert_skew
+                    moe_dropped_last = plan.event.expert_dropped
+                if plan.event is not None and plan.event.rebalanced:
+                    events.append(plan.event)
+                if (plan.resize is not None
+                        and plan.resize.target_stages < state.stages):
+                    mem_before = _allocated(engine)
+                    state = engine.shrink(state, plan.resize.target_stages,
+                                          plan.resize.layers_per_stage,
+                                          step=step)
+                    after_resize(step, f"shrink[{plan.resize.policy}]",
+                                 mem_before)
+                elif plan.new_lps is not None:
+                    (state.params, state.opt_state, state.dyn,
+                     state.assignment, _) = cp.apply(
+                        plan, state.params, state.opt_state, state.dyn)
+                    state.lps = cp.with_ctrl(lambda c: list(c.lps))
+                # expert re-layout: orthogonal to the stage plan above (it
+                # rewrites only the expert_map dyn leaf)
+                if (plan.expert_relayout is not None
+                        and "expert_map" in state.dyn):
+                    rl = plan.expert_relayout
+                    em = state.dyn["expert_map"]
+                    state.dyn = {**state.dyn, "expert_map": em.new_tensor(
+                        rl.new.as_array()).expand_as(em).clone()}
+                    cp.with_ctrl(lambda c: c.commit_relayout(rl))
+                    relayouts.append({
+                        "step": step, "iteration": rl.iteration,
+                        "skew": rl.skew, "tokens": rl.total_tokens,
+                        "moved_experts": rl.moved_experts,
+                        "placement": list(rl.new.placement)})
+                    print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
+                          f"{rl.moved_experts} experts -> "
+                          f"{list(rl.new.placement)}", flush=True)
+            # ---- legacy fixed-step growth (deprecated)
+            if (grow_back and engine.last_shrink_step is not None
+                    and state.stages < stages
+                    and step >= engine.last_shrink_step + grow_back):
+                prev_stages = state.stages
                 mem_before = _allocated(engine)
-                state = engine.shrink(state, plan.resize.target_stages,
-                                      plan.resize.layers_per_stage,
-                                      step=step)
-                after_resize(step, f"shrink[{plan.resize.policy}]",
-                             mem_before)
-            elif plan.new_lps is not None:
-                (state.params, state.opt_state, state.dyn, state.assignment,
-                 _) = cp.apply(plan, state.params, state.opt_state,
-                               state.dyn)
-                state.lps = list(cp.ctrl.lps)
-            # expert re-layout: orthogonal to the stage plan above (it
-            # rewrites only the expert_map dyn leaf)
-            if (plan.expert_relayout is not None
-                    and "expert_map" in state.dyn):
-                rl = plan.expert_relayout
-                em = state.dyn["expert_map"]
-                state.dyn = {**state.dyn, "expert_map": em.new_tensor(
-                    rl.new.as_array()).expand_as(em).clone()}
-                ctrl.commit_relayout(rl)
-                relayouts.append({
-                    "step": step, "iteration": rl.iteration,
-                    "skew": rl.skew, "tokens": rl.total_tokens,
-                    "moved_experts": rl.moved_experts,
-                    "placement": list(rl.new.placement)})
-                print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
-                      f"{rl.moved_experts} experts -> "
-                      f"{list(rl.new.placement)}", flush=True)
-        # ---- legacy fixed-step growth (deprecated)
-        if (grow_back and engine.last_shrink_step is not None
-                and state.stages < stages
-                and step >= engine.last_shrink_step + grow_back):
-            prev_stages = state.stages
-            mem_before = _allocated(engine)
-            state = engine.grow(state, stages - state.stages, step=step)
-            if state.stages > prev_stages:
-                # granted workers stay: stop planning resizes
-                cp.with_ctrl(lambda c: setattr(c.ccfg, "repack", False))
-                after_resize(step, "grow", mem_before)
-        gnorms.append(float(gnorm))
-        if step % args.log_every == 0:
-            ee = ""
-            if "exited_frac" in stats:
-                # early exit's share of exited tokens: a host read on the
-                # log cadence only
-                exited_frac[step] = float(stats["exited_frac"])
-                ee = f" exited {exited_frac[step]:.4f}"
-            print(f"step {step:4d} loss {float(loss):.4f} "
-                  f"gnorm {float(gnorm):.3f} S={state.stages} "
-                  f"lps={state.lps}{ee}", flush=True)
+                state = engine.grow(state, stages - state.stages, step=step)
+                if state.stages > prev_stages:
+                    # granted workers stay: stop planning resizes
+                    cp.with_ctrl(lambda c: setattr(c.ccfg, "repack", False))
+                    after_resize(step, "grow", mem_before)
+            # ---- checkpoints: after the step's resize and grow decisions
+            if ckpt is not None:
+                ckpt.maybe_save(step, state.params, state.opt_state,
+                                state.dyn, state.lps)
+            if safept is not None and safept.due(step):
+                t_sp = time.perf_counter()
+                safept.save(step, state, args=saved_args, engine=engine,
+                            repack_enabled=cp.with_ctrl(
+                                lambda c: bool(c.ccfg.repack)))
+                safepoint_s.append(time.perf_counter() - t_sp)
+            gnorms.append(float(gnorm))
+            if step % args.log_every == 0:
+                ee = ""
+                if "exited_frac" in stats:
+                    # early exit's share of exited tokens: a host read on
+                    # the log cadence only
+                    exited_frac[step] = float(stats["exited_frac"])
+                    ee = f" exited {exited_frac[step]:.4f}"
+                print(f"step {step:4d} loss {float(loss):.4f} "
+                      f"gnorm {float(gnorm):.3f} S={state.stages} "
+                      f"lps={state.lps}{ee}", flush=True)
+    finally:
+        cp.close()
     wall = time.perf_counter() - t0
     steady_s = float(sum(steady_times))
     steady_tok_s = (tokens_per_step * len(steady_times) / steady_s
@@ -390,12 +514,18 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         "steady_step_mean_s": (steady_s / len(steady_times)
                                if steady_times else None),
         "steady_tokens_per_s": steady_tok_s,
+        # safe points: seconds of each save (device -> host, npz, sha256)
+        # and of the restore (verify, load, host -> device), and
+        # torch.cuda.memory_allocated just after the restore
+        "safepoint_s": safepoint_s, "restore_s": restore_s,
+        "restore_allocated": restore_mem,
     }
     return {
         "losses": losses, "gnorms": gnorms, "events": events,
         "wall_s": wall, "final_lps": list(state.lps),
         "params": state.params, "assignment": state.assignment,
-        "dyn": state.dyn, "tokens_per_step": tokens_per_step,
+        "dyn": state.dyn, "opt_state": state.opt_state,
+        "tokens_per_step": tokens_per_step,
         "step_times": step_times, "stages_history": stages_hist,
         "final_stages": state.stages, "timing": timing,
         "resizes": [dataclasses.asdict(e) for e in engine.resizes],
@@ -404,7 +534,15 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         "resize_memory": resize_mem,
         "exited_frac": exited_frac,
         "steady_tokens_per_s": steady_tok_s,
-        "controller": {"mode": "inline", "published": cp.published,
+        "measured_stage_times": (list(map(float, last_measured))
+                                 if last_measured is not None else None),
+        "stage_time_source": stage_time_source,
+        # every cadence's measured per-stage seconds (and, when the
+        # decision was waited for, the cost model's per-stage loads)
+        "stage_times": stage_times_log,
+        "controller": {"mode": ("async" if args.async_controller
+                                else "inline"),
+                       "published": cp.published,
                        "decided": cp.decided, "dropped": cp.dropped,
                        "stale_rejected": cp.stale_rejected},
         # expert-parallel telemetry (MoE archs; None otherwise)
@@ -413,8 +551,18 @@ def run(argv: Optional[List[str]] = None, *, params=None) -> Dict[str, Any]:
         "moe_dropped_last": moe_dropped_last,
         "expert_layout": (list(ctrl.expert_layout.placement)
                           if ctrl.expert_layout is not None else None),
+        # fault tolerance
+        "start_step": start_step,
+        "resumed_from": (int(resume_idx["step"])
+                         if resume_idx is not None else None),
+        "safepoints": list(safept.saved) if safept is not None else [],
         "device": str(engine.device), "args": vars(args),
     }
+
+
+def _sync(engine: ElasticEngine) -> None:
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
 
 
 def _allocated(engine: ElasticEngine) -> Optional[int]:

@@ -198,13 +198,15 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
 # ---------------------------------------------------------------------------
 def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
                   shapes: PipelineShapes, mode: str = "train", *,
-                  hash_proj=None):
+                  hash_proj=None, stage_timer=None):
     """Returns loss_fn(params, assignment, dyn, batch) -> (loss, stats).
 
     batch = {"tokens", "labels": [m, B, seq] int, "label_mask": [m, B, seq]
     f32}.  loss = sum(nll) / sum(mask) + AUX_LOSS_COEF * aux; stats: the
     per-slot profiler aggregates {field: [S, L_max, ...]} summed over the
-    valid ticks (detached)."""
+    valid ticks (detached).  ``stage_timer`` (an ``obs.timing.StageTimer``)
+    is stamped around each stage's forward call (in-step stage timing; the
+    backward is not stamped)."""
     M.check_ported(cfg, dyncfg)
     S = dcfg.num_stages
     dt = M.param_dtype(dcfg)
@@ -234,11 +236,15 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
                     tags[idx], _stage_slice(dyn, idx), carry, None, pos,
                     depth_base[idx], hash_proj=hash_proj)
 
+            if stage_timer is not None:
+                stage_timer.stamp(idx, 0)
             if dcfg.remat == "full":
                 carry, _, stats, aux = checkpoint(stage_fn, carry,
                                                   use_reentrant=False)
             else:
                 carry, _, stats, aux = stage_fn(carry)
+            if stage_timer is not None:
+                stage_timer.stamp(idx, 1)
             stats = {k: v.detach() for k, v in stats.items()}
             per_stage[idx] = (stats if per_stage[idx] is None else
                               {k: per_stage[idx][k] + v

@@ -1,6 +1,7 @@
 """Straggler detection and the worker pool — the parts of
-``repro.runtime.fault_tolerance`` the trainer and the elastic engine use
-(heartbeats wait for ROADMAP Queue 1 [cluster])."""
+``repro.runtime.fault_tolerance`` the trainer and the elastic engine use,
+with the pool's state round trip that safe points store (heartbeats, spare
+machines and fresh worker ids wait for ROADMAP Queue 1 [cluster])."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,7 +56,9 @@ class WorkerPool:
     """Job-manager facing pool: re-packing calls ``release``, failures call
     ``fail``, elastic growth calls ``request``, which grants released
     workers back.  Every transition is appended to ``log`` as
-    ``"event:worker"``."""
+    ``"event:worker"``.  No spare machines: the reference's ``spares`` and
+    ``provisioned`` are always 0 and empty here (fresh worker ids wait for
+    ROADMAP Queue 1 [cluster])."""
     total: int
     active: Optional[Set[int]] = None
 
@@ -64,6 +67,8 @@ class WorkerPool:
             self.active = set(range(self.total))
         self.released: Set[int] = set()
         self.dead: Set[int] = set()
+        self._next_id = (max(self.active) + 1 if self.active
+                         else self.total)
         self.log: List[str] = []
 
     def release(self, workers) -> None:
@@ -102,3 +107,27 @@ class WorkerPool:
     @property
     def num_active(self) -> int:
         return len(self.active)
+
+    # -- persistence (trainer safe points) ------------------------------------
+    def state_dict(self) -> dict:
+        """The reference's keys, plus ``log`` (the reference's pool starts
+        a resumed run with an empty log; here a resumed run's pool log is
+        the uninterrupted run's)."""
+        return {"total": self.total, "spares": 0,
+                "active": sorted(self.active),
+                "released": sorted(self.released),
+                "dead": sorted(self.dead), "provisioned": [],
+                "next_id": self._next_id, "log": list(self.log)}
+
+    @classmethod
+    def from_state(cls, sd: dict) -> "WorkerPool":
+        if sd.get("spares", 0) or sd.get("provisioned"):
+            raise NotImplementedError(
+                "a pool with spare machines is not in repro_torch yet "
+                "(ROADMAP Queue 1 [cluster])")
+        pool = cls(int(sd["total"]), active=set(sd["active"]))
+        pool.released = set(sd["released"])
+        pool.dead = set(sd["dead"])
+        pool._next_id = int(sd["next_id"])
+        pool.log = list(sd.get("log", []))
+        return pool

@@ -29,7 +29,11 @@ K1 as chip_smoke.py holds it, 3e-2 of the largest entry for dq).  K6
 (paged decode attention, its pages cut into splits merged in a fixed
 order) is held at 1e-4 to both the unsplit plain version and the
 split-order one at the same split count (bf16 output: one bf16 rounding),
-bitwise on a repeat and under CUDA-graph replay.
+bitwise on a repeat and under CUDA-graph replay.  A checkpoint of CUDA
+state (fp32 and bf16) loads back onto the card bitwise; the in-step
+CUDA-event stage timer and the probe both read an 8-layer stage above a
+1-layer one; the asynchronous control plane with ``--async-drain`` is the
+inline run bit for bit through a live shrink.
 """
 import copy
 
@@ -759,3 +763,97 @@ def test_reduced_elastic_train_and_serve_on_the_card_match_the_cpu(cuda):
         if resize_at:
             assert [r["kind"] for r in rep["resizes"]] == ["shrink", "grow"]
     assert len(out["cuda"]) == 8 and out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_the_card_is_bitwise(cuda, tmp_path,
+                                                      param_dtype):
+    """A CUDA training state (params, Adam moments and count, dyn) saved
+    and loaded back onto the card: every leaf bitwise, bf16 through its raw
+    16 bits."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    cfg = reduced_config(get_config("smollm-360m"), num_layers=4, d_model=64,
+                         num_heads=4, num_kv_heads=2, d_ff=256,
+                         vocab_size=256)
+    eng = ElasticEngine(cfg, DistConfig(num_stages=2,
+                                        param_dtype=param_dtype),
+                        DynamicsConfig(kind="pruning"),
+                        PipelineShapes(2, 2, 16))
+    st = eng.init_state(1, with_opt=True)
+    for v in st.opt_state["m"]["stages"].values():
+        v.normal_()
+    st.opt_state["count"] += 5
+    save_checkpoint(str(tmp_path), 3, st.params, st.opt_state, st.dyn,
+                    st.lps)
+    p, o, d, _ = load_checkpoint(str(tmp_path), eng.state_templates(2),
+                                 device="cuda")
+    for got, want in ((p, st.params), (o, st.opt_state), (d, st.dyn)):
+        flat_g, flat_w = dict(_leaves(got)), dict(_leaves(want))
+        assert sorted(flat_g) == sorted(flat_w)
+        for k, w in flat_w.items():
+            g = flat_g[k]
+            assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+            if w.dtype == torch.bfloat16:
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            assert torch.equal(g, w), k
+    assert p["stages"]["wq"].dtype == (torch.bfloat16 if param_dtype ==
+                                       "bfloat16" else torch.float32)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def test_cuda_event_stage_timer_ranks_the_longer_stage(cuda):
+    """The in-step timer on the card (CUDA events around each stage's
+    forward) reads an 8-layer stage above a 1-layer one, and nothing
+    before a full step."""
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.data.loader import DataConfig, make_loader
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    cfg = reduced_config(get_config("smollm-360m"), num_layers=9,
+                         d_model=256, num_heads=4, num_kv_heads=2, d_ff=1024,
+                         vocab_size=512)
+    eng = ElasticEngine(cfg, DistConfig(num_stages=2, slot_slack=4,
+                                        param_dtype="float32",
+                                        kernel_impl="pallas"),
+                        DynamicsConfig(), PipelineShapes(4, 2, 256),
+                        in_step_timing=True)
+    state = eng.init_state(0, with_opt=True, lps=[8, 1])
+    batch = next(make_loader(cfg, DataConfig(4, 2, 256)))
+    assert eng.in_step_stage_times(state) is None
+    for _ in range(3):
+        float(eng.step(state, batch, 1e-4)[0])
+    t = eng.in_step_stage_times(state)
+    probe = eng.measure_stage_times(state, batch)
+    assert t.shape == probe.shape == (2,) and (t > 0).all()
+    assert t[0] > t[1] and probe[0] > probe[1], (t, probe)
+    assert eng.in_step_stage_times(state) is None     # reset on read
+
+
+def test_async_drain_with_cuda_state_is_the_inline_run(cuda):
+    """The decision thread reads host numpy only; with --async-drain a
+    run on the card is the inline run bit for bit, through a live shrink
+    of the CUDA state."""
+    from repro_torch.launch.train import run as train_run
+    flags = ["--layers", "8", "--d-model", "128", "--d-ff", "256",
+             "--vocab-size", "512", "--stages", "4", "--num-micro", "4",
+             "--mb-global", "2", "--seq", "32", "--steps", "20",
+             "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
+             "--kernel-impl", "pallas", "--log-every", "100"]
+    a = train_run(flags)
+    b = train_run(flags + ["--async-controller", "--async-drain"])
+    assert a["losses"] == b["losses"]
+    assert [r["step"] for r in a["resizes"]] == [
+        r["step"] for r in b["resizes"]] == [14]
+    assert b["controller"]["mode"] == "async"

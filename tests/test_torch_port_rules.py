@@ -1,9 +1,12 @@
 """Rules the PyTorch port keeps.
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither jax nor the JAX
-  package — checked in the source and in ``sys.modules`` after a CPU serve
-  and a CPU train, of smollm and of the MoE slice (reduced Mixtral through
-  the grouped-matmul kernels, the expert layout and the Mixtral config).
+  package, nor ``msgpack`` or ``ml_dtypes`` (the card's machine has
+  neither) — checked in the source and in ``sys.modules`` after a CPU
+  serve and a CPU train, of smollm and of the MoE slice (reduced Mixtral
+  through the grouped-matmul kernels, the expert layout and the Mixtral
+  config), and after a checkpointed train, its ``--resume`` and a run
+  with ``--async-controller``.
 * ``chip_smoke.py``'s MoE phases require K4 and K5 launches, its serve
   phase every K6 launch split; its K6 bound counts the live pages.
 * Entry points run on CUDA and raise without a card unless the caller asks
@@ -45,6 +48,11 @@ def _env():
     return {**os.environ, "PYTHONPATH": str(SRC)}
 
 
+# the modules a run of the port must not have loaded
+BAD_CHECK = ("bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'repro', 'msgpack', 'ml_dtypes')]\n")
+
+
 def test_cpu_serve_imports_no_jax_and_no_reference():
     code = (
         "import sys\n"
@@ -52,8 +60,7 @@ def test_cpu_serve_imports_no_jax_and_no_reference():
         "from repro_torch.launch.serve import run\n"
         f"rep = run({SERVE_ARGS + ['--device', 'cpu']!r})\n"
         "assert len(rep['completions']) == 6, rep['completions']\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        f"{BAD_CHECK}"
         "assert not bad, bad\n"
         "print('CLEAN', rep['total_tokens'])\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -64,7 +71,8 @@ def test_cpu_serve_imports_no_jax_and_no_reference():
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
-    r"from\s+repro(\.|\s))", re.M)
+    r"from\s+repro(\.|\s)|(import|from)\s+(msgpack|ml_dtypes)\b)", re.M)
+
 
 
 def test_cpu_train_imports_no_jax_and_no_reference():
@@ -73,8 +81,7 @@ def test_cpu_train_imports_no_jax_and_no_reference():
         "from repro_torch.launch.train import run\n"
         f"rep = run({TRAIN_ARGS + ['--device', 'cpu']!r})\n"
         "assert len(rep['losses']) == 2, rep['losses']\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        f"{BAD_CHECK}"
         "assert not bad, bad\n"
         "print('CLEAN', rep['controller']['decided'])\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -99,8 +106,7 @@ def test_cpu_elastic_train_imports_no_jax_and_no_reference():
         " '--dynamism', 'pruning', '--repack', '--grow-back', '2',"
         " '--rebalance-every', '5', '--device', 'cpu'])\n"
         "assert [r['kind'] for r in rep['resizes']] == ['shrink', 'grow']\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        f"{BAD_CHECK}"
         "assert not bad, bad\n"
         f"missing = [m for m in {ELASTIC_MODULES!r} if m not in sys.modules]\n"
         "assert not missing, missing\n"
@@ -109,6 +115,46 @@ def test_cpu_elastic_train_imports_no_jax_and_no_reference():
                          text=True, timeout=300, env=_env(), cwd=str(REPO))
     assert out.returncode == 0, out.stderr[-3000:]
     assert "CLEAN" in out.stdout
+
+
+CKPT_MODULES = ("repro_torch.checkpoint.checkpoint",
+                "repro_torch.checkpoint.safepoint", "repro_torch.obs.timing")
+
+
+def test_cpu_checkpointed_async_train_imports_no_jax_and_no_reference(
+        tmp_path):
+    """A train with ``--ckpt-every`` and ``--async-controller`` and its
+    ``--resume`` load the checkpoint, safe-point and timing modules and
+    nothing of jax, the reference, msgpack or ml_dtypes."""
+    ck = str(tmp_path / "ck")
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.train import run\n"
+        f"a = run({TRAIN_ARGS + ['--device', 'cpu', '--steps', '4']!r} + "
+        f"['--ckpt-dir', {ck!r}, '--ckpt-every', '2', '--async-controller',"
+        " '--async-drain', '--in-step-timing'])\n"
+        f"b = run(['--resume', {ck!r}, '--device', 'cpu'], resume_step=1)\n"
+        "assert b['losses'] == a['losses'][2:], (a['losses'], b['losses'])\n"
+        "assert b['controller']['mode'] == 'async'\n"
+        f"{BAD_CHECK}"
+        "assert not bad, bad\n"
+        f"missing = [m for m in {CKPT_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "print('CLEAN', len(a['safepoints']))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN 2" in out.stdout
+
+
+def test_forbidden_imports_pattern():
+    for line in ("import jax", "from jax import numpy", "import repro",
+                 "from repro.core import x", "import msgpack",
+                 "from ml_dtypes import bfloat16", "    import msgpack"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch import x",
+                 "import msgpackx", "import numpy"):
+        assert not _FORBIDDEN.search(line), line
 
 
 MOE_MODULES = ("repro_torch.kernels.grouped_matmul.ops",
@@ -134,8 +180,7 @@ def test_cpu_moe_train_and_serve_import_no_jax_and_no_reference():
         f"srv = serve(['--elastic', '--prompt-len', '8', '--gen', '4',"
         f" '--requests', '4'] + {MOE_COMMON!r})\n"
         "assert srv['moe_dropped_mean'] is not None\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        f"{BAD_CHECK}"
         "assert not bad, bad\n"
         f"missing = [m for m in {MOE_MODULES!r} if m not in sys.modules]\n"
         "assert not missing, missing\n"
@@ -151,7 +196,7 @@ def test_no_jax_or_reference_imports_in_the_port():
         REPO / "chip_smoke.py"]
     assert len(files) > 20
     names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
-    for mod in MOE_MODULES + ELASTIC_MODULES:
+    for mod in MOE_MODULES + ELASTIC_MODULES + CKPT_MODULES:
         assert mod.replace(".", "/") + ".py" in names, mod
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
@@ -206,15 +251,9 @@ def test_features_outside_the_slice_raise(extra, what):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--ckpt-every", "5"], "safe points"),
     (["--autoscale"], "autoscal"),
-    (["--async-controller"], "asynchronous"),
     (["--job-manager", "file"], "job managers"),
-    (["--resume", "ckpt"], "resume"),
-    (["--ckpt-dir", "ckpt"], "checkpoint"),
     (["--chaos"], "fault"),
-    (["--measure-stage-times"], "stage-time"),
-    (["--in-step-timing"], "in-step"),
     (["--simulate-recover", "3"], "heartbeat"),
     (["--job-manager", "http"], "job managers"),
     (["--arch", "mixtral-8x7b", "--dynamism", "pruning"], "moe"),
@@ -500,8 +539,9 @@ def test_roadmap_tags_in_the_port_are_current_items():
     ``NotImplementedError`` message, a flag table or a docstring — is an
     item of ROADMAP.md's Queue 1, so a user who follows it finds it."""
     items = _roadmap_items()
-    assert {"checkpoint", "cluster", "control-timing", "faults-obs",
-            "serve-sampling", "moe-rest", "block-families"} <= items, items
+    assert {"cluster", "faults-obs", "serve-sampling", "moe-rest",
+            "block-families"} <= items, items
+    assert not {"checkpoint", "control-timing", "sim-data"} & items, items
     stale, seen = [], 0
     for path, line, text in _port_strings():
         if "ROADMAP" not in text:
