@@ -158,6 +158,48 @@ final line:
                thread's decide seconds; (ii), (iii) and the untimed run
                launch K1-K3 at the 4c counts a step, all on the tensor
                cores;
+  4m. sampling serve — phase 4's serve at temperature 0.8 (a Philox
+               sampler per lane, Gumbel-max): counted and timed; two more
+               runs with every draw recorded must give bitwise-equal ids and
+               logprobs and the counted run's tokens; a plain-version run
+               must give the same ids up to each request's first draw whose
+               perturbed top-2 gap (read from the plain run) is <= 1e-3
+               (prints the tokens compared and the requests that flip
+               later); the streams must differ from phase 4's argmax
+               streams except a full-length prompt's first token (the
+               prefill's argmax); the sampler alone on [8192, 49152]
+               logits: Philox words bitwise the CPU's (every 32nd lane), a
+               chi-squared test over the 32 likeliest ids plus the rest
+               against softmax(logits / T) at p >= 1e-4, and its ms per
+               decode tick (CUDA events) beside the argmax head's;
+  4n. autoscaled train — 4h's flags without --grow-back, 20 steps,
+               --async-controller --async-drain --autoscale
+               --simulate-recover 18: (i) the pool behind a file manager in
+               its own process (the RPC round trip timed every step), (ii)
+               the same flags in process, (iii) as (i) with the manager
+               stopped after step 12 and restarted after step 16: (i) must
+               shrink 4 -> 2 releasing [2, 3] and grow them back at >= 18
+               with pool log release:2, release:3, grant:2, grant:3 and an
+               autoscale grow naming {2, 3}; (i) and (ii) bitwise in
+               losses, resizes, params and Adam moments; (iii) must defer
+               the release and replay it, its losses bitwise (i)'s; K1-K3
+               at the 4c counts a step over the three runs, on the tensor
+               cores;
+  4o. autoscaled serve — 4i's server on two bursts of 16 requests 48
+               ticks apart with the serving autoscaler (min 2 stages,
+               queue watermark 2, occupancy 0.6, patience 2, cooldown 3):
+               a load-driven shrink and grow, tokens identical to the fixed
+               world's, the page pool bitwise through one more resize
+               cycle, every K6 launch split;
+  4p. two tenants — an HTTP manager over 6 workers, a trainer process
+               (tenant train, priority 0, 4 buffers, 32 steps) and a
+               server process (tenant serve, priority 10, 4o's trace and
+               knobs) on the one card: serve steals, train is preempted
+               and shrinks at a safe point, the lull yields and train
+               absorbs (from both --events-out streams); the scheduler's
+               metrics verb replays to its own books with no worker held
+               twice; each process's launch counts (K1-K3 on the tensor
+               cores, K6 split) and peak memory;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
   5b. train parity — loss and every gradient of one training step (full
@@ -193,7 +235,8 @@ final line:
      SDPA's graph-replay time, and "timing" holds both shapes' cold, warm
      and eager times and bounds, "launches_split" its split launches in
      the serve), the card line, and the last line {"ok": true, "device":
-     {...}}.
+     {...}}; launches_sample_serve, launches_autoscale_train,
+     launches_autoscale_serve and launches_tenants are phases 4m-4p's.
 
     python3 chip_smoke.py --k6-time ROOT
 
@@ -2797,6 +2840,686 @@ def run_ctl_phase(torch, kernels):
             for n in launched}
 
 
+# ---------------------------------------------------------------------------
+# phases 4m / 4n / 4o / 4p: sampling and the cluster layer
+# ---------------------------------------------------------------------------
+SAMPLE_T = 0.8
+# the sampler alone: one fixed row of logits (seeded, sigma 2) over the
+# vocabulary, drawn with SAMPLE_LANES distinct lane seeds; its Philox words
+# are compared with the CPU's on every SAMPLE_CPU_STRIDE-th lane
+SAMPLE_LANES = 8192
+SAMPLE_CPU_STRIDE = 32
+SAMPLE_CHI2_TOP = 32
+
+
+def sampling_serve_args(requests: int = 12):
+    """Phase 4m's flags: phase 4's serve at temperature 0.8."""
+    return serve_args(requests) + ["--temperature", str(SAMPLE_T)]
+
+
+class RecordSamples:
+    """Record every draw of the decode head: (lane seeds, ids, logprobs,
+    perturbed top-2 gaps) per call of ``sampling.sample``.  The gap is
+    computed beside the draw, from the same logits."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.pipeline import sampling
+        self._mod, self._orig = sampling, sampling.sample
+
+        def rec(logits, seeds, temperature):
+            ids, lp = self._orig(logits, seeds, temperature)
+            gap = sampling.top2_gap(logits, seeds, temperature)
+            self.calls.append((seeds.cpu(), ids.cpu(), lp.cpu(), gap.cpu()))
+            return ids, lp
+
+        sampling.sample = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sample = self._orig
+
+    def by_request(self, plens: dict, seed: int = 0) -> dict:
+        """{rid: {token index: (id, logprob, gap)}}: a lane's seed is
+        ``seed * 1000003 + rid * 8191 + pos`` (the scheduler's), and a
+        decode at position ``pos`` emits token ``pos - plen + 1``."""
+        key = {}
+        for rid, plen in plens.items():
+            for pos in range(plen, plen + 64):
+                s = (seed * 1000003 + rid * 8191 + pos) & 0x7FFFFFFF
+                if s in key:
+                    raise AssertionError(f"seed collision at {rid}, {pos}")
+                key[s] = (rid, pos - plen + 1)
+        out = {rid: {} for rid in plens}
+        for seeds, ids, lp, gap in self.calls:
+            for s, i, l, g in zip(seeds.tolist(), ids.tolist(), lp.tolist(),
+                                  gap.tolist()):
+                if s in key:
+                    rid, idx = key[s]
+                    out[rid][idx] = (i, l, g)
+        return out
+
+
+def _recorded_serve(torch, args, plain: bool = False):
+    """(report, draws by request) of one serve of ``args`` with the draws
+    recorded, through the kernels or (``plain``) their plain versions."""
+    from repro_torch.launch.serve import run as serve_run
+    with RecordSamples() as rec:
+        if plain:
+            with PlainKernels():
+                rep = serve_run(args)
+        else:
+            rep = serve_run(args)
+    torch.cuda.synchronize()
+    plens = {c["rid"]: c["plen"] for c in rep["completions"]}
+    return rep, rec.by_request(plens)
+
+
+def chi2_p(torch, counts, expected) -> float:
+    """Upper tail of the chi-squared statistic (float64), df = bins - 1."""
+    c = torch.as_tensor(counts, dtype=torch.float64)
+    e = torch.as_tensor(expected, dtype=torch.float64)
+    stat = float(((c - e) ** 2 / e).sum())
+    df = len(c) - 1
+    return float(torch.special.gammaincc(torch.tensor(df / 2.0,
+                                                      dtype=torch.float64),
+                                         torch.tensor(stat / 2.0,
+                                                      dtype=torch.float64)))
+
+
+def check_sampler(torch) -> dict:
+    """The sampler alone on [SAMPLE_LANES, 49152] logits on the card: its
+    Philox words bitwise the CPU's (every SAMPLE_CPU_STRIDE-th lane, whole
+    rows), a chi-squared test of the draws over the SAMPLE_CHI2_TOP likeliest
+    ids plus a rest bucket against softmax(logits / T), p >= 1e-4; and its
+    time per decode tick at the serve's shape (2 microbatch rows of 4
+    lanes) against the argmax head's."""
+    from repro_torch.pipeline import sampling
+    V = 49152
+    g = torch.Generator(device="cpu").manual_seed(11)
+    row = torch.randn(V, generator=g) * 2.0
+    seeds = torch.arange(SAMPLE_LANES, dtype=torch.int32)
+    words = sampling.philox_words(seeds.cuda(), V)
+    sub = seeds[::SAMPLE_CPU_STRIDE]
+    words_equal = bool(torch.equal(words[::SAMPLE_CPU_STRIDE].cpu(),
+                                   sampling.philox_words(sub, V)))
+    del words
+    if not words_equal:
+        raise AssertionError("sampler: Philox words differ between the card "
+                             "and the CPU")
+    logits = row.cuda().expand(SAMPLE_LANES, V)
+    ids, lp = sampling.sample(logits, seeds.cuda(), SAMPLE_T)
+    again = sampling.sample(logits, seeds.cuda(), SAMPLE_T)
+    if not (torch.equal(ids, again[0]) and torch.equal(lp, again[1])):
+        raise AssertionError("sampler: a repeat is not bitwise equal")
+    probs = torch.softmax(row.double() / SAMPLE_T, -1)
+    top = probs.topk(SAMPLE_CHI2_TOP).indices
+    counts = torch.bincount(ids.long().cpu(), minlength=V).double()
+    obs = torch.cat([counts[top], (counts.sum() - counts[top].sum())[None]])
+    exp = torch.cat([probs[top], (1 - probs[top].sum())[None]]) * SAMPLE_LANES
+    p = chi2_p(torch, obs, exp)
+    if p < 1e-4:
+        raise AssertionError(f"sampler: chi-squared p = {p:.3e} < 1e-4")
+    lp_err = float((lp.cpu() - torch.log_softmax(row, -1)[ids.long().cpu()])
+                   .abs().max())
+    if lp_err > 1e-5:
+        raise AssertionError(f"sampler: logprob off by {lp_err:.3e}")
+    del logits, ids, lp, again
+    # per decode tick at the serve's shape: 2 rows of 4 lanes
+    lg = torch.randn(4, V, generator=g).cuda()
+    sd = torch.arange(4, dtype=torch.int32).cuda()
+    sample_ms = cuda_ms(lambda: sampling.sample(lg, sd, SAMPLE_T)) * 2
+
+    def argmax_head():
+        nid = torch.argmax(lg, dim=-1)
+        return torch.log_softmax(lg, dim=-1).gather(-1, nid[:, None])
+
+    argmax_ms = cuda_ms(argmax_head) * 2
+    return {"words_bitwise": words_equal, "chi2_p": p,
+            "chi2_bins": SAMPLE_CHI2_TOP + 1, "draws": SAMPLE_LANES,
+            "top_mass": float(probs[top].sum()), "lp_err": lp_err,
+            "sample_ms_per_tick": sample_ms,
+            "argmax_ms_per_tick": argmax_ms}
+
+
+def run_sampling_serve_phase(torch, kernels, argmax_tokens, argmax_rep):
+    """Phase 4m: phase 4's serve at temperature 0.8 — counted and timed;
+    then twice with the draws recorded (ids and logprobs bitwise equal, the
+    tokens the counted run's) and once through the plain versions (the same
+    ids before each request's first draw whose perturbed top-2 gap, read
+    from the plain run, is <= 1e-3); the streams differ from phase 4's
+    argmax streams but for the prefill's first token of a full-length
+    prompt; the sampler alone (``check_sampler``).  Returns the counted
+    run's launches."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.serve import run as serve_run
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = serve_run(sampling_serve_args())
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    k6_split = pa_ops.KERNEL.launches_split
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul",
+                           "paged_attention") if launched[n] <= 0]
+    if missing:
+        raise AssertionError(f"sampling serve never launched {missing}")
+    check_k6_split(launched["paged_attention"], k6_split)
+    check_tensor_core("sampling serve", launched, launched_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    tokens = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    plens = {c["rid"]: c["plen"] for c in rep["completions"]}
+    seq = rep["args"]["prompt_len"]
+    if sorted(tokens) != sorted(argmax_tokens):
+        raise AssertionError("sampling serve completed other requests")
+    for rid, toks in tokens.items():
+        want = argmax_tokens[rid]
+        if len(toks) != len(want):
+            raise AssertionError(f"request {rid}: {len(toks)} tokens, the "
+                                 f"argmax serve {len(want)}")
+        if plens[rid] == seq and toks[0] != want[0]:
+            raise AssertionError(f"request {rid}: the first token is not "
+                                 f"the prefill's argmax")
+        if len(toks) > 1 and toks == want:
+            raise AssertionError(f"request {rid}: sampling at T "
+                                 f"{SAMPLE_T} reproduced the argmax stream")
+    # determinism: two recorded runs, bitwise
+    free_cuda(torch)
+    rep_a, draws_a = _recorded_serve(torch, sampling_serve_args())
+    free_cuda(torch)
+    rep_b, draws_b = _recorded_serve(torch, sampling_serve_args())
+    for r in (rep_a, rep_b):
+        if {c["rid"]: c["tokens"] for c in r["completions"]} != tokens:
+            raise AssertionError("a recorded sampling serve's tokens differ "
+                                 "from the counted run's")
+    if draws_a != draws_b:
+        raise AssertionError("two sampling serves drew different ids or "
+                             "logprobs")
+    n_draws = sum(len(d) for d in draws_a.values())
+    # the plain versions: equal ids up to the first small perturbed gap
+    free_cuda(torch)
+    rep_p, draws_p = _recorded_serve(torch, sampling_serve_args(),
+                                     plain=True)
+    plain_tokens = {c["rid"]: c["tokens"] for c in rep_p["completions"]}
+    compared = flips = 0
+    for rid, toks in tokens.items():
+        small = [i for i, (_, _, gap) in sorted(draws_p[rid].items())
+                 if gap <= 1e-3]
+        f = min(small) if small else len(toks)
+        if toks[:f] != plain_tokens[rid][:f]:
+            raise AssertionError(f"request {rid}: the kernels' and the plain "
+                                 f"versions' ids differ before the first "
+                                 f"gap <= 1e-3 (token {f})")
+        compared += f
+        flips += int(toks != plain_tokens[rid])
+    min_gap = min(g for d in draws_p.values() for (_, _, g) in d.values())
+    sampler = check_sampler(torch)
+    tick_p50 = float(sorted(rep["tick_wall_s"])[len(rep["tick_wall_s"])
+                                                // 2])
+    say("sampling_serve", temperature=SAMPLE_T,
+        requests=len(tokens), tokens=rep["total_tokens"],
+        ticks=rep["ticks"], tokens_per_s=f"{rep['tokens_per_s']:.1f}",
+        p50_ms=f"{rep['latency_p50_s'] * 1e3:.1f}",
+        p95_ms=f"{rep['latency_p95_s'] * 1e3:.1f}",
+        argmax_tokens_per_s=f"{argmax_rep['tokens_per_s']:.1f}",
+        argmax_p50_ms=f"{argmax_rep['latency_p50_s'] * 1e3:.1f}",
+        argmax_p95_ms=f"{argmax_rep['latency_p95_s'] * 1e3:.1f}",
+        tick_p50_ms=f"{tick_p50 * 1e3:.2f}",
+        draws=n_draws, repeat_bitwise=True,
+        plain_compared_tokens=compared, plain_flips=flips,
+        plain_min_gap=f"{min_gap:.3e}",
+        launches=json.dumps(launched).replace(" ", ""),
+        k6_split_launches=k6_split)
+    say("sampler", words_bitwise_cpu=sampler["words_bitwise"],
+        lanes=SAMPLE_LANES, cpu_lanes=SAMPLE_LANES // SAMPLE_CPU_STRIDE,
+        chi2_p=f"{sampler['chi2_p']:.4f}", chi2_bins=sampler["chi2_bins"],
+        top_mass=f"{sampler['top_mass']:.4f}",
+        lp_err=f"{sampler['lp_err']:.2e}",
+        sample_ms_per_tick=f"{sampler['sample_ms_per_tick']:.4f}",
+        argmax_ms_per_tick=f"{sampler['argmax_ms_per_tick']:.4f}",
+        share_of_tick_p50=(
+            f"{sampler['sample_ms_per_tick'] / (tick_p50 * 1e3):.4f}"))
+    del rep, rep_a, rep_b, rep_p
+    free_cuda(torch)
+    return launched, launched_tc
+
+
+def autoscale_train_args(job_manager: str, steps: int = 20):
+    """Phase 4n's flags: phase 4h's without --grow-back (4 stage buffers of
+    16 slots, the prune at step 10, --repack), 20 steps, the asynchronous
+    controller waited for (so the decision lands on a fixed step),
+    --autoscale --simulate-recover 18 and a job manager."""
+    return ckpt_train_args(steps) + [
+        "--async-controller", "--async-drain", "--autoscale",
+        "--simulate-recover", "18", "--job-manager", job_manager,
+        "--rpc-timeout-s", "10"]
+
+
+# phase 4n (iii): the file manager is stopped after this step (before the
+# controller's shrink at 14) and restarted after the second
+AUTOSCALE_KILL, AUTOSCALE_RESPAWN = 12, 16
+
+
+def run_autoscale_train_phase(torch, kernels):
+    """Phase 4n: autoscaled training across the file RPC boundary — (i)
+    with a file manager in its own process, (ii) the same flags in
+    process, (iii) as (i) with the manager stopped before the shrink and
+    restarted at step 16.  (i): shrink 4 -> 2 releasing [2, 3], the
+    heartbeat recovery grows [2, 3] back at or after step 18, pool log
+    release:2, release:3, grant:2, grant:3, an autoscale grow naming
+    {2, 3}; (i) and (ii) bitwise in losses, resizes, params and both Adam
+    moments; (iii) defers the release and replays it, its losses bitwise
+    (i)'s.  Counts zeroed before (i) and read after (iii)."""
+    from repro_torch.cluster.rpc import FileJobManager
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    rtt = []
+
+    def time_rpc(step, jm):
+        t0 = time.perf_counter()
+        jm.client._call("status")
+        rtt.append(time.perf_counter() - t0)
+
+    file_run = train_run(autoscale_train_args("file"), on_step=time_rpc)
+    torch.cuda.synchronize()
+    rz = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+           r["workers"]) for r in file_run["resizes"]]
+    if ([(k, a, b, w) for k, _, a, b, w in rz]
+            != [("shrink", 4, 2, [2, 3]), ("grow", 2, 4, [2, 3])]
+            or rz[1][1] < 18):
+        raise AssertionError(f"autoscaled train resizes {rz}: the controller "
+                             f"must shrink 4 -> 2 releasing [2, 3] and the "
+                             f"heartbeat recovery grow them back at >= 18")
+    if file_run["pool_log"] != ["release:2", "release:3", "grant:2",
+                                "grant:3"]:
+        raise AssertionError(f"pool log {file_run['pool_log']}")
+    if not any(d["action"] == "grow" and set(d["ids"]) == {2, 3}
+               for d in file_run["autoscale_decisions"]):
+        raise AssertionError(f"no autoscale grow of {{2, 3}}: "
+                             f"{file_run['autoscale_decisions']}")
+    free_cuda(torch)
+    inproc = train_run(autoscale_train_args("inproc"))
+    torch.cuda.synchronize()
+    rz_in = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+              r["workers"]) for r in inproc["resizes"]]
+    same = (inproc["losses"] == file_run["losses"] and rz_in == rz
+            and _bitwise(torch, inproc["params"], file_run["params"])
+            and _bitwise(torch, inproc["opt_state"], file_run["opt_state"]))
+    if not same:
+        raise AssertionError(
+            f"in-process and file manager runs differ: resizes {rz_in} vs "
+            f"{rz}, worst leaf "
+            f"{_tree_diff(torch, inproc['params'], file_run['params'])}")
+    del inproc
+    free_cuda(torch)
+    seen = {}
+
+    def stop_and_restart(step, jm):
+        # the same round trips as (i) while the manager runs (the client
+        # knows the pool's size before it goes away)
+        if step < AUTOSCALE_KILL:
+            jm.client._call("status")
+        elif step == AUTOSCALE_KILL:
+            jm.kill()
+            seen["killed"] = step
+        elif step == AUTOSCALE_RESPAWN:
+            # restart, and wait until the manager answers (a probe client
+            # of its own, numbered past every request on disk)
+            t_up = time.perf_counter()
+            jm.respawn(workers=4)
+            FileJobManager(jm.run_dir, timeout_s=60.0,
+                           shutdown_on_close=False)._call("status")
+            seen["respawned"] = step
+            seen["respawn_s"] = time.perf_counter() - t_up
+
+    degraded = train_run(autoscale_train_args("file"),
+                         on_step=stop_and_restart)
+    torch.cuda.synchronize()
+    launched, launched_tc = _window(torch, kernels)
+    k3_bwd = pm.KERNEL.launches_bwd
+    want_events = ["release deferred: [2, 3]", "replayed release:[2, 3]"]
+    if degraded["degraded_events"] != want_events:
+        raise AssertionError(f"degraded events {degraded['degraded_events']}")
+    if degraded["losses"] != file_run["losses"]:
+        raise AssertionError("the run with the manager stopped differs from "
+                             "the uninterrupted one")
+    rz_d = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+             r["workers"]) for r in degraded["resizes"]]
+    if rz_d != rz:
+        raise AssertionError(f"degraded resizes {rz_d} vs {rz}")
+    steps = 3 * file_run["args"]["steps"]
+    check_launches("autoscale train", launched, TRAIN_LAUNCHES_PER_STEP,
+                   steps)
+    if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"autoscale train: K3 backward launches "
+                             f"{k3_bwd}")
+    check_tensor_core("autoscale train", launched, launched_tc, FP32_TC_PATH)
+    for name, rep in (("file", file_run), ("degraded", degraded)):
+        for r in rep["resizes"]:
+            say("autoscale_train_resize", run=name, kind=r["kind"],
+                step=r["step"], stages=f"{r['from_stages']}->"
+                f"{r['to_stages']}", workers=r["workers"],
+                seconds=f"{r['seconds']:.4f}")
+    rtt_ms = sorted(t * 1e3 for t in rtt)
+    say("autoscale_train", steps=file_run["args"]["steps"],
+        resizes=json.dumps(rz).replace(" ", ""),
+        pool_log=json.dumps(file_run["pool_log"]).replace(" ", ""),
+        decisions=json.dumps([(d["step"], d["action"], d["ids"])
+                              for d in file_run["autoscale_decisions"]])
+        .replace(" ", ""),
+        inproc_bitwise=True, degraded_bitwise=True,
+        degraded_events=json.dumps(degraded["degraded_events"],
+                                   separators=(",", ":")),
+        killed_after=seen.get("killed"),
+        respawned_after=seen.get("respawned"),
+        respawn_answer_s=f"{seen.get('respawn_s', float('nan')):.2f}",
+        rpc_rtt_ms_p50=f"{rtt_ms[len(rtt_ms) // 2]:.3f}",
+        rpc_rtt_ms_max=f"{rtt_ms[-1]:.3f}",
+        rpc_stats=json.dumps(file_run["rpc"]["stats"]).replace(" ", ""),
+        degraded_rpc=json.dumps(degraded["rpc"]).replace(" ", ""),
+        step_ms_by_world=json.dumps(world_ms(file_run["step_times"],
+                                             file_run["stages_history"]))
+        .replace(" ", ""),
+        losses=json.dumps([round(x, 4) for x in file_run["losses"]])
+        .replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""))
+    del file_run, degraded
+    free_cuda(torch)
+    return launched, launched_tc
+
+
+def autoscale_serve_args(autoscale: bool = True):
+    """Phase 4o's flags: phase 4i's serve (4 stage buffers, paged KV) on a
+    trace of two bursts of 16 requests 48 ticks apart (nothing arrives in
+    between, so the pipeline drains and then backs up again), with the
+    reference's serving autoscale knobs (min 2 stages, queue watermark 2,
+    occupancy 0.6, patience 2, cooldown 3)."""
+    args = [a for a in elastic_serve_args()]
+    args[args.index("--requests") + 1] = "32"
+    args += ["--burst-period", "48", "--burst-len", "4", "--lull-rate", "0",
+             "--min-stages", "2", "--queue-high", "2", "--occupancy-low",
+             "0.6", "--patience", "2", "--cooldown", "3"]
+    return args + (["--autoscale"] if autoscale else [])
+
+
+def run_autoscale_serve_phase(torch, kernels):
+    """Phase 4o: the serve CLI's server on autoscale_serve_args(): at least
+    one load-driven shrink and one grow, tokens identical to the same trace
+    served on a fixed world, the page pool bitwise through one more shrink
+    / grow cycle on the live state (the trash block excluded), every K6
+    launch split.  Returns the autoscaled serve's launch counts."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.serve import build_parser, build_server
+    free_cuda(torch)
+    srv, trace = build_server(build_parser().parse_args(
+        autoscale_serve_args(False)))
+    fixed = srv.serve(copy.deepcopy(trace))
+    del srv
+    free_cuda(torch)
+    args = build_parser().parse_args(autoscale_serve_args())
+    srv, trace = build_server(args)
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = srv.serve(copy.deepcopy(trace), autoscale=True)
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
+    k6_split = pa_ops.KERNEL.launches_split
+    check_k6_split(launched["paged_attention"], k6_split)
+    check_tensor_core("autoscale serve", launched, launched_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    kinds = [r["kind"] for r in rep["resizes"]]
+    if "shrink" not in kinds or "grow" not in kinds:
+        raise AssertionError(f"autoscaled serve resizes {kinds}: a "
+                             f"load-driven shrink and grow are required")
+    want = {c["rid"]: c["tokens"] for c in fixed["completions"]}
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if got != want or len(got) != args.requests:
+        raise AssertionError("the autoscaled serve's tokens differ from the "
+                             "fixed world's")
+    before = {k: v.clone() for k, v in srv.state.cache.items()}
+    stages = srv.state.stages
+    if stages > 2:                  # down to 2 and back
+        srv.state = srv.engine.shrink(srv.state, 2, step=1000)
+        srv.state = srv.engine.grow(srv.state, stages - 2, step=1001)
+    else:                           # up to 4 and back
+        srv.state = srv.engine.grow(srv.state, 2, step=1000)
+        srv.state = srv.engine.shrink(srv.state, 2, step=1001)
+    if srv.state.stages != stages:
+        raise AssertionError(f"resize cycle ended on {srv.state.stages} "
+                             f"stages, not {stages}")
+    for k, v in before.items():
+        if not torch.equal(srv.state.cache[k][:, :, :-1], v[:, :, :-1]):
+            raise AssertionError(f"page pool leaf {k} changed through a "
+                                 f"resize cycle")
+    say("autoscale_serve", requests=len(got), tokens=rep["total_tokens"],
+        ticks=rep["ticks"], tokens_equal_fixed=True, pool_bitwise=True,
+        resizes=json.dumps([(r["kind"], r["step"], r["from_stages"],
+                             r["to_stages"]) for r in rep["resizes"]])
+        .replace(" ", ""),
+        decisions=len(rep["autoscale_decisions"]),
+        stages_hist=json.dumps(rep["stages_history"]).replace(" ", ""),
+        tick_ms_by_world=json.dumps(world_ms(rep["tick_wall_s"],
+                                             rep["stages_history"]))
+        .replace(" ", ""),
+        fixed_tokens_per_s=f"{fixed['tokens_per_s']:.1f}",
+        tokens_per_s=f"{rep['tokens_per_s']:.1f}",
+        p95_ms=f"{rep['latency_p95_s'] * 1e3:.1f}",
+        fixed_p95_ms=f"{fixed['latency_p95_s'] * 1e3:.1f}",
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""),
+        k6_split_launches=k6_split)
+    del srv, rep, fixed, before
+    free_cuda(torch)
+    return launched, launched_tc
+
+
+# phase 4p: a child process runs a CLI's main, then prints its launch
+# counts and peak memory on lines of their own
+TENANT_CHILD = """
+import json, sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch import kernels
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.launch.{cli} import main
+main({argv!r})
+torch.cuda.synchronize()
+print("LAUNCHES " + json.dumps({{k.name: [k.launches, k.launches_tc]
+                                for k in kernels.KERNELS}}))
+print("K6_SPLIT " + str(pa_ops.KERNEL.launches_split))
+print("PEAK " + str(torch.cuda.max_memory_allocated()))
+"""
+TENANT_TRAIN_STEPS = 32
+
+
+def _tenant(cli: str, argv, log_path: str):
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-c", TENANT_CHILD.format(
+                src=str(ROOT / "src"), cli=cli, argv=argv)],
+            stdout=log, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+
+
+def _child_report(log_path: str) -> dict:
+    with open(log_path) as f:
+        text = f.read()
+    out = {"log": text}
+    for line in text.splitlines():
+        head, _, rest = line.partition(" ")
+        if head == "LAUNCHES":
+            out["launches"] = json.loads(rest)
+        elif head == "K6_SPLIT":
+            out["k6_split"] = int(rest)
+        elif head == "PEAK":
+            out["peak"] = int(rest)
+    return out
+
+
+def replay_scheduler_events(events, tenants) -> dict:
+    """The scheduler's event stream (its ``metrics`` verb) must reproduce
+    its books: replaying the grant / yield / fail records in order never
+    grants a worker to a tenant while another holds it, never gives back a
+    worker its tenant does not hold, and leaves each tenant exactly the
+    workers the verb's tenant table lists.  Returns the per (tenant, event)
+    counts."""
+    holder, counts = {}, {}
+    for e in events:
+        t, ev, w = e["tenant"], e["ev"], e["worker"]
+        counts[f"{t}:{ev}"] = counts.get(f"{t}:{ev}", 0) + 1
+        if ev == "grant":
+            if w in holder:
+                raise AssertionError(f"worker {w} granted to {t} while "
+                                     f"{holder[w]} holds it")
+            holder[w] = t
+        elif ev in ("yield", "fail"):
+            if holder.get(w) != t:
+                raise AssertionError(f"{t} gave back worker {w} it did not "
+                                     f"hold")
+            del holder[w]
+    for tid in set(holder.values()) | set(tenants):
+        held = sorted(w for w, h in holder.items() if h == tid)
+        books = sorted(tenants.get(tid, {}).get("granted", []))
+        if held != books:
+            raise AssertionError(f"tenant {tid}: the events leave {held}, "
+                                 f"the books {books}")
+    return counts
+
+
+def run_two_tenant_phase(torch, kernels):
+    """Phase 4p: an HTTP manager over 6 workers in its own process, a
+    trainer process (tenant train, priority 0, 4h's stage buffers and
+    prune without --repack, --repack-target 2 as its floor, 32 steps) and a
+    server process (tenant serve, priority 10, 4o's trace and autoscale
+    knobs) sharing the card: serve's burst steals a training worker, train
+    is preempted and shrinks at a safe point, the lull yields the workers
+    back and train absorbs them; the scheduler's event stream reproduces
+    its grant books and never grants a worker to two tenants.  Returns the
+    two processes' summed launch counts."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.cluster.http_rpc import (HttpJobManager,
+                                              spawn_http_manager)
+    free_cuda(torch)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_tenants_")
+    mgr, url = spawn_http_manager(run_dir, 6, idle_timeout_s=900)
+    train_events = os.path.join(run_dir, "train_events.json")
+    serve_events = os.path.join(run_dir, "serve_events.json")
+    logs = {n: os.path.join(run_dir, f"{n}.log") for n in ("train", "serve")}
+    train_argv = [a for a in ckpt_train_args(TENANT_TRAIN_STEPS)
+                  if a != "--repack"] + [
+        "--repack-target", "2", "--log-every", "1000", "--job-manager",
+        "http", "--manager-url", url, "--tenant-id", "train", "--priority",
+        "0", "--events-out", train_events]
+    serve_argv = autoscale_serve_args() + [
+        "--job-manager", "http", "--manager-url", url, "--tenant-id",
+        "serve", "--priority", "10", "--events-out", serve_events]
+    probe = HttpJobManager(url, client_id="chip-smoke-probe")
+    children = {}
+    t0 = time.perf_counter()
+    try:
+        children["train"] = _tenant("train", train_argv, logs["train"])
+        # the trainer claims its 4 before the server joins, so the serve
+        # burst has to steal
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            t = probe.cluster_metrics()["tenants"].get("train")
+            if t and len(t["granted"]) == 4:
+                break
+            if children["train"].poll() is not None:
+                break
+            time.sleep(0.2)
+        else:
+            raise AssertionError("the trainer never registered")
+        children["serve"] = _tenant("serve", serve_argv, logs["serve"])
+        for name, proc in children.items():
+            rc = proc.wait(timeout=900)
+            if rc != 0:
+                raise AssertionError(
+                    f"tenant {name} exited {rc}:\n"
+                    f"{_child_report(logs[name])['log'][-3000:]}")
+        metrics = probe.cluster_metrics()
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        try:
+            HttpJobManager(url, client_id="chip-smoke-stop", timeout_s=10,
+                           shutdown_on_close=True).close()
+        except (OSError, RuntimeError):
+            pass
+        probe.close()
+        try:
+            mgr.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            mgr.kill()
+            mgr.wait()
+    wall = time.perf_counter() - t0
+    reports = {n: _child_report(p) for n, p in logs.items()}
+    with open(train_events) as f:
+        tev = json.load(f)
+    with open(serve_events) as f:
+        sev = json.load(f)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    tkinds = [e["kind"] for e in tev]
+    skinds = [e["kind"] for e in sev]
+    failures = []
+    if "steal" not in skinds:
+        failures.append("serve never stole")
+    if "preempt" not in tkinds:
+        failures.append("train never received a preemption")
+    if not any(e["kind"] == "resize"
+               and e["data"]["resize_kind"] == "shrink[preempt]"
+               for e in tev):
+        failures.append("train never shrank on the preemption")
+    if "yield" not in skinds:
+        failures.append("serve never yielded")
+    if "absorb" not in tkinds:
+        failures.append("train never absorbed the yielded workers")
+    per_kind = replay_scheduler_events(metrics["events"],
+                                       metrics["tenants"])
+    if per_kind.get("train:preempt_due", 0) < 1:
+        failures.append("the scheduler posted no preemption")
+    if failures:
+        raise AssertionError("; ".join(failures) + "\n" + "\n".join(
+            reports[n]["log"][-2000:] for n in reports))
+    launched, launched_tc = {}, {}
+    for rep in reports.values():
+        for name, (n, tc) in rep["launches"].items():
+            launched[name] = launched.get(name, 0) + n
+            launched_tc[name] = launched_tc.get(name, 0) + tc
+    check_launches("tenant train", {k: v[0] for k, v in
+                                    reports["train"]["launches"].items()},
+                   TRAIN_LAUNCHES_PER_STEP, TENANT_TRAIN_STEPS)
+    check_tensor_core("two tenants", launched, launched_tc, FP32_TC_PATH)
+    serve_k6 = reports["serve"]["launches"]["paged_attention"][0]
+    check_k6_split(serve_k6, reports["serve"]["k6_split"])
+    t_rz = [(e["step"], e["data"]["resize_kind"], e["data"]["from_stages"],
+             e["data"]["to_stages"], e["data"]["workers"])
+            for e in tev if e["kind"] == "resize"]
+    s_rz = [(e["step"], e["data"]["resize_kind"], e["data"]["from_stages"],
+             e["data"]["to_stages"], e["data"]["workers"])
+            for e in sev if e["kind"] == "resize"]
+    say("two_tenants", wall_s=f"{wall:.1f}",
+        train_resizes=json.dumps(t_rz).replace(" ", ""),
+        serve_resizes=json.dumps(s_rz).replace(" ", ""),
+        train_events=json.dumps(sorted(set(tkinds))).replace(" ", ""),
+        serve_events=json.dumps(sorted(set(skinds))).replace(" ", ""),
+        scheduler_events=json.dumps(per_kind).replace(" ", ""),
+        train_peak_gb=f"{reports['train']['peak'] / 1e9:.3f}",
+        serve_peak_gb=f"{reports['serve']['peak'] / 1e9:.3f}",
+        launches=json.dumps(launched).replace(" ", ""))
+    free_cuda(torch)
+    return launched, launched_tc
+
+
 def mod_bitwise(torch) -> None:
     """Phase 4j: one training step's loss and gradients with --dynamism
     mod from the same params and batch as with none, through the kernels:
@@ -2956,7 +3679,11 @@ def main() -> int:
         launches=json.dumps(launches).replace(" ", ""),
         k6_split_launches=k6_split,
         tiles_live=f"{rep['page_tile_live']}/{rep['page_tile_total']}")
-    del rep
+    # phase 4m samples the same trace: its streams are held to these
+    argmax_tokens = {c["rid"]: c["tokens"] for c in comps}
+    argmax_rep = {k: rep[k] for k in ("tokens_per_s", "latency_p50_s",
+                                      "latency_p95_s")}
+    del rep, comps
 
     # 4b. where the time goes: a shorter serve under torch.profiler (its
     # wall includes the profiler's own overhead)
@@ -3010,6 +3737,24 @@ def main() -> int:
     for n in ctl_launches:
         tc[n] += ctl_launches[n]
 
+    # 4m / 4n / 4o / 4p. sampling, autoscaled training over the file RPC,
+    # autoscaled serving and two tenants on one HTTP manager: counters
+    # zeroed just before each path and read just after (4p: read in its
+    # two processes)
+    new_phases = {}
+    for key, phase in (
+            ("sample_serve", lambda: run_sampling_serve_phase(
+                torch, kernels, argmax_tokens, argmax_rep)),
+            ("autoscale_train", lambda: run_autoscale_train_phase(
+                torch, kernels)),
+            ("autoscale_serve", lambda: run_autoscale_serve_phase(
+                torch, kernels)),
+            ("tenants", lambda: run_two_tenant_phase(torch, kernels))):
+        got, got_tc = phase()
+        new_phases[key] = got
+        for n in got_tc:
+            tc[n] += got_tc[n]
+
     # 5. parity of the path: kernels vs plain versions from one state
     serve_parity(torch)
 
@@ -3049,7 +3794,9 @@ def main() -> int:
                          + elastic_serve_launches[k.name]
                          + ee_train_launches[k.name]
                          + ee_serve_launches[k.name]
-                         + ckpt_launches[k.name] + ctl_launches[k.name]),
+                         + ckpt_launches[k.name] + ctl_launches[k.name]
+                         + sum(v.get(k.name, 0)
+                               for v in new_phases.values())),
             "launches_tc": tc[k.name],
             "launches_serve": launches[k.name],
             "launches_train": train_launches[k.name],
@@ -3061,6 +3808,8 @@ def main() -> int:
             "launches_ee_serve": ee_serve_launches[k.name],
             "launches_ckpt_train": ckpt_launches[k.name],
             "launches_ctl_train": ctl_launches[k.name],
+            **{f"launches_{key}": v.get(k.name, 0)
+               for key, v in new_phases.items()},
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "tolerance": r["tol"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

@@ -10,9 +10,12 @@ metadata also holds the run's control-plane state:
     Queue 1 [api]), so ``--resume DIR`` rebuilds the run from the safe
     point alone;
   * the step, the stage count, the split and the stage -> worker map;
-  * the world epoch and the worker pool (its sets and its log);
-  * ``scaler`` (always None: autoscaling waits for [cluster]) and the
-    controller's repack latch (``repack_enabled``).
+  * the world epoch and the worker pool (its sets, spares, provisioned
+    ids and log) — read from the file manager's journal when the pool
+    lives behind one;
+  * ``scaler`` (the autoscaler's hysteresis state, so a resumed run
+    decides as the uninterrupted one) and the controller's repack latch
+    (``repack_enabled``).
 
 The loader position and the LR schedule are functions of (flags, step),
 so restoring the step restores them; the tensors restore bit-exactly from
@@ -23,6 +26,7 @@ EMA and the controller's logical expert layout (it lives only in
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Dict, List, Optional
 
@@ -44,15 +48,27 @@ class SafepointManager:
         return (step + 1) % self.every == 0
 
     def save(self, step: int, state, *, args: Dict[str, Any], engine,
-             scaler=None, repack_enabled: Optional[bool] = None) -> str:
-        """Write the safe point of a fully completed ``step``."""
+             scaler=None, repack_enabled: Optional[bool] = None,
+             jm_dir: Optional[str] = None) -> str:
+        """Write the safe point of a fully completed ``step``.  With the
+        pool behind a file manager (``jm_dir``), its journal is the
+        authoritative pool state."""
+        pool_state = None
+        if engine.pool is not None:
+            pool_state = engine.pool.state_dict()
+        elif jm_dir is not None:
+            try:
+                with open(os.path.join(jm_dir, "state.json")) as f:
+                    pool_state = json.load(f)["pool"]
+            except (OSError, ValueError, KeyError):
+                pool_state = None       # no journal yet (nothing executed)
         meta: Dict[str, Any] = {
             "kind": "safepoint",
             "args": dict(args),
             "step": step,
             "stage_workers": [int(w) for w in engine.stage_workers],
             "epoch": int(engine.epoch),
-            "pool": engine.pool.state_dict(),
+            "pool": pool_state,
             "scaler": scaler.state_dict() if scaler is not None else None,
             "repack_enabled": repack_enabled,
         }

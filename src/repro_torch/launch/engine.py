@@ -16,6 +16,14 @@ functions only) and releases the tail of the stage -> worker map to the
 ones wherever they sit.  Every resize bumps ``epoch``, which fences the
 control plane's plans.
 
+The job manager sits behind ``cluster.rpc.JobManagerClient``: the
+in-process pool by default, or a file / HTTP client whose pool lives in
+another process.  When that manager is unreachable the engine degrades —
+a shrink's release and an evict's fail are queued (``degraded_events``)
+and replayed in order before its next call, a grow is denied and
+training continues — and a grow binds ids the manager minted fresh to a
+free stage-buffer slot (``_bind_new_workers``).
+
 A safe point's resume builds the world of the checkpoint's stage count and
 split, adopts its stage -> worker map, pool and epoch, and loads the
 shards into tensors allocated from the param spec and the optimizer's zero
@@ -36,7 +44,8 @@ import torch
 
 from repro_torch.checkpoint.elastic import (_resplit_stage_tree,
                                             elastic_restore)
-from repro_torch.cluster.rpc import InProcessJobManager
+from repro_torch.cluster.rpc import (InProcessJobManager, JobManagerClient,
+                                     JobManagerUnavailable)
 from repro_torch.configs.base import BLOCK_MOE, DistConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
@@ -156,24 +165,24 @@ class ResizeEvent:
 class ElasticEngine:
     """Owns the per-stage-count worlds and the live resize paths.  Stage s
     runs on worker ``stage_workers[s]``; shrinking keeps a prefix of the
-    map and releases the tail to the ``WorkerPool``, growing requests
-    workers back."""
+    map and releases the tail to the job manager, growing requests (or,
+    on a multi-tenant manager, steals) workers back."""
 
     def __init__(self, cfg: ModelConfig, dcfg: DistConfig,
                  dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
                  opt_cfg: Optional[OptConfig] = None,
+                 pool: Optional[WorkerPool] = None,
+                 job_manager: Optional[JobManagerClient] = None,
                  paged=None, temperature: float = 0.0,
                  device: DeviceLike = None, hash_proj=None,
                  in_step_timing: bool = False):
         M.check_ported(cfg, dyncfg)
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature > 0 sampling is not in repro_torch yet (ROADMAP "
-                "Queue 1 [serve-sampling]: a Philox sampler replaces jax's "
-                "PRNG)")
         self.cfg, self.base_dcfg, self.dyncfg = cfg, dcfg, dyncfg
         self.shapes = shapes
+        # serving options: ``paged`` is a PagedKVConfig; ``temperature`` > 0
+        # builds sampling decode variants (0 keeps the argmax exactly)
         self.paged = paged
+        self.temperature = float(temperature)
         self.device = resolve_device(device)
         if hash_proj is None and dyncfg.uses_sparse_attention:
             hash_proj = B.default_hash_projection(
@@ -187,14 +196,48 @@ class ElasticEngine:
         # serve telemetry: the last prefill / decode call's mean MoE
         # capacity-drop fraction (a device scalar; None for non-MoE archs)
         self.last_moe_drop = None
-        self.pool = WorkerPool(dcfg.num_stages)
-        self.jm = InProcessJobManager(self.pool)
+        if job_manager is None:
+            # in-process default: the pool lives in this process
+            self.pool: Optional[WorkerPool] = pool or WorkerPool(
+                dcfg.num_stages)
+            self.jm: JobManagerClient = InProcessJobManager(self.pool)
+        else:
+            # the pool lives behind the RPC boundary (its process owns it);
+            # release / grant cross it through the client
+            self.jm = job_manager
+            self.pool = pool
         self.stage_workers: List[int] = list(range(dcfg.num_stages))
+        # worker id -> stage-buffer slot ("column").  All stage buffers
+        # share the one card, so a column is a slot id; there are as many
+        # as the base world has stages.  A worker granted later under a
+        # never-seen id (the manager provisioned a fresh process) is bound
+        # to a free slot on arrival
+        self.num_columns = dcfg.num_stages
+        self.worker_column: Dict[int, int] = {
+            w: w for w in range(dcfg.num_stages)}
+        # ops the job manager must eventually hear about, queued while it
+        # is unreachable (degraded mode: training continues, bookkeeping
+        # replays in order when the manager comes back)
+        self._pending_jm: List[Any] = []
+        self.degraded_events: List[str] = []
         self.resizes: List[ResizeEvent] = []
         self.last_shrink_step: Optional[int] = None
         # world epoch: bumped by every resize; the control plane fences
         # its plans with it
         self.epoch = 0
+        # mirror every pool transition (including ones other engines or
+        # the heartbeat path trigger on a shared pool) into a local log
+        self.pool_events: List[str] = []
+        self._pool_hook = lambda event, worker: self.pool_events.append(
+            f"{event}:{worker}")
+        if self.pool is not None:
+            self.pool.subscribe(self._pool_hook)
+
+    def close(self) -> None:
+        """Detach from a (possibly shared) pool: a discarded engine must
+        not be pinned alive by the pool's hook list."""
+        if self.pool is not None:
+            self.pool.unsubscribe(self._pool_hook)
 
     # -- worlds --------------------------------------------------------------
     def dcfg_for(self, stages: int) -> DistConfig:
@@ -221,11 +264,80 @@ class ElasticEngine:
             self._worlds[stages] = w
         return w
 
+    def _bind_new_workers(self, granted: Sequence[int]) -> tuple:
+        """Bind stage-buffer slots for granted workers.  Known ids keep
+        their slot; never-seen ids (the manager provisioned a fresh
+        process) — or a stale binding whose slot was re-assigned while the
+        worker was away — take a free slot.  Returns (accepted, rejected):
+        a grant with no free slot behind it cannot be executed and goes
+        back to the manager."""
+        used = {self.worker_column[w] for w in self.stage_workers
+                if w in self.worker_column}
+        accepted: List[int] = []
+        rejected: List[int] = []
+        for w in granted:
+            col = self.worker_column.get(w)
+            if col is not None and col not in used:
+                used.add(col)
+                accepted.append(w)
+                continue
+            free = [c for c in range(self.num_columns) if c not in used]
+            if not free:
+                rejected.append(w)
+                continue
+            self.worker_column[w] = free[0]
+            used.add(free[0])
+            accepted.append(w)
+        return accepted, rejected
+
     def bind_workers(self, workers: Sequence[int]) -> None:
-        """Adopt a restored stage -> worker map (checkpoint resume).  Every
-        stage buffer shares the one card, so binding is recording."""
-        assert len(workers) >= 1
+        """Adopt a stage -> worker map (a checkpoint resume, or a tenant's
+        initial grant of arbitrary ids): workers take slots positionally,
+        replacing the init bindings."""
+        if not 1 <= len(workers) <= self.num_columns:
+            raise ValueError(f"{len(workers)} workers for "
+                             f"{self.num_columns} stage-buffer slots")
         self.stage_workers = [int(w) for w in workers]
+        for s, w in enumerate(self.stage_workers):
+            self.worker_column[w] = s
+
+    # -- degraded-mode job-manager calls -------------------------------------
+    def _flush_pending_jm(self) -> bool:
+        """Replay queued release / fail bookkeeping in order; True when the
+        queue drained (the manager is reachable again)."""
+        while self._pending_jm:
+            kind, arg = self._pending_jm[0]
+            try:
+                if kind == "release":
+                    self.jm.release(arg)
+                else:
+                    self.jm.fail(arg)
+            except JobManagerUnavailable:
+                return False
+            self._pending_jm.pop(0)
+            self.degraded_events.append(f"replayed {kind}:{arg}")
+        return True
+
+    def _jm_release(self, workers: Sequence[int]) -> None:
+        workers = list(workers)
+        if self._flush_pending_jm():
+            try:
+                self.jm.release(workers)
+                return
+            except JobManagerUnavailable:
+                pass
+        self._pending_jm.append(("release", workers))
+        self.degraded_events.append(f"release deferred: {workers}")
+
+    def _jm_fail(self, worker: int) -> None:
+        if self._flush_pending_jm():
+            try:
+                self.jm.fail(worker)
+                return
+            except JobManagerUnavailable:
+                pass
+        self._pending_jm.append(("fail", worker))
+        self.degraded_events.append(f"fail deferred: {worker}")
 
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, seed: int = 0, *, with_opt: bool = False,
@@ -321,8 +433,12 @@ class ElasticEngine:
         and split on this engine's device."""
         from repro_torch.checkpoint.safepoint import restore
         meta = index["meta"]
-        if meta.get("pool"):
+        if meta.get("pool") and isinstance(self.jm, InProcessJobManager):
+            # the in-process pool resumes here; a pool behind an RPC
+            # boundary was seeded into its manager's journal by the caller
+            self.close()
             self.pool = WorkerPool.from_state(meta["pool"])
+            self.pool.subscribe(self._pool_hook)
             self.jm = InProcessJobManager(self.pool)
         self.bind_workers(meta["stage_workers"])
         stages = int(index["num_stages"])
@@ -400,8 +516,8 @@ class ElasticEngine:
         if mv not in w.decode:
             w.decode[mv] = build_decode_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
-                paged=self.paged is not None, num_micro=mv,
-                hash_proj=self.hash_proj)
+                paged=self.paged is not None, temperature=self.temperature,
+                num_micro=mv, hash_proj=self.hash_proj)
         return w.prefill, w.decode[mv]
 
     def prefill(self, state: EngineState, batch, cache=None):
@@ -424,12 +540,9 @@ class ElasticEngine:
                seeds=None, live_micros: Optional[int] = None):
         """One decode step; updates ``state.cache`` in place and returns
         (ids, logprobs).  ``page_table`` [m, B, J] is required iff the
-        engine is paged; ``live_micros`` selects the decode variant;
-        ``self.last_moe_drop`` as in :meth:`prefill`."""
-        if seeds is not None:
-            raise NotImplementedError(
-                "per-lane sampling seeds need temperature > 0 (ROADMAP "
-                "Queue 1 [serve-sampling])")
+        engine is paged; ``seeds`` [m, B] int32 iff temperature > 0;
+        ``live_micros`` selects the decode variant; ``self.last_moe_drop``
+        as in :meth:`prefill`."""
         _, dec = self.serve_fns(state.stages, live_micros)
         tokens = torch.as_tensor(tokens, device=self.device)
         pos = torch.as_tensor(pos, device=self.device)
@@ -438,9 +551,15 @@ class ElasticEngine:
             assert page_table is not None, "paged decode needs a page table"
             pt = torch.as_tensor(page_table, dtype=torch.int32,
                                  device=self.device)
+        sd = None
+        if self.temperature > 0.0:
+            if seeds is None:
+                raise ValueError("sampling decode needs per-lane seeds")
+            sd = torch.as_tensor(seeds, dtype=torch.int32,
+                                 device=self.device)
         ids, lp, state.cache, drop = dec(state.params, state.assignment,
                                          state.dyn, state.cache, tokens, pos,
-                                         pt)
+                                         pt, sd)
         self._note_moe_drop(drop)
         return ids, lp
 
@@ -522,7 +641,7 @@ class ElasticEngine:
         new_state = self.resize(state, target_stages, new_lps)
         released = self.stage_workers[target_stages:]
         self.stage_workers = self.stage_workers[:target_stages]
-        self.jm.release(released)
+        self._jm_release(released)
         self._event(step, "shrink", state, target_stages, released, t0)
         self.last_shrink_step = step
         return new_state
@@ -543,20 +662,43 @@ class ElasticEngine:
         self.stage_workers = [w for w in self.stage_workers
                               if w not in set(lost)]
         for w in lost:
-            self.jm.fail(w)
+            self._jm_fail(w)
         self._event(step, "evict", state, target, lost, t0)
         self.last_shrink_step = step
         return new_state
 
     def grow(self, state: EngineState, n_workers: int,
-             step: int = -1) -> EngineState:
-        """Re-expansion: request workers back from the pool and rebuild
-        over more stage buffers.  Grows by however many the pool grants
-        (possibly none).  The pool grants only ids this engine released;
-        each takes a stage buffer at the tail, and as every buffer shares
-        the one card, binding a worker is recording its id."""
+             step: int = -1, steal: bool = False) -> EngineState:
+        """Re-expansion: request workers back from the job manager and
+        rebuild over more stage buffers.  Grows by however many the manager
+        grants (possibly none); each takes a slot (``_bind_new_workers``)
+        and a stage buffer at the tail.  An unreachable manager degrades to
+        "no grant, training continues"; a granted id with no free slot is
+        handed back.  ``steal=True`` asks through the cluster scheduler's
+        steal verb (free capacity now, the shortfall preempts a
+        lower-priority tenant) on a tenant-registered manager, and is a
+        plain request elsewhere."""
         t0 = time.perf_counter()
-        granted = self.jm.request(n_workers)
+        self._flush_pending_jm()
+        ask = (self.jm.steal if steal and hasattr(self.jm, "steal")
+               else self.jm.request)
+        try:
+            granted = ask(n_workers)
+            if not granted and self._pending_jm and self._flush_pending_jm():
+                # the request got through, so the manager is back — but its
+                # pool had not heard our deferred releases yet (the breaker
+                # blocked the flush; the request was the probe that closed
+                # it).  The bookkeeping is settled now: ask once more
+                granted = ask(n_workers)
+        except JobManagerUnavailable:
+            self.degraded_events.append(
+                f"grow denied at step {step}: manager unreachable")
+            return state
+        granted, rejected = self._bind_new_workers(granted)
+        if rejected:
+            self.degraded_events.append(
+                f"grant rejected (no free stage-buffer slot): {rejected}")
+            self._jm_release(rejected)
         if not granted:
             return state
         target = state.stages + len(granted)

@@ -44,6 +44,22 @@ straggler detector (which consumes them) is built only with
   python -m repro_torch.launch.train --steps 20 --ckpt-dir ck \
       --ckpt-every 8 --in-step-timing --async-controller --async-drain
   python -m repro_torch.launch.train --resume ck
+
+The cluster layer (``Session.train``'s): ``--autoscale`` runs a heartbeat
+monitor on the step clock and the autoscaler over it — a worker that stops
+beating is evicted, a revived one (``--simulate-recover K`` revives every
+idle worker at step K) is grown back, and ``--autoscale-watermark`` adds
+the throughput watermark.  ``--job-manager file|http`` puts the worker
+pool behind a manager process: releases and grants cross an RPC boundary,
+and while the manager is unreachable the engine defers its bookkeeping
+and replays it in order (``degraded_events``).  ``--tenant-id`` /
+``--priority`` register the run with a shared HTTP manager's cluster
+scheduler (``--manager-url``): each step polls its directives — a
+preemption becomes a shrink at the safe point, an offer is absorbed.
+
+  python -m repro_torch.launch.train --stages 4 --dynamism pruning \
+      --repack --async-controller --autoscale --simulate-recover 18 \
+      --job-manager file
 """
 from __future__ import annotations
 
@@ -51,13 +67,15 @@ import argparse
 import dataclasses
 import time
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.checkpoint.safepoint import SafepointManager, peek
+from repro_torch.cluster.autoscaler import Autoscaler, AutoscalerConfig
+from repro_torch.cluster.rpc import JobManagerUnavailable
 from repro_torch.cluster.service import ControlPlane, StatsSnapshot
 from repro_torch.configs.base import DistConfig, get_config, reduced_config
 from repro_torch.core.controller import ControllerConfig, DynMoController
@@ -66,16 +84,17 @@ from repro_torch.data.loader import DataConfig, make_loader
 from repro_torch.dynamics import pruning as prn
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.dynamics.trajectories import zhu_gupta_sparsity
+from repro_torch.launch import cluster
 from repro_torch.launch.engine import ElasticEngine
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.pipeline.pipeline import PipelineShapes
-from repro_torch.runtime.fault_tolerance import StragglerDetector
+from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
+                                                 StragglerDetector,
+                                                 WorkerPool)
 
 # flags of features not in the port yet: accepted so they fail loudly
 _NOT_IN_SLICE = {
-    "autoscale": "autoscaling (ROADMAP Queue 1 [cluster])",
     "chaos": "fault injection (ROADMAP Queue 1 [faults-obs])",
-    "simulate_recover": "heartbeat recovery (ROADMAP Queue 1 [cluster])",
 }
 
 
@@ -155,11 +174,21 @@ def build_parser() -> argparse.ArgumentParser:
       help="resume from the newest complete safe point in this directory; "
            "it carries the run's flags, so every other flag but --device "
            "is ignored")
-    # not in the port yet: accepted so they fail loudly, never ignored
-    for flag in ("--autoscale", "--chaos"):
-        a(flag, action="store_true")
-    a("--simulate-recover", default=None)
-    a("--job-manager", default="inproc")
+    # cluster.*
+    a("--autoscale", action="store_true",
+      help="signal-driven shrink / grow: heartbeat failures and "
+           "recoveries (+ the throughput watermark with "
+           "--autoscale-watermark)")
+    a("--autoscale-watermark", action="store_true",
+      help="also scale on the per-worker throughput watermark")
+    a("--heartbeat-timeout", type=float, default=3.0,
+      help="missed-beat timeout in steps (simulated clock)")
+    a("--simulate-recover", type=int, default=None,
+      help="revive all non-active workers at this step (heartbeat "
+           "recovery)")
+    cluster.add_cluster_flags(ap)
+    # not in the port yet: accepted so it fails loudly, never ignored
+    a("--chaos", action="store_true")
     a("--device", default=None,
       help="cuda (default) or cpu (the kernels' plain versions)")
     return ap
@@ -192,10 +221,10 @@ def check_slice(args) -> None:
     for name, what in _NOT_IN_SLICE.items():
         if getattr(args, name):
             raise NotImplementedError(f"{what} is not in repro_torch yet")
-    if args.job_manager != "inproc":
-        raise NotImplementedError(
-            "job managers other than the in-process one are not in "
-            "repro_torch yet (ROADMAP Queue 1 [cluster])")
+    cluster.check_cluster_flags(args)
+    if args.heartbeat_timeout <= 0:
+        raise ValueError(f"--heartbeat-timeout must be > 0, got "
+                         f"{args.heartbeat_timeout}")
     if args.ckpt_every and not args.ckpt_dir:
         raise ValueError("--ckpt-every requires --ckpt-dir (safe points "
                          "need a directory)")
@@ -231,12 +260,16 @@ def model_config(args):
 
 def run(argv: Optional[List[str]] = None, *, params=None,
         resume: Optional[str] = None,
-        resume_step: Optional[int] = None) -> Dict[str, Any]:
+        resume_step: Optional[int] = None,
+        on_step: Optional[Callable[[int, "cluster.JobManager"], None]] = None
+        ) -> Dict[str, Any]:
     """Run the training loop; returns the report dict.  ``params`` (a
     converted reference tree) replaces the engine's own init.  ``resume``
     (a safe-point directory) and ``resume_step`` continue a run from its
     newest complete safe point, or from the one of ``resume_step``, as
-    ``Session.resume(dir, step)`` does."""
+    ``Session.resume(dir, step)`` does.  ``on_step(step, job_manager)``
+    runs after each step's safe point (where the reference's fault
+    injector fires: a test stops and restarts the manager there)."""
     args, resume_idx = resume_args(argv, resume, resume_step)
     check_slice(args)
     straggler = parse_straggler(args.straggler)
@@ -253,21 +286,47 @@ def run(argv: Optional[List[str]] = None, *, params=None,
                             expert_relayout=args.expert_relayout,
                             expert_watermark=args.expert_watermark,
                             expert_min_tokens=args.expert_min_tokens)
-    steps, seq, stages = args.steps, args.seq, args.stages
+    stages = args.stages
     shapes = PipelineShapes(num_micro=args.num_micro,
-                            mb_global=args.mb_global, seq=seq)
-    tokens_per_step = args.num_micro * args.mb_global * seq
-    grow_back = args.grow_back
-    if grow_back is not None:
+                            mb_global=args.mb_global, seq=args.seq)
+    if args.grow_back is not None:
         warnings.warn(
             "cluster.grow_back / --grow-back is deprecated: fixed-step "
             "re-expansion is superseded by signal-driven scaling "
             "(cluster.autoscale / --autoscale)", DeprecationWarning,
             stacklevel=2)
 
-    engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, device=args.device,
-                           in_step_timing=args.in_step_timing)
-    start_step, restore_s, restore_mem, rmeta = 0, None, None, {}
+    rmeta = resume_idx["meta"] if resume_idx is not None else {}
+    log = cluster.EventLog()
+    jm = cluster.connect(args.job_manager, workers=stages, spares=args.spares,
+                         job_manager_dir=args.job_manager_dir,
+                         manager_url=args.manager_url,
+                         pool_state=(rmeta.get("pool")
+                                     if args.job_manager == "file" else None),
+                         rpc_timeout_s=args.rpc_timeout_s)
+    pool = None
+    if jm.client is None and resume_idx is None and args.spares:
+        pool = WorkerPool(stages, spares=args.spares)
+    engine = None
+    try:
+        engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, pool=pool,
+                               job_manager=jm.client, device=args.device,
+                               in_step_timing=args.in_step_timing)
+        return _train(args, resume_idx, rmeta, params, cfg, dcfg, dyncfg,
+                      shapes, straggler, engine, jm, log, on_step)
+    finally:
+        jm.close(engine)
+
+
+def _train(args, resume_idx, rmeta, params, cfg, dcfg, dyncfg, shapes,
+           straggler, engine, jm, log, on_step) -> Dict[str, Any]:
+    """The loop of ``run`` on a connected job manager and a built
+    engine."""
+    steps, seq, stages = args.steps, args.seq, args.stages
+    tokens_per_step = args.num_micro * args.mb_global * seq
+    grow_back = args.grow_back
+    repack_target = max(1, args.repack_target)
+    start_step, restore_s, restore_mem = 0, None, None
     if resume_idx is not None:
         # rebuild the world the run was in at its safe point (stage count,
         # split, workers, pool, epoch) and load the shards into it
@@ -277,14 +336,23 @@ def run(argv: Optional[List[str]] = None, *, params=None,
         restore_s = time.perf_counter() - t_restore
         restore_mem = _allocated(engine)
         start_step = int(resume_idx["step"]) + 1
-        rmeta = resume_idx["meta"]
     else:
-        state = engine.init_state(args.seed, with_opt=True, params=params)
+        granted = cluster.register_tenant(
+            jm, args.tenant_id, priority=args.priority, kind="train",
+            workers=stages, max_workers=stages, min_workers=repack_target,
+            log=log)
+        if granted is not None:
+            # train on exactly the granted workers (arbitrary ids: another
+            # tenant may hold 0..k)
+            engine.bind_workers(granted)
+        state = engine.init_state(args.seed, with_opt=True, params=params,
+                                  stages=(len(granted) if granted is not None
+                                          else None))
     ccfg = ControllerConfig(method=args.balancer,
                             rebalance_every=args.rebalance_every,
                             repack=args.repack,
                             repack_policy=args.repack_policy,
-                            repack_target=max(1, args.repack_target),
+                            repack_target=repack_target,
                             expert_relayout=dyncfg.expert_relayout,
                             expert_watermark=dyncfg.expert_watermark,
                             expert_min_tokens=dyncfg.expert_min_tokens)
@@ -306,6 +374,19 @@ def run(argv: Optional[List[str]] = None, *, params=None,
                       epoch_fn=lambda: engine.epoch)
     if resume_idx is not None:
         cp.rebind(engine.dcfg_for(state.stages), state.lps)
+
+    # ---- autoscaler: heartbeats (+ the throughput watermark); the monitor
+    # runs on a step-granular clock, so a run is deterministic
+    monitor = scaler = None
+    sim_clock = [0.0]
+    if args.autoscale:
+        monitor = HeartbeatMonitor(stages, timeout_s=args.heartbeat_timeout,
+                                   clock=lambda: sim_clock[0])
+        scaler = Autoscaler(AutoscalerConfig(
+            min_stages=repack_target, max_stages=stages,
+            watermark=args.autoscale_watermark), monitor)
+        if rmeta.get("scaler"):
+            scaler.load_state(rmeta["scaler"])
     loader = make_loader(cfg, DataConfig(args.num_micro, args.mb_global, seq,
                                          seed=args.seed),
                          start_step=start_step)
@@ -318,7 +399,23 @@ def run(argv: Optional[List[str]] = None, *, params=None,
 
     def after_resize(step: int, kind: str, mem_before) -> None:
         cp.rebind(engine.dcfg_for(state.stages), state.lps)
+        if scaler is not None:
+            scaler.note_resize(step, state.stages)
         rz = engine.resizes[-1]
+        if monitor is not None and rz.kind == "shrink":
+            # released workers leave the heartbeat set deliberately; a
+            # later revive is the recovery signal the autoscaler grows on
+            for w in rz.workers:
+                monitor.expire(w)
+        if monitor is not None and rz.kind == "grow":
+            # regranted workers must beat again (a later real death of the
+            # same worker would otherwise go unseen)
+            for w in rz.workers:
+                monitor.revive(w)
+        log.emit("resize", step, resize_kind=kind,
+                 from_stages=rz.from_stages, to_stages=rz.to_stages,
+                 workers=list(rz.workers), ticks_before=rz.ticks_before,
+                 ticks_after=rz.ticks_after)
         resize_mem.append({"step": step, "kind": rz.kind,
                            "allocated_before": mem_before,
                            "allocated_after": _allocated(engine)})
@@ -326,6 +423,14 @@ def run(argv: Optional[List[str]] = None, *, params=None,
               f"{rz.to_stages} stages; workers {rz.workers}; "
               f"pool active={engine.jm.num_active}; schedule "
               f"{rz.ticks_before}->{rz.ticks_after} ticks", flush=True)
+
+    # multi-tenant: poll the cluster scheduler's directive mailbox each
+    # step (preempt = shrink at this safe point; offer = absorb free
+    # workers back)
+    multi_tenant = bool(jm.client is not None and args.tenant_id
+                        and getattr(jm.client, "tenant", None))
+    last_cluster_resize = start_step - 1
+    absorb_cooldown = max(1, args.rebalance_every)
 
     losses, gnorms, events, step_times, stages_hist = [], [], [], [], []
     resize_mem: List[Dict[str, Any]] = []
@@ -381,6 +486,18 @@ def run(argv: Optional[List[str]] = None, *, params=None,
                 state.dyn = {**state.dyn,
                              "frozen": state.dyn["frozen"].new_tensor(fr)}
 
+            # ---- heartbeats (simulated per-step liveness: active workers
+            # beat; released / dead ones go silent and time out)
+            if monitor is not None:
+                sim_clock[0] = float(step)
+                for w in engine.stage_workers:
+                    monitor.beat(w)
+                if (args.simulate_recover is not None
+                        and step == args.simulate_recover):
+                    for w in range(stages):
+                        if w not in engine.stage_workers:
+                            monitor.revive(w)
+
             # ---- publish stats to the control plane on cadence (the only
             # device -> host stats sync; in async mode a pointer swap)
             if ctrl.cadence(step + 1):
@@ -429,6 +546,40 @@ def run(argv: Optional[List[str]] = None, *, params=None,
                         lambda c: c.expected_loads)
                 decide_s += time.perf_counter() - t_decide
 
+            # ---- cluster-scheduler directives (multi-tenant): a steal by
+            # a higher-priority tenant arrives as a preemption and becomes
+            # an externally originated shrink in the same epoch-fenced
+            # mailbox, applied at this step's safe point just below.
+            # Level-triggered: a directive fenced off is re-delivered
+            if multi_tenant:
+                try:
+                    directives = jm.client.poll_cluster()
+                except (JobManagerUnavailable, RuntimeError):
+                    directives = None
+                if directives and directives["preempt"] > 0:
+                    target = max(repack_target,
+                                 state.stages - directives["preempt"])
+                    if target < state.stages:
+                        cp.inject_resize(engine.epoch, target)
+                        last_cluster_resize = step
+                        log.emit("preempt", step,
+                                 due=directives["preempt"],
+                                 target_stages=target)
+                elif (directives and directives["offer"] > 0
+                        and state.stages < stages
+                        and step - last_cluster_resize >= absorb_cooldown):
+                    prev = state.stages
+                    mem_before = _allocated(engine)
+                    state = engine.grow(
+                        state, min(directives["offer"],
+                                   stages - state.stages), step=step)
+                    if state.stages > prev:   # the scheduler may grant none
+                        cp.with_ctrl(
+                            lambda c: setattr(c.ccfg, "repack", False))
+                        after_resize(step, "absorb", mem_before)
+                        log.emit("absorb", step, workers=state.stages - prev)
+                        last_cluster_resize = step
+
             # ---- safe point: apply the newest finished plan (epoch-
             # fenced: a plan decided against a pre-resize world is
             # rejected)
@@ -469,6 +620,35 @@ def run(argv: Optional[List[str]] = None, *, params=None,
                     print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
                           f"{rl.moved_experts} experts -> "
                           f"{list(rl.new.placement)}", flush=True)
+            # ---- autoscaler: heartbeat + watermark signals
+            if scaler is not None:
+                d = scaler.observe(step, step_times[-1], state.stages,
+                                   engine.stage_workers, tokens_per_step)
+                if d.action != "none":
+                    log.emit("autoscale", step, action=d.action,
+                             workers=d.workers, reason=d.reason,
+                             ids=list(d.ids))
+                if d.action == "evict":
+                    mem_before = _allocated(engine)
+                    state = engine.evict(state, d.ids, step=step)
+                    after_resize(step, "evict", mem_before)
+                elif d.action == "grow" and state.stages < stages:
+                    prev = state.stages
+                    mem_before = _allocated(engine)
+                    state = engine.grow(state, d.workers, step=step)
+                    if state.stages > prev:   # the pool may grant nothing
+                        # granted workers stay for this job: stop planning
+                        # resizes so ordinary rebalancing keeps running
+                        cp.with_ctrl(
+                            lambda c: setattr(c.ccfg, "repack", False))
+                        after_resize(step, "grow", mem_before)
+                elif d.action == "shrink" and state.stages > repack_target:
+                    mem_before = _allocated(engine)
+                    state = engine.shrink(
+                        state, max(repack_target, state.stages - d.workers),
+                        step=step)
+                    after_resize(step, "shrink[watermark]", mem_before)
+
             # ---- legacy fixed-step growth (deprecated)
             if (grow_back and engine.last_shrink_step is not None
                     and state.stages < stages
@@ -486,12 +666,19 @@ def run(argv: Optional[List[str]] = None, *, params=None,
                                 state.dyn, state.lps)
             if safept is not None and safept.due(step):
                 t_sp = time.perf_counter()
-                safept.save(step, state, args=saved_args, engine=engine,
-                            repack_enabled=cp.with_ctrl(
-                                lambda c: bool(c.ccfg.repack)))
+                path = safept.save(step, state, args=saved_args,
+                                   engine=engine, scaler=scaler,
+                                   repack_enabled=cp.with_ctrl(
+                                       lambda c: bool(c.ccfg.repack)),
+                                   jm_dir=jm.run_dir)
                 safepoint_s.append(time.perf_counter() - t_sp)
+                log.emit("safepoint", step, path=path, stages=state.stages)
+            if on_step is not None:
+                on_step(step, jm)
             gnorms.append(float(gnorm))
             if step % args.log_every == 0:
+                log.emit("log", step, loss=float(loss), gnorm=float(gnorm),
+                         stages=state.stages, lps=list(state.lps))
                 ee = ""
                 if "exited_frac" in stats:
                     # early exit's share of exited tokens: a host read on
@@ -520,6 +707,12 @@ def run(argv: Optional[List[str]] = None, *, params=None,
         "safepoint_s": safepoint_s, "restore_s": restore_s,
         "restore_allocated": restore_mem,
     }
+    log.emit("train_summary", steps - 1,
+             loss_first=losses[0] if losses else None,
+             loss_last=losses[-1] if losses else None, wall_s=wall,
+             resizes=len(engine.resizes), final_stages=state.stages)
+    if args.events_out:
+        log.write(args.events_out)
     return {
         "losses": losses, "gnorms": gnorms, "events": events,
         "wall_s": wall, "final_lps": list(state.lps),
@@ -529,6 +722,8 @@ def run(argv: Optional[List[str]] = None, *, params=None,
         "step_times": step_times, "stages_history": stages_hist,
         "final_stages": state.stages, "timing": timing,
         "resizes": [dataclasses.asdict(e) for e in engine.resizes],
+        # the pool's transitions; behind an RPC boundary, the client's
+        # mirror of them
         "pool_log": list(engine.jm.log),
         # torch.cuda.memory_allocated around each resize (None on the CPU)
         "resize_memory": resize_mem,
@@ -556,6 +751,16 @@ def run(argv: Optional[List[str]] = None, *, params=None,
         "resumed_from": (int(resume_idx["step"])
                          if resume_idx is not None else None),
         "safepoints": list(safept.saved) if safept is not None else [],
+        # the cluster layer
+        "autoscale_decisions": ([dataclasses.asdict(d)
+                                 for d in scaler.decisions]
+                                if scaler is not None else []),
+        "degraded_events": list(engine.degraded_events),
+        "rpc": ({"stats": dict(jm.client.rpc_stats),
+                 "breaker": jm.client.breaker.state_dict()}
+                if jm.client is not None else None),
+        # the structured telemetry stream (--events-out)
+        "session_events": log.events,
         "device": str(engine.device), "args": vars(args),
     }
 
@@ -578,7 +783,8 @@ def main(argv=None):
     print(f"done: loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f} "
           f"in {out['wall_s']:.1f}s; rebalances={len(out['events'])}; "
           f"final lps={out['final_lps']}; controller[{ctl['mode']}] "
-          f"decided={ctl['decided']}; relayouts={len(out['relayouts'])}")
+          f"decided={ctl['decided']}; relayouts={len(out['relayouts'])}; "
+          f"final stages={out['final_stages']}")
     for ev in out["events"]:
         print(f"  rebalance @iter {ev.iteration}: imbalance "
               f"{ev.imbalance_before:.3f} -> {ev.imbalance_after:.3f}, "

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import BLOCK_PAD, DistConfig, ModelConfig
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.models import model as M
+from repro_torch.pipeline import sampling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +64,7 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                     paged: bool = False, temperature: float = 0.0,
                     num_micro: Optional[int] = None, hash_proj=None):
     """Returns decode_fn(params, assignment, dyn, cache, tokens, pos[,
-    page_table]) -> (next_ids [m, B] i32, logprobs [m, B] f32, cache,
+    page_table][, seeds]) -> (next_ids [m, B] i32, logprobs [m, B] f32, cache,
     moe_drop_sum f32 — the MoE capacity-drop fractions summed over every
     slot of every valid tick, 0 for non-MoE archs).
 
@@ -76,13 +77,13 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
 
     ``num_micro``: the live microbatch count; the tick loop runs only
     ``num_micro + S - 1`` ticks (inputs and outputs keep their full
-    [num_micro_full, B] shapes)."""
+    [num_micro_full, B] shapes).
+
+    ``temperature`` > 0 samples each lane from ``softmax(logits / T)``
+    (``pipeline.sampling``: Philox keyed by the lane's ``seeds`` [m, B]
+    int32, Gumbel-max); the logprob stays the untempered ``log_softmax``
+    at the chosen id.  0 keeps the argmax."""
     M.check_ported(cfg, dyncfg)
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 sampling is not in repro_torch yet (ROADMAP "
-            "Queue 1 [serve-sampling]: a Philox sampler replaces jax's "
-            "PRNG)")
     S = dcfg.num_stages
     dt = M.param_dtype(dcfg)
     m_live = shapes.num_micro if num_micro is None else num_micro
@@ -91,11 +92,14 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                          f"{shapes.num_micro}]")
 
     def decode_fn(params, assignment, dyn, cache, tokens, pos,
-                  page_table=None):
+                  page_table=None, seeds=None):
         per_lane = pos.dim() == 2
         if paged and (not per_lane or page_table is None):
             raise ValueError("paged decode requires per-lane positions and "
                              "a page table")
+        if (temperature > 0.0) != (seeds is not None):
+            raise ValueError("per-lane seeds are required iff temperature "
+                             "> 0")
         device = tokens.device
         tags = assignment["tags"].tolist()
         B = shapes.mb_global
@@ -131,10 +135,14 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                 drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:
                 logits = M.lm_logits(params, cfg, carry["x"][:, 0])
-                nid = torch.argmax(logits, dim=-1)
-                lp = torch.log_softmax(logits, dim=-1)
-                ids_out[mi] = nid.to(torch.int32)
-                lp_out[mi] = lp.gather(-1, nid[:, None])[:, 0]
+                if temperature > 0.0:
+                    ids_out[mi], lp_out[mi] = sampling.sample(
+                        logits, seeds[mi], temperature)
+                else:
+                    nid = torch.argmax(logits, dim=-1)
+                    lp = torch.log_softmax(logits, dim=-1)
+                    ids_out[mi] = nid.to(torch.int32)
+                    lp_out[mi] = lp.gather(-1, nid[:, None])[:, 0]
             else:
                 buf[idx + 1] = carry          # the ring roll
         return ids_out, lp_out, cache, drop
@@ -184,6 +192,8 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
             if cfg.num_experts:
                 drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:
+                # the first token is the argmax even when decode samples
+                # (as the reference's prefill emits it)
                 logits = M.lm_logits(params, cfg, carry["x"][:, -1])
                 ids_out[mi] = torch.argmax(logits, dim=-1).to(torch.int32)
             else:

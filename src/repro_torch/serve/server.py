@@ -9,9 +9,15 @@ live lane at its own position and, on cadence, defragments the lanes.
 Resizes happen at the safe point between ticks: no microbatch is in
 flight, so the engine's re-split carries every lane's KV (dense lines or
 the page pool; the page tables are host-side and stay) onto the new stage
-count bit for bit.  ``serve(resize_at=...)`` scripts them; load-driven
-autoscaling and worker crashes wait for ROADMAP Queue 1 [cluster] and
-[faults-obs].  The report keeps every key of the reference's.
+count bit for bit.  ``serve(resize_at=...)`` scripts them;
+``serve(autoscale=True)`` lets the attached ``cluster.autoscaler`` drive
+them from load (queue depth, lane and page occupancy, an optional latency
+SLO): a grow asks the job manager for workers (an urgent one steals on a
+multi-tenant manager), a shrink releases them through the same
+``JobManagerClient`` boundary the trainer uses.  At temperature > 0 every
+lane samples with its own seed (the scheduler's ``sample_seed``).  Worker
+crashes wait for ROADMAP Queue 1 [faults-obs].  The report keeps every key
+of the reference's.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.cluster.autoscaler import Autoscaler
+from repro_torch.cluster.rpc import JobManagerClient
 from repro_torch.configs.base import DistConfig, ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.dynamics.config import DynamicsConfig
@@ -56,20 +64,36 @@ def _pct(xs: Sequence[float], q: float) -> float:
 
 
 class ElasticServer:
-    """Continuous-batching inference on one fixed stage count."""
+    """Continuous-batching inference with live worker elasticity."""
 
     def __init__(self, cfg: ModelConfig, dcfg: DistConfig,
                  dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
+                 job_manager: Optional[JobManagerClient] = None,
+                 scaler: Optional[Autoscaler] = None, min_stages: int = 1,
+                 initial_workers: Optional[Sequence[int]] = None,
                  eos_id: Optional[int] = None, defrag_every: int = 0,
                  seed: int = 0, paged=None, temperature: float = 0.0,
                  device: DeviceLike = None, params=None):
         assert shapes.cache_len >= shapes.seq, "cache must hold the prompt"
         self.paged = paged
+        self.temperature = float(temperature)
+        self.seed = seed
         self.engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, paged=paged,
+                                    job_manager=job_manager,
                                     temperature=temperature, device=device)
+        stages = None
+        if initial_workers is not None:
+            # multi-tenant start: serve on exactly the workers the cluster
+            # scheduler granted (arbitrary ids, possibly fewer than the
+            # maximum stage count)
+            self.engine.bind_workers([int(w) for w in initial_workers])
+            stages = len(list(initial_workers))
         self.state = self.engine.init_state(seed, with_cache=True,
-                                            params=params)
+                                            params=params, stages=stages)
         self.shapes = shapes
+        self.scaler = scaler
+        self.min_stages = max(1, min_stages)
+        self.max_stages = dcfg.num_stages
         self.eos_id = eos_id
         self.defrag_every = defrag_every
         # prefill scratch: a dense cache prefill writes whole lanes into
@@ -77,17 +101,23 @@ class ElasticServer:
         # rebuilt when the stage count changes
         self._scratch = None
 
+    def close(self) -> None:
+        self.engine.close()
+
     # -- safe-point resize ---------------------------------------------------
-    def resize(self, target_stages: int, tick: int, reason: str) -> bool:
+    def resize(self, target_stages: int, tick: int, reason: str,
+               steal: bool = False) -> bool:
         """Shrink or grow between decode ticks.  Returns True if the world
-        changed (the job manager may deny a grow)."""
+        changed (the job manager may deny a grow).  ``steal`` lets an
+        urgent grow preempt a lower-priority tenant through the cluster
+        scheduler (a plain request on a single-tenant manager)."""
         prev = self.state.stages
         if target_stages < prev:
             self.state = self.engine.shrink(self.state, target_stages,
                                             step=tick)
         elif target_stages > prev:
             self.state = self.engine.grow(self.state, target_stages - prev,
-                                          step=tick)
+                                          step=tick, steal=steal)
         changed = self.state.stages != prev
         if changed:
             self._scratch = None      # the old world's scratch goes too
@@ -95,6 +125,8 @@ class ElasticServer:
             print(f"tick {tick:4d} {rz.kind.upper()} {rz.from_stages}->"
                   f"{rz.to_stages} stages ({reason}); workers {rz.workers}; "
                   f"pool active={self.engine.jm.num_active}")
+            if self.scaler is not None:
+                self.scaler.note_resize(tick, self.state.stages)
         return changed
 
     # -- main loop ------------------------------------------------------------
@@ -102,11 +134,8 @@ class ElasticServer:
               resize_at: Optional[Dict[int, int]] = None,
               autoscale: bool = False) -> Dict[str, Any]:
         """Drive the request trace to completion.  ``resize_at`` scripts
-        {tick: target_stages} safe-point resizes."""
-        if autoscale:
-            raise NotImplementedError(
-                "load-driven serving autoscaling is not in repro_torch yet "
-                "(ROADMAP Queue 1 [cluster])")
+        {tick: target_stages} safe-point resizes; ``autoscale`` lets the
+        attached scaler drive them from load."""
         alloc = None
         if self.paged is not None:
             from repro_torch.serve.kv import PageAllocator
@@ -118,7 +147,9 @@ class ElasticServer:
         sched = Scheduler(self.shapes.num_micro, self.shapes.mb_global,
                           self.shapes.seq, self.shapes.cache_len,
                           RequestQueue(requests), eos_id=self.eos_id,
-                          defrag_every=self.defrag_every, allocator=alloc)
+                          defrag_every=self.defrag_every, allocator=alloc,
+                          sample_seed=(self.seed if self.temperature > 0
+                                       else None))
         m, B = self.shapes.num_micro, self.shapes.mb_global
         resizes_before = len(self.engine.resizes)
         tick = 0
@@ -165,6 +196,7 @@ class ElasticServer:
                 ids, _lp = self.engine.decode(self.state, dec.tokens,
                                               dec.pos,
                                               page_table=dec.page_table,
+                                              seeds=dec.seeds,
                                               live_micros=mlive)
                 sched.note_decode(dec, ids.cpu().numpy(), tick)
                 emitted += len(dec.lanes)
@@ -195,6 +227,24 @@ class ElasticServer:
             # ---- safe point: the tick's flight is fully retired
             if resize_at and tick in resize_at:
                 self.resize(resize_at[tick], tick, "scripted")
+            elif autoscale and self.scaler is not None:
+                # latency signal = p95 per-token over the recent window
+                # (what AutoscalerConfig.latency_slo_s is specified
+                # against), never the raw tick wall
+                recent = token_lat[-64:]
+                d = self.scaler.observe_load(
+                    tick, self.state.stages, queue_depth=sched.queue_depth,
+                    occupancy=sched.occupancy,
+                    latency_s=_pct(recent, 95) if recent else 0.0,
+                    page_occupancy=sched.page_occupancy)
+                if d.action == "shrink":
+                    self.resize(max(self.min_stages,
+                                    self.state.stages - d.workers),
+                                tick, d.reason)
+                elif d.action == "grow":
+                    self.resize(min(self.max_stages,
+                                    self.state.stages + d.workers),
+                                tick, d.reason, steal=d.urgent)
             tick += 1
         wall_s = time.perf_counter() - t_run
         total_tokens = sum(len(r.tokens) for r in sched.completions)
@@ -214,7 +264,9 @@ class ElasticServer:
             "resizes": [dataclasses.asdict(e)
                         for e in self.engine.resizes[resizes_before:]],
             "pool_log": list(self.engine.jm.log),
-            "autoscale_decisions": [],
+            "autoscale_decisions": (
+                [dataclasses.asdict(d) for d in self.scaler.decisions]
+                if self.scaler is not None else []),
             "requeued_total": sched.requeued_total,
             "total_tokens": total_tokens,
             "wall_s": wall_s,

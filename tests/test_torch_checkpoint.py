@@ -212,8 +212,14 @@ def test_worker_pool_state_round_trip():
     want = ref.state_dict()
     assert {k: v for k, v in sd.items() if k != "log"} == want
     assert RefPool.from_state(sd).state_dict() == want
-    with pytest.raises(NotImplementedError, match="spare"):
-        WorkerPool.from_state({**want, "spares": 2})
+    # a pool with spare machines round-trips too (fresh ids minted past
+    # next_id when the released ones run out)
+    spare = WorkerPool.from_state({**want, "spares": 2})
+    assert spare.spares == 2 and spare.request(3) == [3, 4, 5]
+    assert {k: v for k, v in spare.state_dict().items() if k != "log"} \
+        == RefPool.from_state({**want, "spares": 2}).state_dict() | {
+            "active": [0, 2, 3, 4, 5], "released": [],
+            "provisioned": [4, 5], "next_id": 6}
 
 
 def test_shards_equal_the_references_key_by_key(tmp_path):

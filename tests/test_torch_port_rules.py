@@ -5,8 +5,9 @@
   neither) — checked in the source and in ``sys.modules`` after a CPU
   serve and a CPU train, of smollm and of the MoE slice (reduced Mixtral
   through the grouped-matmul kernels, the expert layout and the Mixtral
-  config), and after a checkpointed train, its ``--resume`` and a run
-  with ``--async-controller``.
+  config), after a checkpointed train, its ``--resume`` and a run
+  with ``--async-controller``, and after an autoscaled train and a
+  sampling, autoscaled serve behind file and HTTP job managers.
 * ``chip_smoke.py``'s MoE phases require K4 and K5 launches, its serve
   phase every K6 launch split; its K6 bound counts the live pages.
 * Entry points run on CUDA and raise without a card unless the caller asks
@@ -147,6 +148,43 @@ def test_cpu_checkpointed_async_train_imports_no_jax_and_no_reference(
     assert "CLEAN 2" in out.stdout
 
 
+CLUSTER_MODULES = ("repro_torch.cluster.autoscaler",
+                   "repro_torch.cluster.scheduler",
+                   "repro_torch.cluster.http_rpc",
+                   "repro_torch.launch.cluster", "repro_torch.obs.events",
+                   "repro_torch.pipeline.sampling")
+
+
+def test_cpu_cluster_and_sampling_import_no_jax_and_no_reference():
+    """``--autoscale --simulate-recover`` training behind a file manager
+    and a sampling (``--temperature``), autoscaled serve behind a private
+    HTTP manager run in the port and load the cluster, event and sampling
+    modules and nothing of jax or the reference."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.serve import run as serve\n"
+        "from repro_torch.launch.train import run as train\n"
+        f"rep = train({TRAIN_ARGS + ['--device', 'cpu']!r} + ['--steps', "
+        "'6', '--autoscale', '--simulate-recover', '4', '--job-manager',"
+        " 'file', '--rpc-timeout-s', '20'])\n"
+        "assert len(rep['losses']) == 6 and rep['rpc'] is not None\n"
+        f"srv = serve({SERVE_ARGS + ['--device', 'cpu']!r} + ["
+        "'--temperature', '0.7', '--autoscale', '--job-manager', 'http',"
+        " '--rpc-timeout-s', '20'])\n"
+        "assert len(srv['completions']) == 6\n"
+        "assert srv['args']['temperature'] == 0.7\n"
+        f"{BAD_CHECK}"
+        "assert not bad, bad\n"
+        f"missing = [m for m in {CLUSTER_MODULES!r} if m not in "
+        "sys.modules]\n"
+        "assert not missing, missing\n"
+        "print('CLEAN', srv['rpc']['stats']['calls'] > 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN True" in out.stdout
+
+
 def test_forbidden_imports_pattern():
     for line in ("import jax", "from jax import numpy", "import repro",
                  "from repro.core import x", "import msgpack",
@@ -196,7 +234,8 @@ def test_no_jax_or_reference_imports_in_the_port():
         REPO / "chip_smoke.py"]
     assert len(files) > 20
     names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
-    for mod in MOE_MODULES + ELASTIC_MODULES + CKPT_MODULES:
+    for mod in (MOE_MODULES + ELASTIC_MODULES + CKPT_MODULES
+                + CLUSTER_MODULES):
         assert mod.replace(".", "/") + ".py" in names, mod
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
@@ -238,24 +277,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--job-manager", "file"], "job managers"),
-    (["--job-manager", "http"], "job managers"),
-    (["--temperature", "0.7"], "temperature"),
-    (["--autoscale"], "autoscal"),
     (["--chaos"], "fault"),
+    (["--chaos", "--job-manager", "file"], r"faults-obs"),
 ])
 def test_features_outside_the_slice_raise(extra, what):
     from repro_torch.launch.serve import run
     with pytest.raises(NotImplementedError, match=what):
         run(SERVE_ARGS + ["--device", "cpu"] + extra)
+    # the legacy one-shot generator (no --elastic) is not ported either
+    with pytest.raises(NotImplementedError, match="one-shot"):
+        run([a for a in SERVE_ARGS if a != "--elastic"]
+            + ["--device", "cpu"] + extra)
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--autoscale"], "autoscal"),
-    (["--job-manager", "file"], "job managers"),
     (["--chaos"], "fault"),
-    (["--simulate-recover", "3"], "heartbeat"),
-    (["--job-manager", "http"], "job managers"),
+    (["--chaos", "--autoscale"], r"faults-obs"),
     (["--arch", "mixtral-8x7b", "--dynamism", "pruning"], "moe"),
 ])
 def test_train_features_outside_the_slice_raise(extra, what):
@@ -539,9 +576,10 @@ def test_roadmap_tags_in_the_port_are_current_items():
     ``NotImplementedError`` message, a flag table or a docstring — is an
     item of ROADMAP.md's Queue 1, so a user who follows it finds it."""
     items = _roadmap_items()
-    assert {"cluster", "faults-obs", "serve-sampling", "moe-rest",
-            "block-families"} <= items, items
-    assert not {"checkpoint", "control-timing", "sim-data"} & items, items
+    assert {"api", "faults-obs", "moe-rest", "block-families"} <= items, \
+        items
+    assert not {"checkpoint", "control-timing", "sim-data", "cluster",
+                "serve-sampling"} & items, items
     stale, seen = [], 0
     for path, line, text in _port_strings():
         if "ROADMAP" not in text:
