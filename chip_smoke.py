@@ -127,8 +127,9 @@ final line:
                roomier of TMPDIR and build/, deleted at the end): safe
                points after step 7 (4 buffers) and 15 (2, after the
                controller's shrink at 14); then resumed from 15 and from 7
-               (which must prune at 10 and shrink at 14 on its own
-               decision): both tails' losses, resizes, pool log, final
+               through Session.resume (the resumed RunSpec must equal the
+               one that wrote the safe point; 7 must prune at 10 and
+               shrink at 14 on its own decision): both tails' losses, resizes, pool log, final
                params and Adam moments bitwise the uninterrupted run's (on
                a difference the phase names the first differing step and
                the largest leaf difference, runs the uninterrupted run
@@ -200,6 +201,20 @@ final line:
                metrics verb replays to its own books with no worker held
                twice; each process's launch counts (K1-K3 on the tensor
                cores, K6 split) and peak memory;
+  4q. front door — (i) train_args()'s RunSpec written by the train CLI's
+               --dump-config, 6 steps trained from it through the train
+               CLI's --config: losses bitwise 4c's first 6, the same
+               rebalance events, K1-K3 at 4c's counts a step on the tensor
+               cores; (ii) phase 4's serve written the same way and served
+               by Session(RunSpec.load(path)).serve(): tokens identical to
+               phase 4's, K1, K3 and K6 launched, every K6 launch split;
+               (iii) the one-shot run_serving at full width (1 stage,
+               micro 2, mb 4, prompt 1024, gen 32) token-identical to
+               ElasticServer on the same batch arriving at once, its
+               tokens/s printed; (iv) the six configs/scenarios/*.json, 3
+               steps each on the card (CPU scale, the scan path); (v)
+               phase 4k resumed both safe points through Session.resume
+               with the RunSpec that wrote them;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
   5b. train parity — loss and every gradient of one training step (full
@@ -236,7 +251,13 @@ final line:
      and eager times and bounds, "launches_split" its split launches in
      the serve), the card line, and the last line {"ok": true, "device":
      {...}}; launches_sample_serve, launches_autoscale_train,
-     launches_autoscale_serve and launches_tenants are phases 4m-4p's.
+     launches_autoscale_serve, launches_tenants and launches_api are
+     phases 4m-4q's.
+
+Every phase drives the port through its front door (``repro_torch.api``:
+the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
+the reference's, cut the arch to 8 layers unless told otherwise, so every
+full-size phase passes ``--set model.layers=null`` (``FULL_SIZE``).
 
     python3 chip_smoke.py --k6-time ROOT
 
@@ -266,9 +287,14 @@ PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores (dense)
 PEAK_TF32_FLOPS = 495e12     # TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12         # HBM3
 
+# the port's CLIs, like the reference's, cut the arch to 8 layers unless
+# told otherwise: every full-size phase says so
+FULL_SIZE = ["--set", "model.layers=null"]
+
+
 def serve_args(requests: int):
     """The main path's CLI flags: full-width smollm-360m on one stage."""
-    return ["--elastic", "--stages", "1", "--micro", "2", "--mb-global", "4",
+    return FULL_SIZE + ["--elastic", "--stages", "1", "--micro", "2", "--mb-global", "4",
             "--prompt-len", "1024", "--gen", "32", "--requests",
             str(requests), "--kv-page-size", "16", "--prefix-cache",
             "--dynamism", "sparse_attention", "--kernel-impl", "pallas",
@@ -279,7 +305,7 @@ def train_args(steps: int = 15):
     """The training path's CLI flags: full-width smollm-360m, two stage
     buffers on the card, the prune at step 10, a rebalance cadence every 5
     steps under a 2x straggler on stage 1."""
-    return ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+    return FULL_SIZE + ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
             "--seq", "1024", "--steps", str(steps), "--rebalance-every", "5",
             "--straggler", "1:2.0", "--balancer", "diffusion",
             "--dynamism", "pruning", "--kernel-impl", "pallas",
@@ -314,7 +340,7 @@ def elastic_train_args(steps: int = 24):
     16 slots (``--slot-slack 8``: two merged stages' 16 layers must fit one
     buffer, or the repack policy can merge none), the prune at step 10,
     ``--repack`` at the default memory cap and ``--grow-back 5``."""
-    return ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
+    return FULL_SIZE + ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
             "--mb-global", "2", "--seq", "1024", "--steps", str(steps),
             "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
             "--grow-back", "5", "--kernel-impl", "pallas", "--param-dtype",
@@ -324,7 +350,7 @@ def elastic_train_args(steps: int = 24):
 def elastic_serve_args():
     """Phase 4i's serve flags: full-width smollm-360m on 4 stage buffers,
     paged KV (page 16), 8 requests with prompts of 512-1024 tokens."""
-    return ["--elastic", "--stages", "4", "--micro", "2", "--mb-global",
+    return FULL_SIZE + ["--elastic", "--stages", "4", "--micro", "2", "--mb-global",
             "4", "--prompt-len", "1024", "--gen", "32", "--requests", "8",
             "--kv-page-size", "16", "--kernel-impl", "pallas",
             "--param-dtype", "float32", "--seed", "0"]
@@ -338,7 +364,7 @@ def ee_train_args(kind: str, steps: int = 8):
     """Phase 4j's training flags: full-width smollm-360m, 2 stage buffers,
     ``--dynamism early_exit`` (or mod), the exited share logged every
     step."""
-    return ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+    return FULL_SIZE + ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
             "--seq", "1024", "--steps", str(steps), "--rebalance-every",
             "5", "--dynamism", kind, "--kernel-impl", "pallas",
             "--param-dtype", "float32", "--seed", "0", "--log-every", "1"]
@@ -347,7 +373,7 @@ def ee_train_args(kind: str, steps: int = 8):
 def ee_serve_args():
     """Phase 4j's serve flags: early exit in the prefill, half the
     requests tagged early_exit (short generations)."""
-    return ["--elastic", "--stages", "1", "--micro", "2", "--mb-global",
+    return FULL_SIZE + ["--elastic", "--stages", "1", "--micro", "2", "--mb-global",
             "4", "--prompt-len", "1024", "--gen", "32", "--requests", "8",
             "--kv-page-size", "16", "--dynamism", "early_exit",
             "--early-exit-frac", "0.5", "--kernel-impl", "pallas",
@@ -373,7 +399,7 @@ def moe_arch(layers: int) -> str:
 def moe_train_args(steps: int = 8):
     """The MoE training path's CLI flags: 2 layers, one per stage buffer,
     bf16 params, 8192 tokens a step, live expert re-layout."""
-    return ["--arch", moe_arch(2), "--stages", "2", "--slot-slack", "0",
+    return FULL_SIZE + ["--arch", moe_arch(2), "--stages", "2", "--slot-slack", "0",
             "--param-dtype", "bfloat16", "--num-micro", "4", "--mb-global",
             "2", "--seq", "1024", "--steps", str(steps), "--dynamism", "moe",
             "--dynamics.expert_relayout", "--dynamics.expert_watermark",
@@ -384,11 +410,30 @@ def moe_train_args(steps: int = 8):
 
 def moe_serve_args(requests: int = 8):
     """The MoE serving path's CLI flags: 4 layers, fp32, contiguous KV."""
-    return ["--elastic", "--arch", moe_arch(4), "--stages", "1",
+    return FULL_SIZE + ["--elastic", "--arch", moe_arch(4), "--stages", "1",
             "--slot-slack", "0", "--micro", "2", "--mb-global", "4",
             "--prompt-len", "1024", "--gen", "16", "--requests",
             str(requests), "--kernel-impl", "pallas", "--param-dtype",
             "float32", "--seed", "0"]
+
+
+def cli_spec(cli: str, argv):
+    """The RunSpec the port's train or serve CLI resolves from ``argv``."""
+    import importlib
+
+    from repro_torch.api import cli as api_cli
+    mod = importlib.import_module(f"repro_torch.launch.{cli}")
+    table = cli.upper()
+    return api_cli.build_spec(
+        mod.build_parser().parse_args(argv),
+        getattr(api_cli, f"{table}_ALIASES"),
+        cli_defaults=getattr(api_cli, f"{table}_CLI_DEFAULTS"))
+
+
+def serve_session(argv):
+    """A ``Session`` over the serve CLI's spec of ``argv``, on the card."""
+    from repro_torch.api import Session
+    return Session(cli_spec("serve", argv))
 
 
 def check_launches(label: str, launched, per_step, steps: int) -> None:
@@ -1884,6 +1929,10 @@ def leaves(tree, path=""):
         yield path, tree
 
 
+# phase 4c's losses and rebalance events (iteration, layers moved)
+TRAIN_4C = {}
+
+
 def run_train_phase(torch, kernels):
     """Phase 4c: the training CLI's ``run`` at train_args(); returns the
     launch counts of the run ({name: n}, K3 backward launches)."""
@@ -1902,7 +1951,7 @@ def run_train_phase(torch, kernels):
     launched = {k.name: k.launches for k in kernels.KERNELS}
     k3_bwd = pm.KERNEL.launches_bwd
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps = rep["args"]["steps"]
+    steps = rep["spec"]["steps"]
     losses = rep["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1951,6 +2000,9 @@ def run_train_phase(torch, kernels):
         final_lps=rep["final_lps"],
         launches=json.dumps(launched).replace(" ", ""),
         k3_bwd_launches=k3_bwd)
+    # phase 4q trains the first steps of this run again from a config
+    TRAIN_4C.update(losses=list(losses), events=[
+        (e.iteration, e.moved_layers) for e in rep["events"]])
     del rep
     free_cuda(torch)
     return launched, k3_bwd
@@ -2165,7 +2217,7 @@ def run_moe_train_phase(torch, kernels):
     launched = {k.name: k.launches for k in kernels.KERNELS}
     launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps = rep["args"]["steps"]
+    steps = rep["spec"]["steps"]
     losses = rep["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite MoE training loss: {losses}")
@@ -2217,7 +2269,8 @@ def run_moe_serve_phase(torch, kernels):
     rep = serve_run(moe_serve_args())
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels.KERNELS}
-    args = rep["args"]
+    # the serve spec's trace fields, and the seed the trace is drawn with
+    args = {**rep["spec"]["serve"], "seed": rep["spec"]["seed"]}
     comps = rep["completions"]
     if len(comps) != args["requests"]:
         raise AssertionError(f"{len(comps)} of {args['requests']} MoE "
@@ -2291,7 +2344,7 @@ def run_elastic_train_phase(torch, kernels):
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels.KERNELS}
     launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
-    steps = rep["args"]["steps"]
+    steps = rep["spec"]["steps"]
     losses = rep["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite elastic training loss: {losses}")
@@ -2343,18 +2396,15 @@ def run_elastic_serve_phase(torch, kernels):
     grow cycle on the live state (the trash block excluded); every K6
     launch split.  Returns the elastic serve's launch counts."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.launch.serve import build_parser, build_server
-    args = build_parser().parse_args(elastic_serve_args())
     free_cuda(torch)
-    srv, trace = build_server(args)
-    fixed = srv.serve(copy.deepcopy(trace))
-    del srv
+    with serve_session(elastic_serve_args()) as s:
+        fixed = s.serve()
     free_cuda(torch)
-    srv, trace = build_server(args)
+    sess = serve_session(elastic_serve_args())
     for k in kernels.KERNELS:
         k.reset()
-    rep = srv.serve(copy.deepcopy(trace),
-                    resize_at=ELASTIC_SERVE_RESIZE_AT)
+    rep = sess.serve(resize_at=ELASTIC_SERVE_RESIZE_AT)
+    srv = sess.server
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels.KERNELS}
     launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
@@ -2368,7 +2418,7 @@ def run_elastic_serve_phase(torch, kernels):
         raise AssertionError(f"elastic serve never launched {missing}")
     want = {c["rid"]: c["tokens"] for c in fixed["completions"]}
     got = {c["rid"]: c["tokens"] for c in rep["completions"]}
-    if got != want or len(got) != args.requests:
+    if got != want or len(got) != sess.spec.serve.requests:
         raise AssertionError(f"resized serve differs from the fixed one: "
                              f"{got} != {want}")
     kinds = [(r["kind"], r["from_stages"], r["to_stages"])
@@ -2407,7 +2457,8 @@ def run_elastic_serve_phase(torch, kernels):
         pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
         launches=json.dumps(launched).replace(" ", ""),
         k6_split_launches=k6_split)
-    del srv, rep, fixed, before
+    sess.close()
+    del sess, srv, rep, fixed, before
     free_cuda(torch)
     return launched
 
@@ -2425,7 +2476,7 @@ def run_ee_train_phase(torch, kernels):
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels.KERNELS}
     launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
-    steps = rep["args"]["steps"]
+    steps = rep["spec"]["steps"]
     if not all(math.isfinite(x) for x in rep["losses"]):
         raise AssertionError(f"non-finite EE loss: {rep['losses']}")
     frac = rep["exited_frac"]
@@ -2496,7 +2547,7 @@ def ckpt_train_args(steps: int = 20):
     """Phase 4k's flags: phase 4h's without --grow-back (4 stage buffers of
     16 slots, 8192 tokens a step, --repack, the prune at step 10), 20
     steps; the phase adds --ckpt-dir and --ckpt-every 8."""
-    return ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
+    return FULL_SIZE + ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
             "--mb-global", "2", "--seq", "1024", "--steps", str(steps),
             "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
             "--kernel-impl", "pallas", "--param-dtype", "float32", "--seed",
@@ -2504,6 +2555,9 @@ def ckpt_train_args(steps: int = 20):
 
 
 CKPT_EVERY = 8
+# the safe points phase 4k resumed through Session.resume whose RunSpec
+# equalled the writer's (phase 4q (v) reads it)
+RESUMED_SPECS = []
 # the safe points of a 20-step run: after steps 7 (4 buffers) and 15 (2,
 # after the controller's shrink at step 14); run (b) resumes from 15 and
 # (a) from 7, 4 + 12 steps
@@ -2515,7 +2569,7 @@ def ctl_train_args(steps: int = 12):
     tokens a step, the prune at step 10, a cadence every 4 steps under a
     2x straggler on worker 1; the phase adds the timing and controller
     flags."""
-    return ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+    return FULL_SIZE + ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
             "--seq", "1024", "--steps", str(steps), "--rebalance-every", "4",
             "--straggler", "1:2.0", "--dynamism", "pruning", "--kernel-impl",
             "pallas", "--param-dtype", "float32", "--seed", "0",
@@ -2569,6 +2623,7 @@ def run_ckpt_phase(torch, kernels):
     import os
     import shutil
     import tempfile
+    from repro_torch.api import RunSpec, Session
     from repro_torch.kernels.pruned_matmul import ops as pm
     from repro_torch.launch.train import run as train_run
     free_cuda(torch)
@@ -2614,7 +2669,15 @@ def run_ckpt_phase(torch, kernels):
             # the uninterrupted run's final state is still alive here: the
             # restore's memory is the growth over this
             base = torch.cuda.memory_allocated()
-            rep = train_run([], resume=ck, resume_step=at)
+            # the safe point carries the RunSpec that wrote it: the
+            # resumed Session must hold that spec exactly
+            sess = Session.resume(ck, step=at)
+            if sess.spec != RunSpec.from_dict(full["spec"]):
+                raise AssertionError(f"safe point {at}: the resumed RunSpec "
+                                     f"differs from the one that wrote it")
+            RESUMED_SPECS.append(at)
+            with sess:
+                rep = sess.train()
             torch.cuda.synchronize()
             restored = rep["timing"]["restore_allocated"] - base
             tail = full["losses"][at + 1:]
@@ -2639,6 +2702,7 @@ def run_ckpt_phase(torch, kernels):
                 max_loss_diff=max([abs(a - b) for a, b in
                                    zip(rep["losses"], tail)] or [0.0]),
                 params_bitwise=params_same, moments_bitwise=opt_same,
+                resumed_spec_equal=True,
                 resizes=json.dumps(rz).replace(" ", ""),
                 pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
                 wall_s=f"{rep['wall_s']:.2f}")
@@ -3012,7 +3076,7 @@ def run_sampling_serve_phase(torch, kernels, argmax_tokens, argmax_rep):
                       ("block_sparse_attention", "pruned_matmul"))
     tokens = {c["rid"]: c["tokens"] for c in rep["completions"]}
     plens = {c["rid"]: c["plen"] for c in rep["completions"]}
-    seq = rep["args"]["prompt_len"]
+    seq = rep["spec"]["serve"]["prompt_len"]
     if sorted(tokens) != sorted(argmax_tokens):
         raise AssertionError("sampling serve completed other requests")
     for rid, toks in tokens.items():
@@ -3121,9 +3185,9 @@ def run_autoscale_train_phase(torch, kernels):
         k.reset()
     rtt = []
 
-    def time_rpc(step, jm):
+    def time_rpc(step, sess):
         t0 = time.perf_counter()
-        jm.client._call("status")
+        sess.job_manager._call("status")
         rtt.append(time.perf_counter() - t0)
 
     file_run = train_run(autoscale_train_args("file"), on_step=time_rpc)
@@ -3160,20 +3224,20 @@ def run_autoscale_train_phase(torch, kernels):
     free_cuda(torch)
     seen = {}
 
-    def stop_and_restart(step, jm):
+    def stop_and_restart(step, sess):
         # the same round trips as (i) while the manager runs (the client
         # knows the pool's size before it goes away)
         if step < AUTOSCALE_KILL:
-            jm.client._call("status")
+            sess.job_manager._call("status")
         elif step == AUTOSCALE_KILL:
-            jm.kill()
+            sess.kill_manager()
             seen["killed"] = step
         elif step == AUTOSCALE_RESPAWN:
             # restart, and wait until the manager answers (a probe client
             # of its own, numbered past every request on disk)
             t_up = time.perf_counter()
-            jm.respawn(workers=4)
-            FileJobManager(jm.run_dir, timeout_s=60.0,
+            sess.respawn_manager()
+            FileJobManager(sess.jm_dir, timeout_s=60.0,
                            shutdown_on_close=False)._call("status")
             seen["respawned"] = step
             seen["respawn_s"] = time.perf_counter() - t_up
@@ -3193,7 +3257,7 @@ def run_autoscale_train_phase(torch, kernels):
              r["workers"]) for r in degraded["resizes"]]
     if rz_d != rz:
         raise AssertionError(f"degraded resizes {rz_d} vs {rz}")
-    steps = 3 * file_run["args"]["steps"]
+    steps = 3 * file_run["spec"]["steps"]
     check_launches("autoscale train", launched, TRAIN_LAUNCHES_PER_STEP,
                    steps)
     if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
@@ -3207,7 +3271,7 @@ def run_autoscale_train_phase(torch, kernels):
                 f"{r['to_stages']}", workers=r["workers"],
                 seconds=f"{r['seconds']:.4f}")
     rtt_ms = sorted(t * 1e3 for t in rtt)
-    say("autoscale_train", steps=file_run["args"]["steps"],
+    say("autoscale_train", steps=file_run["spec"]["steps"],
         resizes=json.dumps(rz).replace(" ", ""),
         pool_log=json.dumps(file_run["pool_log"]).replace(" ", ""),
         decisions=json.dumps([(d["step"], d["action"], d["ids"])
@@ -3255,18 +3319,15 @@ def run_autoscale_serve_phase(torch, kernels):
     / grow cycle on the live state (the trash block excluded), every K6
     launch split.  Returns the autoscaled serve's launch counts."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.launch.serve import build_parser, build_server
     free_cuda(torch)
-    srv, trace = build_server(build_parser().parse_args(
-        autoscale_serve_args(False)))
-    fixed = srv.serve(copy.deepcopy(trace))
-    del srv
+    with serve_session(autoscale_serve_args(False)) as s:
+        fixed = s.serve()
     free_cuda(torch)
-    args = build_parser().parse_args(autoscale_serve_args())
-    srv, trace = build_server(args)
+    sess = serve_session(autoscale_serve_args())
     for k in kernels.KERNELS:
         k.reset()
-    rep = srv.serve(copy.deepcopy(trace), autoscale=True)
+    rep = sess.serve()
+    srv = sess.server
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels.KERNELS}
     launched_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
@@ -3280,7 +3341,7 @@ def run_autoscale_serve_phase(torch, kernels):
                              f"load-driven shrink and grow are required")
     want = {c["rid"]: c["tokens"] for c in fixed["completions"]}
     got = {c["rid"]: c["tokens"] for c in rep["completions"]}
-    if got != want or len(got) != args.requests:
+    if got != want or len(got) != sess.spec.serve.requests:
         raise AssertionError("the autoscaled serve's tokens differ from the "
                              "fixed world's")
     before = {k: v.clone() for k, v in srv.state.cache.items()}
@@ -3315,7 +3376,8 @@ def run_autoscale_serve_phase(torch, kernels):
         pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
         launches=json.dumps(launched).replace(" ", ""),
         k6_split_launches=k6_split)
-    del srv, rep, fixed, before
+    sess.close()
+    del sess, srv, rep, fixed, before
     free_cuda(torch)
     return launched, launched_tc
 
@@ -3520,6 +3582,215 @@ def run_two_tenant_phase(torch, kernels):
     return launched, launched_tc
 
 
+# ---------------------------------------------------------------------------
+# phase 4q: the front door — RunSpec configs, Session, the one-shot serve,
+# the scenarios and the resumed spec
+FRONT_DOOR_STEPS = 6
+
+
+def dump_config(cli: str, argv, path: str) -> None:
+    """Write the RunSpec the CLI resolves from ``argv`` with its own
+    ``--dump-config`` (in process) to ``path``."""
+    import contextlib
+    import importlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        importlib.import_module(f"repro_torch.launch.{cli}").main(
+            argv + ["--dump-config"])
+    with open(path, "w") as f:
+        f.write(out.getvalue())
+
+
+def one_shot_oracle(torch, kernels):
+    """Phase 4q (iii): ``run_serving`` at full width (1 stage, micro 2, mb
+    4, prompt 1024, gen 32, fp32, the kernels) against ``ElasticServer``
+    serving the same 8 prompts arriving at once: the tokens must be equal
+    (the reference's oracle).  Returns (tokens/s, launch window)."""
+    import numpy as np
+    from repro_torch.configs import DistConfig, get_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    from repro_torch.serve import ElasticServer
+    from repro_torch.serve.requests import Request
+    micro, mbg, plen, gen = 2, 4, 1024, 32
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    out = run_serving("smollm-360m", stages=1, micro=micro, mb_global=mbg,
+                      prompt_len=plen, gen=gen, layers=None,
+                      kernel_impl="pallas", param_dtype="float32", seed=0)
+    window = _window(torch, kernels)
+    cfg = get_config("smollm-360m")
+    dcfg = DistConfig(num_stages=1, slot_slack=2, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                               (micro, mbg, plen))
+    reqs = [Request(rid=i, arrival=0,
+                    prompt=prompts[i // mbg, i % mbg].astype(np.int32),
+                    gen=gen) for i in range(micro * mbg)]
+    srv = ElasticServer(cfg, dcfg, DynamicsConfig(),
+                        PipelineShapes(micro, mbg, plen,
+                                       cache_len=plen + gen), seed=0)
+    rep = srv.serve(reqs)
+    srv.close()
+    for i, c in enumerate(rep["completions"]):
+        want = out["tokens"][i // mbg, i % mbg].tolist()
+        if c["tokens"] != want:
+            raise AssertionError(f"one-shot serve lane {i} differs from the "
+                                 f"continuous server: {want[:8]} vs "
+                                 f"{c['tokens'][:8]}")
+    del srv, rep
+    free_cuda(torch)
+    return out, window
+
+
+def run_front_door_phase(torch, kernels, serve_tokens):
+    """Phase 4q: (i) train_args()'s RunSpec written by the train CLI's
+    ``--dump-config`` and trained FRONT_DOOR_STEPS steps through
+    ``python -m repro_torch.launch.train --config`` (in process): losses
+    bitwise phase 4c's first steps, the same rebalance events, K1-K3 at
+    4c's counts a step on the tensor cores; (ii) serve_args(12)'s RunSpec
+    written by the serve CLI and served through
+    ``Session(RunSpec.load(path)).serve()``: tokens identical to phase
+    4's, K1, K3 and K6 launched, every K6 launch split; (iii) the one-shot
+    ``run_serving`` equal to the continuous server; (iv) each of the six
+    ``configs/scenarios/*.json`` trained 3 steps on the card (``--set
+    steps=3``; CPU scale, the scan path); (v) phase 4k resumed both safe
+    points through ``Session.resume`` with the writer's RunSpec.  Counts
+    zeroed before and read after each of (i)-(iii); returns their sums."""
+    import glob
+    import os
+    import tempfile
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    from repro_torch.launch import train as train_cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    t_phase = time.perf_counter()
+    total, total_tc = {}, {}
+
+    def add(window):
+        for n, v in window[0].items():
+            total[n] = total.get(n, 0) + v
+        for n, v in window[1].items():
+            total_tc[n] = total_tc.get(n, 0) + v
+
+    # (i) train from a config
+    train_json = os.path.join(tmp, "train.json")
+    dump_config("train", train_args(), train_json)
+    spec = RunSpec.load(train_json)
+    if spec.model.layers is not None or spec.parallel.seq != 1024:
+        raise AssertionError(f"dumped train spec is not full size: "
+                             f"{spec.model}, {spec.parallel}")
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    t0 = time.perf_counter()
+    rep = train_cli.run(["--config", train_json, "--set",
+                         f"steps={FRONT_DOOR_STEPS}"])
+    train_s = time.perf_counter() - t0
+    window = _window(torch, kernels)
+    k3_bwd = pm.KERNEL.launches_bwd
+    want = TRAIN_4C["losses"][:FRONT_DOOR_STEPS]
+    if rep["losses"] != want:
+        raise AssertionError(f"config-file train losses {rep['losses']} are "
+                             f"not phase 4c's first {FRONT_DOOR_STEPS} "
+                             f"{want}")
+    events = [(e.iteration, e.moved_layers) for e in rep["events"]]
+    want_events = [e for e in TRAIN_4C["events"]
+                   if e[0] <= FRONT_DOOR_STEPS]
+    if events != want_events:
+        raise AssertionError(f"config-file train events {events} vs phase "
+                             f"4c's {want_events}")
+    check_launches("front door train", window[0], TRAIN_LAUNCHES_PER_STEP,
+                   FRONT_DOOR_STEPS)
+    if k3_bwd != TRAIN_K3_BWD_PER_STEP * FRONT_DOOR_STEPS:
+        raise AssertionError(f"front door train: K3 backward launches "
+                             f"{k3_bwd}")
+    check_tensor_core("front door train", window[0], window[1],
+                      FP32_TC_PATH)
+    add(window)
+    train_losses = rep["losses"]
+    del rep
+    # (ii) serve from a config
+    serve_json = os.path.join(tmp, "serve.json")
+    dump_config("serve", serve_args(12), serve_json)
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    t0 = time.perf_counter()
+    with Session(RunSpec.load(serve_json)) as sess:
+        rep = sess.serve()
+    serve_s = time.perf_counter() - t0
+    window = _window(torch, kernels)
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if got != serve_tokens:
+        raise AssertionError("config-file serve tokens differ from phase 4's")
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul",
+                           "paged_attention") if window[0][n] <= 0]
+    if missing:
+        raise AssertionError(f"config-file serve never launched {missing}")
+    check_k6_split(window[0]["paged_attention"],
+                   pa_ops.KERNEL.launches_split)
+    check_tensor_core("front door serve", window[0], window[1],
+                      FP32_TC_PATH)
+    add(window)
+    serve_tps = rep["tokens_per_s"]
+    del rep
+    # (iii) the one-shot serve
+    t0 = time.perf_counter()
+    one_shot, window = one_shot_oracle(torch, kernels)
+    one_shot_s = time.perf_counter() - t0
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul")
+               if window[0][n] <= 0]
+    if missing:
+        raise AssertionError(f"one-shot serve never launched {missing}")
+    check_tensor_core("one-shot serve", window[0], window[1],
+                      ("block_sparse_attention", "pruned_matmul"))
+    add(window)
+    # (iv) the six scenarios, 3 steps each
+    scen = {}
+    t0 = time.perf_counter()
+    for path in sorted(glob.glob(str(ROOT / "configs" / "scenarios" /
+                                     "*.json"))):
+        name = os.path.basename(path)[:-5]
+        free_cuda(torch)
+        r = train_cli.run(["--config", path, "--set", "steps=3"])
+        if (len(r["losses"]) != 3
+                or not all(math.isfinite(x) for x in r["losses"])):
+            raise AssertionError(f"scenario {name}: losses {r['losses']}")
+        if r["device"] != "cuda" or r["spec"] != RunSpec.load(path).override(
+                {"steps": 3}).to_dict():
+            raise AssertionError(f"scenario {name} ran {r['device']} / "
+                                 f"another spec")
+        scen[name] = round(r["losses"][-1], 4)
+    scen_s = time.perf_counter() - t0
+    # (v) phase 4k's resumes
+    if sorted(RESUMED_SPECS) != sorted(at for at, _ in CKPT_RESUMES):
+        raise AssertionError(f"phase 4k resumed {RESUMED_SPECS} through "
+                             f"Session.resume with the writer's RunSpec")
+    say("front_door", train_steps=FRONT_DOOR_STEPS,
+        train_bitwise_4c=True, train_s=f"{train_s:.2f}",
+        losses=json.dumps([round(x, 4) for x in train_losses])
+        .replace(" ", ""),
+        events=json.dumps(events).replace(" ", ""),
+        serve_tokens_equal_4=True, serve_s=f"{serve_s:.2f}",
+        serve_tokens_per_s=f"{serve_tps:.1f}",
+        one_shot_equal_server=True,
+        one_shot_tokens_per_s=f"{one_shot['tokens_per_s']:.1f}",
+        one_shot_wall_s=f"{one_shot['wall_s']:.2f}",
+        one_shot_check_s=f"{one_shot_s:.2f}",
+        scenarios=json.dumps(scen).replace(" ", ""),
+        scenarios_s=f"{scen_s:.2f}",
+        resumed_spec_equal=json.dumps(sorted(RESUMED_SPECS)),
+        seconds=f"{time.perf_counter() - t_phase:.1f}",
+        launches=json.dumps(total).replace(" ", ""))
+    free_cuda(torch)
+    return total, total_tc
+
+
 def mod_bitwise(torch) -> None:
     """Phase 4j: one training step's loss and gradients with --dynamism
     mod from the same params and batch as with none, through the kernels:
@@ -3642,7 +3913,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     tc = {k.name: k.launches_tc for k in kernels.KERNELS}
-    args = rep["args"]
+    # the serve spec's trace fields, and the seed the trace is drawn with
+    args = {**rep["spec"]["serve"], "seed": rep["spec"]["seed"]}
     comps = rep["completions"]
     if len(comps) != args["requests"]:
         raise AssertionError(f"{len(comps)} of {args['requests']} requests "
@@ -3737,8 +4009,9 @@ def main() -> int:
     for n in ctl_launches:
         tc[n] += ctl_launches[n]
 
-    # 4m / 4n / 4o / 4p. sampling, autoscaled training over the file RPC,
-    # autoscaled serving and two tenants on one HTTP manager: counters
+    # 4m / 4n / 4o / 4p / 4q. sampling, autoscaled training over the file
+    # RPC, autoscaled serving, two tenants on one HTTP manager and the front
+    # door (configs, Session, the one-shot serve, the scenarios): counters
     # zeroed just before each path and read just after (4p: read in its
     # two processes)
     new_phases = {}
@@ -3749,7 +4022,9 @@ def main() -> int:
                 torch, kernels)),
             ("autoscale_serve", lambda: run_autoscale_serve_phase(
                 torch, kernels)),
-            ("tenants", lambda: run_two_tenant_phase(torch, kernels))):
+            ("tenants", lambda: run_two_tenant_phase(torch, kernels)),
+            ("api", lambda: run_front_door_phase(torch, kernels,
+                                                 argmax_tokens))):
         got, got_tc = phase()
         new_phases[key] = got
         for n in got_tc:

@@ -1,0 +1,1008 @@
+"""``Session`` — executes a ``RunSpec``; the runtime half of the API, ported
+from ``repro.api.session``.
+
+The trainer and the server share one lifecycle: build the engine ->
+attach the ControlPlane -> attach the Autoscaler -> connect a job-manager
+client -> tear everything down in the right order.  ``Session`` owns it:
+
+    spec = RunSpec.load("configs/scenarios/early_exit.json")
+    with Session(spec, device="cpu") as s:
+        report = s.train()          # or s.serve()
+    for ev in s.events:             # structured telemetry stream
+        print(ev.kind, ev.step, ev.data)
+
+``train`` / ``serve`` return the report dicts the CLIs print (every test
+and ``chip_smoke.py`` read them); ``session.events`` is the structured
+stream — one ``SessionEvent`` per resize / rebalance / relayout /
+autoscale decision / safe point / log line / tenant event.  ``metrics``
+is a ``MetricsRegistry`` kept live in every run (``obs.metrics_out``
+saves it).
+
+The port's differences from the reference:
+  * ``device`` is a keyword, not a spec field: ``Session(spec,
+    device=None)`` runs on the CUDA card and raises without one unless
+    ``device="cpu"``; ``Session.resume(dir, step=None, device=None)``
+    takes it the same way.
+  * ``params`` (a converted reference tree, ``repro_torch.convert``)
+    replaces the engine's own init: random streams do not cross
+    frameworks, so this is how the tests hand both packages one init.
+  * ``train(on_step=f)`` calls ``f(step, session)`` after each step's safe
+    point, where the reference's fault injector fires (``chip_smoke.py``
+    stops and restarts the file manager there: ``kill_manager``,
+    ``respawn_manager``).
+  * Fault injection (``faults.enabled``), the tracer (``obs.trace`` /
+    ``obs.trace_out``) and the ``/metrics`` endpoint
+    (``obs.metrics_port``) raise ``NotImplementedError``: they wait for
+    ROADMAP Queue 1 [faults-obs].
+
+Teardown order matters and is centralized in ``close()``: the metrics
+snapshot, then the control plane (its worker thread must stop deciding
+against a dying engine), then the engine or server (deliver deferred
+job-manager bookkeeping, detach pool hooks), then the job-manager client
+(tells a spawned manager process to exit), then the process wait.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import tempfile
+import time
+import warnings
+from typing import Any, Callable, Dict, List, Optional
+
+from repro_torch.api.specs import RunSpec
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.events import EVENT_SCHEMA, stamp_record
+from repro_torch.obs.metrics import MetricsRegistry
+
+
+@dataclasses.dataclass
+class SessionEvent:
+    """One telemetry record: ``kind`` in {"log", "rebalance", "resize",
+    "autoscale", "safepoint", "relayout", "serve_summary",
+    "train_summary", "tenant_register", "preempt", "absorb", "steal",
+    "yield"}; the last five are the multi-tenant cluster stream.
+
+    Every record also carries the unified event fields
+    (``schema`` / ``source`` / ``wall``); the tracing identity stays unset
+    (the port has no tracer yet)."""
+    kind: str
+    step: int
+    data: Dict[str, Any]
+    schema: str = EVENT_SCHEMA
+    source: str = "session"
+    wall: Optional[float] = None
+    trace_id: Optional[str] = None
+    span_id: Optional[str] = None
+    parent_id: Optional[str] = None
+    lc: Optional[int] = None
+    cause_trace_id: Optional[str] = None
+
+
+class Session:
+    """Context manager that executes one ``RunSpec``."""
+
+    def __init__(self, spec: RunSpec, *, device: DeviceLike = None,
+                 params=None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.params = params
+        self.events: List[SessionEvent] = []
+        self._cp = None          # cluster.service.ControlPlane
+        self._engine = None      # launch.engine.ElasticEngine
+        self._server = None      # serve.server.ElasticServer
+        self._jm = None          # the job-manager client
+        self._jm_proc: Optional[subprocess.Popen] = None
+        self._jm_dir: Optional[str] = None
+        self._closed = False
+        self._resume_dir: Optional[str] = None
+        self._resume_step: Optional[int] = None
+        self.metrics = MetricsRegistry()   # always live; ~free when unread
+
+    @classmethod
+    def resume(cls, ckpt_dir: str, *, step: Optional[int] = None,
+               device: DeviceLike = None) -> "Session":
+        """Rebuild a crashed run from its newest complete safe point (or
+        the one of ``step``).  The safe point carries the producing
+        ``RunSpec``, so the caller needs nothing but the directory;
+        ``train()`` then restores the tensors, the stage -> worker map, the
+        pool and the control plane's latches and continues from the step
+        after the safe point, bit-identically to the run that never
+        stopped.  A safe point without a ``spec`` is refused by name."""
+        from repro_torch.checkpoint.safepoint import peek
+        idx = peek(ckpt_dir, step)
+        spec = RunSpec.from_dict(idx["meta"]["spec"])
+        s = cls(spec, device=device)
+        s._resume_dir = ckpt_dir
+        s._resume_step = int(idx["step"])
+        return s
+
+    # -- lifecycle ---------------------------------------------------------
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._obs_end()
+        if self._cp is not None:
+            self._cp.close()
+        if self._server is not None:
+            self._server.close()
+        elif self._engine is not None:
+            # deliver bookkeeping deferred while the manager was down —
+            # best effort; an unreachable manager must not block teardown
+            self._engine._flush_pending_jm()
+            self._engine.close()
+        if self._jm is not None:
+            self._jm.close()             # tells a spawned manager to exit
+        if self._jm_proc is not None:
+            try:
+                self._jm_proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self._jm_proc.kill()
+                self._jm_proc.wait()
+
+    def _emit(self, kind: str, step: int, *, cause_ctx=None,
+              **data) -> SessionEvent:
+        rec: Dict[str, Any] = {}
+        stamp_record(rec, source="session", kind=kind, ctx=cause_ctx)
+        ev = SessionEvent(kind, step, data, wall=rec.get("wall"),
+                          trace_id=rec.get("trace_id"),
+                          parent_id=rec.get("parent_id"))
+        self.events.append(ev)
+        return ev
+
+    def write_events(self, path: str) -> None:
+        """The structured stream as a JSON list (``--events-out``)."""
+        with open(path, "w") as f:
+            json.dump([dataclasses.asdict(ev) for ev in self.events], f,
+                      indent=1)
+
+    # -- observability -----------------------------------------------------
+    def _check_ported(self) -> None:
+        spec = self.spec
+        if spec.faults.enabled:
+            raise NotImplementedError(
+                "fault injection is not in repro_torch yet (ROADMAP Queue 1 "
+                "[faults-obs])")
+        if spec.obs.trace or spec.obs.trace_out:
+            raise NotImplementedError(
+                "the tracer is not in repro_torch yet (ROADMAP Queue 1 "
+                "[faults-obs])")
+        if spec.obs.metrics_port:
+            raise NotImplementedError(
+                "the /metrics endpoint is not in repro_torch yet (ROADMAP "
+                "Queue 1 [faults-obs])")
+
+    def _obs_end(self) -> None:
+        if self.spec.obs.metrics_out:
+            self.metrics.save(self.spec.obs.metrics_out)
+
+    # -- shared assembly ---------------------------------------------------
+    def _model_config(self):
+        from repro_torch.configs.base import get_config, reduced_config
+        m = self.spec.model
+        cfg = get_config(m.arch)
+        if m.layers is not None:
+            cfg = reduced_config(cfg, num_layers=m.layers, d_model=m.d_model,
+                                 num_heads=m.num_heads,
+                                 num_kv_heads=m.num_kv_heads,
+                                 d_ff=m.d_ff or 2 * m.d_model,
+                                 vocab_size=m.vocab_size)
+        return cfg
+
+    def _dist_config(self):
+        from repro_torch.configs.base import DistConfig
+        p = self.spec.parallel
+        return DistConfig(num_stages=p.stages, slot_slack=p.slot_slack,
+                          remat=p.remat, param_dtype=p.param_dtype,
+                          kernel_impl=p.kernel_impl)
+
+    def _fresh_dir(self, prefix: str) -> str:
+        # always a FRESH directory (a unique subdir when the spec names a
+        # location): leftover request files of an earlier run would be
+        # replayed by the new manager and misread by the new client
+        parent = self.spec.cluster.job_manager_dir
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+            return tempfile.mkdtemp(prefix="run_", dir=parent)
+        return tempfile.mkdtemp(prefix=prefix)
+
+    def _connect_job_manager(self, pool_state=None):
+        """'file' spawns the WorkerPool server in a separate process and
+        returns a client speaking atomic request / response JSON files to
+        it; 'http' connects to ``cluster.manager_url`` when set (several
+        Sessions in several processes contending over ONE manager, which
+        this one never shuts down) or spawns a private HTTP manager;
+        'inproc' returns None (the engine wraps its own pool).
+        ``pool_state`` (from a safe point) is seeded into the fresh
+        directory as the manager's journal, so the spawned manager starts
+        from the crashed run's pool topology."""
+        from repro_torch.cluster.rpc import FileJobManager, spawn_file_manager
+        c = self.spec.cluster
+        if c.job_manager == "inproc":
+            return None
+        if c.job_manager == "http":
+            from repro_torch.cluster.http_rpc import (HttpJobManager,
+                                                      spawn_http_manager)
+            if c.manager_url:
+                self._jm = HttpJobManager(c.manager_url,
+                                          timeout_s=c.rpc_timeout_s,
+                                          shutdown_on_close=False)
+                return self._jm
+            run_dir = self._fresh_dir("repro_torch_http_")
+        else:
+            run_dir = self._fresh_dir("repro_torch_jm_")
+        if pool_state is not None:
+            with open(os.path.join(run_dir, "state.json"), "w") as f:
+                json.dump({"pool": pool_state, "answered": {}}, f)
+        self._jm_dir = run_dir
+        if c.job_manager == "http":
+            self._jm_proc, url = spawn_http_manager(
+                run_dir, self.spec.parallel.stages, spares=c.spares)
+            self._jm = HttpJobManager(url, timeout_s=c.rpc_timeout_s,
+                                      shutdown_on_close=True)
+            return self._jm
+        self._jm_proc = spawn_file_manager(run_dir, self.spec.parallel.stages,
+                                           spares=c.spares)
+        self._jm = FileJobManager(run_dir, timeout_s=c.rpc_timeout_s)
+        return self._jm
+
+    @property
+    def server(self):
+        """The ``ElasticServer`` of the last ``serve`` (its live state stays
+        until ``close``)."""
+        return self._server
+
+    # the job manager seen from outside (``train(on_step=...)`` hooks)
+    @property
+    def job_manager(self):
+        """The connected job-manager client (None for inproc)."""
+        return self._jm
+
+    @property
+    def jm_dir(self) -> Optional[str]:
+        """The spawned manager's directory (None for inproc / shared)."""
+        return self._jm_dir
+
+    def kill_manager(self) -> None:
+        """Stop the spawned manager process at once: the engine defers its
+        calls (degraded mode) until ``respawn_manager``."""
+        if self._jm_proc is not None and self._jm_proc.poll() is None:
+            self._jm_proc.kill()
+            self._jm_proc.wait()
+
+    def respawn_manager(self) -> None:
+        """Restart a killed file manager on its directory: it restores the
+        pool from its journal and re-serves answered requests."""
+        from repro_torch.cluster.rpc import spawn_file_manager
+        assert self.spec.cluster.job_manager == "file" and self._jm_dir
+        self._jm_proc = spawn_file_manager(
+            self._jm_dir, self.spec.parallel.stages,
+            spares=self.spec.cluster.spares)
+
+    def _register_tenant(self, jm, *, kind: str, workers: int,
+                         max_workers: int, min_workers: int):
+        """Register this Session with the cluster scheduler when the spec
+        names a tenant.  Returns the granted worker ids (to bind the engine
+        onto) or None when running single-tenant."""
+        c = self.spec.cluster
+        if jm is None or not c.tenant_id \
+                or not hasattr(jm, "register_tenant"):
+            return None
+        granted = jm.register_tenant(
+            c.tenant_id, priority=c.priority, kind=kind, workers=workers,
+            max_workers=max_workers, min_workers=min_workers)
+        if not granted:
+            raise RuntimeError(
+                f"cluster scheduler granted no workers to tenant "
+                f"{c.tenant_id!r} (pool exhausted?)")
+        self._emit("tenant_register", -1, tenant=c.tenant_id,
+                   priority=c.priority, tenant_kind=kind,
+                   granted=list(granted))
+        return granted
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(self.device)
+
+    def _allocated(self) -> Optional[int]:
+        """Bytes of live tensors on the card (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        import torch
+        return torch.cuda.memory_allocated(self.device)
+
+    # =======================================================================
+    # Training
+    # =======================================================================
+    def train(self, steps: Optional[int] = None, *,
+              on_step: Optional[Callable[[int, "Session"], None]] = None
+              ) -> Dict[str, Any]:
+        """Run the DynMo training loop for ``steps`` (default: spec.steps).
+        ``on_step(step, session)`` runs after each step's safe point.
+        Returns the report dict (losses, events, resizes, telemetry)."""
+        import numpy as np
+
+        from repro_torch.cluster.autoscaler import Autoscaler, AutoscalerConfig
+        from repro_torch.cluster.service import ControlPlane, StatsSnapshot
+        from repro_torch.core.controller import (ControllerConfig,
+                                                 DynMoController)
+        from repro_torch.data.loader import DataConfig, make_loader
+        from repro_torch.dynamics import pruning as prn
+        from repro_torch.dynamics.trajectories import zhu_gupta_sparsity
+        from repro_torch.launch.engine import ElasticEngine
+        from repro_torch.optim.schedule import cosine_schedule
+        from repro_torch.pipeline.pipeline import PipelineShapes
+        from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
+                                                         StragglerDetector,
+                                                         WorkerPool)
+
+        spec = self.spec
+        self._check_ported()
+        obs = spec.obs
+        mreg = self.metrics
+        steps = steps if steps is not None else spec.steps
+        stages = spec.parallel.stages
+        seq = spec.parallel.seq
+        dynamism = spec.dynamics.kind
+        straggler = spec.controller.straggler
+        measure_stage_times = spec.controller.measure_stage_times
+        repack_target = spec.controller.repack.target
+        grow_back = spec.cluster.grow_back
+        if grow_back is not None:
+            warnings.warn(
+                "cluster.grow_back / --grow-back is deprecated: fixed-step "
+                "re-expansion is superseded by signal-driven scaling "
+                "(cluster.autoscale / --autoscale)", DeprecationWarning,
+                stacklevel=2)
+
+        cfg = self._model_config()
+        if dynamism == "pruning" and cfg.num_experts:
+            raise NotImplementedError(
+                "pruning an MoE arch's experts is not in repro_torch yet "
+                "(ROADMAP Queue 1 [moe-rest])")
+        dcfg = self._dist_config()
+        dyncfg = spec.dynamics.to_config()
+        shapes = PipelineShapes(num_micro=spec.parallel.num_micro,
+                                mb_global=spec.parallel.mb_global, seq=seq)
+        tokens_per_step = (spec.parallel.num_micro
+                           * spec.parallel.mb_global * seq)
+
+        # ---- resume point (safe-point metadata drives everything below)
+        resume_idx = None
+        start_step = 0
+        if self._resume_dir:
+            from repro_torch.checkpoint.safepoint import peek
+            resume_idx = peek(self._resume_dir, self._resume_step)
+            start_step = int(resume_idx["step"]) + 1
+        rmeta = resume_idx["meta"] if resume_idx is not None else {}
+
+        jm = self._connect_job_manager(
+            pool_state=(rmeta.get("pool")
+                        if spec.cluster.job_manager == "file" else None))
+        pool = None
+        if jm is None and resume_idx is None and spec.cluster.spares:
+            pool = WorkerPool(stages, spares=spec.cluster.spares)
+        engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, pool=pool,
+                               job_manager=jm, device=self.device,
+                               in_step_timing=obs.in_step_timing)
+        self._engine = engine
+        restore_s = restore_mem = None
+        if resume_idx is not None:
+            # rebuild the world the run was in at its safe point (stage
+            # count, split, workers, pool, epoch) and load the shards
+            t_restore = time.perf_counter()
+            state = engine.restore_state(self._resume_dir, resume_idx)
+            self._sync()
+            restore_s = time.perf_counter() - t_restore
+            restore_mem = self._allocated()
+        else:
+            granted = self._register_tenant(
+                jm, kind="train", workers=stages, max_workers=stages,
+                min_workers=max(1, repack_target))
+            if granted is not None:
+                # train on exactly the granted workers (arbitrary ids:
+                # another tenant may hold 0..k)
+                engine.bind_workers([int(w) for w in granted])
+            state = engine.init_state(
+                spec.seed, with_opt=True, params=self.params,
+                stages=len(granted) if granted is not None else None)
+
+        ccfg = ControllerConfig(method=spec.controller.balancer,
+                                rebalance_every=spec.controller
+                                .rebalance_every,
+                                repack=spec.controller.repack.enabled,
+                                repack_policy=spec.controller.repack.policy,
+                                repack_target=max(1, repack_target),
+                                expert_relayout=dyncfg.expert_relayout,
+                                expert_watermark=dyncfg.expert_watermark,
+                                expert_min_tokens=dyncfg.expert_min_tokens)
+        if spec.controller.repack.enabled:
+            # per-worker memory budget: the capacity factor x the per-stage
+            # footprint of the UNPRUNED model under a uniform split, so a
+            # consolidation becomes feasible once dynamism shrinks the model
+            from repro_torch.core.cost_model import stage_memory_budget
+            ccfg.repack_mem_cap = stage_memory_budget(
+                cfg, tokens_per_step, seq, dcfg.bytes_per_param, stages,
+                cap_factor=spec.controller.repack.mem_cap)
+        if resume_idx is not None and rmeta.get("repack_enabled") is False:
+            # the crashed run had latched repack off (a grow keeps the
+            # granted workers): the resumed one must not plan a shrink
+            ccfg.repack = False
+        det = StragglerDetector(stages) \
+            if (straggler or measure_stage_times) else None
+        ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det)
+        cp = ControlPlane(ctrl, async_mode=spec.controller.async_decide,
+                          epoch_fn=lambda: engine.epoch)
+        self._cp = cp
+        if resume_idx is not None:
+            cp.rebind(engine.dcfg_for(state.stages), state.lps)
+
+        # ---- autoscaler: heartbeats (+ the throughput watermark); the
+        # monitor runs on a step-granular clock, so a run is deterministic
+        monitor = scaler = None
+        sim_clock = [0.0]
+        if spec.cluster.autoscale:
+            monitor = HeartbeatMonitor(
+                stages, timeout_s=spec.cluster.heartbeat_timeout,
+                clock=lambda: sim_clock[0])
+            scaler = Autoscaler(
+                AutoscalerConfig(min_stages=max(1, repack_target),
+                                 max_stages=stages,
+                                 watermark=spec.cluster.autoscale_watermark),
+                monitor)
+            if resume_idx is not None and rmeta.get("scaler"):
+                scaler.load_state(rmeta["scaler"])
+
+        loader = make_loader(cfg, DataConfig(spec.parallel.num_micro,
+                                             spec.parallel.mb_global, seq,
+                                             seed=spec.seed),
+                             start_step=start_step)
+        ckpt = safept = None
+        if spec.ckpt_every:
+            from repro_torch.checkpoint.safepoint import SafepointManager
+            safept = SafepointManager(spec.ckpt_dir, every=spec.ckpt_every)
+        elif spec.ckpt_dir:
+            from repro_torch.checkpoint.checkpoint import CheckpointManager
+            ckpt = CheckpointManager(spec.ckpt_dir,
+                                     every=max(10, steps // 5))
+        resize_mem: List[Dict[str, Any]] = []
+
+        def after_resize(step: int, kind: str, mem_before) -> None:
+            cp.rebind(engine.dcfg_for(state.stages), state.lps)
+            if scaler is not None:
+                scaler.note_resize(step, state.stages)
+            rz = engine.resizes[-1]
+            if monitor is not None and rz.kind == "shrink":
+                # released workers leave the heartbeat set deliberately; a
+                # later revive is the recovery signal the autoscaler grows
+                # on
+                for w in rz.workers:
+                    monitor.expire(w)
+            if monitor is not None and rz.kind == "grow":
+                # regranted workers must beat again (a later real death of
+                # the same worker would otherwise go unseen)
+                for w in rz.workers:
+                    monitor.revive(w)
+            self._emit("resize", step, resize_kind=kind,
+                       from_stages=rz.from_stages, to_stages=rz.to_stages,
+                       workers=list(rz.workers),
+                       ticks_before=rz.ticks_before,
+                       ticks_after=rz.ticks_after)
+            resize_mem.append({"step": step, "kind": rz.kind,
+                               "allocated_before": mem_before,
+                               "allocated_after": self._allocated()})
+            print(f"step {step:4d} {kind.upper()} {rz.from_stages}->"
+                  f"{rz.to_stages} stages; workers {rz.workers}; "
+                  f"pool active={engine.jm.num_active}; schedule "
+                  f"{rz.ticks_before}->{rz.ticks_after} ticks", flush=True)
+
+        # multi-tenant: poll the cluster scheduler's directive mailbox each
+        # step (preempt = shrink at this safe point; offer = absorb free
+        # workers back)
+        multi_tenant = bool(jm is not None and spec.cluster.tenant_id
+                            and getattr(jm, "tenant", None))
+        tenant_min = max(1, repack_target)
+        last_cluster_resize = start_step - 1
+        absorb_cooldown = max(1, spec.controller.rebalance_every)
+
+        losses, gnorms, events, step_times, stages_hist = [], [], [], [], []
+        exited_frac: Dict[int, float] = {}
+        relayouts: List[Dict[str, Any]] = []
+        expert_skew_last = moe_dropped_last = None
+        last_measured = stage_time_source = None
+        stage_times_log: List[Dict[str, Any]] = []
+        safepoint_s: List[float] = []
+        # ---- step-time accounting: warm-up steps (the first step on each
+        # freshly built world) and controller-cadence decide time are kept
+        # apart from the steady-state step times
+        warmup_steps, warmup_s, decide_s = 0, 0.0, 0.0
+        steady_times: List[float] = []
+        t0 = time.perf_counter()
+        for step, batch in enumerate(loader, start=start_step):
+            if step >= steps:
+                break
+            t_step = time.perf_counter()
+            lr = cosine_schedule(step, steps, 3e-4, warmup=10)
+            loss, stats, gnorm = engine.step(state, batch, lr)
+            # one scalar sync for the loss curve; the per-slot stats stay
+            # on the device until controller cadence (§3.3.1)
+            losses.append(float(loss))
+            dt = time.perf_counter() - t_step
+            step_times.append(dt)
+            stages_hist.append(state.stages)
+            if engine.last_step_compiled:
+                warmup_steps += 1
+                warmup_s += dt
+            else:
+                steady_times.append(dt)
+                mreg.observe("dynmo_step_seconds", dt,
+                             help="steady-state train step wall seconds")
+            mreg.inc("dynmo_train_steps_total",
+                     help="train steps executed")
+            mreg.set("dynmo_stages", state.stages,
+                     help="current pipeline stage count")
+
+            # ---- dynamism events (black-box to the controller)
+            if dynamism == "pruning" and step and step % 10 == 0:
+                sp = zhu_gupta_sparsity(
+                    step * 100, dataclasses.replace(
+                        dyncfg, prune_start_iter=0,
+                        prune_end_iter=steps * 100, prune_frequency=1))
+                keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
+                state.dyn = {**state.dyn, "ff_mask": prn.global_block_prune(
+                    cfg, state.params["stages"], state.assignment["tags"],
+                    keep)}
+            if dynamism == "freezing" and step and step % 10 == 0:
+                front = int(cfg.total_blocks() * min(0.6, step / steps))
+                tags_np = state.assignment["tags"].numpy()
+                fr = np.zeros(tags_np.shape, np.float32)
+                g = 0
+                for s in range(tags_np.shape[0]):
+                    for l in range(tags_np.shape[1]):
+                        if tags_np[s, l] != 0:
+                            if g < front:
+                                fr[s, l] = 1.0
+                            g += 1
+                state.dyn = {**state.dyn,
+                             "frozen": state.dyn["frozen"].new_tensor(fr)}
+
+            # ---- heartbeats (simulated per-step liveness: active workers
+            # beat; released / dead ones go silent and time out)
+            if monitor is not None:
+                sim_clock[0] = float(step)
+                for w in engine.stage_workers:
+                    monitor.beat(w)
+                if (spec.cluster.simulate_recover is not None
+                        and step == spec.cluster.simulate_recover):
+                    for w in range(stages):
+                        if w not in engine.stage_workers:
+                            monitor.revive(w)
+
+            # ---- publish stats to the control plane on cadence (the only
+            # device -> host stats sync; in async mode a pointer swap)
+            if ctrl.cadence(step + 1):
+                t_decide = time.perf_counter()
+                measured = src = None
+                if obs.in_step_timing:
+                    # per-stage seconds of the live step's stage calls: no
+                    # extra execution (the probe below stays available as
+                    # the parity oracle)
+                    measured = engine.in_step_stage_times(state)
+                    if measured is not None:
+                        src = "in_step"
+                if measured is None and measure_stage_times:
+                    # the isolated probe: a host sync per stage, so on
+                    # cadence only
+                    measured = engine.measure_stage_times(state, batch)
+                    src = "probe"
+                if measured is not None:
+                    last_measured, stage_time_source = measured, src
+                    stage_times_log.append({
+                        "step": step, "source": src, "stages": state.stages,
+                        "seconds": [float(x) for x in measured]})
+                    for s in range(len(measured)):
+                        mreg.set("dynmo_stage_time_seconds",
+                                 float(measured[s]),
+                                 help="per-stage busy seconds per step",
+                                 stage=s, source=src)
+                if straggler:
+                    # simulation knob: a straggling WORKER multiplies its
+                    # stage's time (the measured one when there is one,
+                    # else the wall time split by layer counts); keyed by
+                    # worker id, which keeps its slowness across resizes
+                    if measured is None:
+                        share = np.asarray(state.lps, np.float64)
+                        measured = share / share.sum() * step_times[-1]
+                    measured = measured * np.array(
+                        [straggler.get(engine.stage_workers[s], 1.0)
+                         for s in range(state.stages)])
+                cp.publish(StatsSnapshot(
+                    iteration=step + 1, epoch=engine.epoch,
+                    stats=engine.stats_to_host(state, stats),
+                    tags=state.assignment["tags"].numpy(),
+                    num_micro=shapes.num_micro, tokens=tokens_per_step,
+                    seq=seq, frozen=state.dyn["frozen"].cpu().numpy(),
+                    stage_times=measured))
+                if spec.controller.async_drain:
+                    cp.drain()
+                if stage_times_log and stage_times_log[-1]["step"] == step \
+                        and (spec.controller.async_drain
+                             or not spec.controller.async_decide):
+                    # the cost model's per-stage loads of this decision
+                    stage_times_log[-1]["expected"] = cp.with_ctrl(
+                        lambda c: c.expected_loads)
+                decide_s += time.perf_counter() - t_decide
+
+            # ---- cluster-scheduler directives (multi-tenant): a steal by
+            # a higher-priority tenant arrives as a preemption and becomes
+            # an externally originated shrink in the same epoch-fenced
+            # mailbox, applied at this step's safe point just below.
+            # Level-triggered: a directive fenced off is re-delivered
+            if multi_tenant:
+                from repro_torch.cluster.rpc import JobManagerUnavailable
+                try:
+                    directives = jm.poll_cluster()
+                except (JobManagerUnavailable, RuntimeError):
+                    directives = None
+                if directives and directives["preempt"] > 0:
+                    target = max(tenant_min,
+                                 state.stages - directives["preempt"])
+                    if target < state.stages:
+                        cp.inject_resize(engine.epoch, target)
+                        last_cluster_resize = step
+                        cause = (directives.get("cause")
+                                 if isinstance(directives, dict) else None)
+                        self._emit("preempt", step, cause_ctx=cause,
+                                   due=directives["preempt"],
+                                   target_stages=target)
+                elif (directives and directives["offer"] > 0
+                        and state.stages < stages
+                        and step - last_cluster_resize >= absorb_cooldown):
+                    prev = state.stages
+                    mem_before = self._allocated()
+                    state = engine.grow(
+                        state, min(directives["offer"],
+                                   stages - state.stages), step=step)
+                    if state.stages > prev:   # the scheduler may grant none
+                        cp.with_ctrl(
+                            lambda c: setattr(c.ccfg, "repack", False))
+                        after_resize(step, "absorb", mem_before)
+                        self._emit("absorb", step,
+                                   workers=state.stages - prev)
+                        last_cluster_resize = step
+
+            # ---- safe point: apply the newest finished plan (epoch-
+            # fenced: a plan decided against a pre-resize world is
+            # rejected)
+            plan = cp.poll(engine.epoch)
+            if plan is not None:
+                if plan.event is not None:
+                    expert_skew_last = plan.event.expert_skew
+                    moe_dropped_last = plan.event.expert_dropped
+                if plan.event is not None and plan.event.rebalanced:
+                    events.append(plan.event)
+                    self._emit("rebalance", step,
+                               iteration=plan.event.iteration,
+                               imbalance_before=plan.event.imbalance_before,
+                               imbalance_after=plan.event.imbalance_after,
+                               moved_layers=plan.event.moved_layers)
+                if (plan.resize is not None
+                        and plan.resize.target_stages < state.stages):
+                    mem_before = self._allocated()
+                    state = engine.shrink(state, plan.resize.target_stages,
+                                          plan.resize.layers_per_stage,
+                                          step=step)
+                    after_resize(step, f"shrink[{plan.resize.policy}]",
+                                 mem_before)
+                    mreg.inc("dynmo_resizes_total", kind="shrink",
+                             policy=plan.resize.policy,
+                             help="engine resizes by kind")
+                elif plan.new_lps is not None:
+                    (state.params, state.opt_state, state.dyn,
+                     state.assignment, _) = cp.apply(
+                        plan, state.params, state.opt_state, state.dyn)
+                    state.lps = cp.with_ctrl(lambda c: list(c.lps))
+                # expert re-layout: orthogonal to the stage plan above (it
+                # rewrites only the expert_map dyn leaf)
+                if (plan.expert_relayout is not None
+                        and "expert_map" in state.dyn):
+                    rl = plan.expert_relayout
+                    em = state.dyn["expert_map"]
+                    state.dyn = {**state.dyn, "expert_map": em.new_tensor(
+                        rl.new.as_array()).expand_as(em).clone()}
+                    cp.with_ctrl(lambda c: c.commit_relayout(rl))
+                    rec = {"iteration": rl.iteration, "skew": rl.skew,
+                           "tokens": rl.total_tokens,
+                           "moved_experts": rl.moved_experts,
+                           "placement": list(rl.new.placement)}
+                    relayouts.append({"step": step, **rec})
+                    # the step goes once, as the event's own field
+                    self._emit("relayout", step, **rec)
+                    print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
+                          f"{rl.moved_experts} experts -> "
+                          f"{list(rl.new.placement)}", flush=True)
+
+            # ---- autoscaler: heartbeat + watermark signals
+            if scaler is not None:
+                # "logical" clock: a schedule-derived step time (the tick
+                # count) instead of the wall clock — deterministic
+                wm_dt = step_times[-1]
+                if spec.cluster.watermark_clock == "logical":
+                    wm_dt = engine.ticks(state.stages) * 1e-3
+                d = scaler.observe(step, wm_dt, state.stages,
+                                   engine.stage_workers, tokens_per_step)
+                if d.action != "none":
+                    self._emit("autoscale", step, action=d.action,
+                               workers=d.workers, reason=d.reason,
+                               ids=list(d.ids))
+                if d.action == "evict":
+                    mem_before = self._allocated()
+                    state = engine.evict(state, d.ids, step=step)
+                    after_resize(step, "evict", mem_before)
+                elif d.action == "grow" and state.stages < stages:
+                    prev = state.stages
+                    mem_before = self._allocated()
+                    state = engine.grow(state, d.workers, step=step)
+                    if state.stages > prev:   # the pool may grant nothing
+                        # granted workers stay for this job: stop planning
+                        # resizes so ordinary rebalancing keeps running
+                        cp.with_ctrl(
+                            lambda c: setattr(c.ccfg, "repack", False))
+                        after_resize(step, "grow", mem_before)
+                elif (d.action == "shrink"
+                        and state.stages > max(1, repack_target)):
+                    mem_before = self._allocated()
+                    state = engine.shrink(
+                        state, max(max(1, repack_target),
+                                   state.stages - d.workers), step=step)
+                    after_resize(step, "shrink[watermark]", mem_before)
+
+            # ---- legacy fixed-step growth (deprecated; superseded by
+            # cluster.autoscale)
+            if (grow_back and engine.last_shrink_step is not None
+                    and state.stages < stages
+                    and step >= engine.last_shrink_step + grow_back):
+                prev_stages = state.stages
+                mem_before = self._allocated()
+                state = engine.grow(state, stages - state.stages, step=step)
+                if state.stages > prev_stages:
+                    cp.with_ctrl(lambda c: setattr(c.ccfg, "repack", False))
+                    after_resize(step, "grow", mem_before)
+            # ---- checkpoints: after the step's resize and grow decisions
+            if ckpt is not None:
+                ckpt.maybe_save(step, state.params, state.opt_state,
+                                state.dyn, state.lps)
+            if safept is not None and safept.due(step):
+                t_sp = time.perf_counter()
+                path = safept.save(
+                    step, state, spec=spec, engine=engine, scaler=scaler,
+                    repack_enabled=cp.with_ctrl(
+                        lambda c: bool(c.ccfg.repack)),
+                    jm_dir=self._jm_dir)
+                safepoint_s.append(time.perf_counter() - t_sp)
+                self._emit("safepoint", step, path=path,
+                           stages=state.stages)
+            if on_step is not None:
+                # where the reference's fault injector fires: a trainer
+                # kill at step k leaves the k-aligned safe point on disk
+                on_step(step, self)
+            gnorms.append(float(gnorm))
+            if step % spec.log_every == 0:
+                self._emit("log", step, loss=float(loss),
+                           gnorm=float(gnorm), stages=state.stages,
+                           lps=list(state.lps))
+                ee = ""
+                if "exited_frac" in stats:
+                    # early exit's share of exited tokens: a host read on
+                    # the log cadence only
+                    exited_frac[step] = float(stats["exited_frac"])
+                    ee = f" exited {exited_frac[step]:.4f}"
+                print(f"step {step:4d} loss {float(loss):.4f} "
+                      f"gnorm {float(gnorm):.3f} S={state.stages} "
+                      f"lps={state.lps}{ee}", flush=True)
+        wall = time.perf_counter() - t0
+        steady_s = float(sum(steady_times))
+        steady_tok_s = (tokens_per_step * len(steady_times) / steady_s
+                        if steady_s > 0 else None)
+        if steady_tok_s is not None:
+            mreg.set("dynmo_tokens_per_s", steady_tok_s,
+                     help="steady-state training throughput")
+        timing = {
+            "warmup_steps": warmup_steps, "warmup_s": warmup_s,
+            "decide_s": decide_s,
+            "steady_steps": len(steady_times), "steady_s": steady_s,
+            "steady_step_mean_s": (steady_s / len(steady_times)
+                                   if steady_times else None),
+            "steady_step_p50_s": (float(np.percentile(steady_times, 50))
+                                  if steady_times else None),
+            "steady_step_p95_s": (float(np.percentile(steady_times, 95))
+                                  if steady_times else None),
+            "steady_tokens_per_s": steady_tok_s,
+            # safe points: seconds of each save (device -> host, npz,
+            # sha256) and of the restore (verify, load, host -> device),
+            # and torch.cuda.memory_allocated just after the restore
+            "safepoint_s": safepoint_s, "restore_s": restore_s,
+            "restore_allocated": restore_mem,
+        }
+        report = {
+            "losses": losses, "gnorms": gnorms, "events": events,
+            "wall_s": wall, "final_lps": list(state.lps),
+            "params": state.params, "assignment": state.assignment,
+            "dyn": state.dyn, "opt_state": state.opt_state,
+            "tokens_per_step": tokens_per_step,
+            "step_times": step_times, "stages_history": stages_hist,
+            "resizes": [dataclasses.asdict(e) for e in engine.resizes],
+            # the pool's transitions; behind an RPC boundary, the client's
+            # mirror of them
+            "pool_log": list(engine.jm.log),
+            "final_stages": state.stages,
+            # torch.cuda.memory_allocated around each resize (None on the
+            # CPU)
+            "resize_memory": resize_mem,
+            "exited_frac": exited_frac,
+            "steady_tokens_per_s": steady_tok_s,
+            "measured_stage_times": (list(map(float, last_measured))
+                                     if last_measured is not None else None),
+            "stage_time_source": stage_time_source,
+            # every cadence's measured per-stage seconds (and, when the
+            # decision was waited for, the cost model's per-stage loads)
+            "stage_times": stage_times_log,
+            "timing": timing,
+            "controller": {
+                "mode": ("async" if spec.controller.async_decide
+                         else "inline"),
+                "published": cp.published, "decided": cp.decided,
+                "dropped": cp.dropped,
+                "stale_rejected": cp.stale_rejected},
+            # ---- expert-parallel telemetry (MoE archs; None otherwise)
+            "relayouts": relayouts,
+            "expert_skew_last": expert_skew_last,
+            "moe_dropped_last": moe_dropped_last,
+            "expert_layout": (list(ctrl.expert_layout.placement)
+                              if ctrl.expert_layout is not None else None),
+            "autoscale_decisions": ([dataclasses.asdict(d)
+                                     for d in scaler.decisions]
+                                    if scaler is not None else []),
+            "spec": spec.to_dict(),
+            # ---- fault tolerance
+            "start_step": start_step,
+            "resumed_from": (int(resume_idx["step"])
+                             if resume_idx is not None else None),
+            "safepoints": list(safept.saved) if safept is not None else [],
+            "degraded_events": list(engine.degraded_events),
+            "rpc": ({"stats": dict(jm.rpc_stats),
+                     "breaker": jm.breaker.state_dict()}
+                    if jm is not None else None),
+            "device": str(self.device),
+        }
+        self._emit("train_summary", steps - 1,
+                   loss_first=losses[0] if losses else None,
+                   loss_last=losses[-1] if losses else None,
+                   wall_s=wall, resizes=len(engine.resizes),
+                   final_stages=state.stages)
+        return report
+
+    # =======================================================================
+    # Serving
+    # =======================================================================
+    def make_trace(self):
+        """The request trace described by ``spec.serve`` (bursty square-wave
+        arrivals, mixed prompt / gen lengths, optional early-exit
+        fraction)."""
+        from repro_torch.serve.requests import make_trace
+        s = self.spec.serve
+        cfg = self._model_config()
+        return make_trace(s.requests, prompt_len=s.prompt_len,
+                          max_gen=s.gen, vocab_size=cfg.vocab_size,
+                          seed=self.spec.seed,
+                          min_prompt=s.min_prompt or max(1,
+                                                         s.prompt_len // 2),
+                          burst_period=s.burst_period, burst_len=s.burst_len,
+                          burst_rate=s.burst_rate, lull_rate=s.lull_rate,
+                          early_exit_frac=s.early_exit_frac)
+
+    def serve(self, trace=None, *, resize_at: Optional[Dict[int, int]] = None
+              ) -> Dict[str, Any]:
+        """Serve ``trace`` (default: the spec's generated trace) through the
+        continuous-batching scheduler on elastic engine worlds.  Returns the
+        server's report dict."""
+        from repro_torch.cluster.autoscaler import Autoscaler, AutoscalerConfig
+        from repro_torch.pipeline.pipeline import PipelineShapes
+        from repro_torch.serve.server import ElasticServer
+
+        spec = self.spec
+        s = spec.serve
+        self._check_ported()
+        if spec.obs.in_step_timing:
+            raise NotImplementedError(
+                "in-step stage timing of the serve path is not in "
+                "repro_torch yet (ROADMAP Queue 1 [faults-obs])")
+        cfg = self._model_config()
+        dcfg = self._dist_config()
+        dyncfg = spec.dynamics.to_config()
+        shapes = PipelineShapes(spec.parallel.num_micro,
+                                spec.parallel.mb_global, s.prompt_len,
+                                cache_len=s.prompt_len + s.gen)
+        paged = None
+        if s.kv_page_size > 0:
+            from repro_torch.serve.kv import PagedKVConfig
+            # kv_pool_pages=0 auto-sizes to the dense-equivalent footprint
+            # (every lane could hold a full cache line)
+            lanes = spec.parallel.num_micro * spec.parallel.mb_global
+            pool = s.kv_pool_pages or lanes * (shapes.cache_len
+                                               // s.kv_page_size)
+            paged = PagedKVConfig(page_size=s.kv_page_size, pool_pages=pool,
+                                  prefix_cache=s.prefix_cache)
+        if trace is None:
+            trace = self.make_trace()
+
+        scaler = None
+        if spec.cluster.autoscale:
+            scaler = Autoscaler(AutoscalerConfig(
+                min_stages=max(1, s.min_stages),
+                max_stages=spec.parallel.stages,
+                patience=s.patience, cooldown=s.cooldown,
+                queue_high=s.queue_high, occupancy_low=s.occupancy_low,
+                latency_slo_s=s.latency_slo_s))
+        jm = self._connect_job_manager()
+        # multi-tenant: start on the scheduler's grant (min_stages: serve
+        # small, steal under load) instead of the spec's maximum
+        granted = self._register_tenant(
+            jm, kind="serve", workers=s.min_stages,
+            max_workers=spec.parallel.stages, min_workers=s.min_stages)
+        srv = ElasticServer(cfg, dcfg, dyncfg, shapes, job_manager=jm,
+                            scaler=scaler, min_stages=s.min_stages,
+                            seed=spec.seed, defrag_every=s.defrag_every,
+                            measure_stage_times=spec.controller
+                            .measure_stage_times,
+                            initial_workers=granted, paged=paged,
+                            temperature=s.temperature, device=self.device,
+                            params=self.params)
+        self._server = srv
+        report = srv.serve(trace, autoscale=spec.cluster.autoscale,
+                           resize_at=resize_at, max_ticks=s.max_ticks)
+        self.metrics.set("dynmo_tokens_per_s", report["tokens_per_s"],
+                         help="serving throughput")
+        self.metrics.set("dynmo_latency_p95_s", report["latency_p95_s"],
+                         help="serving p95 request latency")
+        report["spec"] = spec.to_dict()
+        report["degraded_events"] = list(srv.engine.degraded_events)
+        report["rpc"] = ({"stats": dict(jm.rpc_stats),
+                          "breaker": jm.breaker.state_dict()}
+                         if jm is not None else None)
+        for rz in report["resizes"]:
+            self._emit("resize", rz["step"], resize_kind=rz["kind"],
+                       from_stages=rz["from_stages"],
+                       to_stages=rz["to_stages"],
+                       workers=list(rz["workers"]))
+            if granted is not None and rz["kind"] == "shrink":
+                # a tenant-scoped release is a yield: the freed workers go
+                # back through the scheduler to whoever is owed or offered
+                self._emit("yield", rz["step"],
+                           workers=list(rz["workers"]),
+                           tenant=spec.cluster.tenant_id)
+        for d in report["autoscale_decisions"]:
+            self._emit("autoscale", d["step"], action=d["action"],
+                       workers=d["workers"], reason=d["reason"],
+                       ids=list(d["ids"]))
+            if (granted is not None and d["action"] == "grow"
+                    and d.get("urgent")):
+                self._emit("steal", d["step"], workers=d["workers"],
+                           reason=d["reason"],
+                           tenant=spec.cluster.tenant_id)
+        self._emit("serve_summary", report["ticks"],
+                   completions=len(report["completions"]),
+                   total_tokens=report["total_tokens"],
+                   tokens_per_s=report["tokens_per_s"],
+                   latency_p95_s=report["latency_p95_s"])
+        return report

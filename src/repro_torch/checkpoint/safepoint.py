@@ -5,10 +5,11 @@ A *safe point* is an ordinary checkpoint (params, optimizer and dynamism
 state in stage shards, published by write-then-rename) whose index
 metadata also holds the run's control-plane state:
 
-  * ``args`` — the train CLI's parsed flags (the reference stores its
-    ``RunSpec`` as ``spec``; the port has no ``RunSpec`` until ROADMAP
-    Queue 1 [api]), so ``--resume DIR`` rebuilds the run from the safe
-    point alone;
+  * ``spec`` — the producing ``RunSpec`` as a dict, as the reference
+    stores it, so ``Session.resume(dir)`` (``--resume DIR``) rebuilds the
+    run from the safe point alone.  A safe point with the train CLI's
+    flags as ``args`` and no ``spec`` predates the RunSpec front door and
+    is refused by name (``peek``);
   * the step, the stage count, the split and the stage -> worker map;
   * the world epoch and the worker pool (its sets, spares, provisioned
     ids and log) — read from the file manager's journal when the pool
@@ -17,7 +18,7 @@ metadata also holds the run's control-plane state:
     decides as the uninterrupted one) and the controller's repack latch
     (``repack_enabled``).
 
-The loader position and the LR schedule are functions of (flags, step),
+The loader position and the LR schedule are functions of (spec, step),
 so restoring the step restores them; the tensors restore bit-exactly from
 the shards.  Not in the safe point, as in the reference: the engine's last
 shrink step (a resumed run does not grow back), the straggler detector's
@@ -47,12 +48,12 @@ class SafepointManager:
     def due(self, step: int) -> bool:
         return (step + 1) % self.every == 0
 
-    def save(self, step: int, state, *, args: Dict[str, Any], engine,
+    def save(self, step: int, state, *, spec, engine,
              scaler=None, repack_enabled: Optional[bool] = None,
              jm_dir: Optional[str] = None) -> str:
-        """Write the safe point of a fully completed ``step``.  With the
-        pool behind a file manager (``jm_dir``), its journal is the
-        authoritative pool state."""
+        """Write the safe point of a fully completed ``step`` of the run
+        ``spec`` (a ``RunSpec``).  With the pool behind a file manager
+        (``jm_dir``), its journal is the authoritative pool state."""
         pool_state = None
         if engine.pool is not None:
             pool_state = engine.pool.state_dict()
@@ -64,7 +65,7 @@ class SafepointManager:
                 pool_state = None       # no journal yet (nothing executed)
         meta: Dict[str, Any] = {
             "kind": "safepoint",
-            "args": dict(args),
+            "spec": spec.to_dict(),
             "step": step,
             "stage_workers": [int(w) for w in engine.stage_workers],
             "epoch": int(engine.epoch),
@@ -84,14 +85,22 @@ class SafepointManager:
 
 def peek(path: str, step: Optional[int] = None) -> Dict[str, Any]:
     """Index (with the safe-point metadata) of the newest complete safe
-    point, or of ``step`` when that one is complete."""
+    point, or of ``step`` when that one is complete.  A safe point that
+    carries the train CLI's flags (``args``) and no ``spec`` predates the
+    RunSpec front door and is refused."""
     idx = latest_index(path, step)
     if idx is None:
         raise FileNotFoundError(f"no complete safe point under {path}")
-    if idx.get("meta", {}).get("kind") != "safepoint":
+    meta = idx.get("meta", {})
+    if meta.get("kind") != "safepoint":
         raise ValueError(
             f"checkpoint under {path} is not a safe point (plain "
             f"checkpoints lack the control-plane state resume needs)")
+    if "spec" not in meta:
+        raise ValueError(
+            f"safe point step {idx['step']} under {path} stores the train "
+            f"CLI's flags as 'args' and no RunSpec as 'spec': it predates "
+            f"the RunSpec front door and cannot be resumed")
     return idx
 
 

@@ -1,256 +1,296 @@
-"""Serving CLI of the port — ``repro.launch.serve --elastic`` and
-``Session.serve``.
+"""Serving CLI of the port — a thin adapter over ``repro_torch.api`` plus
+the legacy oracle, as ``repro.launch.serve`` is over ``repro.api``:
 
-  python -m repro_torch.launch.serve --elastic --stages 1 --micro 2 \\
-      --mb-global 4 --prompt-len 1024 --gen 32 --requests 12 \\
-      --kv-page-size 16 --prefix-cache --dynamism sparse_attention \\
-      --kernel-impl pallas
+  * ``run_elastic_serving`` / ``--elastic`` (or ``--config``) — the
+    continuous-batching server on elastic engine worlds.  The lifecycle
+    lives in ``Session.serve``; the kwarg entry point is the reference's
+    deprecation shim that builds the equivalent ``RunSpec``
+    (``serve_spec``), so flag path, config path and Python API produce
+    identical runs.
+  * ``run_serving`` — the legacy one-shot generator (one fixed batch,
+    prefill + ``gen`` decode rounds, an optional DynMo rebalance between
+    rounds); kept as the parity oracle of the continuous scheduler: a full
+    batch arriving at once through ``ElasticServer`` gives its tokens.
 
-Flag names are the reference's (``repro.api.cli``).  The model is built as
-``Session._model_config`` builds it: the registry config at full size, or
-``reduced_config`` when ``--layers`` is given (the reference's serve CLI
-reduces to 8 layers by default; this one serves the full model unless
-asked).  The KV pool is sized as ``Session.serve`` sizes it.  The run is on
-the CUDA card unless ``--device cpu``.  Flags of features outside the port
-so far raise ``NotImplementedError`` naming their ROADMAP item.
+Like the reference's, the CLI cuts the arch to 8 layers unless
+``--layers N`` or ``--set model.layers=null`` (the full model) is given.
+It runs on the CUDA card unless ``--device cpu``.
 
-``--temperature T`` samples every lane (a counter-based sampler seeded per
-request and position); ``--autoscale`` lets the load signals (queue depth,
-lane and page occupancy) shrink and grow the stage
-buffers between ticks; ``--job-manager file|http`` puts the worker pool
-behind a manager process, and ``--tenant-id`` / ``--priority`` register
-the server as a tenant of a shared HTTP manager (``--manager-url``): it
-starts on ``--min-stages`` workers, an urgent grow steals from a
-lower-priority tenant, a shrink yields workers back.
-
-  python -m repro_torch.launch.serve --elastic --stages 4 --autoscale \
-      --min-stages 2 --requests 24 --burst-period 16 --burst-len 4
+  python -m repro_torch.launch.serve --elastic --set model.layers=null \\
+      --stages 1 --micro 2 --mb-global 4 --prompt-len 1024 --gen 32 \\
+      --requests 12 --kv-page-size 16 --prefix-cache \\
+      --dynamism sparse_attention --kernel-impl pallas
+  python -m repro_torch.launch.serve --elastic --device cpu --stages 4 \\
+      --autoscale --min-stages 2 --requests 24 --burst-period 16 \\
+      --burst-len 4
+  python -m repro_torch.launch.serve --device cpu --layers 8 --gen 16
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 from typing import Any, Dict, List, Optional
 
-from repro_torch.cluster.autoscaler import Autoscaler, AutoscalerConfig
-from repro_torch.configs.base import DistConfig, get_config, reduced_config
-from repro_torch.dynamics.config import DynamicsConfig
-from repro_torch.launch import cluster
-from repro_torch.pipeline.pipeline import PipelineShapes
-from repro_torch.serve.kv import PagedKVConfig
-from repro_torch.serve.requests import make_trace
-from repro_torch.serve.server import ElasticServer
+import numpy as np
+
+from repro_torch.api.cli import (SERVE_ALIASES, SERVE_CLI_DEFAULTS,
+                                 add_alias_flags, add_config_args,
+                                 add_spec_flags, build_spec, maybe_dump)
+from repro_torch.api.session import Session
+from repro_torch.api.specs import (ClusterSpec, ControllerSpec, DynamicsSpec,
+                                   ModelSpec, ParallelSpec, RunSpec,
+                                   ServeSpec)
+
+
+def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
+                mb_global: int = 4, prompt_len: int = 32, gen: int = 8,
+                layers: Optional[int] = 8, d_model: int = 128,
+                dynamism: str = "none", rebalance_every: int = 0,
+                seed: int = 0, kernel_impl: str = "scan",
+                param_dtype: str = "float32", device=None,
+                params=None) -> Dict[str, Any]:
+    """One fixed batch of ``micro`` x ``mb_global`` prompts (drawn from
+    ``np.random.RandomState(seed)``): a prefill, then ``gen - 1`` decode
+    rounds at one shared position, with a serving-time rebalance every
+    ``rebalance_every`` rounds (the survival-curve cost vector through
+    ``DynMoController.decide / apply``, which migrates the cache too).
+    ``params`` (a converted reference tree) replaces the init, which
+    draws from a torch generator seeded with ``seed`` as the engine's
+    does.  Returns the tokens [micro, mb_global, gen], the wall seconds,
+    tokens/s and the final split."""
+    import torch
+
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.core.controller import ControllerConfig, DynMoController
+    from repro_torch.core.cost_model import LayerDynState, cost_vector
+    from repro_torch.core.profiler import LayerProfile
+    from repro_torch.device import resolve_device
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import _check_tree, _to
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline import (PipelineShapes,
+                                               build_decode_fn,
+                                               build_prefill_fn)
+
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = reduced_config(cfg, num_layers=layers, d_model=d_model,
+                             num_heads=4, num_kv_heads=2, d_ff=2 * d_model,
+                             vocab_size=512)
+    dcfg = DistConfig(num_stages=stages, slot_slack=2, remat="none",
+                      param_dtype=param_dtype, kernel_impl=kernel_impl)
+    dyncfg = DynamicsConfig(kind=dynamism)
+    M.check_ported(cfg, dyncfg)
+    cache_len = prompt_len + gen
+    shapes = PipelineShapes(micro, mb_global, prompt_len,
+                            cache_len=cache_len)
+    if params is None:
+        params = M.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, dcfg, dev)
+    else:
+        _check_tree(params, M.param_spec(cfg, dcfg))
+        params = _to(params, dev)
+    hash_proj = (B.default_hash_projection(cfg.d_model,
+                                           dyncfg.sparse_nbuckets, dev)
+                 if dyncfg.uses_sparse_attention else None)
+    assignment = M.make_assignment(cfg, dcfg)
+    dyn = M.init_dyn(cfg, dcfg, dyncfg, dev)
+    cache = M.init_cache(cfg, dcfg, micro, mb_global, cache_len, dev)
+    prefill = build_prefill_fn(cfg, dcfg, dyncfg, shapes,
+                               hash_proj=hash_proj)
+    decode = build_decode_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj)
+    ctrl = DynMoController(
+        cfg, dcfg, dyncfg,
+        ControllerConfig(method="partition", cost_by="time",
+                         rebalance_every=max(1, rebalance_every)))
+
+    rng = np.random.RandomState(seed)
+    tokens = torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (micro, mb_global, prompt_len)),
+        dtype=torch.int32, device=dev)
+    outs = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ids, cache, _ = prefill(params, assignment, dyn, cache,
+                                {"tokens": tokens})
+        outs.append(ids.cpu().numpy())
+        for g in range(1, gen):
+            pos = torch.tensor(prompt_len + g - 1, device=dev)
+            ids, _, cache, _ = decode(params, assignment, dyn, cache, ids,
+                                      pos)
+            outs.append(ids.cpu().numpy())
+            if rebalance_every and g % rebalance_every == 0:
+                # serving-time profile: the survival-curve cost vector
+                L = cfg.total_blocks()
+                states = [LayerDynState() for _ in range(L)]
+                t = cost_vector(cfg, mb_global, prompt_len + g, states,
+                                by="time")
+                prof = LayerProfile(
+                    t, cost_vector(cfg, mb_global, prompt_len + g, states,
+                                   by="param") * dcfg.bytes_per_param,
+                    np.zeros(stages), states)
+                new_lps, ev = ctrl.decide(prof, g)
+                if new_lps is not None:
+                    params, _, dyn, assignment, cache = ctrl.apply(
+                        new_lps, params, None, dyn, cache)
+    wall = time.perf_counter() - t0
+    gen_tokens = np.stack(outs, axis=-1)
+    tps = micro * mb_global * gen / wall
+    return {"tokens": gen_tokens, "wall_s": wall, "tokens_per_s": tps,
+            "final_lps": ctrl.lps}
+
+
+def serve_spec(arch: str, *, stages: int = 4, micro: int = 2,
+               mb_global: int = 4, prompt_len: int = 32,
+               gen: int = 8, layers: Optional[int] = 8,
+               d_model: int = 128, dynamism: str = "none",
+               requests: int = 16, min_prompt: Optional[int] = None,
+               burst_period: int = 0, burst_len: int = 0,
+               burst_rate: int = 4, lull_rate: int = 1,
+               early_exit_frac: float = 0.0, seed: int = 0,
+               autoscale: bool = False, min_stages: int = 1,
+               queue_high: int = 8, occupancy_low: float = 0.35,
+               patience: int = 2, cooldown: int = 4,
+               defrag_every: int = 0, job_manager: str = "inproc",
+               job_manager_dir: Optional[str] = None,
+               tenant_id: Optional[str] = None, priority: int = 0,
+               manager_url: Optional[str] = None,
+               latency_slo_s: float = 0.0,
+               kernel_impl: str = "scan",
+               measure_stage_times: bool = False,
+               max_ticks: int = 100000,
+               kv_page_size: int = 0, kv_pool_pages: int = 0,
+               prefix_cache: bool = False,
+               temperature: float = 0.0) -> RunSpec:
+    """The ``RunSpec`` equivalent of the legacy ``run_elastic_serving``
+    kwargs — the single place the old vocabulary maps onto the schema."""
+    return RunSpec(
+        model=ModelSpec(arch=arch, layers=layers, d_model=d_model),
+        parallel=ParallelSpec(stages=stages, num_micro=micro,
+                              mb_global=mb_global,
+                              kernel_impl=kernel_impl),
+        dynamics=DynamicsSpec(kind=dynamism),
+        controller=ControllerSpec(measure_stage_times=measure_stage_times),
+        cluster=ClusterSpec(job_manager=job_manager,
+                            job_manager_dir=job_manager_dir,
+                            autoscale=autoscale, tenant_id=tenant_id,
+                            priority=priority, manager_url=manager_url),
+        serve=ServeSpec(requests=requests, prompt_len=prompt_len, gen=gen,
+                        min_prompt=min_prompt, burst_period=burst_period,
+                        burst_len=burst_len, burst_rate=burst_rate,
+                        lull_rate=lull_rate,
+                        early_exit_frac=early_exit_frac,
+                        defrag_every=defrag_every,
+                        min_stages=max(1, min_stages),
+                        queue_high=queue_high,
+                        occupancy_low=occupancy_low, patience=patience,
+                        cooldown=cooldown, latency_slo_s=latency_slo_s,
+                        max_ticks=max_ticks, kv_page_size=kv_page_size,
+                        kv_pool_pages=kv_pool_pages,
+                        prefix_cache=prefix_cache, temperature=temperature),
+        seed=seed)
+
+
+def run_elastic_serving(arch: str, *, resize_at=None, device=None,
+                        params=None, **kwargs) -> Dict[str, Any]:
+    """Legacy kwarg entry point (deprecation shim).
+
+    Builds the equivalent ``RunSpec`` and serves it through a ``Session``
+    — new code should do that directly:
+
+        with Session(serve_spec(arch, ...), device=device) as s:
+            report = s.serve()
+    """
+    spec = serve_spec(arch, **kwargs)
+    with Session(spec, device=device, params=params) as s:
+        return s.serve(resize_at=resize_at)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="DynMo continuous-batching serving on the PyTorch/CUDA "
-                    "port")
-    a = ap.add_argument
-    a("--elastic", action="store_true",
-      help="serve a request trace through the continuous-batching "
-           "scheduler (the only serving path of the port)")
-    # model (spec fields model.*)
-    a("--arch", default="smollm-360m")
-    a("--layers", type=int, default=None,
-      help="reduce the arch to this many layers (default: full size)")
-    a("--d-model", type=int, default=128)
-    a("--num-heads", type=int, default=4)
-    a("--num-kv-heads", type=int, default=2)
-    a("--d-ff", type=int, default=None, help="default 2 * d_model")
-    a("--vocab-size", type=int, default=512)
-    # parallel.*
-    a("--stages", type=int, default=4)
-    a("--micro", type=int, default=2, dest="num_micro")
-    a("--mb-global", type=int, default=4)
-    a("--slot-slack", type=int, default=2)
-    a("--param-dtype", default="float32", choices=["float32", "bfloat16"])
-    a("--kernel-impl", default="scan",
-      choices=["reference", "scan", "pallas"])
-    a("--dynamism", default="none",
-      help="dynamism scheme (none | moe | pruning | freezing | "
-           "sparse_attention | early_exit | mod)")
-    a("--dynamics.ee_threshold", dest="ee_threshold", type=float,
-      default=0.98, help="early exit: cosine of a block's input and "
-                         "output above which a token exits")
-    # serve.*
-    a("--requests", type=int, default=16)
-    a("--prompt-len", type=int, default=32)
-    a("--gen", type=int, default=8)
-    a("--min-prompt", type=int, default=None)
-    a("--burst-period", type=int, default=0)
-    a("--burst-len", type=int, default=0)
-    a("--burst-rate", type=int, default=4)
-    a("--lull-rate", type=int, default=1)
-    a("--early-exit-frac", type=float, default=0.0)
-    a("--defrag-every", type=int, default=0)
-    a("--max-ticks", type=int, default=100000)
-    a("--kv-page-size", type=int, default=0,
-      help="tokens per KV block; >0 switches to the paged KV pool")
-    a("--kv-pool-pages", type=int, default=0,
-      help="physical KV blocks (0 = dense-equivalent auto-size)")
-    a("--prefix-cache", action="store_true",
-      help="share full prompt pages across requests (copy-on-write)")
-    a("--temperature", type=float, default=0.0,
-      help="per-lane decode sampling temperature (0 = argmax)")
-    a("--seed", type=int, default=0)
-    # serve.* autoscaling (the reference's serve spec fields)
-    a("--autoscale", action="store_true",
-      help="queue-depth / occupancy watermark scaling")
-    a("--min-stages", type=int, default=1)
-    a("--queue-high", type=int, default=8)
-    a("--occupancy-low", type=float, default=0.35)
-    a("--patience", type=int, default=2)
-    a("--cooldown", type=int, default=4)
-    cluster.add_cluster_flags(ap)
-    # outside the port so far: accepted so it fails loudly, never ignored
-    a("--chaos", action="store_true")
-    # port-only
-    a("--device", default=None, help="cuda (default) or cpu")
+        description="DynMo serving on the PyTorch/CUDA port (config-first: "
+                    "--config RUN.JSON; flags below override spec fields)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="serve a request trace through the continuous-"
+                         "batching scheduler on elastic engine worlds")
+    ap.add_argument("--rebalance-every", type=int, default=0,
+                    help="legacy one-shot path only: DynMo rebalance "
+                         "between decode rounds")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="write the session's structured telemetry stream "
+                         "(one JSON record per resize / autoscale / "
+                         "tenant_register / steal / yield event) to this "
+                         "file")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the kernels' plain "
+                         "versions)")
+    add_config_args(ap)
+    add_alias_flags(ap, SERVE_ALIASES)
+    add_spec_flags(ap)
     return ap
 
 
-def _reject_unported(args) -> None:
-    if not args.elastic:
-        raise NotImplementedError(
-            "the port serves through --elastic only; the legacy one-shot "
-            "generator is not ported (ROADMAP Queue 1 [faults-obs])")
-    if args.chaos:
+def run(argv: Optional[List[str]] = None, *, params=None,
+        resize_at: Optional[Dict[int, int]] = None
+        ) -> Optional[Dict[str, Any]]:
+    """Resolve the spec of ``argv`` and serve it: through ``Session.serve``
+    with ``--elastic`` or ``--config`` (the report gains the event stream
+    as ``session_events``; ``resize_at`` scripts {tick: stages} resizes),
+    else through the one-shot ``run_serving``.  ``params`` (a converted
+    reference tree) replaces the init.  None after ``--dump-config``."""
+    args = build_parser().parse_args(argv)
+    spec = build_spec(args, SERVE_ALIASES, cli_defaults=SERVE_CLI_DEFAULTS)
+    if maybe_dump(args, spec):
+        return None
+    if args.elastic or args.config:
+        with Session(spec, device=args.device, params=params) as s:
+            rep = s.serve(resize_at=resize_at)
+        rep["session_events"] = [dataclasses.asdict(e) for e in s.events]
+        if args.events_out:
+            s.write_events(args.events_out)
+            print(f"wrote {len(s.events)} events to {args.events_out}")
+        return rep
+    if spec.faults.enabled:
         raise NotImplementedError(
             "fault injection is not in repro_torch yet (ROADMAP Queue 1 "
             "[faults-obs])")
-
-
-def model_config(args):
-    """The model as ``Session._model_config`` builds it."""
-    cfg = get_config(args.arch)
-    if args.layers is not None:
-        cfg = reduced_config(cfg, num_layers=args.layers,
-                             d_model=args.d_model, num_heads=args.num_heads,
-                             num_kv_heads=args.num_kv_heads,
-                             d_ff=args.d_ff or 2 * args.d_model,
-                             vocab_size=args.vocab_size)
-    return cfg
-
-
-def build_server(args, params=None, job_manager=None,
-                 initial_workers=None) -> (ElasticServer, list):
-    """(server, trace) for parsed args, as ``Session.serve`` assembles
-    them; ``params`` (a converted reference tree) replaces the engine's own
-    init; ``job_manager`` (a client) and ``initial_workers`` (a tenant's
-    grant) come from ``run``'s connection."""
-    _reject_unported(args)
-    if args.temperature < 0:
-        raise ValueError(f"--temperature must be >= 0, got "
-                         f"{args.temperature}")
-    cfg = model_config(args)
-    dcfg = DistConfig(num_stages=args.stages, slot_slack=args.slot_slack,
-                      remat="none", param_dtype=args.param_dtype,
-                      kernel_impl=args.kernel_impl)
-    dyncfg = DynamicsConfig(kind=args.dynamism,
-                            ee_threshold=args.ee_threshold)
-    shapes = PipelineShapes(args.num_micro, args.mb_global, args.prompt_len,
-                            cache_len=args.prompt_len + args.gen)
-    paged = None
-    if args.kv_page_size > 0:
-        # 0 auto-sizes the pool to the dense-equivalent footprint
-        lanes = args.num_micro * args.mb_global
-        pool = args.kv_pool_pages or lanes * (shapes.cache_len
-                                              // args.kv_page_size)
-        paged = PagedKVConfig(page_size=args.kv_page_size, pool_pages=pool,
-                              prefix_cache=args.prefix_cache)
-    trace = make_trace(args.requests, prompt_len=args.prompt_len,
-                       max_gen=args.gen, vocab_size=cfg.vocab_size,
-                       seed=args.seed,
-                       min_prompt=args.min_prompt or max(
-                           1, args.prompt_len // 2),
-                       burst_period=args.burst_period,
-                       burst_len=args.burst_len, burst_rate=args.burst_rate,
-                       lull_rate=args.lull_rate,
-                       early_exit_frac=args.early_exit_frac)
-    scaler = None
-    if args.autoscale:
-        scaler = Autoscaler(AutoscalerConfig(
-            min_stages=max(1, args.min_stages), max_stages=args.stages,
-            patience=args.patience, cooldown=args.cooldown,
-            queue_high=args.queue_high, occupancy_low=args.occupancy_low))
-    srv = ElasticServer(cfg, dcfg, dyncfg, shapes, seed=args.seed,
-                        job_manager=job_manager, scaler=scaler,
-                        min_stages=args.min_stages,
-                        initial_workers=initial_workers,
-                        defrag_every=args.defrag_every, paged=paged,
-                        temperature=args.temperature, device=args.device,
-                        params=params)
-    return srv, trace
-
-
-def run(argv: Optional[List[str]] = None, *, params=None,
-        resize_at: Optional[Dict[int, int]] = None) -> Dict[str, Any]:
-    """Parse ``argv``, serve the trace, return the server's report (with
-    the reference's ``degraded_events`` and ``rpc`` keys and the
-    ``session_events`` stream).  ``params`` (a converted reference tree) replaces
-    the engine's own init; ``resize_at`` scripts {tick: stages} resizes."""
-    args = build_parser().parse_args(argv)
-    _reject_unported(args)
-    cluster.check_cluster_flags(args)
-    log = cluster.EventLog()
-    jm = cluster.connect(args.job_manager, workers=args.stages,
-                         spares=args.spares,
-                         job_manager_dir=args.job_manager_dir,
-                         manager_url=args.manager_url,
-                         rpc_timeout_s=args.rpc_timeout_s)
-    srv = None
-    try:
-        # multi-tenant: start on the scheduler's grant (min_stages: serve
-        # small, steal under load) instead of the maximum
-        granted = cluster.register_tenant(
-            jm, args.tenant_id, priority=args.priority, kind="serve",
-            workers=args.min_stages, max_workers=args.stages,
-            min_workers=args.min_stages, log=log)
-        srv, trace = build_server(args, params, jm.client, granted)
-        report = srv.serve(trace, max_ticks=args.max_ticks,
-                           resize_at=resize_at, autoscale=args.autoscale)
-    finally:
-        jm.close(srv.engine if srv is not None else None)
-    report["degraded_events"] = list(srv.engine.degraded_events)
-    report["rpc"] = ({"stats": dict(jm.client.rpc_stats),
-                      "breaker": jm.client.breaker.state_dict()}
-                     if jm.client is not None else None)
-    for rz in report["resizes"]:
-        log.emit("resize", rz["step"], resize_kind=rz["kind"],
-                 from_stages=rz["from_stages"], to_stages=rz["to_stages"],
-                 workers=list(rz["workers"]))
-        if granted is not None and rz["kind"] == "shrink":
-            # a tenant-scoped release is a yield: the freed workers go
-            # back through the scheduler to whoever is owed or offered
-            log.emit("yield", rz["step"], workers=list(rz["workers"]),
-                     tenant=args.tenant_id)
-    for d in report["autoscale_decisions"]:
-        log.emit("autoscale", d["step"], action=d["action"],
-                 workers=d["workers"], reason=d["reason"], ids=list(d["ids"]))
-        if granted is not None and d["action"] == "grow" and d["urgent"]:
-            log.emit("steal", d["step"], workers=d["workers"],
-                     reason=d["reason"], tenant=args.tenant_id)
-    log.emit("serve_summary", report["ticks"],
-             completions=len(report["completions"]),
-             total_tokens=report["total_tokens"],
-             tokens_per_s=report["tokens_per_s"],
-             latency_p95_s=report["latency_p95_s"])
-    report["session_events"] = log.events
-    if args.events_out:
-        log.write(args.events_out)
-    report["args"] = vars(args)
-    return report
+    return run_serving(
+        spec.model.arch, stages=spec.parallel.stages,
+        micro=spec.parallel.num_micro, mb_global=spec.parallel.mb_global,
+        prompt_len=spec.serve.prompt_len, gen=spec.serve.gen,
+        layers=spec.model.layers, d_model=spec.model.d_model,
+        dynamism=spec.dynamics.kind, rebalance_every=args.rebalance_every,
+        seed=spec.seed, kernel_impl=spec.parallel.kernel_impl,
+        param_dtype=spec.parallel.param_dtype, device=args.device,
+        params=params)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     rep = run(argv)
+    if rep is None:
+        return
+    if "completions" not in rep:
+        print(f"generated {rep['tokens'].shape} in {rep['wall_s']:.1f}s "
+              f"({rep['tokens_per_s']:.1f} tok/s); "
+              f"final lps={rep['final_lps']}")
+        return
+    kinds = [r["kind"] for r in rep["resizes"]]
     print(f"served {len(rep['completions'])} requests / "
           f"{rep['total_tokens']} tokens in {rep['wall_s']:.1f}s "
           f"({rep['tokens_per_s']:.1f} tok/s); p50/p95 token latency "
           f"{rep['latency_p50_s'] * 1e3:.0f}/"
-          f"{rep['latency_p95_s'] * 1e3:.0f}ms; "
-          f"stages {rep['stages_history'][0]}; resizes "
-          f"{[r['kind'] for r in rep['resizes']]}")
+          f"{rep['latency_p95_s'] * 1e3:.0f}ms; resizes={kinds}; "
+          f"stages {rep['stages_history'][0]}->"
+          f"{rep['stages_history'][-1]}")
+    if rep.get("measured_stage_times") is not None:
+        print(f"  measured stage times "
+              f"{[f'{t * 1e3:.1f}ms' for t in rep['measured_stage_times']]}")
+    for d in rep["autoscale_decisions"]:
+        print(f"  autoscale @tick {d['step']}: {d['action']} "
+              f"({d['reason']})")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Observability, ported from ``repro.obs``: in-step stage timing and the
-unified event-record schema (the tracer and metrics wait for ROADMAP
-Queue 1 [faults-obs])."""
+"""Observability, ported from ``repro.obs``: in-step stage timing, the
+unified event-record schema and the metrics registry (the tracer and the
+``/metrics`` endpoint wait for ROADMAP Queue 1 [faults-obs])."""
 from repro_torch.obs.events import EVENT_SCHEMA, stamp_record
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.timing import StageTimer
 
-__all__ = ["EVENT_SCHEMA", "StageTimer", "stamp_record"]
+__all__ = ["EVENT_SCHEMA", "MetricsRegistry", "StageTimer", "stamp_record"]

@@ -73,9 +73,11 @@ class ElasticServer:
                  initial_workers: Optional[Sequence[int]] = None,
                  eos_id: Optional[int] = None, defrag_every: int = 0,
                  seed: int = 0, paged=None, temperature: float = 0.0,
+                 measure_stage_times: bool = False,
                  device: DeviceLike = None, params=None):
         assert shapes.cache_len >= shapes.seq, "cache must hold the prompt"
         self.paged = paged
+        self.measure_stage_times = measure_stage_times
         self.temperature = float(temperature)
         self.seed = seed
         self.engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, paged=paged,
@@ -248,6 +250,16 @@ class ElasticServer:
             tick += 1
         wall_s = time.perf_counter() - t_run
         total_tokens = sum(len(r.tokens) for r in sched.completions)
+        measured = None
+        if self.measure_stage_times:
+            # per-stage prefill-shaped wall times from the engine's stage
+            # probe, once after the trace drains, on the world the server
+            # ended up holding (off the serving loop)
+            probe = {"tokens": np.zeros((self.shapes.num_micro,
+                                         self.shapes.mb_global,
+                                         self.shapes.seq), np.int64)}
+            measured = list(map(float, self.engine.measure_stage_times(
+                self.state, probe)))
         return {
             "completions": [
                 {"rid": r.rid, "kind": r.kind, "arrival": r.arrival,
@@ -273,8 +285,8 @@ class ElasticServer:
             "tokens_per_s": total_tokens / max(1e-9, wall_s),
             "latency_p50_s": _pct(token_lat, 50),
             "latency_p95_s": _pct(token_lat, 95),
-            "measured_stage_times": None,
-            "stage_time_source": None,
+            "measured_stage_times": measured,
+            "stage_time_source": "probe" if measured is not None else None,
             # MoE capacity-overflow telemetry: mean drop fraction over every
             # prefill / decode call of the trace (None for non-MoE archs)
             "moe_dropped_mean": (float(np.mean([float(d)

@@ -13,6 +13,10 @@ held to ``repro.checkpoint``.
   ``step``, ``layers_per_stage`` and ``num_stages``.
 * ``WorkerPool.state_dict`` / ``from_state`` round-trip the pool (sets as
   sets, the log too) with the reference's keys.
+* A safe point stores the producing ``RunSpec`` as ``spec``; one that
+  carries the train CLI's flags as ``args`` and no ``spec`` (written
+  before the RunSpec front door) is refused by name, by ``peek`` and by
+  ``Session.resume``.
 
 Sizes: reduced smollm (4 layers, d_model 64, heads 4/2, d_ff 256, vocab
 256) on 2 stage buffers; bitwise everywhere (no arithmetic).
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api.specs import RunSpec
 from repro_torch.checkpoint import (CheckpointManager, SafepointManager,
                                     latest_index, load_checkpoint,
                                     save_checkpoint)
@@ -172,13 +177,16 @@ def test_managers_keep_the_newest(tmp_path):
     spm = SafepointManager(str(tmp_path / "sp"), every=3, keep=2)
     assert [s for s in range(10) if spm.due(s)] == [2, 5, 8]
     for s in (2, 5, 8):
-        spm.save(s, st, args={"steps": 9}, engine=eng, repack_enabled=True)
+        spm.save(s, st, spec=RunSpec(steps=9), engine=eng,
+                 repack_enabled=True)
     assert sorted(os.listdir(tmp_path / "sp")) == ["step_00000005",
                                                    "step_00000008"]
     idx = sp.peek(str(tmp_path / "sp"))
     meta = idx["meta"]
     assert meta["kind"] == "safepoint" and meta["step"] == 8
-    assert meta["args"] == {"steps": 9} and meta["scaler"] is None
+    assert meta["spec"] == RunSpec(steps=9).to_dict()
+    assert RunSpec.from_dict(meta["spec"]) == RunSpec(steps=9)
+    assert meta["scaler"] is None
     assert meta["stage_workers"] == [0, 1] and meta["epoch"] == 0
     assert meta["repack_enabled"] is True
     assert WorkerPool.from_state(meta["pool"]).state_dict() \
@@ -187,6 +195,29 @@ def test_managers_keep_the_newest(tmp_path):
     # a plain checkpoint is not a safe point
     with pytest.raises(ValueError, match="not a safe point"):
         sp.peek(str(tmp_path / "ck"))
+
+
+def test_args_only_safe_point_is_refused_by_name(tmp_path):
+    """A safe point written before the RunSpec front door (the train CLI's
+    flags as ``args``, no ``spec``) is refused with a ValueError naming
+    what it lacks, by ``peek`` and by ``Session.resume``; its shards still
+    load as a plain checkpoint."""
+    from repro_torch.api.session import Session
+    eng = _engine()
+    st = _state(eng)
+    meta = {"kind": "safepoint", "args": {"steps": 9, "resume": None},
+            "step": 3, "stage_workers": [0, 1], "epoch": 0, "pool": None,
+            "scaler": None, "repack_enabled": True}
+    save_checkpoint(str(tmp_path), 3, st.params, st.opt_state, st.dyn,
+                    st.lps, extra_meta=meta)
+    for call in (lambda: sp.peek(str(tmp_path)),
+                 lambda: Session.resume(str(tmp_path), device="cpu")):
+        with pytest.raises(ValueError,
+                           match="'args'.*RunSpec.*predates the RunSpec "
+                                 "front door"):
+            call()
+    assert load_checkpoint(str(tmp_path), eng.state_templates(2))[3][
+        "step"] == 3
 
 
 def test_worker_pool_state_round_trip():

@@ -76,7 +76,13 @@ _FORBIDDEN = re.compile(
 
 
 
+API_MODULES = ("repro_torch.api.specs", "repro_torch.api.cli",
+               "repro_torch.api.session", "repro_torch.obs.metrics")
+
+
 def test_cpu_train_imports_no_jax_and_no_reference():
+    """The train CLI resolves its RunSpec through the port's own front door
+    (``repro_torch.api``), never the reference's."""
     code = (
         "import sys\n"
         "from repro_torch.launch.train import run\n"
@@ -84,6 +90,8 @@ def test_cpu_train_imports_no_jax_and_no_reference():
         "assert len(rep['losses']) == 2, rep['losses']\n"
         f"{BAD_CHECK}"
         "assert not bad, bad\n"
+        f"missing = [m for m in {API_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('CLEAN', rep['controller']['decided'])\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=_env(), cwd=str(REPO))
@@ -151,7 +159,7 @@ def test_cpu_checkpointed_async_train_imports_no_jax_and_no_reference(
 CLUSTER_MODULES = ("repro_torch.cluster.autoscaler",
                    "repro_torch.cluster.scheduler",
                    "repro_torch.cluster.http_rpc",
-                   "repro_torch.launch.cluster", "repro_torch.obs.events",
+                   "repro_torch.api.session", "repro_torch.obs.events",
                    "repro_torch.pipeline.sampling")
 
 
@@ -172,7 +180,7 @@ def test_cpu_cluster_and_sampling_import_no_jax_and_no_reference():
         "'--temperature', '0.7', '--autoscale', '--job-manager', 'http',"
         " '--rpc-timeout-s', '20'])\n"
         "assert len(srv['completions']) == 6\n"
-        "assert srv['args']['temperature'] == 0.7\n"
+        "assert srv['spec']['serve']['temperature'] == 0.7\n"
         f"{BAD_CHECK}"
         "assert not bad, bad\n"
         f"missing = [m for m in {CLUSTER_MODULES!r} if m not in "
@@ -235,7 +243,7 @@ def test_no_jax_or_reference_imports_in_the_port():
     assert len(files) > 20
     names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
     for mod in (MOE_MODULES + ELASTIC_MODULES + CKPT_MODULES
-                + CLUSTER_MODULES):
+                + CLUSTER_MODULES + API_MODULES):
         assert mod.replace(".", "/") + ".py" in names, mod
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
@@ -274,6 +282,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         make_train_step(cfg, dcfg, DynamicsConfig(), shapes)
     make_train_step(cfg, dcfg, DynamicsConfig(), shapes, device="cpu")
     assert resolve_device("cpu").type == "cpu"
+    from repro_torch.api import RunSpec, Session, scenario
+    from repro_torch.launch.serve import run_serving
+    for make in (lambda: Session(RunSpec()),
+                 lambda: Session(scenario("early_exit"), device="cuda"),
+                 lambda: run_serving("smollm-360m", layers=2, d_model=64)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    Session(RunSpec(), device="cpu").close()
 
 
 @pytest.mark.parametrize("extra,what", [
@@ -284,8 +300,8 @@ def test_features_outside_the_slice_raise(extra, what):
     from repro_torch.launch.serve import run
     with pytest.raises(NotImplementedError, match=what):
         run(SERVE_ARGS + ["--device", "cpu"] + extra)
-    # the legacy one-shot generator (no --elastic) is not ported either
-    with pytest.raises(NotImplementedError, match="one-shot"):
+    # the legacy one-shot generator (no --elastic) refuses it too
+    with pytest.raises(NotImplementedError, match=what):
         run([a for a in SERVE_ARGS if a != "--elastic"]
             + ["--device", "cpu"] + extra)
 
@@ -576,10 +592,9 @@ def test_roadmap_tags_in_the_port_are_current_items():
     ``NotImplementedError`` message, a flag table or a docstring — is an
     item of ROADMAP.md's Queue 1, so a user who follows it finds it."""
     items = _roadmap_items()
-    assert {"api", "faults-obs", "moe-rest", "block-families"} <= items, \
-        items
+    assert {"faults-obs", "moe-rest", "block-families"} <= items, items
     assert not {"checkpoint", "control-timing", "sim-data", "cluster",
-                "serve-sampling"} & items, items
+                "serve-sampling", "api"} & items, items
     stale, seen = [], 0
     for path, line, text in _port_strings():
         if "ROADMAP" not in text:

@@ -73,7 +73,8 @@ def test_resume_from_the_middle_is_bitwise(tmp_path):
     rep = run(["--resume", ck, "--device", "cpu", "--steps", "99"],
               resume_step=7)
     assert rep["start_step"] == 8 and rep["resumed_from"] == 7
-    assert rep["args"]["steps"] == 12 and rep["args"]["resume"] == ck
+    assert rep["spec"] == full["spec"] and rep["spec"]["steps"] == 12
+    assert rep["spec"]["ckpt_dir"] == ck
     assert rep["losses"] == full["losses"][8:]
     assert rep["gnorms"] == full["gnorms"][8:]
     assert [(e.iteration, e.moved_layers) for e in rep["events"]] == [
@@ -84,8 +85,9 @@ def test_resume_from_the_middle_is_bitwise(tmp_path):
     _bitwise(rep["dyn"], full["dyn"])
     assert rep["timing"]["restore_s"] > 0
     # the resumed run rewrote the step-11 safe point with the same shards
+    # and the same RunSpec
     with open(os.path.join(ck, "step_00000011", "index.json")) as fh:
-        assert json.load(fh)["meta"]["args"]["resume"] is None
+        assert json.load(fh)["meta"]["spec"] == full["spec"]
 
 
 @pytest.fixture(scope="module")
@@ -239,13 +241,14 @@ def test_resume_from_the_shrunk_world_matches_the_reference(tmp_path):
 def test_plain_checkpoints_and_flag_checks(tmp_path):
     """``--ckpt-dir`` alone writes plain checkpoints every max(10, steps //
     5) steps, which ``--resume`` refuses (they lack the control-plane
-    state); ``--ckpt-every`` needs a directory."""
+    state); ``--ckpt-every`` needs a directory (the RunSpec's own check,
+    with the reference's message)."""
     ck = str(tmp_path / "plain")
     run(SMALL + ["--ckpt-dir", ck])
     assert sorted(os.listdir(ck)) == ["step_00000000", "step_00000010"]
     with pytest.raises(ValueError, match="not a safe point"):
         run(["--resume", ck, "--device", "cpu"])
-    with pytest.raises(ValueError, match="ckpt-dir"):
+    with pytest.raises(ValueError, match="ckpt_every: requires ckpt_dir"):
         run(SMALL + ["--ckpt-every", "4"])
     os.makedirs(tmp_path / "none")
     with pytest.raises(FileNotFoundError):
