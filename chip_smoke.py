@@ -69,8 +69,9 @@ final line:
                tensor cores, every K6 launch cut into splits
                (``k6_split_launches``);
   4b. profile — device time by kernel over a shorter serve (4 requests)
-               under torch.profiler, and the device's busy share against
-               the same serve's wall time without the profiler;
+               under torch.profiler (device activity only: 4b, 4d and 4g
+               read the kernels' times alone), and the device's busy share
+               against the same serve's wall time without the profiler;
   4c. train  — the port's training path through its CLI entry point:
                full-width smollm-360m (32 layers), two stage buffers, 4
                microbatches of 2 x 1024 tokens, 15 steps with the prune at
@@ -98,7 +99,7 @@ final line:
   4g. profile — two MoE train steps under torch.profiler;
   4h. elastic train — the training CLI on full-width smollm-360m with 4
                stage buffers of 16 slots (--slot-slack 8), 4 microbatches
-               of 2 x 1024 tokens, 24 steps, the prune at step 10,
+               of 2 x 1024 tokens, 20 steps, the prune at step 10,
                --repack at the default memory cap and --grow-back 5;
                counters zeroed just before and read just after: the
                controller's own repack decision must shrink 4 -> 2 and the
@@ -123,7 +124,7 @@ final line:
                K6 launch split), the counts zeroed just before each of the
                two and read just after;
   4k. safe points — the training CLI at 4h's flags without --grow-back,
-               20 steps, --ckpt-every 8 into a temporary directory (the
+               17 steps, --ckpt-every 8 into a temporary directory (the
                roomier of TMPDIR and build/, deleted at the end): safe
                points after step 7 (4 buffers) and 15 (2, after the
                controller's shrink at 14); then resumed from 15 and from 7
@@ -139,12 +140,12 @@ final line:
                it and its growth over the phase's live state (the
                restored world alone); K1, K2a, K2b and K3 at the 4c counts
                a step over
-               the 36 steps, all on the tensor cores;
+               the 27 steps, all on the tensor cores;
   4l. control timing — (i) an engine with in-step timing (CUDA events
                around each stage's forward) on a [26, 2, 2, 2] split over
                4 buffers, 4 steps: the in-step times and the isolated probe
                must both rank stage 0 slowest, strictly above each 2-layer
-               stage; (ii) the training CLI on 2 buffers, 12 steps,
+               stage; (ii) the training CLI on 2 buffers, 8 steps,
                --straggler 1:2.0 --rebalance-every 4 --in-step-timing
                --measure-stage-times, inline and with --async-controller
                --async-drain (bitwise equal where their decisions agree:
@@ -177,15 +178,23 @@ final line:
                --async-controller --async-drain --autoscale
                --simulate-recover 18: (i) the pool behind a file manager in
                its own process (the RPC round trip timed every step), (ii)
-               the same flags in process, (iii) as (i) with the manager
-               stopped after step 12 and restarted after step 16: (i) must
-               shrink 4 -> 2 releasing [2, 3] and grow them back at >= 18
-               with pool log release:2, release:3, grant:2, grant:3 and an
-               autoscale grow naming {2, 3}; (i) and (ii) bitwise in
-               losses, resizes, params and Adam moments; (iii) must defer
-               the release and replay it, its losses bitwise (i)'s; K1-K3
-               at the 4c counts a step over the three runs, on the tensor
-               cores;
+               the same flags in process, (iii) as (i) under RPC chaos — a
+               pinned FaultSpec kills the manager after step 12 and
+               respawns it after step 16, loses and duplicates 30 % of the
+               messages, and the run is traced: (i) must shrink 4 -> 2
+               releasing [2, 3] and grow them back at >= 18 with pool log
+               release:2, release:3, grant:2, grant:3 and an autoscale grow
+               naming {2, 3}; (i) and (ii) bitwise in losses, resizes,
+               params and Adam moments; (iii) must defer the release and
+               replay it, its losses, resizes, params and Adam moments
+               bitwise (i)'s, its fault log holding rpc_loss and rpc_dup
+               records (each lost request answered under its own sequence
+               number unless the manager was down, the manager's journal
+               and the client's pool log equal, no worker twice), its
+               trace passing scripts/torch_check_trace.py, its step ms
+               beside (i)'s and the respawned manager's first answer timed;
+               K1-K3 at the 4c counts a step over the three runs, on the
+               tensor cores;
   4o. autoscaled serve — 4i's server on two bursts of 16 requests 48
                ticks apart with the serving autoscaler (min 2 stages,
                queue watermark 2, occupancy 0.6, patience 2, cooldown 3):
@@ -199,8 +208,13 @@ final line:
                and shrinks at a safe point, the lull yields and train
                absorbs (from both --events-out streams); the scheduler's
                metrics verb replays to its own books with no worker held
-               twice; each process's launch counts (K1-K3 on the tensor
-               cores, K6 split) and peak memory;
+               twice; both tenants traced: the manager's GET /metrics,
+               scraped before shutdown, counts exactly the events stream's
+               (tenant, event) pairs, and the two traces hold the chain
+               rpc.steal -> cluster.preempt -> resize.shrink
+               (scripts/torch_check_trace.py); each process's launch
+               counts (K1-K3 on the tensor cores, K6 split) and peak
+               memory;
   4q. front door — (i) train_args()'s RunSpec written by the train CLI's
                --dump-config, 6 steps trained from it through the train
                CLI's --config: losses bitwise 4c's first 6, the same
@@ -215,6 +229,28 @@ final line:
                steps each on the card (CPU scale, the scan path); (v)
                phase 4k resumed both safe points through Session.resume
                with the RunSpec that wrote them;
+  4r. faults — (i) 4n (i)'s training with a pinned FaultSpec: worker 2
+               crashes after step 4 (it stops beating), a 2.5x straggler
+               spike after step 14; the heartbeat -> autoscaler -> evict
+               path must evict it (an evict resize, fail:2 in the pool
+               log), every loss finite and within 3e-3 (the reference
+               soak's LOSS_TOL) of 4n (i)'s and bitwise up to the step at
+               which the stage histories part; prints the time to recover
+               (the crash to the first step on the smaller world, in steps
+               and seconds); (ii) 4i's server with worker 2 crashing at
+               tick 8 (one spare, no autoscale), /metrics on a free port
+               and in-step timing: 4i's request set, requests requeued, an
+               evict, every K6 launch split, each request's tokens 4i's
+               fixed run's up to its first token whose fixed-run top-2 gap
+               is <= 1e-3 (the flips and their gaps printed; a requeued
+               request's replayed positions are decoded, not written by
+               the prefill as the fixed run's prompt was, so a near-tie may
+               flip), GET /metrics scraped before the session closes
+               (dynmo_serve_tokens_total = the emitted positions = the
+               completions' tokens + the positions requeued lanes
+               replayed), the stage times
+               from the in-step events and the tick p50 beside 4i's;
+               K1-K3 at the 4c counts a step on the tensor cores;
   5. parity  — one prefill and 8 teacher-forced decode steps from one engine
                state, through the kernels and through the plain versions;
   5b. train parity — loss and every gradient of one training step (full
@@ -252,7 +288,8 @@ final line:
      the serve), the card line, and the last line {"ok": true, "device":
      {...}}; launches_sample_serve, launches_autoscale_train,
      launches_autoscale_serve, launches_tenants and launches_api are
-     phases 4m-4q's.
+     phases 4m-4q's, launches_chaos_train and launches_chaos_serve 4r's;
+     before it, [phase_seconds]: the wall seconds of every phase.
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -267,7 +304,6 @@ versions can be compared on one card, each in its own process.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import gc
 import json
@@ -335,11 +371,13 @@ FP32_TC_PATH = ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                 "block_sparse_attention_bwd_dkv", "pruned_matmul")
 
 
-def elastic_train_args(steps: int = 24):
+def elastic_train_args(steps: int = 20):
     """Phase 4h's CLI flags: full-width smollm-360m on 4 stage buffers of
     16 slots (``--slot-slack 8``: two merged stages' 16 layers must fit one
     buffer, or the repack policy can merge none), the prune at step 10,
-    ``--repack`` at the default memory cap and ``--grow-back 5``."""
+    ``--repack`` at the default memory cap and ``--grow-back 5`` (the
+    controller shrinks at step 14 and the grow lands on step 19, the
+    last)."""
     return FULL_SIZE + ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
             "--mb-global", "2", "--seq", "1024", "--steps", str(steps),
             "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
@@ -450,6 +488,20 @@ def check_k6_split(launched: int, split: int) -> None:
     if launched <= 0 or split != launched:
         raise AssertionError(f"K6: {split} of {launched} serve launches cut "
                              f"the pages into splits")
+
+
+# wall seconds of each phase ("[phase_seconds]" before the kernels line)
+PHASE_SECONDS = {}
+
+
+def timed(key: str, fn, *args, **kw):
+    """Run one phase's function and add its wall seconds to ``key``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[key] = (PHASE_SECONDS.get(key, 0.0)
+                              + time.perf_counter() - t0)
 
 
 def say(phase: str, **kv) -> None:
@@ -1558,8 +1610,9 @@ def profile_serve(torch):
     serve_run(serve_args(4))
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the kernels' times are all this reads, and the
+    # host ops' records made the trace's post-processing most of the phase
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rep = serve_run(serve_args(4))
         torch.cuda.synchronize()
     dev = device_times(prof.key_averages())
@@ -1590,8 +1643,7 @@ def profile_train(torch, args_fn=None):
     wall_ms = rep["wall_s"] * 1e3
     del rep
     free_cuda(torch)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rep = train_run(args_fn(2))
         torch.cuda.synchronize()
     prof_wall_ms = rep["wall_s"] * 1e3
@@ -2397,8 +2449,13 @@ def run_elastic_serve_phase(torch, kernels):
     launch split.  Returns the elastic serve's launch counts."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     free_cuda(torch)
-    with serve_session(elastic_serve_args()) as s:
+    with serve_session(elastic_serve_args()) as s, RecordGaps() as gaps:
         fixed = s.serve()
+    # phase 4r's crashed serve is held to this run
+    ELASTIC_FIXED.update(
+        tokens={c["rid"]: c["tokens"] for c in fixed["completions"]},
+        gaps=gaps.gaps, ticks=fixed["ticks"], wall_s=fixed["wall_s"],
+        tick_p50=_pct50(fixed["tick_wall_s"]))
     free_cuda(torch)
     sess = serve_session(elastic_serve_args())
     for k in kernels.KERNELS:
@@ -2555,20 +2612,26 @@ def ckpt_train_args(steps: int = 20):
 
 
 CKPT_EVERY = 8
+# phase 4k's steps: the prune at 10, the shrink at 14, safe points after 7
+# and 15, one step after the last
+CKPT_STEPS = 17
 # the safe points phase 4k resumed through Session.resume whose RunSpec
 # equalled the writer's (phase 4q (v) reads it)
 RESUMED_SPECS = []
-# the safe points of a 20-step run: after steps 7 (4 buffers) and 15 (2,
-# after the controller's shrink at step 14); run (b) resumes from 15 and
-# (a) from 7, 4 + 12 steps
+# the safe points of the 17-step run: after steps 7 (4 buffers) and 15
+# (2, after the controller's shrink at step 14); run (b) resumes from 15
+# and (a) from 7, 1 + 9 steps
 CKPT_RESUMES = ((15, 2), (7, 4))
 
 
-def ctl_train_args(steps: int = 12):
+# phase 4l's steps: two controller decisions (after steps 3 and 7)
+CTL_STEPS = 8
+
+
+def ctl_train_args(steps: int = CTL_STEPS):
     """Phase 4l's flags: full-width smollm-360m on 2 stage buffers, 8192
-    tokens a step, the prune at step 10, a cadence every 4 steps under a
-    2x straggler on worker 1; the phase adds the timing and controller
-    flags."""
+    tokens a step, a cadence every 4 steps under a 2x straggler on worker
+    1; the phase adds the timing and controller flags."""
     return FULL_SIZE + ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
             "--seq", "1024", "--steps", str(steps), "--rebalance-every", "4",
             "--straggler", "1:2.0", "--dynamism", "pruning", "--kernel-impl",
@@ -2613,13 +2676,14 @@ def _bitwise(torch, got, want) -> bool:
 
 
 def run_ckpt_phase(torch, kernels):
-    """Phase 4k: a 20-step run of ckpt_train_args() writing safe points
+    """Phase 4k: a 17-step run of ckpt_train_args() writing safe points
     every 8 steps into a temporary directory, then resumed from step 15
     (2 buffers) and from step 7 (4 buffers, which must prune at 10 and
     shrink 4 -> 2 at 14 on its own decision); both tails must equal the
     uninterrupted run's losses, resizes, pool log, final params and
-    moments bitwise.  Counts zeroed before the first run and read after
-    the last (36 steps).  Returns the launch counts."""
+    moments bitwise (the tails write no safe point of their own).  Counts
+    zeroed before the first run and read after the last (27 steps).
+    Returns the launch counts."""
     import os
     import shutil
     import tempfile
@@ -2639,7 +2703,7 @@ def run_ckpt_phase(torch, kernels):
     try:
         for k in kernels.KERNELS:
             k.reset()
-        full = train_run(ckpt_train_args() + [
+        full = train_run(ckpt_train_args(CKPT_STEPS) + [
             "--ckpt-dir", ck, "--ckpt-every", str(CKPT_EVERY)])
         torch.cuda.synchronize()
         got = [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
@@ -2676,6 +2740,11 @@ def run_ckpt_phase(torch, kernels):
                 raise AssertionError(f"safe point {at}: the resumed RunSpec "
                                      f"differs from the one that wrote it")
             RESUMED_SPECS.append(at)
+            # the tails write no safe point: the uninterrupted run's two
+            # were the saves measured (resuming from 7 would write step
+            # 15's again, ~15 s); safe points take no part in the numbers
+            sess.spec = sess.spec.override({"ckpt_every": 0,
+                                            "ckpt_dir": None})
             with sess:
                 rep = sess.train()
             torch.cuda.synchronize()
@@ -2712,7 +2781,7 @@ def run_ckpt_phase(torch, kernels):
             del rep
         launched, launched_tc = _window(torch, kernels)
         k3_bwd = pm.KERNEL.launches_bwd
-        say("ckpt_train", steps=20,
+        say("ckpt_train", steps=CKPT_STEPS,
             step_ms=json.dumps([round(t * 1e3, 1)
                                 for t in full["step_times"]])
             .replace(" ", ""),
@@ -2723,8 +2792,8 @@ def run_ckpt_phase(torch, kernels):
             # is the uninterrupted run itself repeatable?
             del full
             free_cuda(torch)
-            again = train_run(ckpt_train_args())
-            first = train_run(ckpt_train_args())
+            again = train_run(ckpt_train_args(CKPT_STEPS))
+            first = train_run(ckpt_train_args(CKPT_STEPS))
             same = again["losses"] == first["losses"]
             spread = max(abs(a - b) for a, b in zip(again["losses"],
                                                     first["losses"]))
@@ -2734,7 +2803,8 @@ def run_ckpt_phase(torch, kernels):
             raise AssertionError(
                 f"resumed runs differ from the uninterrupted one: "
                 f"{ {a: (d[:3], w) for a, (d, w) in results.items()} }")
-        steps = 20 + sum(20 - at - 1 for at, _ in CKPT_RESUMES)
+        steps = CKPT_STEPS + sum(CKPT_STEPS - at - 1
+                                 for at, _ in CKPT_RESUMES)
         check_launches("ckpt train", launched, TRAIN_LAUNCHES_PER_STEP,
                        steps)
         if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
@@ -2766,8 +2836,8 @@ def run_ctl_phase(torch, kernels):
     equal (measured times are decision inputs that differ from run to run,
     so the timed pair must agree bitwise only where its decisions agree),
     and the untimed inline run beside the timed one is the events'
-    overhead; the probe alone gives its times before and after the prune.
-    Returns the launch counts of (ii), (iii) and the untimed runs (60
+    overhead; the probe alone gives its times at each cadence.
+    Returns the launch counts of (ii), (iii) and the untimed runs (40
     steps, exactly the 4c counts a step) plus (i) and the probe run."""
     import numpy as np
     from repro_torch.configs import DistConfig, get_config
@@ -2872,9 +2942,9 @@ def run_ctl_phase(torch, kernels):
     if runs["async"]["controller"]["decided"] < 1:
         raise AssertionError("async without drain decided nothing")
     check_launches("ctl train", launched, TRAIN_LAUNCHES_PER_STEP,
-                   12 * len(runs))
+                   CTL_STEPS * len(runs))
     check_tensor_core("ctl train", launched, launched_tc, FP32_TC_PATH)
-    cad = [s for s in range(12) if (s + 1) % 4 == 0]
+    cad = [s for s in range(CTL_STEPS) if (s + 1) % 4 == 0]
     say("ctl_cadence", cadence_steps=cad,
         **{f"{k}_ms": json.dumps([round(r["step_times"][s] * 1e3, 1)
                                   for s in cad] + ["next:"] + [
@@ -2882,8 +2952,8 @@ def run_ctl_phase(torch, kernels):
            .replace(" ", "") for k, r in runs.items()},
         in_step_overhead_ms=(
             f"{runs['inline']['steady_ms'] - runs['untimed']['steady_ms']:.1f}"))
-    # the probe alone: its times before and after the prune (its extra
-    # forward launches in a window of their own)
+    # the probe alone: its times at each cadence (its extra forward
+    # launches in a window of their own)
     for k in kernels.KERNELS:
         k.reset()
     rep = train_run(ctl_train_args() + ["--measure-stage-times"])
@@ -2895,7 +2965,7 @@ def run_ctl_phase(torch, kernels):
     if rep["stage_time_source"] != "probe":
         raise AssertionError(f"probe run source {rep['stage_time_source']}")
     for name, n in TRAIN_LAUNCHES_PER_STEP.items():
-        if probe_launches[name] < n * 12:
+        if probe_launches[name] < n * CTL_STEPS:
             raise AssertionError(f"probe run: {name} {probe_launches[name]}")
     check_tensor_core("ctl probe", probe_launches, probe_tc, FP32_TC_PATH)
     del rep
@@ -3155,28 +3225,79 @@ def autoscale_train_args(job_manager: str, steps: int = 20):
     """Phase 4n's flags: phase 4h's without --grow-back (4 stage buffers of
     16 slots, the prune at step 10, --repack), 20 steps, the asynchronous
     controller waited for (so the decision lands on a fixed step),
-    --autoscale --simulate-recover 18 and a job manager."""
+    --autoscale --simulate-recover 18 and a job manager; a call's retries
+    share 4 s (a manager answers ~0.5 s after its start, so (iii)'s call
+    to the dead manager stalls the step by the whole budget)."""
     return ckpt_train_args(steps) + [
         "--async-controller", "--async-drain", "--autoscale",
         "--simulate-recover", "18", "--job-manager", job_manager,
-        "--rpc-timeout-s", "10"]
+        "--rpc-timeout-s", "4"]
 
 
-# phase 4n (iii): the file manager is stopped after this step (before the
-# controller's shrink at 14) and restarted after the second
+# phase 4n (iii): the chaos plan kills the file manager after this step
+# (before the controller's shrink at 14) and respawns it after the second;
+# 30 % of the messages are lost and 30 % duplicated.  At fault seed 7 the
+# first four status calls (steps 0-3) lose one request and duplicate two
+# answers, and the replayed release and the grant after step 18 lose none
+# (the rolls of scripts/torch_chaos_soak.py's transport, in call order)
 AUTOSCALE_KILL, AUTOSCALE_RESPAWN = 12, 16
+AUTOSCALE_CHAOS_SEED, AUTOSCALE_STATUS_STEPS = 7, 4
+
+
+def autoscale_chaos_args(trace_out: str):
+    """Phase 4n (iii)'s flags: (i)'s under the pinned RPC-chaos plan,
+    traced."""
+    return autoscale_train_args("file") + [
+        "--chaos", "--chaos-seed", str(AUTOSCALE_CHAOS_SEED),
+        "--set", f"faults.manager_kill={AUTOSCALE_KILL}",
+        "--set", f"faults.manager_respawn={AUTOSCALE_RESPAWN}",
+        "--set", "faults.rpc_loss=0.3", "--set", "faults.rpc_dup=0.3",
+        "--set", "obs.trace=true", "--set", f"obs.trace_out={trace_out}"]
+
+
+def check_rpc_chaos(rep, journal, dead_seqs) -> dict:
+    """4n (iii)'s fault log against the manager's journal: at least one
+    lost request and one duplicated answer; every request lost while the
+    manager ran (its sequence number not in ``dead_seqs``) answered under
+    its own number; the journal's pool log the client's, no worker in it
+    twice.  Returns the counts."""
+    recs = [f for f in rep["faults"] if f["kind"] in ("rpc_loss",
+                                                      "rpc_dup")]
+    lost = [f["detail"]["seq"] for f in recs if f["kind"] == "rpc_loss"]
+    dups = [f["detail"]["seq"] for f in recs if f["kind"] == "rpc_dup"]
+    if not lost or not dups:
+        raise AssertionError(f"no rpc_loss or no rpc_dup record: {recs}")
+    answered = {int(k) for k in journal["answered"]}
+    unanswered = [q for q in lost if q not in answered
+                  and q not in dead_seqs]
+    if unanswered:
+        raise AssertionError(f"lost requests {unanswered} never answered")
+    server_log = journal["pool"]["log"]
+    if server_log != rep["pool_log"]:
+        raise AssertionError(f"the manager's pool log {server_log} vs the "
+                             f"client's {rep['pool_log']}")
+    if len(set(server_log)) != len(server_log):
+        raise AssertionError(f"a transition twice in the pool log "
+                             f"{server_log}")
+    if rep["rpc"]["stats"]["retries"] < len(lost):
+        raise AssertionError(f"{len(lost)} losses, rpc stats "
+                             f"{rep['rpc']['stats']}")
+    return {"lost": lost, "duplicated": dups}
 
 
 def run_autoscale_train_phase(torch, kernels):
     """Phase 4n: autoscaled training across the file RPC boundary — (i)
     with a file manager in its own process, (ii) the same flags in
-    process, (iii) as (i) with the manager stopped before the shrink and
-    restarted at step 16.  (i): shrink 4 -> 2 releasing [2, 3], the
-    heartbeat recovery grows [2, 3] back at or after step 18, pool log
-    release:2, release:3, grant:2, grant:3, an autoscale grow naming
-    {2, 3}; (i) and (ii) bitwise in losses, resizes, params and both Adam
-    moments; (iii) defers the release and replays it, its losses bitwise
-    (i)'s.  Counts zeroed before (i) and read after (iii)."""
+    process, (iii) as (i) under the pinned RPC-chaos plan (the manager
+    killed before the shrink and respawned after step 16, 30 % of the
+    messages lost and 30 % duplicated), traced.  (i): shrink 4 -> 2
+    releasing [2, 3], the heartbeat recovery grows [2, 3] back at or after
+    step 18, pool log release:2, release:3, grant:2, grant:3, an autoscale
+    grow naming {2, 3}; (i) and (ii) bitwise in losses, resizes, params
+    and both Adam moments; (iii) defers the release and replays it, its
+    losses, resizes, params and moments bitwise (i)'s, its fault log and
+    the manager's journal as ``check_rpc_chaos`` requires, its trace valid.
+    Counts zeroed before (i) and read after (iii)."""
     from repro_torch.cluster.rpc import FileJobManager
     from repro_torch.kernels.pruned_matmul import ops as pm
     from repro_torch.launch.train import run as train_run
@@ -3192,6 +3313,11 @@ def run_autoscale_train_phase(torch, kernels):
 
     file_run = train_run(autoscale_train_args("file"), on_step=time_rpc)
     torch.cuda.synchronize()
+    # phase 4r's crashed training is held to this run
+    AUTOSCALE_FILE_RUN.update(
+        losses=list(file_run["losses"]),
+        stages_history=list(file_run["stages_history"]),
+        step_times=list(file_run["step_times"]))
     rz = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
            r["workers"]) for r in file_run["resizes"]]
     if ([(k, a, b, w) for k, _, a, b, w in rz]
@@ -3222,29 +3348,67 @@ def run_autoscale_train_phase(torch, kernels):
             f"{_tree_diff(torch, inproc['params'], file_run['params'])}")
     del inproc
     free_cuda(torch)
-    seen = {}
+    import os
+    import tempfile
+    import threading
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    trace_out = os.path.join(trace_dir, "train.json")
+    seen = {"seqs": {}}
 
-    def stop_and_restart(step, sess):
-        # the same round trips as (i) while the manager runs (the client
-        # knows the pool's size before it goes away)
-        if step < AUTOSCALE_KILL:
-            sess.job_manager._call("status")
-        elif step == AUTOSCALE_KILL:
-            sess.kill_manager()
-            seen["killed"] = step
-        elif step == AUTOSCALE_RESPAWN:
-            # restart, and wait until the manager answers (a probe client
-            # of its own, numbered past every request on disk)
+    def chaos_steps(step, sess):
+        # status round trips while the manager runs (the chaos transport
+        # rolls loss and duplication on each); the injector has already
+        # fired this step's kill or respawn
+        jm = sess.job_manager
+        if step < AUTOSCALE_STATUS_STEPS:
+            jm._call("status")
+        if step in (AUTOSCALE_KILL, AUTOSCALE_RESPAWN):
+            seen["seqs"][step] = jm._seq
+            seen["jm_dir"] = sess.jm_dir
+        if step == AUTOSCALE_RESPAWN:
+            # time the respawned manager's first answer on a thread of its
+            # own (a probe numbered far past the run's requests): the run
+            # itself does not wait for it
             t_up = time.perf_counter()
-            sess.respawn_manager()
-            FileJobManager(sess.jm_dir, timeout_s=60.0,
-                           shutdown_on_close=False)._call("status")
-            seen["respawned"] = step
-            seen["respawn_s"] = time.perf_counter() - t_up
 
-    degraded = train_run(autoscale_train_args("file"),
-                         on_step=stop_and_restart)
+            def probe():
+                p = FileJobManager(sess.jm_dir, timeout_s=60.0,
+                                   shutdown_on_close=False)
+                p._seq = 10 ** 6
+                p._call("status")
+                seen["respawn_s"] = time.perf_counter() - t_up
+
+            seen["probe"] = threading.Thread(target=probe, daemon=True)
+            seen["probe"].start()
+
+    degraded = train_run(autoscale_chaos_args(trace_out),
+                         on_step=chaos_steps)
     torch.cuda.synchronize()
+    seen["probe"].join(timeout=60)
+    with open(os.path.join(seen["jm_dir"], "state.json")) as f:
+        journal = json.load(f)
+    dead = set(range(seen["seqs"][AUTOSCALE_KILL] + 1,
+                     seen["seqs"][AUTOSCALE_RESPAWN] + 1))
+    chaos = check_rpc_chaos(degraded, journal, dead)
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_check_trace
+    if torch_check_trace.main([trace_out, "--expect-event", "train",
+                               "--expect-event", "train.step",
+                               "--expect-event", "controller.decide",
+                               "--expect-event", "controlplane.decide",
+                               "--expect-event", "rpc.release",
+                               "--expect-event", "rpc.request"]) != 0:
+        raise AssertionError("the chaos run's trace does not validate")
+    with open(trace_out) as f:
+        n_trace = len(json.load(f)["traceEvents"])
+    import shutil
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    if not (_bitwise(torch, degraded["params"], file_run["params"])
+            and _bitwise(torch, degraded["opt_state"],
+                         file_run["opt_state"])):
+        raise AssertionError(
+            f"the chaos run's state differs from the uninterrupted one: "
+            f"{_tree_diff(torch, degraded['params'], file_run['params'])}")
     launched, launched_tc = _window(torch, kernels)
     k3_bwd = pm.KERNEL.launches_bwd
     want_events = ["release deferred: [2, 3]", "replayed release:[2, 3]"]
@@ -3280,9 +3444,14 @@ def run_autoscale_train_phase(torch, kernels):
         inproc_bitwise=True, degraded_bitwise=True,
         degraded_events=json.dumps(degraded["degraded_events"],
                                    separators=(",", ":")),
-        killed_after=seen.get("killed"),
-        respawned_after=seen.get("respawned"),
+        killed_after=AUTOSCALE_KILL, respawned_after=AUTOSCALE_RESPAWN,
         respawn_answer_s=f"{seen.get('respawn_s', float('nan')):.2f}",
+        rpc_lost=json.dumps(chaos["lost"]).replace(" ", ""),
+        rpc_duplicated=json.dumps(chaos["duplicated"]).replace(" ", ""),
+        trace_events=n_trace,
+        steady_step_ms=f"{file_run['timing']['steady_step_mean_s'] * 1e3:.1f}",
+        traced_steady_step_ms=(
+            f"{degraded['timing']['steady_step_mean_s'] * 1e3:.1f}"),
         rpc_rtt_ms_p50=f"{rtt_ms[len(rtt_ms) // 2]:.3f}",
         rpc_rtt_ms_max=f"{rtt_ms[-1]:.3f}",
         rpc_stats=json.dumps(file_run["rpc"]["stats"]).replace(" ", ""),
@@ -3461,8 +3630,10 @@ def run_two_tenant_phase(torch, kernels):
     knobs) sharing the card: serve's burst steals a training worker, train
     is preempted and shrinks at a safe point, the lull yields the workers
     back and train absorbs them; the scheduler's event stream reproduces
-    its grant books and never grants a worker to two tenants.  Returns the
-    two processes' summed launch counts."""
+    its grant books and never grants a worker to two tenants; both traced,
+    the manager's GET /metrics equal to the events stream and the traces
+    holding the steal -> preempt -> shrink chain.  Returns the two
+    processes' summed launch counts."""
     import os
     import shutil
     import tempfile
@@ -3474,14 +3645,19 @@ def run_two_tenant_phase(torch, kernels):
     train_events = os.path.join(run_dir, "train_events.json")
     serve_events = os.path.join(run_dir, "serve_events.json")
     logs = {n: os.path.join(run_dir, f"{n}.log") for n in ("train", "serve")}
+    traces = {n: os.path.join(run_dir, f"{n}.trace.json")
+              for n in ("train", "serve")}
     train_argv = [a for a in ckpt_train_args(TENANT_TRAIN_STEPS)
                   if a != "--repack"] + [
         "--repack-target", "2", "--log-every", "1000", "--job-manager",
         "http", "--manager-url", url, "--tenant-id", "train", "--priority",
-        "0", "--events-out", train_events]
+        "0", "--events-out", train_events, "--set", "obs.trace=true",
+        "--set", f"obs.trace_out={traces['train']}"]
     serve_argv = autoscale_serve_args() + [
         "--job-manager", "http", "--manager-url", url, "--tenant-id",
-        "serve", "--priority", "10", "--events-out", serve_events]
+        "serve", "--priority", "10", "--events-out", serve_events,
+        "--set", "obs.trace=true", "--set",
+        f"obs.trace_out={traces['serve']}"]
     probe = HttpJobManager(url, client_id="chip-smoke-probe")
     children = {}
     t0 = time.perf_counter()
@@ -3507,6 +3683,8 @@ def run_two_tenant_phase(torch, kernels):
                     f"tenant {name} exited {rc}:\n"
                     f"{_child_report(logs[name])['log'][-3000:]}")
         metrics = probe.cluster_metrics()
+        # the Prometheus page, scraped while the manager still runs
+        page = _scrape(url + "/metrics")
     finally:
         for proc in children.values():
             if proc.poll() is None:
@@ -3529,6 +3707,12 @@ def run_two_tenant_phase(torch, kernels):
         tev = json.load(f)
     with open(serve_events) as f:
         sev = json.load(f)
+    scraped = check_scheduler_scrape(page, metrics["events"])
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_check_trace
+    chain_ok = torch_check_trace.main(
+        [traces["serve"], traces["train"], "--expect-chain",
+         "rpc.steal,cluster.preempt,resize.shrink"]) == 0
     shutil.rmtree(run_dir, ignore_errors=True)
     tkinds = [e["kind"] for e in tev]
     skinds = [e["kind"] for e in sev]
@@ -3549,6 +3733,9 @@ def run_two_tenant_phase(torch, kernels):
                                        metrics["tenants"])
     if per_kind.get("train:preempt_due", 0) < 1:
         failures.append("the scheduler posted no preemption")
+    if not chain_ok:
+        failures.append("the traces hold no rpc.steal -> cluster.preempt "
+                        "-> resize.shrink chain")
     if failures:
         raise AssertionError("; ".join(failures) + "\n" + "\n".join(
             reports[n]["log"][-2000:] for n in reports))
@@ -3575,6 +3762,7 @@ def run_two_tenant_phase(torch, kernels):
         train_events=json.dumps(sorted(set(tkinds))).replace(" ", ""),
         serve_events=json.dumps(sorted(set(skinds))).replace(" ", ""),
         scheduler_events=json.dumps(per_kind).replace(" ", ""),
+        metrics_page_equal_events=len(scraped), trace_chain=chain_ok,
         train_peak_gb=f"{reports['train']['peak'] / 1e9:.3f}",
         serve_peak_gb=f"{reports['serve']['peak'] / 1e9:.3f}",
         launches=json.dumps(launched).replace(" ", ""))
@@ -3791,6 +3979,331 @@ def run_front_door_phase(torch, kernels, serve_tokens):
     return total, total_tc
 
 
+# ---------------------------------------------------------------------------
+# phase 4r: faults — a worker crash in training and in serving
+# ---------------------------------------------------------------------------
+# the reference chaos soak's loss tolerance (scripts/chaos_soak.py)
+LOSS_TOL = 3e-3
+# 4r (i): worker 2 crashes after this step (before the controller's
+# shrink at 14), a 2.5x straggler spike lands after FAULT_SPIKE_STEP (the
+# plan of tests/test_torch_faults.py)
+FAULT_CRASH_STEP, FAULT_CRASH_WORKER, FAULT_SPIKE_STEP = 4, 2, 14
+# 4r (ii): the serving worker 2 crashes after this tick
+FAULT_SERVE_TICK = 8
+# a near-tie: a token whose top-2 logit gap is at most this may flip
+NEAR_TIE = 1e-3
+# phase 4n (i)'s run and phase 4i's fixed serve, held for 4r
+AUTOSCALE_FILE_RUN = {}
+ELASTIC_FIXED = {}
+
+
+class RecordGaps:
+    """Record the top-2 logit gap behind every token a serve emits:
+    ``gaps[rid][token index]``.  The gaps are read from the head's logits
+    of each prefill and decode call (``models.model.lm_logits``) and
+    paired with their requests when the scheduler records the call's ids;
+    a requeued lane's replayed positions emit no token and are skipped."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import model as M
+        from repro_torch.serve import scheduler as S
+        self.gaps = {}
+        pending = []
+        self._undo = [(M, "lm_logits", M.lm_logits),
+                      (S.Scheduler, "note_prefill", S.Scheduler.note_prefill),
+                      (S.Scheduler, "note_decode", S.Scheduler.note_decode)]
+        lm_logits, note_prefill, note_decode = (u[2] for u in self._undo)
+
+        def rec_logits(*a, **kw):
+            out = lm_logits(*a, **kw)
+            top2 = out.float().topk(2, dim=-1).values
+            pending.append(top2[:, 0] - top2[:, 1])
+            return out
+
+        def take(sched, lanes):
+            rows = torch.stack(pending).cpu() if pending else None
+            pending.clear()
+            for lane in lanes:
+                if lane in sched.replay:
+                    continue
+                mi, bi = sched.slots.unravel(lane)
+                r = sched.live[lane]
+                self.gaps.setdefault(r.rid, {})[len(r.tokens)] = float(
+                    rows[mi, bi])
+
+        def rec_prefill(sched, plan, ids, tick):
+            take(sched, plan.full_len_lanes)
+            return note_prefill(sched, plan, ids, tick)
+
+        def rec_decode(sched, plan, ids, tick):
+            take(sched, plan.lanes)
+            return note_decode(sched, plan, ids, tick)
+
+        M.lm_logits = rec_logits
+        S.Scheduler.note_prefill = rec_prefill
+        S.Scheduler.note_decode = rec_decode
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
+
+
+def first_parting(a, b) -> int:
+    """The first index at which two histories differ (len if none)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return min(len(a), len(b))
+
+
+def check_crash_train(rep, worker: int, base) -> dict:
+    """4r (i)'s checks of a chaos run ``rep`` against the fault-free run
+    ``base`` ({losses, stages_history, step_times}): the crashed worker
+    was evicted (an evict resize naming it, ``fail:<worker>`` in the pool
+    log), every loss finite, within LOSS_TOL of the fault-free run's and
+    bitwise up to the step at which the stage histories part.  Returns the
+    largest difference, that step and the time to recover (the crash to
+    the first step on the smaller world)."""
+    evicts = [r for r in rep["resizes"] if r["kind"] == "evict"]
+    if not any(worker in r["workers"] for r in evicts):
+        raise AssertionError(f"no evict of worker {worker}: resizes "
+                             f"{[(r['kind'], r['workers']) for r in rep['resizes']]}")
+    if f"fail:{worker}" not in rep["pool_log"]:
+        raise AssertionError(f"fail:{worker} not in the pool log "
+                             f"{rep['pool_log']}")
+    losses = rep["losses"]
+    if len(losses) != len(base["losses"]) or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"chaos losses {losses}")
+    diffs = [abs(a - b) for a, b in zip(losses, base["losses"])]
+    if max(diffs) >= LOSS_TOL:
+        raise AssertionError(f"chaos loss differs by {max(diffs):.3e} "
+                             f"(tolerance {LOSS_TOL})")
+    part = first_parting(rep["stages_history"], base["stages_history"])
+    if losses[:part] != base["losses"][:part]:
+        raise AssertionError(f"losses differ before the stage histories "
+                             f"part at step {part}")
+    crash = [f["step"] for f in rep["faults"] if f["kind"] == "worker_crash"]
+    if not crash:
+        raise AssertionError(f"no worker_crash fired: {rep['faults']}")
+    ev = next(r for r in evicts if worker in r["workers"])
+    times = rep["step_times"]
+    return {"max_loss_diff": max(diffs), "part_step": part,
+            "crash_step": crash[0], "evict_step": ev["step"],
+            "recover_steps": ev["step"] + 1 - crash[0],
+            "recover_s": (sum(times[crash[0] + 1:ev["step"] + 1])
+                          + ev["seconds"]),
+            "evict_s": ev["seconds"]}
+
+
+def check_crash_serve(rep, fixed_tokens, fixed_gaps) -> list:
+    """4r (ii)'s checks of a chaos serve ``rep`` against the fixed run
+    (tokens and top-2 gaps by request and token index): the same request
+    set, requests requeued, an evict, and each request's tokens the fixed
+    run's up to its first token whose fixed-run gap is at most NEAR_TIE
+    (a later token follows another context).  Returns the flips
+    [(rid, token index, gap)]."""
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if set(got) != set(fixed_tokens):
+        raise AssertionError(f"requests {sorted(got)} vs the fixed run's "
+                             f"{sorted(fixed_tokens)}")
+    if rep["requeued_total"] <= 0:
+        raise AssertionError("the crash requeued no request")
+    if not any(r["kind"] == "evict" for r in rep["resizes"]):
+        raise AssertionError(f"no evict: resizes "
+                             f"{[r['kind'] for r in rep['resizes']]}")
+    flips = []
+    for rid, want in fixed_tokens.items():
+        i = first_parting(got[rid], want)
+        if i == len(want) == len(got[rid]):
+            continue
+        gap = fixed_gaps.get(rid, {}).get(i)
+        if gap is None or gap > NEAR_TIE:
+            raise AssertionError(f"request {rid} differs at token {i}, "
+                                 f"fixed-run top-2 gap {gap}")
+        flips.append((rid, i, gap))
+    return flips
+
+
+_PROM_NUM = r"(-?\d+(?:\.\d+)?(?:e[-+]?\d+)?)"
+
+
+def check_serve_scrape(page: str, rep) -> tuple:
+    """A serve's GET /metrics page against its report: the emitted
+    positions (``dynmo_serve_tokens_total``) are the ticks' tokens, which
+    are the completions' tokens plus the positions requeued lanes replayed
+    (none without a crash); the ticks are the report's.  Returns the
+    scraped count and the replayed positions."""
+    m = re.search(r"^dynmo_serve_tokens_total " + _PROM_NUM + "$", page,
+                  re.M)
+    t = re.search(r"^dynmo_serve_ticks_total " + _PROM_NUM + "$", page,
+                  re.M)
+    if m is None or t is None:
+        raise AssertionError("the /metrics page has no serve counters")
+    scraped = float(m.group(1))
+    emitted = sum(rep["tick_tokens"])
+    replayed = emitted - rep["total_tokens"]
+    if scraped != emitted or replayed < 0:
+        raise AssertionError(
+            f"/metrics counts {scraped} tokens, the report {emitted} "
+            f"emitted, {rep['total_tokens']} in the completions")
+    if replayed and not rep["requeued_total"]:
+        raise AssertionError(f"{replayed} positions replayed without a "
+                             f"requeue")
+    if float(t.group(1)) != rep["ticks"]:
+        raise AssertionError(f"/metrics counts {t.group(1)} ticks, the "
+                             f"report {rep['ticks']}")
+    return int(scraped), replayed
+
+
+def check_scheduler_scrape(page: str, events) -> dict:
+    """The HTTP manager's GET /metrics against the scheduler's events
+    stream: ``dynmo_scheduler_events_total`` per (tenant, event) equal to
+    the stream's counts.  Returns the counts."""
+    scraped = {}
+    for m in re.finditer(r'^dynmo_scheduler_events_total\{event="([^"]*)",'
+                         r'tenant="([^"]*)"\} ' + _PROM_NUM + "$", page,
+                         re.M):
+        scraped[f"{m.group(2)}:{m.group(1)}"] = float(m.group(3))
+    want = {}
+    for e in events:
+        k = f"{e['tenant']}:{e['ev']}"
+        want[k] = want.get(k, 0.0) + 1.0
+    if not scraped or scraped != want:
+        raise AssertionError(f"/metrics {scraped} vs the events stream "
+                             f"{want}")
+    return scraped
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _scrape(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        if "version=0.0.4" not in r.headers.get("Content-Type", ""):
+            raise AssertionError(f"{url}: content type "
+                                 f"{r.headers.get('Content-Type')}")
+        return r.read().decode()
+
+
+def _pct50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def run_fault_phase(torch, kernels):
+    """Phase 4r: (i) 4n (i)'s training with worker 2 crashing after step 4
+    and a 2.5x straggler spike after step 14; (ii) 4i's server with worker
+    2 crashing at tick 8, GET /metrics and in-step timing.  Each window's
+    counts zeroed just before and read just after; returns ({"chaos_train":
+    launches, "chaos_serve": launches}, summed tensor-core launches)."""
+    from repro_torch.api import Session
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.pruned_matmul import ops as pm
+    # (i) training
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    spec = cli_spec("train", autoscale_train_args("file")).override({
+        "faults.enabled": True, "faults.seed": 1,
+        "faults.worker_crash": {FAULT_CRASH_STEP: FAULT_CRASH_WORKER},
+        "faults.straggler_spike": {FAULT_SPIKE_STEP: 2.5}})
+    with Session(spec) as s:
+        rep = s.train()
+    train_launches, train_tc = _window(torch, kernels)
+    k3_bwd = pm.KERNEL.launches_bwd
+    steps = spec.steps
+    check_launches("chaos train", train_launches, TRAIN_LAUNCHES_PER_STEP,
+                   steps)
+    if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"chaos train: K3 backward launches {k3_bwd}")
+    check_tensor_core("chaos train", train_launches, train_tc, FP32_TC_PATH)
+    got = check_crash_train(rep, FAULT_CRASH_WORKER, AUTOSCALE_FILE_RUN)
+    say("chaos_train", steps=steps,
+        faults=json.dumps([(f["step"], f["kind"], f["detail"])
+                           for f in rep["faults"]]).replace(" ", ""),
+        resizes=json.dumps([(r["kind"], r["step"], r["from_stages"],
+                             r["to_stages"], r["workers"])
+                            for r in rep["resizes"]]).replace(" ", ""),
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        decisions=json.dumps([(d["step"], d["action"], d["ids"])
+                              for d in rep["autoscale_decisions"]])
+        .replace(" ", ""),
+        max_loss_diff=f"{got['max_loss_diff']:.3e}", tol=LOSS_TOL,
+        stages_part_at_step=got["part_step"],
+        crash_step=got["crash_step"], evict_step=got["evict_step"],
+        recover_steps=got["recover_steps"],
+        recover_s=f"{got['recover_s']:.3f}", evict_s=f"{got['evict_s']:.4f}",
+        step_ms_by_world=json.dumps(world_ms(rep["step_times"],
+                                             rep["stages_history"]))
+        .replace(" ", ""),
+        losses=json.dumps([round(x, 4) for x in rep["losses"]])
+        .replace(" ", ""),
+        launches=json.dumps(train_launches).replace(" ", ""))
+    del rep
+    free_cuda(torch)
+    # (ii) serving
+    port = _free_port()
+    spec = cli_spec("serve", elastic_serve_args()).override({
+        "faults.enabled": True, "faults.seed": 1,
+        "faults.worker_crash": {FAULT_SERVE_TICK: FAULT_CRASH_WORKER},
+        "cluster.spares": 1, "obs.metrics_port": port,
+        "obs.in_step_timing": True})
+    for k in kernels.KERNELS:
+        k.reset()
+    with Session(spec) as s:
+        rep = s.serve()
+        torch.cuda.synchronize()
+        page = _scrape(f"http://127.0.0.1:{port}/metrics")
+    serve_launches, serve_tc = _window(torch, kernels)
+    k6_split = pa_ops.KERNEL.launches_split
+    check_k6_split(serve_launches["paged_attention"], k6_split)
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul",
+                           "paged_attention") if serve_launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"chaos serve never launched {missing}")
+    check_tensor_core("chaos serve", serve_launches, serve_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    flips = check_crash_serve(rep, ELASTIC_FIXED["tokens"],
+                              ELASTIC_FIXED["gaps"])
+    scraped, replayed = check_serve_scrape(page, rep)
+    if rep["stage_time_source"] != "in_step" or not rep[
+            "measured_stage_times"]:
+        raise AssertionError(f"serve stage times from "
+                             f"{rep['stage_time_source']}")
+    say("chaos_serve", requests=len(rep["completions"]),
+        requeued=rep["requeued_total"],
+        resizes=json.dumps([(r["kind"], r["step"], r["workers"],
+                             round(r["seconds"], 4))
+                            for r in rep["resizes"]]).replace(" ", ""),
+        flips=json.dumps(flips).replace(" ", ""),
+        compared_tokens=sum(len(c["tokens"]) for c in rep["completions"]),
+        scraped_tokens_total=scraped, total_tokens=rep["total_tokens"],
+        replayed_positions=replayed,
+        ticks=rep["ticks"], fixed_ticks=ELASTIC_FIXED["ticks"],
+        wall_s=f"{rep['wall_s']:.2f}",
+        fixed_wall_s=f"{ELASTIC_FIXED['wall_s']:.2f}",
+        tick_p50_ms=f"{_pct50(rep['tick_wall_s']) * 1e3:.1f}",
+        fixed_tick_p50_ms=f"{ELASTIC_FIXED['tick_p50'] * 1e3:.1f}",
+        stage_times_ms=json.dumps([round(t * 1e3, 3) for t in
+                                   rep["measured_stage_times"]])
+        .replace(" ", ""),
+        stage_time_source=rep["stage_time_source"],
+        launches=json.dumps(serve_launches).replace(" ", ""),
+        k6_split_launches=k6_split)
+    del rep
+    free_cuda(torch)
+    return ({"chaos_train": train_launches, "chaos_serve": serve_launches},
+            {n: train_tc[n] + serve_tc[n] for n in train_tc})
+
+
 def mod_bitwise(torch) -> None:
     """Phase 4j: one training step's loss and gradients with --dynamism
     mod from the same params and batch as with none, through the kernels:
@@ -3870,21 +4383,23 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    took = _build.build(kernels.KERNELS)
+    took = timed("2", _build.build, kernels.KERNELS)
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         per_kernel={k: round(v, 1) for k, v in took.items()})
 
     # 3. kernels vs plain versions
     results = {
-        "block_sparse_attention": check_block_sparse_attention(torch, F),
-        "pruned_matmul": check_pruned_matmul(torch, F),
-        "paged_attention": check_paged_attention(torch, F),
+        "block_sparse_attention": timed(
+            "3", check_block_sparse_attention, torch, F),
+        "pruned_matmul": timed("3", check_pruned_matmul, torch, F),
+        "paged_attention": timed("3b", check_paged_attention, torch, F),
     }
     # 3c / 3d. the backward kernels
-    results.update(check_attention_backward(torch, F))
-    results["pruned_matmul"].update(check_pruned_matmul_backward(torch))
+    results.update(timed("3c", check_attention_backward, torch, F))
+    results["pruned_matmul"].update(
+        timed("3d", check_pruned_matmul_backward, torch))
     # 3e. the grouped expert matmul and its weight gradient
-    results.update(check_grouped_matmul(torch))
+    results.update(timed("3e", check_grouped_matmul, torch))
     for name, r in results.items():
         extra = ({"bound_tf32x3_ms": f"{r['bound_tf32x3'][0]:.4f}"}
                  if "bound_tf32x3" in r else {})
@@ -3909,7 +4424,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.KERNELS:
         k.reset()
-    rep = serve_run(serve_args(12))
+    rep = timed("4", serve_run, serve_args(12))
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     tc = {k.name: k.launches_tc for k in kernels.KERNELS}
@@ -3959,101 +4474,110 @@ def main() -> int:
 
     # 4b. where the time goes: a shorter serve under torch.profiler (its
     # wall includes the profiler's own overhead)
-    prof = profile_serve(torch)
+    prof = timed("4b", profile_serve, torch)
     say("profile", **prof)
 
     # 4c. train: the training path, counters zeroed just before, read
     # just after
-    train_launches, train_bwd = run_train_phase(torch, kernels)
+    train_launches, train_bwd = timed("4c", run_train_phase, torch, kernels)
     train_tc = {k.name: k.launches_tc for k in kernels.KERNELS}
     check_tensor_core("train", train_launches, train_tc, FP32_TC_PATH)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
 
     # 4d. where the time goes in training: two steps under the profiler
-    say("profile_train", **profile_train(torch))
+    say("profile_train", **timed("4d", profile_train, torch))
 
     # 4e / 4f. the MoE paths, counters zeroed just before each and read
     # just after
-    moe_train_launches = run_moe_train_phase(torch, kernels)
+    moe_train_launches = timed("4e", run_moe_train_phase, torch, kernels)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
-    moe_serve_launches = run_moe_serve_phase(torch, kernels)
+    moe_serve_launches = timed("4f", run_moe_serve_phase, torch, kernels)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
 
     # 4g. where the time goes in MoE training
-    say("profile_moe_train", **profile_train(torch, moe_train_args))
+    say("profile_moe_train", **timed("4g", profile_train, torch,
+                                     moe_train_args))
 
     # 4h / 4i / 4j. live resizes in training and serving, early exit and
     # MoD: counters zeroed just before each path and read just after
-    elastic_train_launches = run_elastic_train_phase(torch, kernels)
+    elastic_train_launches = timed("4h", run_elastic_train_phase, torch,
+                                   kernels)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
-    elastic_serve_launches = run_elastic_serve_phase(torch, kernels)
+    elastic_serve_launches = timed("4i", run_elastic_serve_phase, torch,
+                                   kernels)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
-    ee_train_launches = run_ee_train_phase(torch, kernels)
+    ee_train_launches = timed("4j", run_ee_train_phase, torch, kernels)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
-    ee_serve_launches = run_ee_serve_phase(torch, kernels)
+    ee_serve_launches = timed("4j", run_ee_serve_phase, torch, kernels)
     for k in kernels.KERNELS:
         tc[k.name] += k.launches_tc
 
     # 4k / 4l. safe points and resume; async control plane and stage
     # timing: counters zeroed just before each path and read just after
-    ckpt_launches = run_ckpt_phase(torch, kernels)
+    ckpt_launches = timed("4k", run_ckpt_phase, torch, kernels)
     for n in ckpt_launches:
         tc[n] += ckpt_launches[n]      # every launch checked on the TCs
-    ctl_launches = run_ctl_phase(torch, kernels)
+    ctl_launches = timed("4l", run_ctl_phase, torch, kernels)
     for n in ctl_launches:
         tc[n] += ctl_launches[n]
 
     # 4m / 4n / 4o / 4p / 4q. sampling, autoscaled training over the file
-    # RPC, autoscaled serving, two tenants on one HTTP manager and the front
-    # door (configs, Session, the one-shot serve, the scenarios): counters
-    # zeroed just before each path and read just after (4p: read in its
-    # two processes)
+    # RPC (its third run under RPC chaos), autoscaled serving, two tenants
+    # on one HTTP manager and the front door (configs, Session, the
+    # one-shot serve, the scenarios): counters zeroed just before each path
+    # and read just after (4p: read in its two processes)
     new_phases = {}
-    for key, phase in (
-            ("sample_serve", lambda: run_sampling_serve_phase(
+    for ph, key, phase in (
+            ("4m", "sample_serve", lambda: run_sampling_serve_phase(
                 torch, kernels, argmax_tokens, argmax_rep)),
-            ("autoscale_train", lambda: run_autoscale_train_phase(
+            ("4n", "autoscale_train", lambda: run_autoscale_train_phase(
                 torch, kernels)),
-            ("autoscale_serve", lambda: run_autoscale_serve_phase(
+            ("4o", "autoscale_serve", lambda: run_autoscale_serve_phase(
                 torch, kernels)),
-            ("tenants", lambda: run_two_tenant_phase(torch, kernels)),
-            ("api", lambda: run_front_door_phase(torch, kernels,
-                                                 argmax_tokens))):
-        got, got_tc = phase()
+            ("4p", "tenants", lambda: run_two_tenant_phase(torch, kernels)),
+            ("4q", "api", lambda: run_front_door_phase(torch, kernels,
+                                                       argmax_tokens))):
+        got, got_tc = timed(ph, phase)
         new_phases[key] = got
         for n in got_tc:
             tc[n] += got_tc[n]
+    # 4r. a worker crash in training and in serving: each path's counters
+    # zeroed just before it and read just after
+    got, got_tc = timed("4r", run_fault_phase, torch, kernels)
+    new_phases.update(got)
+    for n in got_tc:
+        tc[n] += got_tc[n]
 
     # 5. parity of the path: kernels vs plain versions from one state
-    serve_parity(torch)
+    timed("5", serve_parity, torch)
 
     # 5b. train parity: one step's loss and grads, kernels vs plain
-    train_parity(torch)
+    timed("5b", train_parity, torch)
 
     # 5c. the MoE path: train step, prefill + decode, placement neutrality
-    train_parity(torch, moe=True)
-    train_parity(torch, moe=True, param_dtype="bfloat16")
-    serve_parity(torch, moe=True)
-    moe_placement_neutrality(torch)
-    moe_placement_neutrality(torch, torch.bfloat16)
+    timed("5c", train_parity, torch, moe=True)
+    timed("5c", train_parity, torch, moe=True, param_dtype="bfloat16")
+    timed("5c", serve_parity, torch, moe=True)
+    timed("5c", moe_placement_neutrality, torch)
+    timed("5c", moe_placement_neutrality, torch, torch.bfloat16)
 
     # 5d. early exit and MoD: a train step (all 32 layers: at 4 the
     # random-weight blocks stay too far from the identity for a token to
     # exit) and a prefill + decode with early exit, kernels vs plain
     # versions; MoD bitwise the none step
-    train_parity(torch, kind="early_exit", layers=32)
+    timed("5d", train_parity, torch, kind="early_exit", layers=32)
     # ... and at a threshold where exited and live tokens sit side by side
     # from layer 22 on and some never exit
-    train_parity(torch, kind="early_exit", layers=32,
-                 ee_threshold=EE_MIXED_THRESHOLD)
-    mod_bitwise(torch)
-    serve_parity(torch, kind="early_exit")
+    timed("5d", train_parity, torch, kind="early_exit", layers=32,
+          ee_threshold=EE_MIXED_THRESHOLD)
+    timed("5d", mod_bitwise, torch)
+    timed("5d", serve_parity, torch, kind="early_exit")
 
     # 6. the kernels line, the card line, the last line
     line = []
@@ -4110,7 +4634,11 @@ def main() -> int:
                 bwd_pruned_bound_ms=r["bwd_pruned_bound"][0],
                 bwd_shape=r["bwd_shape"])
         line.append(entry)
-    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    total = time.perf_counter() - t_start
+    say("done", seconds=f"{total:.1f}")
+    print("[phase_seconds] " + json.dumps(
+        {"total": round(total, 1),
+         **{k: round(v, 1) for k, v in PHASE_SECONDS.items()}}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

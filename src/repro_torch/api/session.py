@@ -16,7 +16,14 @@ and ``chip_smoke.py`` read them); ``session.events`` is the structured
 stream — one ``SessionEvent`` per resize / rebalance / relayout /
 autoscale decision / safe point / log line / tenant event.  ``metrics``
 is a ``MetricsRegistry`` kept live in every run (``obs.metrics_out``
-saves it).
+saves it, ``obs.metrics_port`` serves it at ``GET /metrics``);
+``obs.trace`` gives the run a ``Tracer`` (``session.tracer``, exported to
+``obs.trace_out``) that is process-current while the run lasts, so the RPC
+clients, the control plane and the fault injector stamp their spans and
+events into it.  ``faults.enabled`` resolves the ``FaultSpec`` into a
+``FaultPlan`` and fires it through a ``faults.ChaosInjector``
+(``session.injector``): worker crashes, manager kills and respawns, RPC
+loss / duplication / delay, straggler spikes and a trainer kill.
 
 The port's differences from the reference:
   * ``device`` is a keyword, not a spec field: ``Session(spec,
@@ -27,13 +34,8 @@ The port's differences from the reference:
     replaces the engine's own init: random streams do not cross
     frameworks, so this is how the tests hand both packages one init.
   * ``train(on_step=f)`` calls ``f(step, session)`` after each step's safe
-    point, where the reference's fault injector fires (``chip_smoke.py``
-    stops and restarts the file manager there: ``kill_manager``,
-    ``respawn_manager``).
-  * Fault injection (``faults.enabled``), the tracer (``obs.trace`` /
-    ``obs.trace_out``) and the ``/metrics`` endpoint
-    (``obs.metrics_port``) raise ``NotImplementedError``: they wait for
-    ROADMAP Queue 1 [faults-obs].
+    point, just after the fault injector fires (``kill_manager`` and
+    ``respawn_manager`` are public for such a hook).
 
 Teardown order matters and is centralized in ``close()``: the metrics
 snapshot, then the control plane (its worker thread must stop deciding
@@ -66,8 +68,8 @@ class SessionEvent:
     "yield"}; the last five are the multi-tenant cluster stream.
 
     Every record also carries the unified event fields
-    (``schema`` / ``source`` / ``wall``); the tracing identity stays unset
-    (the port has no tracer yet)."""
+    (``schema`` / ``source`` / ``wall``) plus the tracing identity when
+    the session has a tracer."""
     kind: str
     step: int
     data: Dict[str, Any]
@@ -99,7 +101,11 @@ class Session:
         self._closed = False
         self._resume_dir: Optional[str] = None
         self._resume_step: Optional[int] = None
+        self.injector = None     # faults.ChaosInjector when chaos is on
+        # ---- observability
         self.metrics = MetricsRegistry()   # always live; ~free when unread
+        self.tracer = None                 # obs.trace.Tracer when obs.trace
+        self._metrics_srv = None           # http server when obs.metrics_port
 
     @classmethod
     def resume(cls, ckpt_dir: str, *, step: Optional[int] = None,
@@ -152,10 +158,13 @@ class Session:
     def _emit(self, kind: str, step: int, *, cause_ctx=None,
               **data) -> SessionEvent:
         rec: Dict[str, Any] = {}
-        stamp_record(rec, source="session", kind=kind, ctx=cause_ctx)
+        stamp_record(rec, source="session", kind=kind, tracer=self.tracer,
+                     ctx=cause_ctx)
         ev = SessionEvent(kind, step, data, wall=rec.get("wall"),
                           trace_id=rec.get("trace_id"),
-                          parent_id=rec.get("parent_id"))
+                          span_id=rec.get("span_id"),
+                          parent_id=rec.get("parent_id"), lc=rec.get("lc"),
+                          cause_trace_id=rec.get("cause_trace_id"))
         self.events.append(ev)
         return ev
 
@@ -165,25 +174,45 @@ class Session:
             json.dump([dataclasses.asdict(ev) for ev in self.events], f,
                       indent=1)
 
-    # -- observability -----------------------------------------------------
-    def _check_ported(self) -> None:
-        spec = self.spec
-        if spec.faults.enabled:
-            raise NotImplementedError(
-                "fault injection is not in repro_torch yet (ROADMAP Queue 1 "
-                "[faults-obs])")
-        if spec.obs.trace or spec.obs.trace_out:
-            raise NotImplementedError(
-                "the tracer is not in repro_torch yet (ROADMAP Queue 1 "
-                "[faults-obs])")
-        if spec.obs.metrics_port:
-            raise NotImplementedError(
-                "the /metrics endpoint is not in repro_torch yet (ROADMAP "
-                "Queue 1 [faults-obs])")
+    # -- observability lifecycle ---------------------------------------------
+    def _obs_begin(self, mode: str):
+        """Build the tracer and the metrics endpoint per ``spec.obs``.  The
+        trace id derives from run identity (mode + tenant + seed), never
+        pids or clocks, so a fixed-seed run's logical event sequence is
+        reproducible."""
+        obs = self.spec.obs
+        if obs.trace:
+            from repro_torch.obs.trace import Tracer, set_current_tracer
+            if self.tracer is None:
+                tenant = self.spec.cluster.tenant_id or "solo"
+                self.tracer = Tracer(
+                    f"{mode}-{tenant}-s{self.spec.seed}",
+                    meta={"mode": mode, "tenant": tenant,
+                          "seed": self.spec.seed})
+            # deep layers (RPC clients, control plane, injector) find the
+            # tracer here instead of through their constructors
+            set_current_tracer(self.tracer)
+        if obs.metrics_port and self._metrics_srv is None:
+            from repro_torch.obs.metrics import serve_metrics
+            self._metrics_srv = serve_metrics(self.metrics,
+                                              obs.metrics_port)
+        return self.tracer
 
     def _obs_end(self) -> None:
-        if self.spec.obs.metrics_out:
-            self.metrics.save(self.spec.obs.metrics_out)
+        obs = self.spec.obs
+        if self._metrics_srv is not None:
+            self._metrics_srv.shutdown()
+            self._metrics_srv.server_close()
+            self._metrics_srv = None
+        if self.tracer is not None:
+            if obs.trace_out:
+                self.tracer.export(obs.trace_out)
+            from repro_torch.obs.trace import (current_tracer,
+                                               set_current_tracer)
+            if current_tracer() is self.tracer:
+                set_current_tracer(None)
+        if obs.metrics_out:
+            self.metrics.save(obs.metrics_out)
 
     # -- shared assembly ---------------------------------------------------
     def _model_config(self):
@@ -215,7 +244,8 @@ class Session:
             return tempfile.mkdtemp(prefix="run_", dir=parent)
         return tempfile.mkdtemp(prefix=prefix)
 
-    def _connect_job_manager(self, pool_state=None):
+    def _connect_job_manager(self, plan=None, injector=None,
+                             pool_state=None):
         """'file' spawns the WorkerPool server in a separate process and
         returns a client speaking atomic request / response JSON files to
         it; 'http' connects to ``cluster.manager_url`` when set (several
@@ -224,7 +254,8 @@ class Session:
         'inproc' returns None (the engine wraps its own pool).
         ``pool_state`` (from a safe point) is seeded into the fresh
         directory as the manager's journal, so the spawned manager starts
-        from the crashed run's pool topology."""
+        from the crashed run's pool topology; with an RPC-chaos ``plan``
+        the file client is the chaos transport."""
         from repro_torch.cluster.rpc import FileJobManager, spawn_file_manager
         c = self.spec.cluster
         if c.job_manager == "inproc":
@@ -252,7 +283,12 @@ class Session:
             return self._jm
         self._jm_proc = spawn_file_manager(run_dir, self.spec.parallel.stages,
                                            spares=c.spares)
-        self._jm = FileJobManager(run_dir, timeout_s=c.rpc_timeout_s)
+        if plan is not None and plan.any_rpc:
+            from repro_torch.faults import ChaosFileJobManager
+            self._jm = ChaosFileJobManager(run_dir, plan, injector,
+                                           timeout_s=c.rpc_timeout_s)
+        else:
+            self._jm = FileJobManager(run_dir, timeout_s=c.rpc_timeout_s)
         return self._jm
 
     @property
@@ -347,8 +383,8 @@ class Session:
                                                          WorkerPool)
 
         spec = self.spec
-        self._check_ported()
         obs = spec.obs
+        tracer = self._obs_begin("train")
         mreg = self.metrics
         steps = steps if steps is not None else spec.steps
         stages = spec.parallel.stages
@@ -386,7 +422,27 @@ class Session:
             start_step = int(resume_idx["step"]) + 1
         rmeta = resume_idx["meta"] if resume_idx is not None else {}
 
+        # ---- chaos: resolve the fault plan before anything it may target
+        # (named fplan — the controller's DecisionPlan is ``plan`` inside
+        # the step loop)
+        fplan = injector = None
+        if spec.faults.enabled:
+            from repro_torch.faults import ChaosInjector, resolve_plan
+            if spec.faults.worker_crash and not spec.cluster.autoscale:
+                raise ValueError(
+                    "faults.worker_crash requires cluster.autoscale: the "
+                    "heartbeat -> autoscaler -> evict pipeline IS the "
+                    "recovery path chaos exercises")
+            fplan = resolve_plan(
+                spec.faults, horizon=steps,
+                workers=(stages if spec.cluster.autoscale else 1),
+                file_manager=spec.cluster.job_manager == "file")
+            injector = ChaosInjector(fplan, start_step=start_step,
+                                     resumed=resume_idx is not None)
+            self.injector = injector
+
         jm = self._connect_job_manager(
+            plan=fplan, injector=injector,
             pool_state=(rmeta.get("pool")
                         if spec.cluster.job_manager == "file" else None))
         pool = None
@@ -396,6 +452,18 @@ class Session:
                                job_manager=jm, device=self.device,
                                in_step_timing=obs.in_step_timing)
         self._engine = engine
+        if injector is not None:
+            import signal
+            cbs = {}
+            if any(e.kind == "trainer_kill" for e in fplan.events):
+                # bound only when the plan kills this process: a library
+                # caller's process never holds a SIGKILL it did not ask for
+                cbs["kill_self"] = lambda: os.kill(os.getpid(),
+                                                   signal.SIGKILL)
+            if spec.cluster.job_manager == "file":
+                cbs["kill_manager"] = self.kill_manager
+                cbs["respawn_manager"] = self.respawn_manager
+            injector.bind(**cbs)
         restore_s = restore_mem = None
         if resume_idx is not None:
             # rebuild the world the run was in at its safe point (stage
@@ -527,16 +595,25 @@ class Session:
         # apart from the steady-state step times
         warmup_steps, warmup_s, decide_s = 0, 0.0, 0.0
         steady_times: List[float] = []
+        preempt_ctx = None
+        root_span = (tracer.span("train", cat="session", steps=steps,
+                                 stages=stages) if tracer is not None
+                     else None)
         t0 = time.perf_counter()
         for step, batch in enumerate(loader, start=start_step):
             if step >= steps:
                 break
             t_step = time.perf_counter()
             lr = cosine_schedule(step, steps, 3e-4, warmup=10)
+            sp_step = (tracer.span("train.step", cat="train", step=step,
+                                   stages=state.stages)
+                       if tracer is not None else None)
             loss, stats, gnorm = engine.step(state, batch, lr)
             # one scalar sync for the loss curve; the per-slot stats stay
             # on the device until controller cadence (§3.3.1)
             losses.append(float(loss))
+            if sp_step is not None:
+                sp_step.end(compiled=engine.last_step_compiled)
             dt = time.perf_counter() - t_step
             step_times.append(dt)
             stages_hist.append(state.stages)
@@ -580,7 +657,9 @@ class Session:
             # beat; released / dead ones go silent and time out)
             if monitor is not None:
                 sim_clock[0] = float(step)
-                for w in engine.stage_workers:
+                beat = engine.stage_workers if injector is None \
+                    else injector.heartbeat_workers(engine.stage_workers)
+                for w in beat:
                     monitor.beat(w)
                 if (spec.cluster.simulate_recover is not None
                         and step == spec.cluster.simulate_recover):
@@ -592,6 +671,9 @@ class Session:
             # device -> host stats sync; in async mode a pointer swap)
             if ctrl.cadence(step + 1):
                 t_decide = time.perf_counter()
+                sp_dec = (tracer.span("controller.decide", cat="controller",
+                                      step=step)
+                          if tracer is not None else None)
                 measured = src = None
                 if obs.in_step_timing:
                     # per-stage seconds of the live step's stage calls: no
@@ -626,6 +708,15 @@ class Session:
                     measured = measured * np.array(
                         [straggler.get(engine.stage_workers[s], 1.0)
                          for s in range(state.stages)])
+                if injector is not None:
+                    # chaos straggler spikes: the simulation knob's
+                    # per-worker multiplier shape, from the fault plan
+                    mult = injector.spike_for(engine.stage_workers)
+                    if mult is not None:
+                        if measured is None:
+                            share = np.asarray(state.lps, np.float64)
+                            measured = share / share.sum() * step_times[-1]
+                        measured = measured * np.asarray(mult)
                 cp.publish(StatsSnapshot(
                     iteration=step + 1, epoch=engine.epoch,
                     stats=engine.stats_to_host(state, stats),
@@ -642,6 +733,8 @@ class Session:
                     stage_times_log[-1]["expected"] = cp.with_ctrl(
                         lambda c: c.expected_loads)
                 decide_s += time.perf_counter() - t_decide
+                if sp_dec is not None:
+                    sp_dec.end(source=src)
 
             # ---- cluster-scheduler directives (multi-tenant): a steal by
             # a higher-priority tenant arrives as a preemption and becomes
@@ -660,11 +753,23 @@ class Session:
                     if target < state.stages:
                         cp.inject_resize(engine.epoch, target)
                         last_cluster_resize = step
+                        # the scheduler forwards the thief's span context
+                        # ("cause"): parent this preemption on it so the
+                        # cross-process steal→preempt→shrink chain
+                        # correlates in the merged trace
                         cause = (directives.get("cause")
                                  if isinstance(directives, dict) else None)
                         self._emit("preempt", step, cause_ctx=cause,
                                    due=directives["preempt"],
                                    target_stages=target)
+                        if tracer is not None:
+                            preempt_ctx = tracer.instant(
+                                "cluster.preempt", cat="cluster",
+                                parent_id=(cause or {}).get("span_id"),
+                                cause_trace_id=(cause or {}).get(
+                                    "trace_id"),
+                                due=directives["preempt"],
+                                target_stages=target)
                 elif (directives and directives["offer"] > 0
                         and state.stages < stages
                         and step - last_cluster_resize >= absorb_cooldown):
@@ -698,6 +803,16 @@ class Session:
                                moved_layers=plan.event.moved_layers)
                 if (plan.resize is not None
                         and plan.resize.target_stages < state.stages):
+                    sp_rz = None
+                    if tracer is not None:
+                        parent = ((preempt_ctx or {}).get("span_id")
+                                  if plan.resize.policy == "preempt"
+                                  else None)
+                        sp_rz = tracer.span(
+                            "resize.shrink", cat="resize",
+                            parent_id=parent, step=step,
+                            policy=plan.resize.policy,
+                            target=plan.resize.target_stages)
                     mem_before = self._allocated()
                     state = engine.shrink(state, plan.resize.target_stages,
                                           plan.resize.layers_per_stage,
@@ -707,6 +822,10 @@ class Session:
                     mreg.inc("dynmo_resizes_total", kind="shrink",
                              policy=plan.resize.policy,
                              help="engine resizes by kind")
+                    if sp_rz is not None:
+                        sp_rz.end(stages=state.stages)
+                        if plan.resize.policy == "preempt":
+                            preempt_ctx = None
                 elif plan.new_lps is not None:
                     (state.params, state.opt_state, state.dyn,
                      state.assignment, _) = cp.apply(
@@ -783,6 +902,9 @@ class Session:
                 ckpt.maybe_save(step, state.params, state.opt_state,
                                 state.dyn, state.lps)
             if safept is not None and safept.due(step):
+                sp_ck = (tracer.span("safepoint", cat="checkpoint",
+                                     step=step)
+                         if tracer is not None else None)
                 t_sp = time.perf_counter()
                 path = safept.save(
                     step, state, spec=spec, engine=engine, scaler=scaler,
@@ -790,11 +912,16 @@ class Session:
                         lambda c: bool(c.ccfg.repack)),
                     jm_dir=self._jm_dir)
                 safepoint_s.append(time.perf_counter() - t_sp)
+                if sp_ck is not None:
+                    sp_ck.end(path=path)
                 self._emit("safepoint", step, path=path,
                            stages=state.stages)
-            if on_step is not None:
-                # where the reference's fault injector fires: a trainer
+            if injector is not None:
+                # fire scheduled faults AFTER the safe point: a trainer
                 # kill at step k leaves the k-aligned safe point on disk
+                # for Session.resume
+                injector.on_step(step, workers=engine.stage_workers)
+            if on_step is not None:
                 on_step(step, self)
             gnorms.append(float(gnorm))
             if step % spec.log_every == 0:
@@ -811,6 +938,8 @@ class Session:
                       f"gnorm {float(gnorm):.3f} S={state.stages} "
                       f"lps={state.lps}{ee}", flush=True)
         wall = time.perf_counter() - t0
+        if root_span is not None:
+            root_span.end(steps_run=len(losses))
         steady_s = float(sum(steady_times))
         steady_tok_s = (tokens_per_step * len(steady_times) / steady_s
                         if steady_s > 0 else None)
@@ -879,6 +1008,8 @@ class Session:
             "resumed_from": (int(resume_idx["step"])
                              if resume_idx is not None else None),
             "safepoints": list(safept.saved) if safept is not None else [],
+            "faults": injector.report() if injector is not None else [],
+            "fault_plan": fplan.to_dict() if fplan is not None else None,
             "degraded_events": list(engine.degraded_events),
             "rpc": ({"stats": dict(jm.rpc_stats),
                      "breaker": jm.breaker.state_dict()}
@@ -922,11 +1053,7 @@ class Session:
 
         spec = self.spec
         s = spec.serve
-        self._check_ported()
-        if spec.obs.in_step_timing:
-            raise NotImplementedError(
-                "in-step stage timing of the serve path is not in "
-                "repro_torch yet (ROADMAP Queue 1 [faults-obs])")
+        tracer = self._obs_begin("serve")
         cfg = self._model_config()
         dcfg = self._dist_config()
         dyncfg = spec.dynamics.to_config()
@@ -946,6 +1073,24 @@ class Session:
         if trace is None:
             trace = self.make_trace()
 
+        # ---- chaos: the fault horizon is the trace's expected drain time
+        # (arrival span + tokens / lanes), not max_ticks — derived events
+        # must land while requests are in flight
+        plan = injector = None
+        if spec.faults.enabled:
+            from repro_torch.faults import ChaosInjector, resolve_plan
+            lanes = spec.parallel.num_micro * spec.parallel.mb_global
+            est = (max((r.arrival for r in trace), default=0)
+                   + sum(r.gen for r in trace) // max(1, lanes)
+                   + len(trace))
+            plan = resolve_plan(spec.faults,
+                                horizon=max(8, min(s.max_ticks, est)),
+                                workers=spec.parallel.stages,
+                                file_manager=spec.cluster.job_manager
+                                == "file")
+            injector = ChaosInjector(plan)
+            self.injector = injector
+
         scaler = None
         if spec.cluster.autoscale:
             scaler = Autoscaler(AutoscalerConfig(
@@ -954,28 +1099,42 @@ class Session:
                 patience=s.patience, cooldown=s.cooldown,
                 queue_high=s.queue_high, occupancy_low=s.occupancy_low,
                 latency_slo_s=s.latency_slo_s))
-        jm = self._connect_job_manager()
+        jm = self._connect_job_manager(plan=plan, injector=injector)
         # multi-tenant: start on the scheduler's grant (min_stages: serve
         # small, steal under load) instead of the spec's maximum
         granted = self._register_tenant(
             jm, kind="serve", workers=s.min_stages,
             max_workers=spec.parallel.stages, min_workers=s.min_stages)
+        if injector is not None and spec.cluster.job_manager == "file":
+            injector.bind(kill_manager=self.kill_manager,
+                          respawn_manager=self.respawn_manager)
         srv = ElasticServer(cfg, dcfg, dyncfg, shapes, job_manager=jm,
                             scaler=scaler, min_stages=s.min_stages,
                             seed=spec.seed, defrag_every=s.defrag_every,
                             measure_stage_times=spec.controller
                             .measure_stage_times,
                             initial_workers=granted, paged=paged,
-                            temperature=s.temperature, device=self.device,
-                            params=self.params)
+                            temperature=s.temperature,
+                            in_step_timing=spec.obs.in_step_timing,
+                            tracer=tracer, metrics=self.metrics,
+                            device=self.device, params=self.params)
         self._server = srv
+        root_span = (tracer.span("serve", cat="session",
+                                 requests=len(trace))
+                     if tracer is not None else None)
         report = srv.serve(trace, autoscale=spec.cluster.autoscale,
-                           resize_at=resize_at, max_ticks=s.max_ticks)
+                           resize_at=resize_at, max_ticks=s.max_ticks,
+                           injector=injector)
+        if root_span is not None:
+            root_span.end(ticks=report["ticks"],
+                          completions=len(report["completions"]))
         self.metrics.set("dynmo_tokens_per_s", report["tokens_per_s"],
                          help="serving throughput")
         self.metrics.set("dynmo_latency_p95_s", report["latency_p95_s"],
                          help="serving p95 request latency")
         report["spec"] = spec.to_dict()
+        report["faults"] = injector.report() if injector is not None else []
+        report["fault_plan"] = plan.to_dict() if plan is not None else None
         report["degraded_events"] = list(srv.engine.degraded_events)
         report["rpc"] = ({"stats": dict(jm.rpc_stats),
                           "breaker": jm.breaker.state_dict()}

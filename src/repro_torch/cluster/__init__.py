@@ -10,27 +10,34 @@
                steal/yield, safe-point preemption) above one WorkerPool
   http_rpc   — HTTP transport for the scheduler (stdlib http.server), so
                several runs in several processes contend over one manager
-"""
-from repro_torch.cluster.autoscaler import (Autoscaler, AutoscalerConfig,
-                                            ScaleDecision)
-from repro_torch.cluster.http_rpc import (HttpJobManager,
-                                          serve_http_manager,
-                                          spawn_http_manager)
-from repro_torch.cluster.rpc import (CircuitBreaker, FileJobManager,
-                                     InProcessJobManager, JobManagerClient,
-                                     JobManagerUnavailable, TenantVerbsMixin,
-                                     serve_file_manager, spawn_file_manager)
-from repro_torch.cluster.scheduler import (ClusterScheduler,
-                                           SchedulerInvariantError, Tenant)
-from repro_torch.cluster.service import (ControlPlane, DecisionPlan,
-                                         StatsSnapshot)
 
-__all__ = [
-    "Autoscaler", "AutoscalerConfig", "ScaleDecision",
-    "ControlPlane", "DecisionPlan", "StatsSnapshot",
-    "JobManagerClient", "JobManagerUnavailable", "CircuitBreaker",
-    "InProcessJobManager", "FileJobManager", "TenantVerbsMixin",
-    "serve_file_manager", "spawn_file_manager",
-    "ClusterScheduler", "SchedulerInvariantError", "Tenant",
-    "HttpJobManager", "serve_http_manager", "spawn_http_manager",
-]
+The names below resolve on first use (PEP 562): a manager process
+(``python -m repro_torch.cluster.rpc`` / ``http_rpc``) imports only its
+transport, the scheduler and the stdlib observability modules, never
+torch or the controller.
+"""
+import importlib
+
+_EXPORTS = {
+    "Autoscaler": "autoscaler", "AutoscalerConfig": "autoscaler",
+    "ScaleDecision": "autoscaler",
+    "ControlPlane": "service", "DecisionPlan": "service",
+    "StatsSnapshot": "service",
+    "JobManagerClient": "rpc", "JobManagerUnavailable": "rpc",
+    "CircuitBreaker": "rpc", "InProcessJobManager": "rpc",
+    "FileJobManager": "rpc", "TenantVerbsMixin": "rpc",
+    "serve_file_manager": "rpc", "spawn_file_manager": "rpc",
+    "ClusterScheduler": "scheduler", "SchedulerInvariantError": "scheduler",
+    "Tenant": "scheduler",
+    "HttpJobManager": "http_rpc", "serve_http_manager": "http_rpc",
+    "spawn_http_manager": "http_rpc",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

@@ -7,9 +7,9 @@ this module is the k8s-operator-shaped real thing: one
 machines — contend over one pool.  Wire protocol: ``POST /rpc`` with a
 JSON body ``{"op": ..., "seq": ..., "client": ..., ...}``; the response
 is the scheduler's response dict.  ``GET /healthz`` answers liveness;
-``GET /metrics`` (the reference's Prometheus page) answers 501 until the
-metrics module is ported (ROADMAP Queue 1 [faults-obs]) — the ``metrics``
-RPC verb carries the same event stream.
+``GET /metrics`` renders the scheduler as Prometheus text
+(``obs.metrics.scheduler_to_prometheus``), derived from the same events
+list the ``metrics`` RPC verb returns.
 
 Exactly-once semantics carry over from the file transport, reshaped for
 many clients: the idempotency key is ``(client, seq)`` instead of the
@@ -94,6 +94,14 @@ class HttpJobManager(TenantVerbsMixin):
         seq = self._seq
         self.rpc_stats["calls"] += 1
         obj = {"op": op, "seq": seq, "client": self.client_id, **payload}
+        # ship the caller's span context (client_id + seq ride along) so
+        # the scheduler can attribute the op and forward a steal's context
+        # to its preemption victim
+        from repro_torch.obs.trace import current_tracer
+        tr = current_tracer()
+        if tr is not None:
+            obj["trace"] = tr.rpc_ctx(op, transport="http",
+                                      client=self.client_id, seq=seq)
         per_attempt = self.timeout_s / self.retries
         last_err: Optional[Exception] = None
         for attempt in range(self.retries):
@@ -203,11 +211,18 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                                   "active": self.server.sched.pool
                                   .num_active})
         elif self.path == "/metrics":
-            # the Prometheus page renders through the metrics module, which
-            # is not ported yet; the ``metrics`` RPC verb serves the events
-            self._reply(501, {"error": "GET /metrics is not in repro_torch "
-                                       "yet (ROADMAP Queue 1 [faults-obs]); "
-                                       "use the metrics RPC verb"})
+            # Prometheus text exposition derived from the SAME events list
+            # the `metrics` RPC verb returns — scraped counters can never
+            # disagree with the events stream
+            from repro_torch.obs.metrics import scheduler_to_prometheus
+            with self.server.lock:
+                body = scheduler_to_prometheus(self.server.sched).encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         else:
             self._reply(404, {"error": "not found"})
 

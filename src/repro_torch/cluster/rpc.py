@@ -33,10 +33,10 @@ op.  When the whole retry budget burns, ``JobManagerUnavailable`` (a
 fail fast (training continues without scaling decisions) with a periodic
 probe so a revived manager is rediscovered.
 
-The reference's clients attach the caller's span context to every request;
-the port has no tracer yet (ROADMAP Queue 1 [faults-obs]) and sends none.
-A ``cause`` in a reply (a context another client sent with a steal) passes
-through ``poll_cluster`` untouched.
+When a tracer is current (``obs.trace``), every request carries the
+caller's span context under ``"trace"``: the scheduler attributes the op
+to it and forwards a steal's context to the preempted tenant as
+``cause``.
 """
 from __future__ import annotations
 
@@ -178,8 +178,9 @@ class TenantVerbsMixin:
         """Directive mailbox: ``{"preempt": k, "offer": m}`` — this tenant
         must release ``k`` workers at its next safe point / could absorb
         ``m`` free ones.  Level-triggered: re-delivered until acted on.
-        ``cause`` (when present) is the thief's span context, passed
-        through as the scheduler sent it."""
+        ``cause`` (when present) is the thief's span context — the victim
+        parents its preemption events on it so the cross-process
+        steal→preempt→shrink chain correlates."""
         out = self._call("poll", **self._tenant_kw())
         return {"preempt": int(out.get("preempt", 0)),
                 "offer": int(out.get("offer", 0)),
@@ -299,6 +300,12 @@ class FileJobManager(TenantVerbsMixin):
         req = os.path.join(self.root, f"req-{seq:06d}.json")
         resp = os.path.join(self.root, f"resp-{seq:06d}.json")
         obj = {"op": op, "seq": seq, **payload}
+        # ship the caller's span context so the scheduler can attribute
+        # this op (and forward a steal's context to its preemption victim)
+        from repro_torch.obs.trace import current_tracer
+        tr = current_tracer()
+        if tr is not None:
+            obj["trace"] = tr.rpc_ctx(op, transport="file", seq=seq)
         per_attempt = self.timeout_s / self.retries
         for attempt in range(self.retries):
             # retries re-publish the SAME sequence number: the server

@@ -118,8 +118,8 @@ class ClusterScheduler:
         # legacy "t"/"ev" keys stay (aliases); the unified fields ride
         # along — with the requester's span context as the trace identity
         # when the op carried one
-        stamp_record(rec, source="scheduler", kind=ev, ctx=self._req_ctx,
-                     wall=False)
+        stamp_record(rec, source="scheduler", kind=ev, tracer=None,
+                     ctx=self._req_ctx, wall=False)
         self.events.append(rec)
 
     # -- the double-grant guard ---------------------------------------------

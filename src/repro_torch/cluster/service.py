@@ -197,6 +197,11 @@ class ControlPlane:
                 self.stale_rejected += 1
             return None
         t0 = time.perf_counter()
+        from repro_torch.obs.trace import current_tracer
+        tr = current_tracer()
+        sp = (tr.span("controlplane.decide", cat="controller",
+                      iteration=snap.iteration, epoch=snap.epoch)
+              if tr is not None else None)
         with self._ctrl_lock:
             ctrl = self.ctrl
             if snap.stage_times is not None and ctrl.straggler is not None:
@@ -210,6 +215,9 @@ class ControlPlane:
             relayout = ctrl.take_expert_relayout()
         with self._cv:      # the counters are shared by both threads
             self.decided += 1
+        if sp is not None:
+            sp.end(rebalanced=bool(ev is not None and ev.rebalanced),
+                   resize=resize is not None)
         return DecisionPlan(epoch=snap.epoch, iteration=snap.iteration,
                             new_lps=new_lps, resize=resize, event=ev,
                             decide_s=time.perf_counter() - t0,

@@ -29,7 +29,8 @@ split, adopts its stage -> worker map, pool and epoch, and loads the
 shards into tensors allocated from the param spec and the optimizer's zero
 tree (``restore_state``: no random init is made only to be overwritten).
 With ``in_step_timing`` each world carries an ``obs.timing.StageTimer``
-stamped around every stage's forward call inside the step
+stamped around every stage's forward call inside the step, and around
+each stage's prefill and decode calls when the world serves
 (``in_step_stage_times``); ``measure_stage_times`` is the reference's
 isolated per-stage probe.
 """
@@ -511,13 +512,14 @@ class ElasticEngine:
         if w.prefill is None:
             w.prefill = build_prefill_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
-                hash_proj=self.hash_proj)
+                hash_proj=self.hash_proj, stage_timer=w.timer)
             w.decode = {}
         if mv not in w.decode:
             w.decode[mv] = build_decode_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 paged=self.paged is not None, temperature=self.temperature,
-                num_micro=mv, hash_proj=self.hash_proj)
+                num_micro=mv, hash_proj=self.hash_proj,
+                stage_timer=w.timer)
         return w.prefill, w.decode[mv]
 
     def prefill(self, state: EngineState, batch, cache=None):

@@ -254,9 +254,11 @@ def run(argv: Optional[List[str]] = None, *, params=None,
             print(f"wrote {len(s.events)} events to {args.events_out}")
         return rep
     if spec.faults.enabled:
-        raise NotImplementedError(
-            "fault injection is not in repro_torch yet (ROADMAP Queue 1 "
-            "[faults-obs])")
+        # the reference's one-shot path ignores ``faults``; refusing keeps a
+        # run's meaning visible (a worker crash needs the elastic server)
+        raise ValueError(
+            "fault injection needs the elastic server: pass --elastic or "
+            "--config (the one-shot generator has no workers to crash)")
     return run_serving(
         spec.model.arch, stages=spec.parallel.stages,
         micro=spec.parallel.num_micro, mb_global=spec.parallel.mb_global,

@@ -2,16 +2,18 @@
 and histograms behind one API, with Prometheus text exposition and a JSON
 snapshot (``save``; ``RunSpec.obs.metrics_out``).
 
-Stdlib-only.  Metric identity is ``(name, sorted(labels))``; helps are
-attached on first touch.  ``Session`` keeps one registry live in every
-run.  The ``GET /metrics`` endpoint (``serve_metrics``) and the
-scheduler's exposition (``scheduler_to_prometheus``) wait for ROADMAP
-Queue 1 [faults-obs].
+Stdlib-only — the job manager serves its ``GET /metrics`` page
+(``scheduler_to_prometheus``) from this module without importing torch.
+Metric identity is ``(name, sorted(labels))``; helps are attached on first
+touch.  ``Session`` keeps one registry live in every run and, with
+``obs.metrics_port``, exposes it at ``http://127.0.0.1:PORT/metrics``
+(``serve_metrics``).
 """
 from __future__ import annotations
 
 import json
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
 SNAPSHOT_SCHEMA = "obs.metrics/1"
@@ -143,3 +145,63 @@ class MetricsRegistry:
 def _num(v) -> str:
     f = float(v)
     return str(int(f)) if f == int(f) else repr(f)
+
+
+# ---------------------------------------------------------------------------
+# scheduler -> Prometheus (the manager's GET /metrics)
+# ---------------------------------------------------------------------------
+def scheduler_to_prometheus(sched) -> str:
+    """Render a ``ClusterScheduler``'s grant timeline + tenant state as
+    Prometheus text.  Event counters are derived from the same ``events``
+    list the ``metrics`` RPC verb returns, so scraped counters and the
+    events stream can never disagree (asserted by the cluster smoke)."""
+    reg = MetricsRegistry()
+    for ev in sched.events:
+        reg.inc("dynmo_scheduler_events_total",
+                help="scheduler grant-timeline events by tenant and kind",
+                tenant=ev["tenant"], event=ev["ev"])
+    for t in sched.tenants.values():
+        reg.set("dynmo_workers_granted", len(t.granted),
+                help="workers currently granted to the tenant",
+                tenant=t.tenant_id)
+        reg.set("dynmo_tenant_priority", t.priority,
+                help="tenant priority (higher steals first)",
+                tenant=t.tenant_id)
+        reg.set("dynmo_preempt_due", t.preempt_due,
+                help="workers the tenant still owes to preemption",
+                tenant=t.tenant_id)
+    reg.set("dynmo_pool_active", sched.pool.total + sched.pool.spares,
+            help="total workers in the shared pool (incl. spares)")
+    return reg.to_prometheus()
+
+
+# ---------------------------------------------------------------------------
+# optional in-process /metrics endpoint (obs.metrics_port)
+# ---------------------------------------------------------------------------
+class _MetricsHandler(BaseHTTPRequestHandler):
+    def do_GET(self):          # noqa: N802 (stdlib API)
+        if self.path not in ("/metrics", "/"):
+            self.send_response(404)
+            self.end_headers()
+            return
+        body = self.server.registry.to_prometheus().encode()
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *a):  # quiet
+        pass
+
+
+def serve_metrics(registry: MetricsRegistry, port: int,
+                  host: str = "127.0.0.1") -> ThreadingHTTPServer:
+    """Expose ``registry`` at ``http://host:port/metrics`` on a daemon
+    thread; caller shuts down with ``server.shutdown()``."""
+    srv = ThreadingHTTPServer((host, port), _MetricsHandler)
+    srv.registry = registry
+    threading.Thread(target=srv.serve_forever, daemon=True,
+                     name="obs-metrics").start()
+    return srv

@@ -62,7 +62,8 @@ def _ticks(m: int, S: int):
 def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
                     dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
                     paged: bool = False, temperature: float = 0.0,
-                    num_micro: Optional[int] = None, hash_proj=None):
+                    num_micro: Optional[int] = None, hash_proj=None,
+                    stage_timer=None):
     """Returns decode_fn(params, assignment, dyn, cache, tokens, pos[,
     page_table][, seeds]) -> (next_ids [m, B] i32, logprobs [m, B] f32, cache,
     moe_drop_sum f32 — the MoE capacity-drop fractions summed over every
@@ -82,7 +83,10 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
     ``temperature`` > 0 samples each lane from ``softmax(logits / T)``
     (``pipeline.sampling``: Philox keyed by the lane's ``seeds`` [m, B]
     int32, Gumbel-max); the logprob stays the untempered ``log_softmax``
-    at the chosen id.  0 keeps the argmax."""
+    at the chosen id.  0 keeps the argmax.
+
+    ``stage_timer`` (an ``obs.timing.StageTimer``) stamps each stage's
+    call, as the loss does."""
     M.check_ported(cfg, dyncfg)
     S = dcfg.num_stages
     dt = M.param_dtype(dcfg)
@@ -126,11 +130,15 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
             else:
                 cache_mb = {k: v[idx][:, mi] for k, v in cache.items()}
             pos_mb = pos[mi] if per_lane else pos
+            if stage_timer is not None:
+                stage_timer.stamp(idx, 0)
             carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "decode", _stage_slice(params["stages"],
                                                           idx),
                 params["shared"], tags[idx], _stage_slice(dyn, idx), carry,
                 cache_mb, pos_mb, idx * L_m, hash_proj=hash_proj)
+            if stage_timer is not None:
+                stage_timer.stamp(idx, 1)
             if cfg.num_experts:
                 drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:
@@ -155,9 +163,10 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
 # ---------------------------------------------------------------------------
 def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
                      dyncfg: DynamicsConfig, shapes: PipelineShapes, *,
-                     hash_proj=None):
+                     hash_proj=None, stage_timer=None):
     """Returns prefill_fn(params, assignment, dyn, cache, batch)
     -> (last_ids [m, B] i32, cache, moe_drop_sum f32 as in decode).
+    ``stage_timer`` stamps each stage's call, as in decode.
 
     batch = {"tokens": [m, B, seq] int}; cache: the dense {k, v:
     [S, L_max, m, B, cap, kv, hd]}, whose lane lines are written in place
@@ -184,11 +193,15 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
             cache_mb = {k: v[idx][:, mi] for k, v in cache.items()}
             # the reference's prefill passes idx * L_max as the stage's depth
             # base (its loss passes depth_base); early exit reads it
+            if stage_timer is not None:
+                stage_timer.stamp(idx, 0)
             carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "prefill", _stage_slice(params["stages"],
                                                            idx),
                 params["shared"], tags[idx], _stage_slice(dyn, idx), carry,
                 cache_mb, pos, idx * len(tags[idx]), hash_proj=hash_proj)
+            if stage_timer is not None:
+                stage_timer.stamp(idx, 1)
             if cfg.num_experts:
                 drop = drop + st["moe_dropped"].sum()
             if idx == S - 1:

@@ -15,9 +15,17 @@ them from load (queue depth, lane and page occupancy, an optional latency
 SLO): a grow asks the job manager for workers (an urgent one steals on a
 multi-tenant manager), a shrink releases them through the same
 ``JobManagerClient`` boundary the trainer uses.  At temperature > 0 every
-lane samples with its own seed (the scheduler's ``sample_seed``).  Worker
-crashes wait for ROADMAP Queue 1 [faults-obs].  The report keeps every key
-of the reference's.
+lane samples with its own seed (the scheduler's ``sample_seed``).
+
+A worker that dies mid-flight (``crash_worker``, fired by a
+``faults.ChaosInjector`` at the tick safe point) loses its stage's KV
+shard: every in-flight request is requeued with its generated tokens
+carried (re-admission replays them), the worker is evicted, and the next
+tick re-admits onto the smaller world.  ``tracer`` records ``serve.tick``
+/ ``serve.admit`` / ``serve.resize`` spans, ``metrics`` the KV, token,
+queue and tick series, and with ``in_step_timing`` the engine's stage
+timer brackets each stage's prefill and decode calls, read once after the
+trace drains.  The report keeps every key of the reference's.
 """
 from __future__ import annotations
 
@@ -74,15 +82,20 @@ class ElasticServer:
                  eos_id: Optional[int] = None, defrag_every: int = 0,
                  seed: int = 0, paged=None, temperature: float = 0.0,
                  measure_stage_times: bool = False,
+                 in_step_timing: bool = False, tracer=None, metrics=None,
                  device: DeviceLike = None, params=None):
         assert shapes.cache_len >= shapes.seq, "cache must hold the prompt"
         self.paged = paged
         self.measure_stage_times = measure_stage_times
+        self.in_step_timing = in_step_timing
+        self.tracer = tracer     # obs.trace.Tracer (None = tracing off)
+        self.metrics = metrics   # obs.metrics.MetricsRegistry (optional)
         self.temperature = float(temperature)
         self.seed = seed
         self.engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, paged=paged,
                                     job_manager=job_manager,
-                                    temperature=temperature, device=device)
+                                    temperature=temperature, device=device,
+                                    in_step_timing=in_step_timing)
         stages = None
         if initial_workers is not None:
             # multi-tenant start: serve on exactly the workers the cluster
@@ -102,9 +115,33 @@ class ElasticServer:
         # before the admitted lanes are merged (dense) or packed (paged);
         # rebuilt when the stage count changes
         self._scratch = None
+        self._sched: Optional[Scheduler] = None
 
     def close(self) -> None:
         self.engine.close()
+
+    # -- fault path ----------------------------------------------------------
+    def crash_worker(self, worker: int, tick: int) -> None:
+        """A serving worker died mid-flight: its stage's KV shard is gone,
+        and every live lane's KV line passed through it.  Requeue every
+        in-flight request (generated tokens carried — re-admission rebuilds
+        their KV from the token prefix) and evict the worker; the next tick
+        re-admits onto the smaller world.  The degraded run completes the
+        same request set with the same tokens, later."""
+        if worker not in self.engine.stage_workers:
+            return
+        if self.state.stages <= 1:
+            raise RuntimeError(
+                "last serving worker crashed — nothing to rebuild on")
+        requeued = (self._sched.requeue_live(tick)
+                    if self._sched is not None else [])
+        self.state = self.engine.evict(self.state, [worker], step=tick)
+        self._scratch = None          # the old world's scratch goes too
+        if self.scaler is not None:
+            self.scaler.note_resize(tick, self.state.stages)
+        print(f"tick {tick:4d} CRASH worker {worker}: requeued "
+              f"{len(requeued)} in-flight requests, serving on "
+              f"{self.state.stages} stages", flush=True)
 
     # -- safe-point resize ---------------------------------------------------
     def resize(self, target_stages: int, tick: int, reason: str,
@@ -114,13 +151,27 @@ class ElasticServer:
         urgent grow preempt a lower-priority tenant through the cluster
         scheduler (a plain request on a single-tenant manager)."""
         prev = self.state.stages
+        sp = (self.tracer.span("serve.resize", cat="resize", tick=tick,
+                               target=target_stages, reason=reason,
+                               steal=steal)
+              if self.tracer is not None else None)
         if target_stages < prev:
             self.state = self.engine.shrink(self.state, target_stages,
                                             step=tick)
         elif target_stages > prev:
+            # an urgent steal goes through jm.steal inside grow(); the RPC
+            # transport ships this span's context, so the victim's preempt
+            # chains onto it across processes
             self.state = self.engine.grow(self.state, target_stages - prev,
                                           step=tick, steal=steal)
         changed = self.state.stages != prev
+        if sp is not None:
+            sp.end(stages=self.state.stages, changed=changed)
+        if self.metrics is not None and changed:
+            rz = self.engine.resizes[-1]
+            self.metrics.inc("dynmo_resizes_total", kind=rz.kind,
+                             policy="steal" if steal else reason,
+                             help="engine resizes by kind")
         if changed:
             self._scratch = None      # the old world's scratch goes too
             rz = self.engine.resizes[-1]
@@ -134,10 +185,12 @@ class ElasticServer:
     # -- main loop ------------------------------------------------------------
     def serve(self, requests: List[Request], *, max_ticks: int = 100000,
               resize_at: Optional[Dict[int, int]] = None,
-              autoscale: bool = False) -> Dict[str, Any]:
+              autoscale: bool = False, injector=None) -> Dict[str, Any]:
         """Drive the request trace to completion.  ``resize_at`` scripts
         {tick: target_stages} safe-point resizes; ``autoscale`` lets the
-        attached scaler drive them from load."""
+        attached scaler drive them from load; ``injector``
+        (``faults.ChaosInjector``) fires scheduled faults at the tick safe
+        points — a crashed worker goes through ``crash_worker``."""
         alloc = None
         if self.paged is not None:
             from repro_torch.serve.kv import PageAllocator
@@ -152,6 +205,9 @@ class ElasticServer:
                           defrag_every=self.defrag_every, allocator=alloc,
                           sample_seed=(self.seed if self.temperature > 0
                                        else None))
+        self._sched = sched
+        if injector is not None:
+            injector.bind(crash_worker=self.crash_worker)
         m, B = self.shapes.num_micro, self.shapes.mb_global
         resizes_before = len(self.engine.resizes)
         tick = 0
@@ -170,7 +226,14 @@ class ElasticServer:
         while tick < max_ticks and not sched.done:
             t0 = time.perf_counter()
             emitted = 0
+            sp_tick = (self.tracer.span("serve.tick", cat="serve",
+                                        tick=tick,
+                                        stages=self.state.stages)
+                       if self.tracer is not None else None)
             adm = sched.plan_admissions(tick)
+            if adm is not None and self.tracer is not None:
+                self.tracer.instant("serve.admit", cat="serve", tick=tick,
+                                    lanes=len(adm.full_len_lanes))
             if adm is not None:
                 batch = {"tokens": adm.prefill_tokens}
                 if self._scratch is None:
@@ -217,6 +280,8 @@ class ElasticServer:
                 # moves — lanes only carry table rows, rebuilt every tick
                 _permute_lanes(self.state.cache, perm, m, B)
             wall = time.perf_counter() - t0
+            if sp_tick is not None:
+                sp_tick.end(tokens=emitted, queue=sched.queue_depth)
             tick_wall.append(wall)
             tick_tokens.append(emitted)
             token_lat.extend([wall] * emitted)
@@ -226,6 +291,26 @@ class ElasticServer:
             if alloc is not None:
                 page_occ_hist.append(alloc.occupancy)
                 peak_pages = max(peak_pages, alloc.live_pages)
+                if self.metrics is not None:
+                    self.metrics.set("dynmo_kv_page_occupancy",
+                                     alloc.occupancy,
+                                     help="KV pool occupancy fraction")
+                    self.metrics.set("dynmo_kv_pages_live",
+                                     alloc.live_pages,
+                                     help="KV pool pages in use")
+                    self.metrics.set("dynmo_kv_pages_free", alloc.num_free,
+                                     help="KV pool pages free")
+            if self.metrics is not None:
+                self.metrics.inc("dynmo_serve_ticks_total",
+                                 help="decode ticks executed")
+                self.metrics.inc("dynmo_serve_tokens_total", emitted,
+                                 help="tokens emitted")
+                self.metrics.set("dynmo_queue_depth", sched.queue_depth,
+                                 help="waiting requests")
+                self.metrics.set("dynmo_occupancy", sched.occupancy,
+                                 help="lane occupancy fraction")
+                self.metrics.observe("dynmo_tick_seconds", wall,
+                                     help="serve tick wall seconds")
             # ---- safe point: the tick's flight is fully retired
             if resize_at and tick in resize_at:
                 self.resize(resize_at[tick], tick, "scripted")
@@ -247,11 +332,23 @@ class ElasticServer:
                     self.resize(min(self.max_stages,
                                     self.state.stages + d.workers),
                                 tick, d.reason, steal=d.urgent)
+            if injector is not None:
+                # scheduled faults fire at the same safe point resizes do:
+                # the tick's flight is fully retired, so a crash loses KV
+                # state only — never an in-flight microbatch
+                injector.on_step(tick, workers=self.engine.stage_workers)
             tick += 1
         wall_s = time.perf_counter() - t_run
         total_tokens = sum(len(r.tokens) for r in sched.completions)
-        measured = None
-        if self.measure_stage_times:
+        measured = src = None
+        if self.in_step_timing:
+            # per-stage seconds from the stage timer's events around the
+            # trace's prefill and decode calls — no probe execution
+            ist = self.engine.in_step_stage_times(self.state)
+            if ist is not None:
+                measured = list(map(float, ist))
+                src = "in_step"
+        if measured is None and self.measure_stage_times:
             # per-stage prefill-shaped wall times from the engine's stage
             # probe, once after the trace drains, on the world the server
             # ended up holding (off the serving loop)
@@ -260,7 +357,8 @@ class ElasticServer:
                                          self.shapes.seq), np.int64)}
             measured = list(map(float, self.engine.measure_stage_times(
                 self.state, probe)))
-        return {
+            src = "probe"
+        report = {
             "completions": [
                 {"rid": r.rid, "kind": r.kind, "arrival": r.arrival,
                  "admitted": r.admitted, "finished": r.finished,
@@ -286,7 +384,7 @@ class ElasticServer:
             "latency_p50_s": _pct(token_lat, 50),
             "latency_p95_s": _pct(token_lat, 95),
             "measured_stage_times": measured,
-            "stage_time_source": "probe" if measured is not None else None,
+            "stage_time_source": src,
             # MoE capacity-overflow telemetry: mean drop fraction over every
             # prefill / decode call of the trace (None for non-MoE archs)
             "moe_dropped_mean": (float(np.mean([float(d)
@@ -302,3 +400,9 @@ class ElasticServer:
             "page_tile_live": tiles_live,
             "page_tile_total": tiles_total,
         }
+        if alloc is not None and self.metrics is not None:
+            self.metrics.inc("dynmo_prefix_hits_total", alloc.prefix_hits,
+                             help="prompt pages shared via prefix cache")
+            self.metrics.inc("dynmo_cow_forks_total", alloc.cow_forks,
+                             help="copy-on-write page forks")
+        return report

@@ -224,8 +224,9 @@ def test_config_cli_runs_a_scenario_and_resumes_its_spec(tmp_path):
 def test_session_serve_probes_stage_times_and_saves_metrics(tmp_path):
     """``controller.measure_stage_times`` probes each stage once the trace
     drains (the reference's serve report key), and ``obs.metrics_out``
-    saves the session's registry on close; the tracer is refused by
-    name."""
+    saves the session's registry on close; with ``obs.trace`` and
+    ``obs.metrics_port`` the same serve is traced and serves its registry
+    at ``GET /metrics`` until the session closes."""
     out = str(tmp_path / "metrics.json")
     spec = scenario("early_exit").override(
         {**SERVE, "controller.measure_stage_times": True,
@@ -238,6 +239,19 @@ def test_session_serve_probes_stage_times_and_saves_metrics(tmp_path):
     with open(out) as f:
         gauges = {g["name"]: g["value"] for g in json.load(f)["gauges"]}
     assert gauges["dynmo_tokens_per_s"] == rep["tokens_per_s"]
-    for over in ({"obs.trace": True}, {"obs.metrics_port": 9109}):
-        with pytest.raises(NotImplementedError, match="faults-obs"):
-            Session(spec.override(over), device="cpu").serve()
+    import socket
+    import urllib.request
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    with Session(spec.override({"obs.trace": True,
+                                "obs.metrics_port": port}),
+                 device="cpu") as s:
+        traced = s.serve()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            page = r.read().decode()
+        names = {e[0] for e in s.tracer.event_sequence()}
+    assert {"serve", "serve.tick", "serve.admit"} <= names
+    assert f"dynmo_serve_ticks_total {traced['ticks']}" in page
+    assert traced["completions"] == rep["completions"]

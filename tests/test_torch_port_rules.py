@@ -6,12 +6,18 @@
   serve and a CPU train, of smollm and of the MoE slice (reduced Mixtral
   through the grouped-matmul kernels, the expert layout and the Mixtral
   config), after a checkpointed train, its ``--resume`` and a run
-  with ``--async-controller``, and after an autoscaled train and a
-  sampling, autoscaled serve behind file and HTTP job managers.
+  with ``--async-controller``, after an autoscaled chaos train (traced,
+  RPC duplicates on the file manager) and a sampling, autoscaled serve
+  behind file and HTTP job managers; importing the stdlib observability
+  modules and the RPC transports loads no torch either.
 * ``chip_smoke.py``'s MoE phases require K4 and K5 launches, its serve
-  phase every K6 launch split; its K6 bound counts the live pages.
+  phase every K6 launch split; its K6 bound counts the live pages; its
+  fault phase refuses a serve without an evict, a train without the
+  crashed worker's ``fail`` and a metrics scrape that disagrees with the
+  report.
 * Entry points run on CUDA and raise without a card unless the caller asks
-  for the CPU; features not ported yet raise ``NotImplementedError``, and
+  for the CPU; features not ported yet raise ``NotImplementedError`` (the
+  one-shot serve refuses ``--chaos`` with a ``ValueError``), and
   every ROADMAP item such a message (or any other text of the port) names
   is a current item of ``ROADMAP.md``'s Queue 1.
 * ``chip_smoke.py`` fails, and prints no result, without a card or outside
@@ -163,10 +169,15 @@ CLUSTER_MODULES = ("repro_torch.cluster.autoscaler",
                    "repro_torch.pipeline.sampling")
 
 
+FAULT_MODULES = ("repro_torch.faults", "repro_torch.faults.plan",
+                 "repro_torch.faults.injector", "repro_torch.obs.trace")
+
+
 def test_cpu_cluster_and_sampling_import_no_jax_and_no_reference():
-    """``--autoscale --simulate-recover`` training behind a file manager
-    and a sampling (``--temperature``), autoscaled serve behind a private
-    HTTP manager run in the port and load the cluster, event and sampling
+    """``--autoscale --simulate-recover`` chaos training (``--chaos``, RPC
+    duplicates, traced) behind a file manager and a sampling
+    (``--temperature``), autoscaled serve behind a private HTTP manager run
+    in the port and load the cluster, fault, tracer, event and sampling
     modules and nothing of jax or the reference."""
     code = (
         "import sys\n"
@@ -174,8 +185,10 @@ def test_cpu_cluster_and_sampling_import_no_jax_and_no_reference():
         "from repro_torch.launch.train import run as train\n"
         f"rep = train({TRAIN_ARGS + ['--device', 'cpu']!r} + ['--steps', "
         "'6', '--autoscale', '--simulate-recover', '4', '--job-manager',"
-        " 'file', '--rpc-timeout-s', '20'])\n"
+        " 'file', '--rpc-timeout-s', '20', '--chaos', '--set',"
+        " 'faults.rpc_dup=0.3', '--set', 'obs.trace=true'])\n"
         "assert len(rep['losses']) == 6 and rep['rpc'] is not None\n"
+        "assert rep['fault_plan']['rpc_dup'] == 0.3\n"
         f"srv = serve({SERVE_ARGS + ['--device', 'cpu']!r} + ["
         "'--temperature', '0.7', '--autoscale', '--job-manager', 'http',"
         " '--rpc-timeout-s', '20'])\n"
@@ -183,14 +196,37 @@ def test_cpu_cluster_and_sampling_import_no_jax_and_no_reference():
         "assert srv['spec']['serve']['temperature'] == 0.7\n"
         f"{BAD_CHECK}"
         "assert not bad, bad\n"
-        f"missing = [m for m in {CLUSTER_MODULES!r} if m not in "
-        "sys.modules]\n"
+        f"missing = [m for m in {CLUSTER_MODULES + FAULT_MODULES!r} if m "
+        "not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('CLEAN', srv['rpc']['stats']['calls'] > 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=_env(), cwd=str(REPO))
     assert out.returncode == 0, out.stderr[-3000:]
     assert "CLEAN True" in out.stdout
+
+
+def test_stdlib_obs_and_rpc_modules_load_no_torch():
+    """A job manager imports its transport, the scheduler and the stdlib
+    observability modules: no torch (the packages' inits are lazy), so it
+    answers within a second of its start."""
+    code = ("import sys\n"
+            "import repro_torch.obs.trace, repro_torch.obs.events\n"
+            "import repro_torch.obs.metrics, repro_torch.cluster.rpc\n"
+            "import repro_torch.cluster.http_rpc\n"
+            "from repro_torch.obs import Tracer, stamp_record\n"
+            "from repro_torch.cluster import FileJobManager\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'repro')]\n"
+            "assert not bad, bad\n"
+            "from repro_torch.obs import StageTimer\n"
+            "assert 'torch' in sys.modules\n"
+            "print('LIGHT')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=_env())
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LIGHT" in out.stdout
 
 
 def test_forbidden_imports_pattern():
@@ -238,12 +274,19 @@ def test_cpu_moe_train_and_serve_import_no_jax_and_no_reference():
 
 
 def test_no_jax_or_reference_imports_in_the_port():
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert {f.name for f in scripts} >= {"torch_check_trace.py",
+                                         "torch_chaos_soak.py",
+                                         "torch_cluster_smoke.py"}
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py"] + scripts
     assert len(files) > 20
     names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
     for mod in (MOE_MODULES + ELASTIC_MODULES + CKPT_MODULES
-                + CLUSTER_MODULES + API_MODULES):
+                + CLUSTER_MODULES + FAULT_MODULES + API_MODULES
+                + ("repro_torch.runtime.compression",)):
+        if mod == "repro_torch.faults":
+            mod = "repro_torch.faults.__init__"
         assert mod.replace(".", "/") + ".py" in names, mod
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
@@ -292,27 +335,35 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     Session(RunSpec(), device="cpu").close()
 
 
-@pytest.mark.parametrize("extra,what", [
-    (["--chaos"], "fault"),
-    (["--chaos", "--job-manager", "file"], r"faults-obs"),
-])
-def test_features_outside_the_slice_raise(extra, what):
+@pytest.mark.parametrize("extra", [
+    ["--chaos"], ["--chaos", "--job-manager", "file"]])
+def test_features_outside_the_slice_raise(extra):
+    """``--chaos`` runs through the elastic server (the crash itself is
+    held to the reference in ``test_torch_faults.py``); the one-shot
+    generator, which the reference lets ignore it, refuses it."""
     from repro_torch.launch.serve import run
-    with pytest.raises(NotImplementedError, match=what):
-        run(SERVE_ARGS + ["--device", "cpu"] + extra)
-    # the legacy one-shot generator (no --elastic) refuses it too
-    with pytest.raises(NotImplementedError, match=what):
+    rep = run(SERVE_ARGS + ["--device", "cpu"] + extra)
+    assert rep["fault_plan"] is not None and rep["faults"] == []
+    assert len(rep["completions"]) == 6
+    with pytest.raises(ValueError, match="elastic server"):
         run([a for a in SERVE_ARGS if a != "--elastic"]
             + ["--device", "cpu"] + extra)
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--chaos"], "fault"),
-    (["--chaos", "--autoscale"], r"faults-obs"),
+    (["--chaos"], None),
+    (["--chaos", "--autoscale"], None),
     (["--arch", "mixtral-8x7b", "--dynamism", "pruning"], "moe"),
 ])
 def test_train_features_outside_the_slice_raise(extra, what):
+    """Pruning an MoE arch still raises; ``--chaos`` now runs (an empty
+    plan without ``faults.*`` fields or ``--faults.auto``)."""
     from repro_torch.launch.train import run
+    if what is None:
+        rep = run(TRAIN_ARGS + ["--device", "cpu"] + extra)
+        assert len(rep["losses"]) == 2
+        assert rep["fault_plan"]["events"] == [] and rep["faults"] == []
+        return
     with pytest.raises(NotImplementedError, match=what):
         run(TRAIN_ARGS + ["--device", "cpu"] + extra)
 
@@ -413,6 +464,109 @@ def test_chip_smoke_requires_every_serve_k6_launch_split():
         with pytest.raises(AssertionError, match="K6"):
             smoke.check_k6_split(launched, split)
     assert pa.pa_splits(4, 5, 66, 16) > 1
+
+
+def _smoke_module():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _crash_serve_report(**kw):
+    rep = {"completions": [{"rid": 0, "tokens": [5, 6, 7]},
+                           {"rid": 1, "tokens": [8, 9, 1]}],
+           "requeued_total": 2,
+           "resizes": [{"kind": "evict", "step": 8, "workers": [2]}],
+           "total_tokens": 6, "ticks": 4,
+           "tick_tokens": [2, 3, 2, 2]}
+    rep.update(kw)
+    return rep
+
+
+def test_chip_smoke_fault_serve_checks_refuse_a_wrong_run():
+    """Phase 4r (ii) refuses a crashed serve without an evict or without a
+    requeue, a lost request and a flip where the fixed run was decided;
+    it accepts a flip at a near-tie and the continuation after it."""
+    smoke = _smoke_module()
+    fixed = {0: [5, 6, 7], 1: [8, 9, 2]}
+    gaps = {0: {0: 1.0, 1: 2.0, 2: 3.0}, 1: {0: 1.0, 1: 1.0, 2: 5e-4}}
+    assert smoke.check_crash_serve(_crash_serve_report(), fixed, gaps) \
+        == [(1, 2, 5e-4)]
+    with pytest.raises(AssertionError, match="no evict"):
+        smoke.check_crash_serve(_crash_serve_report(resizes=[]), fixed,
+                                gaps)
+    with pytest.raises(AssertionError, match="requeued no request"):
+        smoke.check_crash_serve(_crash_serve_report(requeued_total=0),
+                                fixed, gaps)
+    with pytest.raises(AssertionError, match="requests"):
+        smoke.check_crash_serve(_crash_serve_report(
+            completions=[{"rid": 0, "tokens": [5, 6, 7]}]), fixed, gaps)
+    with pytest.raises(AssertionError, match="differs at token 2"):
+        smoke.check_crash_serve(_crash_serve_report(), fixed,
+                                {**gaps, 1: {2: 0.5}})
+
+
+def test_chip_smoke_fault_metrics_scrape_must_match_the_report():
+    """Phase 4r (ii)'s GET /metrics: the emitted positions are the
+    report's tick tokens, the completions' tokens plus the replayed
+    ones; phase 4p's page counts the scheduler's events stream."""
+    smoke = _smoke_module()
+    page = ("# TYPE dynmo_serve_ticks_total counter\n"
+            "dynmo_serve_ticks_total 4\n"
+            "dynmo_serve_tokens_total 9\n")
+    assert smoke.check_serve_scrape(page, _crash_serve_report()) == (9, 3)
+    with pytest.raises(AssertionError, match="tokens"):
+        smoke.check_serve_scrape(page.replace(" 9", " 6"),
+                                 _crash_serve_report())
+    with pytest.raises(AssertionError, match="without a requeue"):
+        smoke.check_serve_scrape(page, _crash_serve_report(
+            requeued_total=0))
+    with pytest.raises(AssertionError, match="ticks"):
+        smoke.check_serve_scrape(page.replace("total 4", "total 5"),
+                                 _crash_serve_report())
+    with pytest.raises(AssertionError, match="no serve counters"):
+        smoke.check_serve_scrape("", _crash_serve_report())
+    events = [{"tenant": "train", "ev": "grant"}] * 2 + [
+        {"tenant": "serve", "ev": "steal"}]
+    page = ('dynmo_scheduler_events_total{event="grant",tenant="train"} 2\n'
+            'dynmo_scheduler_events_total{event="steal",tenant="serve"} 1\n')
+    assert smoke.check_scheduler_scrape(page, events) == {
+        "train:grant": 2.0, "serve:steal": 1.0}
+    with pytest.raises(AssertionError, match="events stream"):
+        smoke.check_scheduler_scrape(page, events[:1])
+
+
+def test_chip_smoke_fault_train_checks_refuse_a_wrong_run():
+    """Phase 4r (i) refuses a chaos train whose pool log lacks the crashed
+    worker's ``fail``, one without an evict, one past the loss tolerance
+    and one whose losses part before its stage history does."""
+    smoke = _smoke_module()
+    base = {"losses": [3.0, 2.5, 2.0, 1.5, 1.0],
+            "stages_history": [4] * 5, "step_times": [1.0] * 5}
+    rep = {"losses": [3.0, 2.5, 2.0, 1.5001, 1.0002],
+           "stages_history": [4, 4, 4, 3, 3], "step_times": [1.0] * 5,
+           "resizes": [{"kind": "evict", "step": 2, "workers": [2],
+                        "seconds": 0.01}],
+           "pool_log": ["fail:2"],
+           "faults": [{"step": 1, "kind": "worker_crash",
+                       "detail": {"worker": 2}}]}
+    got = smoke.check_crash_train(rep, 2, base)
+    assert got["part_step"] == 3 and got["recover_steps"] == 2
+    assert got["recover_s"] == pytest.approx(1.01)
+    with pytest.raises(AssertionError, match="fail:2"):
+        smoke.check_crash_train({**rep, "pool_log": ["release:2"]}, 2,
+                                base)
+    with pytest.raises(AssertionError, match="no evict"):
+        smoke.check_crash_train({**rep, "resizes": []}, 2, base)
+    with pytest.raises(AssertionError, match="differs by"):
+        smoke.check_crash_train({**rep, "losses": [3.0, 2.5, 2.0, 1.6,
+                                                   1.0]}, 2, base)
+    with pytest.raises(AssertionError, match="before the stage"):
+        smoke.check_crash_train({**rep, "losses": [3.0, 2.5001, 2.0, 1.5,
+                                                   1.0]}, 2, base)
 
 
 @pytest.mark.parametrize("serve_k1", [1, 0])
@@ -592,19 +746,23 @@ def test_roadmap_tags_in_the_port_are_current_items():
     ``NotImplementedError`` message, a flag table or a docstring — is an
     item of ROADMAP.md's Queue 1, so a user who follows it finds it."""
     items = _roadmap_items()
-    assert {"faults-obs", "moe-rest", "block-families"} <= items, items
+    assert {"moe-rest", "block-families", "multi-card"} <= items, items
     assert not {"checkpoint", "control-timing", "sim-data", "cluster",
-                "serve-sampling", "api"} & items, items
-    stale, seen = [], 0
+                "serve-sampling", "api", "faults-obs"} & items, items
+    stale, seen, named = [], 0, set()
     for path, line, text in _port_strings():
         if "ROADMAP" not in text:
             continue
         for tag in re.findall(r"\[([a-z][a-z0-9-]*)\]",
                               text.split("ROADMAP", 1)[1]):
             seen += 1
+            named.add(tag)
             if tag not in items:
                 stale.append(f"{path}:{line} [{tag}]")
-    assert seen > 10
+    # the scanner finds every refusal's item (the retired [faults-obs]
+    # mentions took the count from 21 to 10)
+    assert seen >= 10
+    assert {"moe-rest", "block-families", "multi-card"} <= named, named
     assert not stale, stale
 
 

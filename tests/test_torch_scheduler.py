@@ -12,8 +12,8 @@
   CLI (tenant ``train``, priority 0) and this test (tenant ``ext``,
   priority 10).  The steal shrinks the trainer at a safe point, the yield
   is absorbed back, both in the trainer's ``--events-out`` stream; the
-  scheduler's ``metrics`` verb counts the same events; ``GET /metrics``
-  answers 501 (the Prometheus page is not ported).
+  scheduler's ``metrics`` verb counts the same events, and so does the
+  manager's ``GET /metrics`` page.
 """
 import json
 import os
@@ -196,9 +196,9 @@ def test_two_processes_contend_over_one_http_manager(tmp_path):
         out, _ = child.communicate(timeout=600)
         assert child.returncode == 0, out[-4000:]
         metrics = ext.cluster_metrics()
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(url + "/metrics", timeout=10)
-        assert e.value.code == 501
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            assert r.status == 200
+            page = r.read().decode()
     finally:
         ext.close()
         if child.poll() is None:
@@ -227,3 +227,6 @@ def test_two_processes_contend_over_one_http_manager(tmp_path):
     assert sched.count(("ext", "grant")) == 2
     assert sched.count(("ext", "yield")) == 2
     assert sched.count(("train", "preempt_due")) == 1
+    for tenant, ev in set(sched):
+        assert (f'dynmo_scheduler_events_total{{event="{ev}",'
+                f'tenant="{tenant}"}} {sched.count((tenant, ev))}') in page
