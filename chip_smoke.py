@@ -61,6 +61,18 @@ final line:
                bf16 edge cases (cap 200, K 328, N 392, the w^T view) reach
                the tensor-core variant; K5's time against its live rows
                (0 to 10 64-row chunks a tile, fp32 and bf16 out);
+  3f.        every kernel at the block families' shapes, fp32 unless
+               said: K1, K2a and K2b at whisper's encoder (non-causal
+               1500, a ragged tail), its cross attention (448 x 1500) and
+               its decoder (448 causal), the zamba2 shared block (32 heads
+               of 64), InternVL2 (s 768, hd 128, GQA 48:8) and gpt-paper
+               (s 2048, hd 32); K3 forward and backward at whisper's FFN
+               (M 1500, d 1280, d_ff 5120, masks over N and over K); K6 at
+               hd 128 (48 / 8 heads) and hd 32, split; K4 and K5 at
+               Mixtral-8x22B's expert shape (d 6144, d_ff 16384, bf16);
+               each within its plain version, on the tensor cores (K6:
+               split), at most twice the plain version's distance from
+               float64, with its time, plain and library times and bound;
   4. serve   — the port's serving path through its CLI entry point:
                full-width smollm-360m, one stage, paged KV + prefix cache,
                sparse attention, kernel_impl "pallas"; launch counters are
@@ -124,6 +136,7 @@ final line:
                K6 launch split), the counts zeroed just before each of the
                two and read just after;
   4k. safe points — the training CLI at 4h's flags without --grow-back,
+               smollm-360m at its widths cut to 8 layers (CUT_LAYERS),
                17 steps, --ckpt-every 8 into a temporary directory (the
                roomier of TMPDIR and build/, deleted at the end): safe
                points after step 7 (4 buffers) and 15 (2, after the
@@ -174,7 +187,8 @@ final line:
                chi-squared test over the 32 likeliest ids plus the rest
                against softmax(logits / T) at p >= 1e-4, and its ms per
                decode tick (CUDA events) beside the argmax head's;
-  4n. autoscaled train — 4h's flags without --grow-back, 20 steps,
+  4n. autoscaled train — 4h's flags without --grow-back, 8 layers (as
+               4k), 20 steps,
                --async-controller --async-drain --autoscale
                --simulate-recover 18: (i) the pool behind a file manager in
                its own process (the RPC round trip timed every step), (ii)
@@ -280,7 +294,37 @@ final line:
                none step's from the same params; an early-exit prefill + 8
                decode steps, ids equal where the plain run's top-2 gap
                exceeds 1e-3;
-  6. the kernels line (JSON: per kernel its launches on the main paths
+  6a. whisper — whisper-large-v3 at full size (32 encoder + 32 decoder
+               layers, published widths) trained through the train CLI:
+               2 stage buffers of 32 slots, 2 microbatches of one sample
+               (1500 frames from the loader, 448 decoder tokens), fp32,
+               block remat, 12 steps with the prune at step 10 inside the
+               run; K1 384, K2a / K2b 192, K3 1024 launches a step, all on
+               the tensor cores; tokens/s, step ms, peak memory, two
+               profiled steps (busy share); one step's loss and gradients
+               at full width cut to 4 + 4 layers through the kernels and
+               the plain versions (1e-4, 1e-3); a full-size prefill (1500
+               frames, a 432-token prompt) and 16 scalar-position decode
+               steps through build_prefill_fn / build_decode_fn, ids equal
+               to the plain run's where its top-2 gap exceeds 1e-3;
+  6b. zamba2 — zamba2-1.2b at full size trained through the CLI (2
+               buffers of 27 slots, 4 x 2 x 1024 tokens, 10 steps, a 2x
+               straggler, the partition balancer every 4 steps): the net
+               migration must move MAMBA and HYBRID_ATTN layers; K1 / K2a
+               / K2b at the shared block's 32 heads of 64, on the tensor
+               cores; two profiled steps; served with contiguous KV once
+               fixed and once shrunk 2 -> 1 at tick 6, tokens identical;
+  6c. xLSTM — xlstm-1.3b at published widths cut to 16 layers (sLSTM at 3
+               and 11): 12 steps at seq 256 with the prune of the mLSTM
+               up-projection at step 10, then a serve of 4 requests; no
+               kernel runs on this path (every count 0), step time printed;
+  6d. InternVL2 — internvl2-26b at published widths cut to 4 layers,
+               bf16, the loader's 256 patch embeddings before 512 tokens:
+               K1 at s 768 / hd 128 and K3 at d 6144 / d_ff 16384 on the
+               tensor cores; cut to 8 layers, fp32, a text-only paged serve
+               of 4 requests through K1, K3 and K6 at hd 128, every K6
+               launch split;
+  7. the kernels line (JSON: per kernel its launches on the main paths
      and, as launches_tc, how many of them took a tensor-core variant; K6's
      ms is its cold graph-replay time at the main shape, its library_ms
      SDPA's graph-replay time, and "timing" holds both shapes' cold, warm
@@ -288,8 +332,11 @@ final line:
      the serve), the card line, and the last line {"ok": true, "device":
      {...}}; launches_sample_serve, launches_autoscale_train,
      launches_autoscale_serve, launches_tenants and launches_api are
-     phases 4m-4q's, launches_chaos_train and launches_chaos_serve 4r's;
-     before it, [phase_seconds]: the wall seconds of every phase.
+     phases 4m-4q's, launches_chaos_train and launches_chaos_serve 4r's,
+     launches_whisper, launches_zamba2, launches_xlstm and
+     launches_internvl2 6a-6d's; family_cases holds 3f's cases of the
+     kernel; before it, [phase_seconds]: the wall seconds of every phase
+     (6a-6d run after 4r, before 5).
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -2600,11 +2647,18 @@ def run_ee_serve_phase(torch, kernels):
 # ---------------------------------------------------------------------------
 # phases 4k / 4l: safe points and resume; the control plane's inputs
 # ---------------------------------------------------------------------------
-def ckpt_train_args(steps: int = 20):
+def ckpt_train_args(steps: int = 20, layers: int = None):
     """Phase 4k's flags: phase 4h's without --grow-back (4 stage buffers of
     16 slots, 8192 tokens a step, --repack, the prune at step 10), 20
-    steps; the phase adds --ckpt-dir and --ckpt-every 8."""
-    return FULL_SIZE + ["--stages", "4", "--slot-slack", "8", "--num-micro", "4",
+    steps; the phase adds --ckpt-dir and --ckpt-every 8.  ``layers`` cuts
+    smollm-360m at its published widths to that depth (phases 4k, 4n and
+    4r: 8, in buffers of 4 slots)."""
+    arch = [] if layers is None else ["--arch", cut_arch("smollm-360m",
+                                                         layers)]
+    # a buffer holds two stages' layers, not more: the repack merges
+    # adjacent pairs, 4 -> 2
+    slack = str((layers or 32) // 4)
+    return FULL_SIZE + arch + ["--stages", "4", "--slot-slack", slack, "--num-micro", "4",
             "--mb-global", "2", "--seq", "1024", "--steps", str(steps),
             "--rebalance-every", "5", "--dynamism", "pruning", "--repack",
             "--kernel-impl", "pallas", "--param-dtype", "float32", "--seed",
@@ -2612,6 +2666,14 @@ def ckpt_train_args(steps: int = 20):
 
 
 CKPT_EVERY = 8
+# the depth of phases 4k, 4n and 4r: smollm-360m at its published widths
+# cut to 8 layers (two a buffer; at 32, 4k alone was a quarter of the
+# run's time)
+CUT_LAYERS = 8
+# K1-K3 launches a step at that depth: a quarter of 4c's
+CUT_LAUNCHES_PER_STEP = {k: v * CUT_LAYERS // 32
+                         for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+CUT_K3_BWD_PER_STEP = TRAIN_K3_BWD_PER_STEP * CUT_LAYERS // 32
 # phase 4k's steps: the prune at 10, the shrink at 14, safe points after 7
 # and 15, one step after the last
 CKPT_STEPS = 17
@@ -2676,7 +2738,8 @@ def _bitwise(torch, got, want) -> bool:
 
 
 def run_ckpt_phase(torch, kernels):
-    """Phase 4k: a 17-step run of ckpt_train_args() writing safe points
+    """Phase 4k: a 17-step run of ckpt_train_args() at CUT_LAYERS layers
+    writing safe points
     every 8 steps into a temporary directory, then resumed from step 15
     (2 buffers) and from step 7 (4 buffers, which must prune at 10 and
     shrink 4 -> 2 at 14 on its own decision); both tails must equal the
@@ -2703,7 +2766,7 @@ def run_ckpt_phase(torch, kernels):
     try:
         for k in kernels.KERNELS:
             k.reset()
-        full = train_run(ckpt_train_args(CKPT_STEPS) + [
+        full = train_run(ckpt_train_args(CKPT_STEPS, CUT_LAYERS) + [
             "--ckpt-dir", ck, "--ckpt-every", str(CKPT_EVERY)])
         torch.cuda.synchronize()
         got = [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
@@ -2792,8 +2855,8 @@ def run_ckpt_phase(torch, kernels):
             # is the uninterrupted run itself repeatable?
             del full
             free_cuda(torch)
-            again = train_run(ckpt_train_args(CKPT_STEPS))
-            first = train_run(ckpt_train_args(CKPT_STEPS))
+            again = train_run(ckpt_train_args(CKPT_STEPS, CUT_LAYERS))
+            first = train_run(ckpt_train_args(CKPT_STEPS, CUT_LAYERS))
             same = again["losses"] == first["losses"]
             spread = max(abs(a - b) for a, b in zip(again["losses"],
                                                     first["losses"]))
@@ -2805,9 +2868,9 @@ def run_ckpt_phase(torch, kernels):
                 f"{ {a: (d[:3], w) for a, (d, w) in results.items()} }")
         steps = CKPT_STEPS + sum(CKPT_STEPS - at - 1
                                  for at, _ in CKPT_RESUMES)
-        check_launches("ckpt train", launched, TRAIN_LAUNCHES_PER_STEP,
+        check_launches("ckpt train", launched, CUT_LAUNCHES_PER_STEP,
                        steps)
-        if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+        if k3_bwd != CUT_K3_BWD_PER_STEP * steps:
             raise AssertionError(f"ckpt train: K3 backward launches {k3_bwd}")
         check_tensor_core("ckpt train", launched, launched_tc, FP32_TC_PATH)
     finally:
@@ -3223,12 +3286,13 @@ def run_sampling_serve_phase(torch, kernels, argmax_tokens, argmax_rep):
 
 def autoscale_train_args(job_manager: str, steps: int = 20):
     """Phase 4n's flags: phase 4h's without --grow-back (4 stage buffers of
-    16 slots, the prune at step 10, --repack), 20 steps, the asynchronous
+    16 slots, the prune at step 10, --repack) at CUT_LAYERS layers, 20
+    steps, the asynchronous
     controller waited for (so the decision lands on a fixed step),
     --autoscale --simulate-recover 18 and a job manager; a call's retries
     share 4 s (a manager answers ~0.5 s after its start, so (iii)'s call
     to the dead manager stalls the step by the whole budget)."""
-    return ckpt_train_args(steps) + [
+    return ckpt_train_args(steps, CUT_LAYERS) + [
         "--async-controller", "--async-drain", "--autoscale",
         "--simulate-recover", "18", "--job-manager", job_manager,
         "--rpc-timeout-s", "4"]
@@ -3422,9 +3486,9 @@ def run_autoscale_train_phase(torch, kernels):
     if rz_d != rz:
         raise AssertionError(f"degraded resizes {rz_d} vs {rz}")
     steps = 3 * file_run["spec"]["steps"]
-    check_launches("autoscale train", launched, TRAIN_LAUNCHES_PER_STEP,
+    check_launches("autoscale train", launched, CUT_LAUNCHES_PER_STEP,
                    steps)
-    if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+    if k3_bwd != CUT_K3_BWD_PER_STEP * steps:
         raise AssertionError(f"autoscale train: K3 backward launches "
                              f"{k3_bwd}")
     check_tensor_core("autoscale train", launched, launched_tc, FP32_TC_PATH)
@@ -4220,9 +4284,9 @@ def run_fault_phase(torch, kernels):
     train_launches, train_tc = _window(torch, kernels)
     k3_bwd = pm.KERNEL.launches_bwd
     steps = spec.steps
-    check_launches("chaos train", train_launches, TRAIN_LAUNCHES_PER_STEP,
+    check_launches("chaos train", train_launches, CUT_LAUNCHES_PER_STEP,
                    steps)
-    if k3_bwd != TRAIN_K3_BWD_PER_STEP * steps:
+    if k3_bwd != CUT_K3_BWD_PER_STEP * steps:
         raise AssertionError(f"chaos train: K3 backward launches {k3_bwd}")
     check_tensor_core("chaos train", train_launches, train_tc, FP32_TC_PATH)
     got = check_crash_train(rep, FAULT_CRASH_WORKER, AUTOSCALE_FILE_RUN)
@@ -4353,6 +4417,905 @@ def mod_bitwise(torch) -> None:
     free_cuda(torch)
 
 
+# ---------------------------------------------------------------------------
+# phases 3f and 6a-6d: the remaining block families
+# ---------------------------------------------------------------------------
+def cut_arch(base: str, layers: int, encoder_layers: int = None) -> str:
+    """Register ``base`` at its published widths cut to ``layers`` layers
+    (and ``encoder_layers`` encoder layers) and return its name."""
+    from repro_torch.configs import get_config, register
+    cfg = get_config(base)
+    name = f"{base}-{layers}l"
+    kw = dict(name=name, num_layers=layers)
+    if encoder_layers is not None:
+        kw["num_encoder_layers"] = encoder_layers
+        name = kw["name"] = f"{base}-{encoder_layers}e{layers}d"
+    if cfg.slstm_positions:
+        kw["slstm_positions"] = tuple(p for p in cfg.slstm_positions
+                                      if p < layers)
+    register(dataclasses.replace(cfg, **kw))
+    return name
+
+
+# (label, b, sq, sk, hq, hkv, d, causal): the attention shapes of the
+# families' paths (whisper's encoder: 1500 = 11 x 128 + 92 frames, so every
+# launch has a ragged tail; its cross attention 448 x 1500; the zamba2
+# shared block; InternVL2 at seq + 256 patches, hd 128, GQA 6; gpt-paper
+# at hd 32)
+FAMILY_ATTN = [
+    ("whisper-enc s1500 noncausal", 1, 1500, 1500, 20, 20, 64, False),
+    ("whisper-cross 448x1500", 1, 448, 1500, 20, 20, 64, False),
+    ("whisper-dec s448 causal", 1, 448, 448, 20, 20, 64, True),
+    ("zamba2 s1024 32x64", 2, 1024, 1024, 32, 32, 64, True),
+    ("internvl2 s768 hd128 48:8", 2, 768, 768, 48, 8, 128, True),
+    ("gpt-paper s2048 hd32", 1, 2048, 2048, 32, 32, 32, True),
+]
+
+
+def _pairs(b, sq, sk, hq, causal):
+    """Live (q, k) pairs of a dense mask."""
+    if causal:
+        return b * hq * sum(min(i + 1, sk) for i in range(sq))
+    return b * hq * sq * sk
+
+
+def check_family_attention(torch, F):
+    """K1, K2a and K2b at FAMILY_ATTN's shapes, fp32, dense mask (block
+    128): each against its plain version (K1 1e-4; K2 2e-4 of the largest
+    entry), the kernel's distance from float64 at most twice the plain
+    version's (K1's out, K2a's dq and K2b's dk / dv from the same lse and
+    delta), all on the tensor cores; the kernel, plain and SDPA times and
+    the bound.  Returns {kernel: {case: numbers}}."""
+    from repro_torch.kernels.block_sparse_attention import ops, ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(23)
+    out_cases = {"block_sparse_attention": {},
+                 "block_sparse_attention_bwd_dq": {},
+                 "block_sparse_attention_bwd_dkv": {}}
+    for label, b, sq, sk, hq, hkv, d, causal in FAMILY_ATTN:
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev) * 0.5
+        k, v = (torch.randn((b, sk, hkv, d), generator=g, device=dev) * 0.5
+                for _ in range(2))
+        block = 128
+        m = torch.ones((1, 1, -(-sq // block), -(-sk // block)),
+                       dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, block=block)
+        trio = (ops.KERNEL, ops.KERNEL_DQ, ops.KERNEL_DKV)
+        tc0 = [kk.launches_tc for kk in trio]
+        out, lse = ops.block_sparse_attention_fwd(q, k, v, m, **kw)
+        rout, _ = ref.block_sparse_attention_ref(q, k, v, m, **kw)
+        e1 = check_close(f"K1 {label}", out, rout, 1e-4, 1e-4)
+        exact, _ = ref.block_sparse_attention_ref(
+            q, k, v, m, compute_dtype=torch.float64, **kw)
+        f1 = f64_distance(f"K1 {label}", out, rout, exact)
+        del exact, rout
+        dout = torch.randn(out.shape, generator=g, device=dev)
+        delta = ((dout * out).sum(-1).transpose(1, 2).contiguous())
+        dq = ops.block_sparse_attention_bwd_dq(q, k, v, m, dout, lse, delta,
+                                               **kw)
+        dk, dv = ops.block_sparse_attention_bwd_dkv(q, k, v, m, dout, lse,
+                                                    delta, **kw)
+        torch.cuda.synchronize()
+        ran = [kk.launches_tc - t for kk, t in zip(trio, tc0)]
+        if ran != [1, 1, 1]:
+            raise AssertionError(f"K1/K2 {label}: tensor-core launches "
+                                 f"{ran}, want [1, 1, 1]")
+        rdq, rdk, rdv = ref.block_sparse_attention_bwd_ref(
+            q, k, v, m, dout, lse, delta, **kw)
+        e2a = rel_err(f"K2a {label} dq", dq, rdq, 2e-4)
+        e2b = max(rel_err(f"K2b {label} dk", dk, rdk, 2e-4),
+                  rel_err(f"K2b {label} dv", dv, rdv, 2e-4))
+        xq = ref.block_sparse_attention_bwd_dq_ref(
+            q, k, v, m, dout, lse, delta, compute_dtype=torch.float64, **kw)
+        f2a = f64_distance(f"K2a {label}", dq, rdq, xq)
+        # dk / dv from the same lse and delta in float64
+        p_, ds_, qf_, _, of_ = ref._recompute(q, k, v, m, dout, lse, delta,
+                                              causal, block, torch.float64)
+        xk = ref._group_sum(ds_.transpose(-1, -2) @ qf_, hkv)
+        xv = ref._group_sum(p_.transpose(-1, -2) @ of_, hkv)
+        del p_, ds_, qf_, of_
+        f2b = f64_distance(f"K2b {label}",
+                           torch.cat([dk.flatten(), dv.flatten()]),
+                           torch.cat([rdk.flatten(), rdv.flatten()]),
+                           torch.cat([xk.flatten(), xv.flatten()]))
+        del xq, xk, xv, rdq, rdk, rdv
+        # times: kernel, plain version, SDPA (kv heads repeated beforehand)
+        args = (q, k, v, m, dout, lse, delta)
+        t = dict(
+            k1=cuda_ms(lambda: ops.block_sparse_attention_fwd(q, k, v, m,
+                                                              **kw)),
+            k1_plain=cuda_ms(lambda: ref.block_sparse_attention_ref(
+                q, k, v, m, **kw), warmup=1, iters=5),
+            k2a=cuda_ms(lambda: ops.block_sparse_attention_bwd_dq(*args,
+                                                                  **kw)),
+            k2b=cuda_ms(lambda: ops.block_sparse_attention_bwd_dkv(*args,
+                                                                   **kw)),
+            k2a_plain=cuda_ms(lambda: ref.block_sparse_attention_bwd_dq_ref(
+                *args, **kw), warmup=1, iters=5),
+            k2b_plain=cuda_ms(lambda: ref.block_sparse_attention_bwd_dkv_ref(
+                *args, **kw), warmup=1, iters=5))
+        qt = q.transpose(1, 2).detach().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .detach().requires_grad_(True) for x in (k, v))
+        dot = dout.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        with torch.no_grad():
+            t["sdpa"] = cuda_ms(sdpa)
+        t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dot)) - t["sdpa"]
+        pairs = _pairs(b, sq, sk, hq, causal)
+        qb, kvb = 4.0 * b * sq * hq * d, 4.0 * b * sk * hkv * d
+        shape = (f"b{b} sq{sq} sk{sk} hq{hq} hkv{hkv} d{d} "
+                 f"{'causal' if causal else 'non-causal'} fp32")
+        rows = (
+            ("block_sparse_attention", t["k1"], t["k1_plain"], t["sdpa"],
+             bound(4.0 * d * pairs, 2 * qb + 2 * kvb + 4.0 * b * hq * sq),
+             e1, f1),
+            ("block_sparse_attention_bwd_dq", t["k2a"], t["k2a_plain"],
+             t["sdpa_bwd"], bound(6.0 * d * pairs, 3 * qb + 2 * kvb
+                                  + 8.0 * b * hq * sq), e2a, f2a),
+            ("block_sparse_attention_bwd_dkv", t["k2b"], t["k2b_plain"],
+             t["sdpa_bwd"], bound(8.0 * d * pairs, 2 * qb + 4 * kvb
+                                  + 8.0 * b * hq * sq), e2b, f2b))
+        for name, ms, plain, lib, bd, err, f64 in rows:
+            out_cases[name][label] = dict(
+                shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bd[0], bound_by=bd[1], max_abs_err=err, **f64)
+            say("kernels", kernel=name, case=label.replace(" ", "_"),
+                shape=repr(shape), variant="tc", ms=f"{ms:.4f}",
+                plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+                bound_ms=f"{bd[0]:.4f}", bound_by=bd[1],
+                max_abs_err=f"{err:.3e}", **f64)
+        del q, k, v, out, lse, dout, delta, dq, dk, dv, qt, kt, vt
+        free_cuda(torch)
+    return out_cases
+
+
+def check_family_ffn(torch):
+    """K3 at whisper's FFN (M 1500 frames, d 1280, d_ff 5120, 40 blocks of
+    128): the up-projection (mask over N, all live) and the down-projection
+    (mask over K, half the blocks pruned), forward and the backward pair,
+    fp32, on the tensor cores, against torch.matmul (allow_tf32 off), each
+    at most twice torch.matmul's distance from float64; times beside
+    torch.matmul's and the bound."""
+    from repro_torch.kernels.pruned_matmul import ops
+    from repro_torch.kernels.pruned_matmul.backward import pruned_matmul_bwd
+    g = torch.Generator(device="cuda").manual_seed(24)
+    M, D, FF, blk = 1500, 1280, 5120, 128
+    cases = {}
+    for axis, keep in (("n", 1.0), ("k", 0.5)):
+        K, N = (D, FF) if axis == "n" else (FF, D)
+        x = torch.randn((M, K), generator=g, device="cuda")
+        w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+        gr = torch.randn((M, N), generator=g, device="cuda")
+        mask = (torch.rand((FF // blk,), generator=g, device="cuda")
+                < keep).float()
+        mask[0] = 1.0
+        me = mask.repeat_interleave(blk)
+        tc0 = ops.KERNEL.launches_tc
+        y = ops.product(x, w, mask, axis, blk)
+        dx, dw = pruned_matmul_bwd(x, w, mask, gr, mask_axis=axis, blk=blk)
+        torch.cuda.synchronize()
+        if ops.KERNEL.launches_tc - tc0 != 3:
+            raise AssertionError(f"K3 whisper {axis}: "
+                                 f"{ops.KERNEL.launches_tc - tc0} of 3 "
+                                 f"launches on the tensor cores")
+        # the plain versions: torch.matmul on the masked operands
+        if axis == "n":
+            def plain_fwd(x, w, gr, me):
+                return (x @ w) * me
+
+            def plain_bwd(x, w, gr, me):
+                return (gr * me) @ w.T, x.T @ (gr * me)
+        else:
+            def plain_fwd(x, w, gr, me):
+                return (x * me) @ w
+
+            def plain_bwd(x, w, gr, me):
+                return (gr @ w.T) * me, (x.T @ gr) * me[:, None]
+        wy, (wx, ww) = plain_fwd(x, w, gr, me), plain_bwd(x, w, gr, me)
+        xd, wd, gd, md = x.double(), w.double(), gr.double(), me.double()
+        xy, (xx, xw) = plain_fwd(xd, wd, gd, md), plain_bwd(xd, wd, gd, md)
+        e_f = rel_err(f"K3 whisper {axis} fwd", y, wy, 2e-4)
+        e_b = max(rel_err(f"K3 whisper {axis} dx", dx, wx, 2e-4),
+                  rel_err(f"K3 whisper {axis} dw", dw, ww, 2e-4))
+        f_f = f64_distance(f"K3 whisper {axis} fwd", y, wy, xy)
+        f_b = f64_distance(f"K3 whisper {axis} bwd",
+                           torch.cat([dx.flatten(), dw.flatten()]),
+                           torch.cat([wx.flatten(), ww.flatten()]),
+                           torch.cat([xx.flatten(), xw.flatten()]))
+        del xd, wd, gd, xy, xx, xw
+        live = float(mask.mean())
+        flops = 2.0 * M * K * N * live
+        fb = 4.0 * (M * K + K * N + M * N)
+        kw = dict(mask_axis=axis, blk=blk)
+        for case, ms, plain, lib, bd, err, f64 in (
+                (f"whisper {axis} fwd", cuda_ms(lambda: ops.product(
+                    x, w, mask, axis, blk)),
+                 cuda_ms(lambda: plain_fwd(x, w, gr, me)),
+                 cuda_ms(lambda: x @ w), bound(flops, fb), e_f, f_f),
+                (f"whisper {axis} bwd dx+dw", cuda_ms(
+                    lambda: pruned_matmul_bwd(x, w, mask, gr, **kw)),
+                 cuda_ms(lambda: plain_bwd(x, w, gr, me)),
+                 cuda_ms(lambda: (gr @ w.T, x.T @ gr)),
+                 bound(2 * flops, 4.0 * (2 * M * K + 2 * K * N + M * N)),
+                 e_b, f_b)):
+            shape = (f"M{M} K{K} N{N} mask {axis} blocks{FF // blk} "
+                     f"keep{live:.2f} fp32")
+            cases[case] = dict(shape=shape, ms=ms, plain_ms=plain,
+                               library_ms=lib, bound_ms=bd[0],
+                               bound_by=bd[1], max_abs_err=err, **f64)
+            say("kernels", kernel="pruned_matmul",
+                case=case.replace(" ", "_"), shape=repr(shape),
+                variant="tc", ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                library_ms=f"{lib:.4f}", bound_ms=f"{bd[0]:.4f}",
+                bound_by=bd[1], max_abs_err=f"{err:.3e}", **f64)
+        del x, w, gr, y, dx, dw
+    free_cuda(torch)
+    return cases
+
+
+# (label, lengths, nq, nkv, hd, page, J): K6 at the families' decode heads
+FAMILY_K6 = [
+    ("internvl2 hd128 48:8", [528, 520, 515, 513], 48, 8, 128, 16, 34),
+    ("gpt-paper hd32", [1500, 1040, 700, 2040], 32, 32, 32, 16, 128),
+]
+
+
+def paged_f64(torch, ref, q, kp, vp, pt, cl):
+    """K6's function in float64 (the plain version's arithmetic)."""
+    b, n_q, hd = q.shape
+    page, n_kv = kp.shape[1], kp.shape[2]
+    k, v = ref.gather_pages(kp, vp, pt)
+    kf = k.double().repeat_interleave(n_q // n_kv, dim=2)
+    vf = v.double().repeat_interleave(n_q // n_kv, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q.double(), kf) / math.sqrt(hd)
+    t = torch.arange(k.shape[1], device=q.device)
+    live = ((t[None, :] < cl.reshape(-1, 1))
+            & (pt >= 0).repeat_interleave(page, dim=1))[:, None, :]
+    p = torch.where(live, torch.exp(s - torch.where(live, s, -1e300).amax(
+        -1, keepdim=True)), 0.0)
+    return torch.einsum("bht,bthd->bhd", p, vf) / p.sum(-1, keepdim=True)
+
+
+def check_family_paged(torch, F):
+    """K6 at hd 128 (InternVL2's 48 / 8 heads) and hd 32 (gpt-paper's 32
+    heads): q fp32, pool bf16, split; within 1e-4 of the plain version,
+    at most twice its distance from float64; eager times beside the plain
+    version's and SDPA's on pre-gathered pages, and the bound."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(25)
+    cases = {}
+    for label, clens, nq, nkv, hd, page, J in FAMILY_K6:
+        pool = sum(-(-c // page) for c in clens)
+        q, ((kp, vp),), pt, cl = paged_inputs(torch, g, clens, nq, nkv, hd,
+                                              page, J, pool, torch.bfloat16)
+        s0, n0 = ops.KERNEL.launches_split, ops.KERNEL.launches
+        out = ops.paged_attention_fwd(q, kp, vp, pt, cl)
+        torch.cuda.synchronize()
+        if not (ops.KERNEL.launches - n0 == 1
+                and ops.KERNEL.launches_split - s0 == 1):
+            raise AssertionError(f"K6 {label}: not one split launch")
+        want = ref.paged_attention_fwd_ref(q, kp, vp, pt, cl)
+        e = check_close(f"K6 {label}", out, want, 1e-4, 1e-4)
+        exact = paged_f64(torch, ref, q, kp, vp, pt, cl)
+        f64 = f64_distance(f"K6 {label}", out, want, exact)
+        kg, vg = (t.float().repeat_interleave(nq // nkv, dim=2)
+                  .transpose(1, 2) for t in ref.gather_pages(kp, vp, pt))
+        am = (torch.arange(kg.shape[2], device="cuda")[None, :]
+              < cl[:, None])[:, None, None]
+        qs = q[:, :, None, :]
+        ms = cuda_ms(lambda: ops.paged_attention_fwd(q, kp, vp, pt, cl))
+        plain = cuda_ms(lambda: ref.paged_attention_fwd_ref(q, kp, vp, pt,
+                                                            cl))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=am))
+        bd = paged_bound(q, kp, pt, cl)
+        splits = ops.pa_splits(len(clens), nkv, J, page)
+        shape = (f"b{len(clens)} nq{nq} nkv{nkv} hd{hd} page{page} J{J} "
+                 f"q fp32 pool bf16 lengths {min(clens)}-{max(clens)}")
+        cases[label] = dict(shape=shape, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bd[0], bound_by=bd[1],
+                            max_abs_err=e, splits=splits, **f64)
+        say("kernels", kernel="paged_attention", case=label.replace(" ", "_"),
+            shape=repr(shape), splits=splits, ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{bd[0]:.4f}", bound_by=bd[1], max_abs_err=f"{e:.3e}",
+            **f64)
+        del q, kp, vp, kg, vg, out, want, exact
+    free_cuda(torch)
+    return cases
+
+
+def check_family_grouped(torch):
+    """K4 (forward) and K5 (the weight gradient, fp32 out) at
+    Mixtral-8x22B's expert shape (8 experts top-2, d 6144, d_ff 16384; b 2
+    x s 1024 tokens, cap 320, counts from a seeded router), bf16 on the
+    tensor cores: against the plain version (one bf16 rounding for K4,
+    1e-4 of the largest entry for K5's fp32 sums), each at most twice the
+    plain version's distance from float64; times beside torch.bmm's at full
+    capacity and the bound."""
+    from repro_torch.kernels.grouped_matmul import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(26)
+    E, TOPK, D, FF, b, s, cap = 8, 2, 6144, 16384, 2, 1024, 320
+    G = b * E
+    counts = route_counts(torch, g, b, s, E, TOPK, cap)
+    live = (torch.arange(G * cap, device="cuda") % cap
+            < counts.repeat_interleave(cap))
+    x = torch.where(live[:, None], torch.randn(
+        (G * cap, D), generator=g, device="cuda"), 0.0).bfloat16()
+    w = (torch.randn((E, D, FF), generator=g, device="cuda")
+         * D ** -0.5).bfloat16()
+    gr = torch.where(live[:, None], torch.randn(
+        (G * cap, FF), generator=g, device="cuda"), 0.0).bfloat16()
+    tc4, tc5 = ops.KERNEL.launches_tc, ops.KERNEL_DW.launches_tc
+    y = ops.grouped_product(x, w, counts, cap)
+    dw = ops.grouped_product_dw(x, gr, counts, cap, E,
+                                out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if (ops.KERNEL.launches_tc - tc4, ops.KERNEL_DW.launches_tc - tc5) != (
+            1, 1):
+        raise AssertionError("K4 / K5 at the 8x22B shape: not on the "
+                             "tensor cores")
+    py = ref.grouped_product_ref(x, w, counts, cap)
+    pdw = ref.grouped_product_dw_ref(x, gr, counts, cap, E,
+                                     out_dtype=torch.float32)
+    e4 = gm_close("K4 8x22b", y, py)
+    e5 = gm_close("K5 8x22b", dw, pdw)
+    idx = torch.arange(G, device="cuda") % E
+    xy = torch.bmm(x.double().view(G, cap, D), w.double()[idx]).view(
+        G * cap, FF)
+    f4 = f64_distance("K4 8x22b", y, py, xy)
+    del xy
+    xe = x.double().view(b, E, cap, D)
+    ge = gr.double().view(b, E, cap, FF)
+    xw = torch.einsum("beck,becn->ekn", xe, ge)
+    f5 = f64_distance("K5 8x22b", dw, pdw, xw)
+    del xe, ge, xw, py, pdw
+    lv = float(counts.sum())
+    experts = int((counts.reshape(b, E).sum(0) > 0).sum())
+    wg = w[idx]
+    x3 = x.view(G, cap, D)
+    xt = x.view(b, E, cap, D).transpose(0, 1).reshape(E, b * cap, D) \
+        .transpose(1, 2)
+    gt = gr.view(b, E, cap, FF).transpose(0, 1).reshape(E, b * cap, FF)
+    rows = (
+        ("grouped_matmul", "8x22b ewg fwd",
+         cuda_ms(lambda: ops.grouped_product(x, w, counts, cap), 2, 5),
+         cuda_ms(lambda: ref.grouped_product_ref(x, w, counts, cap), 1, 3),
+         cuda_ms(lambda: torch.bmm(x3, wg), 2, 5),
+         bound(2.0 * lv * D * FF, 2.0 * (lv * D + experts * D * FF
+                                         + G * cap * FF) + 4 * G,
+               PEAK_BF16_FLOPS), e4, f4),
+        ("grouped_matmul_dw", "8x22b ewg dw fp32-out",
+         cuda_ms(lambda: ops.grouped_product_dw(
+             x, gr, counts, cap, E, out_dtype=torch.float32), 2, 5),
+         cuda_ms(lambda: ref.grouped_product_dw_ref(
+             x, gr, counts, cap, E, out_dtype=torch.float32), 1, 3),
+         cuda_ms(lambda: torch.bmm(xt, gt), 2, 5),
+         bound(2.0 * lv * D * FF, 2.0 * lv * (D + FF) + 4.0 * E * D * FF,
+               PEAK_BF16_FLOPS), e5, f5))
+    cases = {}
+    for name, label, ms, plain, lib, bd, err, f64 in rows:
+        shape = (f"G{G} cap{cap} K{D} N{FF} live{int(lv)} bf16"
+                 + (" -> fp32" if name.endswith("dw") else ""))
+        cases[name] = {label: dict(shape=shape, ms=ms, plain_ms=plain,
+                                   library_ms=lib, bound_ms=bd[0],
+                                   bound_by=bd[1], max_abs_err=err, **f64)}
+        say("kernels", kernel=name, case=label.replace(" ", "_"),
+            shape=repr(shape), variant="tc", ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{bd[0]:.4f}", bound_by=bd[1],
+            max_abs_err=f"{err:.3e}", **f64)
+    del x, w, gr, y, dw, wg, x3, xt, gt
+    free_cuda(torch)
+    return cases
+
+
+def check_family_kernels(torch, F):
+    """Phase 3f: every kernel at the families' shapes; returns {kernel
+    name: {case: numbers}} for the kernels line's ``family_cases``."""
+    out = check_family_attention(torch, F)
+    out["pruned_matmul"] = check_family_ffn(torch)
+    out["paged_attention"] = check_family_paged(torch, F)
+    out.update(check_family_grouped(torch))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6a: whisper-large-v3 at full size (the main path of the families' slice)
+# ---------------------------------------------------------------------------
+WHISPER_STEPS = 12       # the prune at step 10 and one step after it
+
+
+def whisper_train_args(steps: int = WHISPER_STEPS):
+    """Phase 6a's flags: whisper-large-v3 at full size (32 encoder + 32
+    decoder layers, published widths), 2 stage buffers of 32 slots (slot
+    slack 0), 2 microbatches of one sample: 1500 frames from the loader
+    and 448 decoder tokens each; fp32 params with each block recomputed in
+    the backward (``--remat block``: the 64 slots' params, gradients and
+    moments take ~47 GB); the prune at step 10."""
+    return FULL_SIZE + ["--arch", "whisper-large-v3", "--stages", "2",
+                        "--slot-slack", "0", "--num-micro", "2",
+                        "--mb-global", "1", "--seq", "448", "--steps",
+                        str(steps), "--dynamism", "pruning", "--remat",
+                        "block", "--kernel-impl", "pallas", "--param-dtype",
+                        "float32", "--seed", "0", "--log-every", "1"]
+
+
+def whisper_launches_per_step(enc: int = 32, dec: int = 32, micro: int = 2):
+    """K1-K3 launches a step: an encoder layer runs one attention and two
+    K3 products, a decoder layer two attentions (self, cross) and two
+    products; block remat runs each forward twice; each product's
+    backward is two K3 launches (dx, dw), each attention's K2a and K2b."""
+    attn, prods = enc + 2 * dec, 2 * (enc + dec)
+    return {"block_sparse_attention": 2 * attn * micro,
+            "block_sparse_attention_bwd_dq": attn * micro,
+            "block_sparse_attention_bwd_dkv": attn * micro,
+            "pruned_matmul": (2 * prods + 2 * prods) * micro}
+
+
+def _active_ff(rep):
+    active = rep["assignment"]["tags"].to(rep["dyn"]["ff_mask"].device) != 0
+    return float(rep["dyn"]["ff_mask"][active].mean())
+
+
+def run_train_family(torch, kernels, label, argv, per_step, tc_path,
+                     moved=False):
+    """Train through the CLI; counts zeroed just before and read just
+    after, ``per_step`` launches a step, every launch of ``tc_path`` on
+    the tensor cores, finite losses; returns (report, launches, tensor-core
+    launches, peak GB)."""
+    from repro_torch.launch.train import run as train_run
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS:
+        k.reset()
+    rep = train_run(argv)
+    launched, launched_tc = _window(torch, kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = rep["spec"]["steps"]
+    if not all(math.isfinite(x) for x in rep["losses"]):
+        raise AssertionError(f"{label}: non-finite loss {rep['losses']}")
+    check_launches(label, launched, per_step, steps)
+    check_tensor_core(label, launched, launched_tc, tc_path)
+    st = rep["step_times"]
+    say(label, steps=steps, tokens_per_step=rep["tokens_per_step"],
+        tokens_per_s=f"{rep['steady_tokens_per_s']:.1f}",
+        step_ms=f"{sum(st[1:]) / max(1, len(st) - 1) * 1e3:.1f}",
+        step0_ms=f"{st[0] * 1e3:.1f}", peak_mem_gb=f"{peak:.2f}",
+        wall_s=f"{rep['wall_s']:.2f}",
+        losses=json.dumps([round(x, 4) for x in rep["losses"]])
+        .replace(" ", ""),
+        events=json.dumps([[e.iteration, e.moved_layers]
+                           for e in rep["events"]]).replace(" ", ""),
+        final_lps=rep["final_lps"],
+        launches=json.dumps(launched).replace(" ", ""))
+    return rep, launched, launched_tc, peak
+
+
+def family_step(torch, cfg, dcfg, dyncfg, shapes, plain, prune=0.0):
+    """Loss and gradients of one training step (value_and_grad of the
+    pipelined loss) from seed-0 params and the loader's first batch,
+    ``prune`` of the FFN blocks masked; the kernel run must launch K1-K3
+    (those the arch has) and the plain run none."""
+    from repro_torch import kernels
+    from repro_torch.data.loader import DataConfig, make_loader
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.pipeline.pipeline import build_loss_fn, value_and_grad
+    eng = ElasticEngine(cfg, dcfg, dyncfg, shapes, device="cuda")
+    st = eng.init_state(0)
+    if prune:
+        g = torch.Generator(device="cpu").manual_seed(6)
+        st.dyn["ff_mask"] = (torch.rand(st.dyn["ff_mask"].shape,
+                                        generator=g) >= prune).float().cuda()
+    batch = eng._batch(next(make_loader(cfg, DataConfig(
+        shapes.num_micro, shapes.mb_global, shapes.seq))))
+    loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes)
+    before = [k.launches for k in kernels.KERNELS]
+    loss, _, grads = value_and_grad(loss_fn, st.params, st.assignment,
+                                    st.dyn, batch)
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels.KERNELS, before)]
+    if plain and any(launched):
+        raise AssertionError(f"{cfg.name}: plain step launched {launched}")
+    if not plain and not any(launched):
+        raise AssertionError(f"{cfg.name}: kernel step launched nothing")
+    del eng, st, batch
+    return float(loss), grads
+
+
+def family_train_parity(torch, label, cfg, dcfg, dyncfg, shapes,
+                        prune=0.0):
+    """One step's loss within 1e-4 relative and every gradient leaf within
+    1e-3 of its largest entry, kernels against plain versions (fp32)."""
+    free_cuda(torch)
+    k_loss, k_grads = family_step(torch, cfg, dcfg, dyncfg, shapes, False,
+                                  prune)
+    free_cuda(torch)
+    with PlainKernels():
+        p_loss, p_grads = family_step(torch, cfg, dcfg, dyncfg, shapes,
+                                      True, prune)
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    if not (math.isfinite(k_loss) and rel <= 1e-4):
+        raise AssertionError(f"{label}: loss {k_loss} vs plain {p_loss}")
+    pg = dict(leaves(p_grads))
+    worst, n = 0.0, 0
+    for path, kg in leaves(k_grads):
+        if not bool(torch.isfinite(kg).all()):
+            raise AssertionError(f"{label}: non-finite gradient {path}")
+        err = leaf_err(kg, pg[path])
+        if not err <= 1e-3:
+            raise AssertionError(f"{label}: grad {path} {err:.3e} > 1e-3")
+        worst, n = max(worst, err), n + 1
+    say(label, arch=cfg.name, loss=f"{k_loss:.6f}", plain_loss=f"{p_loss:.6f}",
+        loss_rel_err=f"{rel:.3e}", tol_loss=1e-4, leaves=n,
+        worst_leaf_rel_err=f"{worst:.3e}", tol_grad="1e-3*max|plain|")
+    del k_grads, p_grads, pg
+    free_cuda(torch)
+
+
+def whisper_serve_run(torch, plain: bool, prompt: int = 432, gen: int = 16):
+    """Full-size whisper: one prefill of 2 lanes (1500 frames each, a
+    ``prompt``-token decoder prompt) and ``gen`` scalar-position decode
+    steps, teacher-forced, through build_prefill_fn / build_decode_fn (the
+    engine's); returns (prefill ids, decode ids [gen, 1, 2], decode logits,
+    launches, tensor-core launches)."""
+    from repro_torch import kernels
+    from repro_torch.configs import DistConfig, get_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    cfg = get_config("whisper-large-v3")
+    dcfg = DistConfig(num_stages=2, slot_slack=0, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    m, B = 1, 2
+    shapes = PipelineShapes.for_model(cfg, m, B, prompt,
+                                      cache_len=prompt + gen)
+    eng = ElasticEngine(cfg, dcfg, DynamicsConfig(), shapes, device="cuda")
+    st = eng.init_state(0, with_cache=True)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (m, B, prompt + gen),
+                         generator=g)
+    frames = torch.randn((m, B, cfg.encoder_seq, cfg.d_model),
+                         generator=g) * 0.05
+    logits, orig = [], M.lm_logits
+
+    def recording(params, cfg_, h):
+        out = orig(params, cfg_, h)
+        logits.append(out)
+        return out
+
+    before = [(k.launches, k.launches_tc) for k in kernels.KERNELS]
+    M.lm_logits = recording
+    try:
+        with torch.no_grad():
+            pf, _ = eng.prefill(st, {"tokens": toks[:, :, :prompt],
+                                     "frames": frames})
+            logits.clear()
+            ids = []
+            for i in range(gen):
+                d_ids, _ = eng.decode(st, toks[:, :, prompt + i],
+                                      torch.tensor(prompt + i))
+                ids.append(d_ids)
+        torch.cuda.synchronize()
+    finally:
+        M.lm_logits = orig
+    launched = {k.name: k.launches - b[0]
+                for k, b in zip(kernels.KERNELS, before)}
+    launched_tc = {k.name: k.launches_tc - b[1]
+                   for k, b in zip(kernels.KERNELS, before)}
+    del eng, st
+    return pf, torch.stack(ids), torch.stack(logits), launched, launched_tc
+
+
+def whisper_serve_parity(torch):
+    """6a's serve: the kernel run's decode ids equal the plain run's
+    wherever the plain run's top-2 gap exceeds 1e-3 (the prefill's too);
+    the kernel run launches K1 and K3, on the tensor cores, the plain run
+    nothing.  Returns the kernel run's (launches, tensor-core launches)."""
+    free_cuda(torch)
+    k_pf, k_ids, _, k_launched, k_tc = whisper_serve_run(torch, plain=False)
+    free_cuda(torch)
+    with PlainKernels():
+        p_pf, p_ids, p_logits, p_launched, _ = whisper_serve_run(torch,
+                                                                 plain=True)
+    free_cuda(torch)
+    if any(p_launched.values()):
+        raise AssertionError(f"plain whisper serve launched {p_launched}")
+    for name in ("block_sparse_attention", "pruned_matmul"):
+        if k_launched[name] <= 0:
+            raise AssertionError(f"whisper serve never launched {name}")
+    check_tensor_core("whisper serve", k_launched, k_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    top2 = p_logits.float().topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]).reshape(k_ids.shape) > 1e-3
+    if not bool((k_ids == p_ids)[decided].all()):
+        raise AssertionError("whisper decode ids differ where the plain "
+                             "run's top-2 gap exceeds 1e-3")
+    say("whisper_serve_parity", prefill_ids_equal=bool((k_pf == p_pf).all()),
+        decode_ids_equal=f"{int((k_ids == p_ids).sum())}/{k_ids.numel()}",
+        decided=int(decided.sum()), frames=1500, prompt=432, decode_steps=16,
+        launches=json.dumps(k_launched).replace(" ", ""))
+    return k_launched, k_tc
+
+
+def run_whisper_phase(torch, kernels):
+    """Phase 6a: whisper-large-v3 trained at full size through the train
+    CLI (whisper_train_args), K1, K2a, K2b and K3 at
+    whisper_launches_per_step() a step, all on the tensor cores, the prune
+    at step 10 inside the run; two profiled steps (busy share); one step's
+    loss and gradients through the kernels against the plain versions at
+    full width cut to 4 + 4 layers; a full-size prefill with 1500 frames
+    and 16 scalar-position decode steps against the plain versions.
+    Returns (launches, tensor-core launches) of the training run and the
+    serve."""
+    from repro_torch.configs import DistConfig, get_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    rep, launched, launched_tc, _ = run_train_family(
+        torch, kernels, "whisper_train", whisper_train_args(),
+        whisper_launches_per_step(), FP32_TC_PATH)
+    ff = _active_ff(rep)
+    if not ff < 1.0:
+        raise AssertionError(f"whisper: the prune at step 10 masked no "
+                             f"block (ff_active {ff})")
+    say("whisper_prune", ff_active=f"{ff:.4f}", pruned_at=10)
+    del rep
+    say("profile_whisper_train", **profile_train(torch, whisper_train_args))
+    cfg = get_config(cut_arch("whisper-large-v3", 4, encoder_layers=4))
+    dcfg = DistConfig(num_stages=2, slot_slack=0, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    family_train_parity(torch, "whisper_train_parity", cfg, dcfg,
+                        DynamicsConfig(kind="pruning"),
+                        PipelineShapes.for_model(cfg, 2, 1, 448), prune=0.5)
+    serve, serve_tc = whisper_serve_parity(torch)
+    return ({k: launched[k] + serve[k] for k in launched},
+            {k: launched_tc[k] + serve_tc[k] for k in launched_tc})
+
+
+# ---------------------------------------------------------------------------
+# 6b: zamba2-1.2b at full size (Mamba2 + the shared attention block)
+# ---------------------------------------------------------------------------
+ZAMBA_STEPS = 10
+
+
+def zamba2_train_args(steps: int = ZAMBA_STEPS):
+    """Phase 6b's flags: zamba2-1.2b at full size (38 layers, 6 of them
+    HYBRID_ATTN), 2 stage buffers of 27 slots (slot slack 8: the default
+    2 caps a buffer at 21 layers, and the move stops short of layer 21,
+    the first HYBRID_ATTN past the split), 4 microbatches of 2 x 1024
+    tokens, a 2x straggler on stage 1 and a cadence every 4 steps under
+    the partition balancer (a migration moves MAMBA and HYBRID_ATTN
+    slots), fp32, block remat."""
+    return FULL_SIZE + ["--arch", "zamba2-1.2b", "--stages", "2",
+                        "--slot-slack", "8", "--num-micro", "4",
+                        "--mb-global", "2", "--seq", "1024", "--steps",
+                        str(steps), "--rebalance-every", "4", "--straggler",
+                        "1:2.0", "--balancer", "partition", "--dynamism",
+                        "none", "--remat",
+                        "block", "--kernel-impl", "pallas",
+                        "--param-dtype", "float32", "--seed", "0",
+                        "--log-every", "1"]
+
+
+# 6 HYBRID_ATTN layers x 4 microbatches, each forward twice (block remat)
+ZAMBA_LAUNCHES_PER_STEP = {"block_sparse_attention": 48,
+                           "block_sparse_attention_bwd_dq": 24,
+                           "block_sparse_attention_bwd_dkv": 24,
+                           "pruned_matmul": 0}
+
+
+def zamba2_serve_args():
+    """Phase 6b's serve: full-size zamba2 on 2 stage buffers, contiguous
+    KV (recurrent state cannot page), 8 requests of 256-512 tokens."""
+    return FULL_SIZE + ["--elastic", "--arch", "zamba2-1.2b", "--stages",
+                        "2", "--micro", "2", "--mb-global", "4",
+                        "--prompt-len", "512", "--gen", "16", "--requests",
+                        "8", "--kernel-impl", "pallas", "--param-dtype",
+                        "float32", "--seed", "0"]
+
+
+def _moved_types(cfg, events_lps):
+    """The block types of the layers that changed stage between
+    consecutive layer splits."""
+    pattern = cfg.block_pattern()
+    moved = set()
+    for a, b in zip(events_lps, events_lps[1:]):
+        sa = [s for s, n in enumerate(a) for _ in range(n)]
+        sb = [s for s, n in enumerate(b) for _ in range(n)]
+        moved |= {pattern[i] for i in range(len(pattern)) if sa[i] != sb[i]}
+    return moved
+
+
+def run_zamba2_phase(torch, kernels):
+    """Phase 6b: full-size zamba2 trained through the CLI (a migration must
+    move MAMBA and HYBRID_ATTN layers; K1-K2 at 32 heads of 64 on the
+    tensor cores, K3 none: Mamba2 has no pruned FFN), two profiled steps;
+    then served with contiguous KV once fixed and once shrunk 2 -> 1 at
+    tick 6: tokens identical.  Returns (launches, tensor-core launches)."""
+    from repro_torch.configs import BLOCK_HYBRID_ATTN, BLOCK_MAMBA, get_config
+    rep, launched, launched_tc, _ = run_train_family(
+        torch, kernels, "zamba2_train", zamba2_train_args(),
+        ZAMBA_LAUNCHES_PER_STEP, FP32_TC_PATH[:3])
+    if not any(e.moved_layers > 0 for e in rep["events"]):
+        raise AssertionError(f"zamba2: no migration moved layers "
+                             f"{[(e.iteration, e.moved_layers) for e in rep['events']]}")
+    cfg = get_config("zamba2-1.2b")
+    # the net move: the layers whose stage differs between the uniform
+    # split and the final one
+    moved = _moved_types(cfg, [[19, 19], list(rep["final_lps"])])
+    if not {BLOCK_MAMBA, BLOCK_HYBRID_ATTN} <= moved:
+        raise AssertionError(f"zamba2: the migrations moved block types "
+                             f"{moved}, not both MAMBA and HYBRID_ATTN")
+    say("zamba2_migration", moved_types=sorted(moved),
+        final_lps=rep["final_lps"])
+    del rep
+    say("profile_zamba2_train", **profile_train(torch, zamba2_train_args))
+    free_cuda(torch)
+    with serve_session(zamba2_serve_args()) as s:
+        fixed = s.serve()
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    with serve_session(zamba2_serve_args()) as s:
+        rep = s.serve(resize_at={6: 1})
+    served, served_tc = _window(torch, kernels)
+    want = {c["rid"]: c["tokens"] for c in fixed["completions"]}
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    kinds = [(r["kind"], r["from_stages"], r["to_stages"])
+             for r in rep["resizes"]]
+    if kinds != [("shrink", 2, 1)]:
+        raise AssertionError(f"zamba2 serve resizes {kinds}")
+    if got != want or len(got) != 8:
+        raise AssertionError("zamba2: the shrunk serve's tokens differ from "
+                             "the fixed serve's")
+    if served["block_sparse_attention"] <= 0:
+        raise AssertionError("zamba2 serve never launched K1")
+    check_tensor_core("zamba2 serve", served, served_tc,
+                      ("block_sparse_attention",))
+    say("zamba2_serve", requests=len(got), tokens=rep["total_tokens"],
+        ticks=rep["ticks"], resizes=json.dumps(kinds).replace(" ", ""),
+        tokens_equal_fixed=True,
+        fixed_tokens_per_s=f"{fixed['tokens_per_s']:.1f}",
+        tokens_per_s=f"{rep['tokens_per_s']:.1f}",
+        launches=json.dumps(served).replace(" ", ""))
+    del fixed, rep
+    free_cuda(torch)
+    return ({k: launched[k] + served[k] for k in launched},
+            {k: launched_tc[k] + served_tc[k] for k in launched_tc})
+
+
+# ---------------------------------------------------------------------------
+# 6c: xlstm-1.3b at published widths, 16 layers (no kernel on this path)
+# ---------------------------------------------------------------------------
+def xlstm_train_args(steps: int = 12):
+    """Phase 6c's flags: xlstm-1.3b at published widths cut to 16 layers
+    (sLSTM at 3 and 11), 2 stage buffers, 2 microbatches of 2 x 256
+    tokens, the prune of the mLSTM up-projection at step 10, fp32."""
+    return FULL_SIZE + ["--arch", cut_arch("xlstm-1.3b", 16), "--stages",
+                        "2", "--slot-slack", "0", "--num-micro", "2",
+                        "--mb-global", "2", "--seq", "256", "--steps",
+                        str(steps), "--dynamism", "pruning",
+                        "--kernel-impl", "pallas", "--param-dtype",
+                        "float32", "--seed", "0", "--log-every", "1"]
+
+
+def xlstm_serve_args():
+    return FULL_SIZE + ["--elastic", "--arch", cut_arch("xlstm-1.3b", 16),
+                        "--stages", "2", "--slot-slack", "0", "--micro", "2",
+                        "--mb-global", "2", "--prompt-len", "64", "--gen",
+                        "16", "--requests", "4", "--kernel-impl", "pallas",
+                        "--param-dtype", "float32", "--seed", "0"]
+
+
+NO_LAUNCHES = {"block_sparse_attention": 0,
+               "block_sparse_attention_bwd_dq": 0,
+               "block_sparse_attention_bwd_dkv": 0, "pruned_matmul": 0,
+               "grouped_matmul": 0, "grouped_matmul_dw": 0,
+               "paged_attention": 0}
+
+
+def run_xlstm_phase(torch, kernels):
+    """Phase 6c: xLSTM trains (the prune must mask mLSTM up-projection
+    blocks) and serves 4 requests; no kernel of the port runs on this path
+    (mLSTM / sLSTM are plain PyTorch, their time loops on the host): every
+    count must stay 0.  Returns (launches, tensor-core launches), all
+    zero."""
+    rep, launched, _, _ = run_train_family(
+        torch, kernels, "xlstm_train", xlstm_train_args(), NO_LAUNCHES, ())
+    ff = _active_ff(rep)
+    if not ff < 1.0:
+        raise AssertionError(f"xlstm: the prune masked nothing ({ff})")
+    del rep
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    with serve_session(xlstm_serve_args()) as s:
+        srv = s.serve()
+    served, _ = _window(torch, kernels)
+    if any(served.values()) or len(srv["completions"]) != 4:
+        raise AssertionError(f"xlstm serve: {served}, "
+                             f"{len(srv['completions'])} completions")
+    say("xlstm_serve", requests=4, tokens=srv["total_tokens"],
+        tokens_per_s=f"{srv['tokens_per_s']:.1f}", ff_active_after_prune=
+        f"{ff:.4f}", kernels="none (mLSTM / sLSTM run as plain PyTorch)")
+    del srv
+    free_cuda(torch)
+    return launched, {k: 0 for k in launched}
+
+
+# ---------------------------------------------------------------------------
+# 6d: internvl2-26b at published widths (the VLM prefix; hd 128)
+# ---------------------------------------------------------------------------
+def internvl2_train_args(steps: int = 6):
+    """Phase 6d's training flags: InternVL2-26B at published widths cut to
+    4 layers, bf16 params, 2 stage buffers of 2 slots, 2 microbatches of
+    2 x 512 tokens behind the loader's 256 patch embeddings."""
+    return FULL_SIZE + ["--arch", cut_arch("internvl2-26b", 4), "--stages",
+                        "2", "--slot-slack", "0", "--num-micro", "2",
+                        "--mb-global", "2", "--seq", "512", "--steps",
+                        str(steps), "--dynamism", "none", "--kernel-impl",
+                        "pallas", "--param-dtype", "bfloat16", "--seed",
+                        "0", "--log-every", "1"]
+
+
+# 4 layers x 2 microbatches: K1 once, K2a / K2b once, K3 three products
+# forward and six backward per layer and microbatch
+VLM_LAUNCHES_PER_STEP = {"block_sparse_attention": 8,
+                         "block_sparse_attention_bwd_dq": 8,
+                         "block_sparse_attention_bwd_dkv": 8,
+                         "pruned_matmul": 72}
+
+
+def internvl2_serve_args():
+    """Phase 6d's serve: InternVL2-26B cut to 8 layers, text only, fp32,
+    one stage, paged KV (page 16), 4 requests of 256-512 tokens."""
+    return FULL_SIZE + ["--elastic", "--arch", cut_arch("internvl2-26b", 8),
+                        "--stages", "1", "--slot-slack", "0", "--micro",
+                        "2", "--mb-global", "2", "--prompt-len", "512",
+                        "--gen", "16", "--requests", "4", "--kv-page-size",
+                        "16", "--kernel-impl", "pallas", "--param-dtype",
+                        "float32", "--seed", "0"]
+
+
+def run_internvl2_phase(torch, kernels):
+    """Phase 6d: InternVL2 trains behind its patch prefix (K1 at seq 768,
+    hd 128, GQA 6; K3 at K 6144 / N 16384 in bf16, all on the tensor
+    cores), then serves text through K1, K3 and K6 at hd 128, every K6
+    launch split.  Returns (launches, tensor-core launches)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    _, launched, launched_tc, _ = run_train_family(
+        torch, kernels, "internvl2_train", internvl2_train_args(),
+        VLM_LAUNCHES_PER_STEP, FP32_TC_PATH)
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    with serve_session(internvl2_serve_args()) as s:
+        srv = s.serve()
+    served, served_tc = _window(torch, kernels)
+    check_k6_split(served["paged_attention"], pa_ops.KERNEL.launches_split)
+    check_tensor_core("internvl2 serve", served, served_tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul",
+                           "paged_attention") if served[n] <= 0]
+    if missing or len(srv["completions"]) != 4:
+        raise AssertionError(f"internvl2 serve: missing {missing}")
+    say("internvl2_serve", requests=4, tokens=srv["total_tokens"],
+        tokens_per_s=f"{srv['tokens_per_s']:.1f}",
+        k6_split_launches=pa_ops.KERNEL.launches_split,
+        launches=json.dumps(served).replace(" ", ""))
+    del srv
+    free_cuda(torch)
+    return ({k: launched[k] + served[k] for k in launched},
+            {k: launched_tc[k] + served_tc[k] for k in launched_tc})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4400,6 +5363,8 @@ def main() -> int:
         timed("3d", check_pruned_matmul_backward, torch))
     # 3e. the grouped expert matmul and its weight gradient
     results.update(timed("3e", check_grouped_matmul, torch))
+    # 3f. every kernel at the block families' shapes
+    family_cases = timed("3f", check_family_kernels, torch, F)
     for name, r in results.items():
         extra = ({"bound_tf32x3_ms": f"{r['bound_tf32x3'][0]:.4f}"}
                  if "bound_tf32x3" in r else {})
@@ -4553,6 +5518,17 @@ def main() -> int:
     new_phases.update(got)
     for n in got_tc:
         tc[n] += got_tc[n]
+    # 6a-6d. the remaining block families: whisper-large-v3 trained at full
+    # size (the slice's main path), zamba2, xLSTM, InternVL2; counters
+    # zeroed just before each path and read just after
+    for ph, key, phase in (("6a", "whisper", run_whisper_phase),
+                           ("6b", "zamba2", run_zamba2_phase),
+                           ("6c", "xlstm", run_xlstm_phase),
+                           ("6d", "internvl2", run_internvl2_phase)):
+        got, got_tc = timed(ph, phase, torch, kernels)
+        new_phases[key] = got
+        for n in got_tc:
+            tc[n] += got_tc[n]
 
     # 5. parity of the path: kernels vs plain versions from one state
     timed("5", serve_parity, torch)
@@ -4617,6 +5593,8 @@ def main() -> int:
         for key in ("library_covers", "cases", "timing"):
             if key in r:
                 entry[key] = r[key]
+        if k.name in family_cases:
+            entry["family_cases"] = family_cases[k.name]
         if "bound_tf32x3" in r:
             entry["bound_tf32x3_ms"] = r["bound_tf32x3"][0]
         if k.name == "paged_attention":

@@ -402,14 +402,12 @@ class Session:
                 stacklevel=2)
 
         cfg = self._model_config()
-        if dynamism == "pruning" and cfg.num_experts:
-            raise NotImplementedError(
-                "pruning an MoE arch's experts is not in repro_torch yet "
-                "(ROADMAP Queue 1 [moe-rest])")
         dcfg = self._dist_config()
         dyncfg = spec.dynamics.to_config()
-        shapes = PipelineShapes(num_micro=spec.parallel.num_micro,
-                                mb_global=spec.parallel.mb_global, seq=seq)
+        # the loader's VLM patches / whisper frames ride the batch into the
+        # pipeline, so the shapes carry the arch's prefix and encoder length
+        shapes = PipelineShapes.for_model(cfg, spec.parallel.num_micro,
+                                          spec.parallel.mb_global, seq)
         tokens_per_step = (spec.parallel.num_micro
                            * spec.parallel.mb_global * seq)
 

@@ -267,9 +267,11 @@ def list_configs() -> List[str]:
     return sorted(_REGISTRY)
 
 
-# the port registers the architectures its slices serve; the rest of the
-# reference's registry joins as their block families are ported
-_ARCH_MODULES = ["smollm_360m", "mixtral_8x7b"]
+_ARCH_MODULES = [
+    "mixtral_8x7b", "mixtral_8x22b", "llama3_405b", "command_r_plus_104b",
+    "smollm_360m", "deepseek_coder_33b", "internvl2_26b", "zamba2_1p2b",
+    "xlstm_1p3b", "whisper_large_v3", "gpt_paper",
+]
 
 
 def _load_all() -> None:

@@ -5,8 +5,13 @@ Feature blocks of width ``PRUNE_BLOCK`` (128) are pruned from the FFN
 projections by an exact global top-k over block magnitude scores computed on
 the stacked stage weights.  The resulting ``ff_mask`` [S, L_max, n_blocks]
 is the runtime dyn input: the pruned-matmul kernel (K3) skips dead blocks
-forward and backward.  This slice ports the dense block's scores; other
-block families raise with their ROADMAP item.
+forward and backward.  Every branch of the reference's scores is here:
+dense (wi, wg, wof), whisper's encoder / decoder FFNs, the mLSTM
+up-projection, and MoE experts summed over the experts (the reference's
+``moe_ffn`` reads no ``ff_mask``, so pruning an MoE arch changes the mask
+and the controller's costs but no expert's compute — mirrored here).
+Hybrid (Mamba2) and sLSTM-only stacks have nothing to prune and raise the
+reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -20,28 +25,45 @@ from repro_torch.models.blocks import n_prune_blocks
 
 def block_magnitudes(cfg: ModelConfig, stage_params: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
-    """L2 magnitude per prunable feature block: [S, L_max, n_blocks] fp32,
-    from blocks of d_ff columns of (wi, wg) and rows of wof."""
-    if "wi" not in stage_params:
-        raise NotImplementedError(
-            "block magnitudes of MoE experts and other non-dense block "
-            "families are not in repro_torch yet (ROADMAP Queue 1 "
-            "[moe-rest], [block-families])")
+    """L2 magnitude per prunable feature block: [S, L_max, n_blocks] fp32.
+
+    Dense / enc / dec archs: blocks of d_ff columns of the up-projections
+    and rows of the down-projection; mLSTM: blocks of the up-projection's
+    columns; MoE: blocks of d_ff columns of every expert's ewi and ewg."""
     npb = n_prune_blocks(cfg)
-    tot = None
-    for name, axis in (("wi", "col"), ("wg", "col"), ("wof", "row")):
-        m = stage_params[name].float()
-        S, L = m.shape[0], m.shape[1]
-        if axis == "col":
-            F = m.shape[3]
-            v = m.square().reshape(S, L, m.shape[2], npb, F // npb).sum(
-                dim=(2, 4))
-        else:
-            F = m.shape[2]
-            v = m.square().reshape(S, L, npb, F // npb, m.shape[3]).sum(
-                dim=(3, 4))
-        tot = v if tot is None else tot + v
-    return tot.sqrt()
+
+    def score(*mats):
+        tot = None
+        for name, axis in mats:
+            m = stage_params[name].float()
+            S, L = m.shape[0], m.shape[1]
+            if axis == "col":
+                F = m.shape[3]
+                v = m.square().reshape(S, L, m.shape[2], npb, F // npb).sum(
+                    dim=(2, 4))
+            else:
+                F = m.shape[2]
+                v = m.square().reshape(S, L, npb, F // npb, m.shape[3]).sum(
+                    dim=(3, 4))
+            tot = v if tot is None else tot + v
+        return tot.sqrt()
+
+    if "wi" in stage_params:        # dense
+        return score(("wi", "col"), ("wg", "col"), ("wof", "row"))
+    if "e_w1" in stage_params:      # whisper encoder (+ decoder)
+        s = score(("e_w1", "col"), ("e_w2", "row"))
+        if "d_w1" in stage_params:
+            s = s + score(("d_w1", "col"), ("d_w2", "row"))
+        return s
+    if "x_up" in stage_params:      # mLSTM up-projection
+        return score(("x_up", "col"))
+    if "ewi" in stage_params:       # MoE experts: summed over the experts
+        S, L, E, d, F = stage_params["ewi"].shape
+        v = sum(stage_params[k].float().square().reshape(
+            S, L, E, d, npb, F // npb).sum(dim=(2, 3, 5))
+            for k in ("ewi", "ewg"))
+        return v.sqrt()
+    raise ValueError("no prunable parameters found")
 
 
 @torch.no_grad()

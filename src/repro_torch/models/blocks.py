@@ -1,17 +1,22 @@
-"""Slot-block layer — the dense-decoder and MoE slice of
-``repro.models.blocks``.
+"""Slot-block layer — the port of ``repro.models.blocks``.
 
-A pipeline stage owns ``L_max`` slots; each slot holds the parameter fields
-of the arch's block types plus a type tag, so the layer→stage assignment can
-change at runtime.  The port has the DENSE block (attention + SwiGLU), the
-MOE block (attention + top-k routed experts, ``moe_ffn``) and the PAD slot;
-other block families raise ``NotImplementedError``.
+Every architecture is a sequence of *blocks* drawn from a small type set
+(``configs.base.BLOCK_*``).  A pipeline stage owns ``L_max`` slots; each
+slot holds the **union** of the arch's per-type parameter fields plus a type
+tag, so the layer→stage assignment can change at runtime.  The port has
+every block family of the reference: DENSE (attention + SwiGLU), MOE
+(attention + top-k routed experts, ``moe_ffn``), MAMBA and HYBRID_ATTN
+(Mamba2 SSD, the latter followed by the model's shared attention block),
+MLSTM and SLSTM (xLSTM), ENC and DEC (the whisper encoder and decoder,
+LayerNorm + biased attention + GELU MLP, the decoder with cross attention
+over the encoder stream), and the PAD slot.
 
 Public interface (same names as the reference)
   slot_param_spec(cfg)            -> {field: TensorSpec}   (per slot)
+  shared_param_spec(cfg)          -> {field: TensorSpec}   (per model)
   slot_cache_spec(cfg, mb, clen)  -> {field: TensorSpec}   (per slot)
   paged_slot_cache_spec(cfg, pool_pages, page_size)
-  init_slot(gen, cfg, dtype, ...) -> concrete params
+  init_slot / init_shared         -> concrete params
   apply_block(...)                -> (carry, new_cache, stats, aux)
 
 The slot's type tag is a host int: the port dispatches on it in Python, so
@@ -19,26 +24,34 @@ a PAD slot costs nothing and no device value is read back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import (BLOCK_DENSE, BLOCK_MOE, BLOCK_PAD,
-                                      BLOCK_TYPE_NAMES, ModelConfig)
+from repro_torch.configs.base import (BLOCK_DEC, BLOCK_DENSE, BLOCK_ENC,
+                                      BLOCK_HYBRID_ATTN, BLOCK_MAMBA,
+                                      BLOCK_MLSTM, BLOCK_MOE, BLOCK_PAD,
+                                      BLOCK_SLSTM, BLOCK_TYPE_NAMES,
+                                      ModelConfig)
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (apply_rope, decode_attention,
-                                       flash_attention, matmul, rms_norm,
-                                       swiglu)
+                                       expand_ff_mask, flash_attention,
+                                       gelu_mlp, layer_norm, matmul,
+                                       rms_norm, swiglu)
 
 PRUNE_BLOCK = 128      # block-structured pruning granularity
+MAMBA_HEAD = 64
 HASH_PROJ_SEED = 17    # the reference draws its projection from PRNGKey(17)
 MOE_CAPACITY_FACTOR = 1.25
 
-# what the port's slices serve so far; anything else raises
-PORTED_BLOCK_TYPES = (BLOCK_DENSE, BLOCK_MOE)
+# every block family of the reference
+PORTED_BLOCK_TYPES = (BLOCK_DENSE, BLOCK_MOE, BLOCK_MAMBA, BLOCK_HYBRID_ATTN,
+                      BLOCK_MLSTM, BLOCK_SLSTM, BLOCK_ENC, BLOCK_DEC)
 
 
 class TensorSpec(NamedTuple):
@@ -50,8 +63,14 @@ class TensorSpec(NamedTuple):
 # Dimension helpers
 # ---------------------------------------------------------------------------
 def _dims(cfg: ModelConfig) -> Dict[str, int]:
-    return dict(d=cfg.d_model, hd=cfg.resolved_head_dim, nq=cfg.num_heads,
-                nkv=cfg.num_kv_heads, ff=cfg.d_ff, E=cfg.num_experts)
+    d = cfg.d_model
+    d_in = 2 * d
+    return dict(
+        d=d, hd=cfg.resolved_head_dim, nq=cfg.num_heads,
+        nkv=cfg.num_kv_heads, ff=cfg.d_ff, d_in=d_in,
+        nh_m=max(1, d_in // MAMBA_HEAD), conv_dim=d_in + 2 * cfg.ssm_state,
+        nh_x=cfg.num_heads, dh_x=d_in // max(1, cfg.num_heads),
+        st=cfg.ssm_state, E=cfg.num_experts)
 
 
 def prunable_dim(cfg: ModelConfig) -> int:
@@ -70,29 +89,43 @@ def block_type_set(cfg: ModelConfig) -> Tuple[int, ...]:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for an architecture whose block families are not ported yet."""
-    missing = [BLOCK_TYPE_NAMES[t] for t in block_type_set(cfg)
-               if t not in PORTED_BLOCK_TYPES]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: block types {missing} are not in repro_torch yet "
-            f"(ROADMAP Queue 1 [block-families])")
+    """Raise for an architecture with a block type the port does not
+    know."""
+    unknown = [t for t in block_type_set(cfg) if t not in PORTED_BLOCK_TYPES]
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block types {unknown}")
 
 
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
+def _attn_fields(prefix: str, d: int, nq: int, nkv: int, hd: int, dtype,
+                 biased: bool) -> Dict[str, TensorSpec]:
+    """q/k/v/o projections named ``{prefix}wq`` ...; with ``biased`` the q,
+    v and o biases (whisper's attention has none on k)."""
+    out = {f"{prefix}wq": TensorSpec((d, nq * hd), dtype),
+           f"{prefix}wk": TensorSpec((d, nkv * hd), dtype),
+           f"{prefix}wv": TensorSpec((d, nkv * hd), dtype),
+           f"{prefix}wo": TensorSpec((nq * hd, d), dtype)}
+    if biased:
+        out.update({f"{prefix}bq": TensorSpec((nq * hd,), dtype),
+                    f"{prefix}bv": TensorSpec((nkv * hd,), dtype),
+                    f"{prefix}bo": TensorSpec((d,), dtype)})
+    return out
+
+
 def slot_param_spec(cfg: ModelConfig, dtype=torch.bfloat16
                     ) -> Dict[str, TensorSpec]:
     check_ported(cfg)
     m = _dims(cfg)
     types = block_type_set(cfg)
     d, hd, nq, nkv, ff = m["d"], m["hd"], m["nq"], m["nkv"], m["ff"]
-    spec = dict(
-        attn_norm=TensorSpec((d,), dtype), wq=TensorSpec((d, nq * hd), dtype),
-        wk=TensorSpec((d, nkv * hd), dtype),
-        wv=TensorSpec((d, nkv * hd), dtype),
-        wo=TensorSpec((nq * hd, d), dtype), ffn_norm=TensorSpec((d,), dtype))
+    f32 = torch.float32
+    spec: Dict[str, TensorSpec] = {}
+    if BLOCK_DENSE in types or BLOCK_MOE in types:
+        spec.update(_attn_fields("", d, nq, nkv, hd, dtype, False))
+        spec.update(attn_norm=TensorSpec((d,), dtype),
+                    ffn_norm=TensorSpec((d,), dtype))
     if BLOCK_DENSE in types:
         spec.update(wi=TensorSpec((d, ff), dtype),
                     wg=TensorSpec((d, ff), dtype),
@@ -100,31 +133,120 @@ def slot_param_spec(cfg: ModelConfig, dtype=torch.bfloat16
     if BLOCK_MOE in types:
         E = m["E"]
         # the router stays fp32 whatever the param dtype, as in the reference
-        spec.update(router=TensorSpec((d, E), torch.float32),
+        spec.update(router=TensorSpec((d, E), f32),
                     ewi=TensorSpec((E, d, ff), dtype),
                     ewg=TensorSpec((E, d, ff), dtype),
                     ewo=TensorSpec((E, ff, d), dtype))
+    if BLOCK_MAMBA in types or BLOCK_HYBRID_ATTN in types:
+        d_in, nh, cdim, st = m["d_in"], m["nh_m"], m["conv_dim"], m["st"]
+        spec.update(
+            m_norm=TensorSpec((d,), dtype),
+            m_in=TensorSpec((d, 2 * d_in + 2 * st + nh), dtype),
+            m_convw=TensorSpec((cfg.d_conv, cdim), dtype),
+            m_convb=TensorSpec((cdim,), dtype),
+            m_Alog=TensorSpec((nh,), f32), m_D=TensorSpec((nh,), f32),
+            m_dtb=TensorSpec((nh,), f32), m_out=TensorSpec((d_in, d), dtype))
+    if BLOCK_MLSTM in types:
+        d_in, nh, dh = m["d_in"], m["nh_x"], m["dh_x"]
+        spec.update(
+            x_norm=TensorSpec((d,), dtype),
+            x_up=TensorSpec((d, 2 * d_in), dtype),
+            x_q=TensorSpec((nh, dh, dh), dtype),
+            x_k=TensorSpec((nh, dh, dh), dtype),
+            x_v=TensorSpec((nh, dh, dh), dtype),
+            x_ig=TensorSpec((d_in, nh), f32), x_fg=TensorSpec((d_in, nh), f32),
+            x_down=TensorSpec((d_in, d), dtype),
+            x_gnorm=TensorSpec((d_in,), dtype))
+    if BLOCK_SLSTM in types:
+        ffp = max(PRUNE_BLOCK, (4 * d // 3) // PRUNE_BLOCK * PRUNE_BLOCK)
+        spec.update(
+            s_norm=TensorSpec((d,), dtype), s_wx=TensorSpec((d, 4 * d), dtype),
+            s_r=TensorSpec((4, d), f32), s_out=TensorSpec((d, d), dtype),
+            s_fnorm=TensorSpec((d,), dtype),
+            s_up=TensorSpec((d, 2 * ffp), dtype),
+            s_down=TensorSpec((ffp, d), dtype))
+    for t, pre in ((BLOCK_ENC, "e_"), (BLOCK_DEC, "d_")):
+        if t not in types:
+            continue
+        spec.update(_attn_fields(pre, d, nq, nkv, hd, dtype, True))
+        for i in (1, 2) + ((3,) if t == BLOCK_DEC else ()):
+            spec.update({f"{pre}ln{i}": TensorSpec((d,), dtype),
+                         f"{pre}ln{i}b": TensorSpec((d,), dtype)})
+        spec.update({f"{pre}w1": TensorSpec((d, ff), dtype),
+                     f"{pre}b1": TensorSpec((ff,), dtype),
+                     f"{pre}w2": TensorSpec((ff, d), dtype),
+                     f"{pre}b2": TensorSpec((d,), dtype)})
+        if t == BLOCK_DEC:
+            spec.update(_attn_fields("c_", d, nq, nkv, hd, dtype, True))
+    return spec
+
+
+def shared_param_spec(cfg: ModelConfig, dtype=torch.float32
+                      ) -> Dict[str, TensorSpec]:
+    """Model-level (non-slot) params beyond embed / head / final_norm: the
+    zamba2 shared attention block (``ga_*``) and the whisper decoder's
+    learned positions (``dec_pos``)."""
+    m = _dims(cfg)
+    spec: Dict[str, TensorSpec] = {}
+    if cfg.family == "hybrid" and cfg.shared_attn_period:
+        spec.update({f"ga_{k}": v for k, v in _attn_fields(
+            "", m["d"], m["nq"], m["nkv"], m["hd"], dtype, False).items()})
+        spec["ga_norm"] = TensorSpec((m["d"],), dtype)
+    if cfg.is_encdec:
+        spec["dec_pos"] = TensorSpec((cfg.max_seq_len, m["d"]), dtype)
     return spec
 
 
 def slot_cache_spec(cfg: ModelConfig, mb: int, cache_len: int,
                     dtype=torch.bfloat16) -> Dict[str, TensorSpec]:
-    """Per-slot decode cache: one K/V line per lane.  bf16 by default, as in
-    the reference, whatever the param dtype."""
+    """Per-slot decode cache (the union over the arch's type set): one K/V
+    line per lane for attention, the encoder's cross K/V for the decoder,
+    the conv tail and SSM state for Mamba2, the matrix memory for mLSTM and
+    the cell state for sLSTM.  K/V and the conv tail are bf16 by default,
+    as in the reference, whatever the param dtype; recurrent state is
+    float32."""
     check_ported(cfg)
     m = _dims(cfg)
+    types = block_type_set(cfg)
+    f32 = torch.float32
     cap = cache_len
     if cfg.sliding_window:
         cap = min(cache_len, cfg.sliding_window)
-    shape = (mb, cap, m["nkv"], m["hd"])
-    return dict(k=TensorSpec(shape, dtype), v=TensorSpec(shape, dtype))
+    nkv, hd = m["nkv"], m["hd"]
+    spec: Dict[str, TensorSpec] = {}
+    if any(t in types for t in (BLOCK_DENSE, BLOCK_MOE, BLOCK_HYBRID_ATTN,
+                                BLOCK_DEC, BLOCK_ENC)):
+        spec.update(k=TensorSpec((mb, cap, nkv, hd), dtype),
+                    v=TensorSpec((mb, cap, nkv, hd), dtype))
+    if BLOCK_DEC in types:
+        shape = (mb, cfg.encoder_seq, nkv, hd)
+        spec.update(ck=TensorSpec(shape, dtype), cv=TensorSpec(shape, dtype))
+    if BLOCK_MAMBA in types or BLOCK_HYBRID_ATTN in types:
+        spec.update(
+            conv=TensorSpec((mb, cfg.d_conv - 1, m["conv_dim"]), dtype),
+            ssm=TensorSpec((mb, m["nh_m"], MAMBA_HEAD, m["st"]), f32))
+    if BLOCK_MLSTM in types:
+        nh, dh = m["nh_x"], m["dh_x"]
+        spec.update(xC=TensorSpec((mb, nh, dh, dh), f32),
+                    xn=TensorSpec((mb, nh, dh), f32),
+                    xm=TensorSpec((mb, nh), f32))
+    if BLOCK_SLSTM in types:
+        spec.update({k: TensorSpec((mb, m["d"]), f32)
+                     for k in ("sc", "sn", "sm", "sh")})
+    return spec
 
 
 def paged_slot_cache_spec(cfg: ModelConfig, pool_pages: int, page_size: int,
                           dtype=torch.bfloat16) -> Dict[str, TensorSpec]:
     """Per-slot block-paged decode cache ``[pool_pages + 1, page_size, n_kv,
-    head_dim]``; the final block is the trash block absorbing gated writes."""
-    check_ported(cfg)
+    head_dim]``; the final block is the trash block absorbing gated writes.
+    Only attention-pure decoder archs page their cache, as in the
+    reference: recurrent state is O(1) per lane, and a sliding-window cache
+    is already a ring."""
+    types = set(block_type_set(cfg))
+    if not types <= {BLOCK_DENSE, BLOCK_MOE}:
+        raise ValueError(
+            f"paged KV requires an attention-only arch, got types {types}")
     if cfg.sliding_window:
         raise ValueError("paged KV does not support sliding-window caches")
     m = _dims(cfg)
@@ -140,21 +262,57 @@ def stats_spec(cfg: ModelConfig) -> Dict[str, TensorSpec]:
                 attn_density=TensorSpec((), torch.float32))
 
 
+def _normal(gen, shape, scale, device):
+    return torch.randn(shape, generator=gen, device=device).mul_(scale)
+
+
 def init_slot(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
               *, lead: Sequence[int] = (), device=None
               ) -> Dict[str, torch.Tensor]:
     """Slot params with ``lead`` leading dims (``(S, L_max)`` for a stacked
-    stage tree).  Same distributions as the reference (norms ones, matrices
-    N(0, fan_in^-1/2)); the numbers come from ``gen``, not jax's PRNG."""
+    stage tree), by the reference's name rules: norms and LayerNorm scales
+    ones; biases named ``*b`` / ``*_bq`` / ``*_bv`` / ``*_bo``, ``m_convb``,
+    ``m_dtb`` and ``s_r`` zeros; ``m_Alog`` = log(linspace(1, 16)),
+    ``m_D`` ones; the mLSTM gates N(0, 0.02) around -1 (input) and 3
+    (forget); everything else — ``e_b1`` / ``d_b2`` included, whose names
+    end in a digit — N(0, fan_in^-1/2), fan_in the second-last dim (the
+    last for a vector).  The numbers come from ``gen``, not jax's PRNG."""
     out = {}
     for name, sds in sorted(slot_param_spec(cfg, dtype).items()):
         shape = tuple(lead) + sds.shape
-        if name.endswith("norm"):
-            out[name] = torch.ones(shape, dtype=sds.dtype, device=device)
+        if name.endswith(("norm", "gnorm", "fnorm")) or name.startswith(
+                ("e_ln", "d_ln")) and not name.endswith("b"):
+            t = torch.ones(shape, device=device)
+        elif name.endswith(("b", "_bq", "_bv", "_bo")) or name in (
+                "m_convb", "m_dtb", "s_r"):
+            t = torch.zeros(shape, device=device)
+        elif name == "m_Alog":
+            t = torch.log(torch.linspace(1.0, 16.0, sds.shape[0],
+                                         device=device)).expand(shape)
+        elif name == "m_D":
+            t = torch.ones(shape, device=device)
+        elif name in ("x_ig", "x_fg"):
+            base = 3.0 if name == "x_fg" else -1.0
+            t = _normal(gen, shape, 0.02, device).add_(base)
         else:
-            fan_in = sds.shape[-2]
-            out[name] = torch.randn(shape, generator=gen, device=device
-                                    ).mul_(fan_in ** -0.5).to(sds.dtype)
+            fan_in = sds.shape[-2] if len(sds.shape) >= 2 else sds.shape[-1]
+            t = _normal(gen, shape, 0.02 if fan_in <= 0 else fan_in ** -0.5,
+                        device)
+        out[name] = t.to(sds.dtype).contiguous()
+    return out
+
+
+def init_shared(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+                device=None) -> Dict[str, torch.Tensor]:
+    """The model-level params: norms ones, the rest N(0, fan_in^-1/2)."""
+    out = {}
+    for name, sds in sorted(shared_param_spec(cfg, dtype).items()):
+        if name.endswith("norm"):
+            out[name] = torch.ones(sds.shape, dtype=sds.dtype, device=device)
+        else:
+            fan_in = sds.shape[-2] if len(sds.shape) >= 2 else sds.shape[-1]
+            out[name] = _normal(gen, sds.shape, fan_in ** -0.5,
+                                device).to(sds.dtype)
     return out
 
 
@@ -206,16 +364,20 @@ def hash_block_mask(x, proj, *, nbuckets: int, block: int,
 # Attention core
 # ---------------------------------------------------------------------------
 def _attn_fwd(x, wq, wk, wv, wo, *, cfg, mode, cache, pos, rope: bool = True,
-              causal: bool = True, block_mask=None, dyncfg=None,
+              causal: bool = True, block_mask=None, bq=None, bv=None,
+              bo=None, kv_override=None, cache_keys=("k", "v"), dyncfg=None,
               kernel_impl: str = "scan", hash_proj=None):
-    """GQA attention with RoPE and an optional cache.  x: [mb, s, d]; pos:
-    [s] absolute positions (train/prefill), or a scalar / [mb] tensor
-    (decode).  Returns (out, cache, density).
+    """GQA attention with optional RoPE, biases (q, v, o), a separate
+    key/value stream (``kv_override``: cross attention) and a cache.
+    x: [mb, s, d]; pos: [s] absolute positions (train/prefill), or a scalar
+    / [mb] tensor (decode).  Returns (out, cache, density).
 
     The port writes caches IN PLACE (the reference returns updated copies):
-    prefill writes the lane lines of ``cache``'s k/v, decode writes one
-    position per lane, into the dense lines or through the page table into
-    the pool.  The returned cache is the same dict."""
+    prefill writes the lane lines of ``cache``'s ``cache_keys`` fields,
+    decode writes one position per lane, into the dense lines or through
+    the page table into the pool.  The returned cache is the same dict.
+    Projections promote mixed dtypes as jnp does (the zamba2 shared block
+    keeps float32 params next to a bf16 stream)."""
     m = _dims(cfg)
     nq, nkv, hd = m["nq"], m["nkv"], m["hd"]
     b, s, _ = x.shape
@@ -232,9 +394,17 @@ def _attn_fwd(x, wq, wk, wv, wo, *, cfg, mode, cache, pos, rope: bool = True,
             x, hash_proj, nbuckets=dyncfg.sparse_nbuckets,
             block=dyncfg.sparse_block, causal=causal)
         kv_block = dyncfg.sparse_block
-    q = (x @ wq).reshape(b, s, nq, hd)
-    k = (x @ wk).reshape(b, s, nkv, hd)
-    v = (x @ wv).reshape(b, s, nkv, hd)
+    q = matmul(x, wq)
+    if bq is not None:
+        q = q + bq
+    q = q.reshape(b, s, nq, hd)
+    xkv = x if kv_override is None else kv_override
+    sk = xkv.shape[1]
+    k = matmul(xkv, wk).reshape(b, sk, nkv, hd)
+    v = matmul(xkv, wv)
+    if bv is not None:
+        v = v + bv
+    v = v.reshape(b, sk, nkv, hd)
 
     if mode == "decode" and cache is not None and "kp" in cache:
         # block-paged cache: one physical pool per slot, per-lane page
@@ -263,7 +433,7 @@ def _attn_fwd(x, wq, wk, wv, wo, *, cfg, mode, cache, pos, rope: bool = True,
         else:
             out = paged_attention_ref(q, kp, vp, pt, clen)
     elif mode == "decode":
-        kc, vc = cache["k"], cache["v"]
+        kc, vc = cache[cache_keys[0]], cache[cache_keys[1]]
         cap = kc.shape[1]
         if pos.dim() == 0:
             # every lane at the same absolute position
@@ -285,23 +455,29 @@ def _attn_fwd(x, wq, wk, wv, wo, *, cfg, mode, cache, pos, rope: bool = True,
         if rope:
             pq = pos[None, :].expand(b, s)
             q = apply_rope(q, pq, cfg.rope_theta)
-            k = apply_rope(k, pq, cfg.rope_theta)
+            k = apply_rope(k, pos[None, :sk].expand(b, sk), cfg.rope_theta)
         out = flash_attention(q, k, v, causal=causal,
                               sliding_window=cfg.sliding_window,
                               block_mask=block_mask, kv_block=kv_block,
                               impl=kernel_impl)
         if mode == "prefill" and cache is not None:
-            kc, vc = cache["k"], cache["v"]
+            kc, vc = cache[cache_keys[0]], cache[cache_keys[1]]
             cap = kc.shape[1]
-            if cap >= s:
-                kc[:, :s] = k.to(kc.dtype)
-                vc[:, :s] = v.to(vc.dtype)
-            else:
+            if cap >= sk:
+                kc[:, :sk] = k.to(kc.dtype)
+                vc[:, :sk] = v.to(vc.dtype)
+            elif cache_keys == ("k", "v"):
                 # ring buffer: keep the last `cap` positions, position q at
                 # slot q % cap, where decode writes it
                 kc.copy_(torch.roll(k[:, -cap:], s % cap, dims=1))
                 vc.copy_(torch.roll(v[:, -cap:], s % cap, dims=1))
+            else:
+                # cross keys: the last `cap` rows, as the reference keeps them
+                kc.copy_(k[:, -cap:])
+                vc.copy_(v[:, -cap:])
     out = matmul(out.reshape(b, out.shape[1], nq * hd), wo)
+    if bo is not None:
+        out = out + bo
     return out, cache, density
 
 
@@ -434,24 +610,214 @@ def _moe_block(p, x, *, cfg, mode, cache, pos, dyn, dyncfg,
     return x, cache, stats, aux_loss
 
 
+def _mamba_block(p, x, *, cfg, mode, cache, pos, dyn, shared=None,
+                 with_shared_attn=False, dyncfg=None, kernel_impl="scan",
+                 hash_proj=None):
+    """Mamba2 block (SSD); HYBRID_ATTN slots follow it with the model's
+    shared attention block (``shared["ga_*"]``, rms-normed, RoPE, causal)
+    over the same cache dict's k/v."""
+    m = _dims(cfg)
+    d_in, nh, st = m["d_in"], m["nh_m"], m["st"]
+    b, s, _ = x.shape
+    hn = rms_norm(x, p["m_norm"], cfg.norm_eps)
+    proj = matmul(hn, p["m_in"])                                # [b,s,...]
+    z, xs, Bm, Cm, dt = torch.split(proj, [d_in, d_in, st, st, nh], dim=-1)
+    dt = F.softplus(dt.float() + p["m_dtb"])
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+    conv_out, conv_state = mamba_lib.causal_conv(
+        conv_in, p["m_convw"], p["m_convb"],
+        state=cache["conv"] if mode == "decode" else None)
+    xs, Bm, Cm = torch.split(conv_out, [d_in, st, st], dim=-1)
+    xh = xs.reshape(b, s, nh, MAMBA_HEAD)
+    if mode == "decode":
+        y, ssm = mamba_lib.ssd_decode_step(
+            xh[:, 0], dt[:, 0], p["m_Alog"], Bm[:, 0], Cm[:, 0], p["m_D"],
+            cache["ssm"])
+        y = y[:, None]
+    else:
+        y, ssm = mamba_lib.ssd_chunked(xh, dt, p["m_Alog"], Bm, Cm, p["m_D"])
+    y = y.reshape(b, s, d_in) * F.silu(z)
+    x = x + matmul(y, p["m_out"])
+    if mode in ("decode", "prefill") and cache is not None:
+        cache["conv"].copy_(conv_state.to(cache["conv"].dtype))
+        cache["ssm"].copy_(ssm)
+    if with_shared_attn:
+        h, cache, _ = _attn_fwd(
+            rms_norm(x, shared["ga_norm"], cfg.norm_eps),
+            shared["ga_wq"], shared["ga_wk"], shared["ga_wv"],
+            shared["ga_wo"], cfg=cfg, mode=mode, cache=cache, pos=pos,
+            dyncfg=dyncfg, kernel_impl=kernel_impl, hash_proj=hash_proj)
+        x = x + h
+    return x, cache, {"ff_active": torch.ones((), device=x.device)}, 0.0
+
+
+def _mlstm_block(p, x, *, cfg, mode, cache, pos, dyn):
+    """mLSTM block: the up-projection (its two halves gated by the pruning
+    mask), per-head q/k/v, exponential input / forget gates, the parallel
+    (s <= 512) or chunked form, a group-normed, z-gated output.  Prefill
+    rebuilds the recurrent state by the one-token recurrence over the
+    prompt (``_mlstm_final_state``)."""
+    m = _dims(cfg)
+    d_in, nh, dh = m["d_in"], m["nh_x"], m["dh_x"]
+    b, s, _ = x.shape
+    hn = rms_norm(x, p["x_norm"], cfg.norm_eps)
+    up = matmul(hn, p["x_up"])
+    u, z = torch.chunk(up, 2, dim=-1)                           # [b,s,d_in]
+    mask = expand_ff_mask(dyn["ff_mask"], 2 * d_in)
+    u = u * mask[:d_in].to(u.dtype)
+    z = z * mask[d_in:].to(z.dtype)
+    uh = u.reshape(b, s, nh, dh)
+    q = torch.einsum("bshd,hde->bshe", uh, p["x_q"].to(uh.dtype))
+    k = torch.einsum("bshd,hde->bshe", uh, p["x_k"].to(uh.dtype))
+    v = torch.einsum("bshd,hde->bshe", uh, p["x_v"].to(uh.dtype))
+    ig = matmul(u, p["x_ig"].to(u.dtype))
+    fg = matmul(u, p["x_fg"].to(u.dtype))
+    if mode == "decode":
+        h, C, n, mm = xlstm_lib.mlstm_decode_step(
+            q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0],
+            cache["xC"], cache["xn"], cache["xm"])
+        h = h[:, None]
+        _put(cache, xC=C, xn=n, xm=mm)
+    else:
+        if s <= 512:
+            h = xlstm_lib.mlstm_parallel(q, k, v, ig, fg)
+        else:
+            h = xlstm_lib.mlstm_chunked(q, k, v, ig, fg)
+        if mode == "prefill" and cache is not None:
+            C, n, mm = _mlstm_final_state(q, k, v, ig, fg)
+            _put(cache, xC=C, xn=n, xm=mm)
+    h = h.reshape(b, s, d_in)
+    h = rms_norm(h, p["x_gnorm"], cfg.norm_eps) * F.silu(z)
+    x = x + matmul(h, p["x_down"])
+    return x, cache, {"ff_active": dyn["ff_mask"].mean()}, 0.0
+
+
+def _mlstm_final_state(q, k, v, ig, fg):
+    """The mLSTM state after the whole prompt, by the one-token recurrence
+    from an empty state (the reference's ``lax.scan``; a host loop over
+    time here)."""
+    b, s, nh, dh = q.shape
+    C = torch.zeros((b, nh, dh, dh), device=q.device)
+    n = torch.zeros((b, nh, dh), device=q.device)
+    mm = torch.full((b, nh), float("-inf"), device=q.device)
+    for t in range(s):
+        _, C, n, mm = xlstm_lib.mlstm_decode_step(
+            q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t], C, n, mm)
+    return C, n, mm
+
+
+def _slstm_block(p, x, *, cfg, mode, cache, pos, dyn):
+    """sLSTM block: the recurrent scan over time (its state in the cache at
+    prefill / decode), then a gated FFN."""
+    b, s, d = x.shape
+    hn = rms_norm(x, p["s_norm"], cfg.norm_eps)
+    gates = matmul(hn, p["s_wx"]).reshape(b, s, 4, d)
+    init = None
+    if mode == "decode":
+        init = (cache["sc"], cache["sn"], cache["sm"], cache["sh"])
+    h, carry = xlstm_lib.slstm_scan(gates, p["s_r"], init=init)
+    if mode in ("decode", "prefill") and cache is not None:
+        _put(cache, sc=carry[0], sn=carry[1], sm=carry[2], sh=carry[3])
+    x = x + matmul(h, p["s_out"])
+    hn = rms_norm(x, p["s_fnorm"], cfg.norm_eps)
+    a, g = torch.chunk(matmul(hn, p["s_up"]), 2, dim=-1)
+    x = x + matmul(F.silu(g) * a, p["s_down"])
+    return x, cache, {"ff_active": torch.ones((), device=x.device)}, 0.0
+
+
+def _put(cache, **fields):
+    """Write recurrent state into the cache's views in place."""
+    for k, v in fields.items():
+        cache[k].copy_(v.to(cache[k].dtype))
+
+
+def _enc_block(p, x, *, cfg, mode, cache, pos, dyn, kernel_impl="scan"):
+    """Whisper encoder block: pre-LN, non-causal biased attention without
+    RoPE over the frames, pre-LN biased GELU MLP."""
+    h, _, _ = _attn_fwd(
+        layer_norm(x, p["e_ln1"], p["e_ln1b"], cfg.norm_eps),
+        p["e_wq"], p["e_wk"], p["e_wv"], p["e_wo"], cfg=cfg, mode="train",
+        cache=None, pos=None, rope=False, causal=False, bq=p["e_bq"],
+        bv=p["e_bv"], bo=p["e_bo"], kernel_impl=kernel_impl)
+    x = x + h
+    hn = layer_norm(x, p["e_ln2"], p["e_ln2b"], cfg.norm_eps)
+    x = x + gelu_mlp(hn, p["e_w1"], p["e_b1"], p["e_w2"], p["e_b2"],
+                     dyn["ff_mask"], impl=kernel_impl)
+    return x, cache, {"ff_active": dyn["ff_mask"].mean()}, 0.0
+
+
+def _dec_block(p, x, *, cfg, mode, cache, pos, dyn, enc_out,
+               kernel_impl="scan"):
+    """Whisper decoder block: causal biased self attention (learned
+    positions were added at the embedding), cross attention over the
+    encoder stream (in decode over the ``ck`` / ``cv`` cached at prefill,
+    at length ``encoder_seq``), and the biased GELU MLP."""
+    h, cache, _ = _attn_fwd(
+        layer_norm(x, p["d_ln1"], p["d_ln1b"], cfg.norm_eps),
+        p["d_wq"], p["d_wk"], p["d_wv"], p["d_wo"], cfg=cfg, mode=mode,
+        cache=cache, pos=pos, rope=False, causal=True, bq=p["d_bq"],
+        bv=p["d_bv"], bo=p["d_bo"], kernel_impl=kernel_impl)
+    x = x + h
+    hn = layer_norm(x, p["d_ln2"], p["d_ln2b"], cfg.norm_eps)
+    if mode == "decode":
+        m = _dims(cfg)
+        q = (matmul(hn, p["c_wq"]) + p["c_bq"]).reshape(
+            hn.shape[0], 1, m["nq"], m["hd"])
+        out = decode_attention(q, cache["ck"], cache["cv"], cfg.encoder_seq)
+        h = matmul(out.reshape(hn.shape[0], 1, m["nq"] * m["hd"]),
+                   p["c_wo"]) + p["c_bo"]
+    else:
+        h, cache, _ = _attn_fwd(
+            hn, p["c_wq"], p["c_wk"], p["c_wv"], p["c_wo"], cfg=cfg,
+            mode=mode, cache=cache, pos=pos, rope=False, causal=False,
+            bq=p["c_bq"], bv=p["c_bv"], bo=p["c_bo"], kv_override=enc_out,
+            cache_keys=("ck", "cv"), kernel_impl=kernel_impl)
+    x = x + h
+    hn = layer_norm(x, p["d_ln3"], p["d_ln3b"], cfg.norm_eps)
+    x = x + gelu_mlp(hn, p["d_w1"], p["d_b1"], p["d_w2"], p["d_b2"],
+                     dyn["ff_mask"], impl=kernel_impl)
+    return x, cache, {"ff_active": dyn["ff_mask"].mean()}, 0.0
+
+
 def apply_block(cfg: ModelConfig, dyncfg, mode: str, p, shared, carry,
                 tag: int, dyn, cache, pos, *, kernel_impl: str = "scan",
                 hash_proj=None):
     """Apply one slot.  ``tag`` is the slot's BLOCK_* type id (a host int);
-    ``carry`` is the pipeline activation dict {"x": [mb, s, d]}.
+    ``carry`` is the pipeline activation dict: {"x": [mb, s, d]} plus, for
+    encoder–decoder archs, {"enc": [mb, enc_seq, d]} — the encoder stream
+    rides the same carry, so encoder blocks can live on any stage.
 
     Returns (carry', new_cache, stats, aux_loss); ``stats`` holds the
-    fields the block sets (the rest of ``stats_spec`` are zeros).  PAD slots
-    are the identity."""
+    fields the block sets (the rest of ``stats_spec`` are zeros).  PAD
+    slots are the identity, and so is an encoder block in decode or on a
+    carry without the encoder stream (the reference's rule)."""
     if tag == BLOCK_PAD:
         return carry, cache, {}, 0.0
-    block = {BLOCK_DENSE: _dense_block, BLOCK_MOE: _moe_block}.get(tag)
-    if block is None:
-        raise NotImplementedError(
-            f"block type {BLOCK_TYPE_NAMES.get(tag, tag)} is not in "
-            f"repro_torch yet (ROADMAP Queue 1 [block-families])")
     x = carry["x"]
-    y, c, st, aux = block(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
-                          dyn=dyn, dyncfg=dyncfg, kernel_impl=kernel_impl,
-                          hash_proj=hash_proj)
+    kw = dict(cfg=cfg, mode=mode, cache=cache, pos=pos, dyn=dyn)
+    if tag == BLOCK_ENC:
+        if mode == "decode" or "enc" not in carry:
+            return carry, cache, {}, 0.0
+        e, c, st, aux = _enc_block(p, carry["enc"], kernel_impl=kernel_impl,
+                                   **kw)
+        return {**carry, "enc": e}, c, st, aux
+    if tag in (BLOCK_DENSE, BLOCK_MOE):
+        block = _dense_block if tag == BLOCK_DENSE else _moe_block
+        y, c, st, aux = block(p, x, dyncfg=dyncfg, kernel_impl=kernel_impl,
+                              hash_proj=hash_proj, **kw)
+    elif tag in (BLOCK_MAMBA, BLOCK_HYBRID_ATTN):
+        y, c, st, aux = _mamba_block(
+            p, x, shared=shared, with_shared_attn=tag == BLOCK_HYBRID_ATTN,
+            dyncfg=dyncfg, kernel_impl=kernel_impl, hash_proj=hash_proj,
+            **kw)
+    elif tag == BLOCK_MLSTM:
+        y, c, st, aux = _mlstm_block(p, x, **kw)
+    elif tag == BLOCK_SLSTM:
+        y, c, st, aux = _slstm_block(p, x, **kw)
+    elif tag == BLOCK_DEC:
+        y, c, st, aux = _dec_block(p, x, enc_out=carry.get("enc"),
+                                   kernel_impl=kernel_impl, **kw)
+    else:
+        raise ValueError(f"unknown block type {BLOCK_TYPE_NAMES.get(tag, tag)}")
+    # shared params are float32: keep the carry in its configured dtype
     return {**carry, "x": y.to(x.dtype)}, c, st, aux

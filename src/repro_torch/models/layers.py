@@ -89,6 +89,48 @@ def swiglu(x, wi, wg, wo, ff_mask=None, *, impl: str = "scan"):
     return h @ wo
 
 
+def gelu_mlp(x, w1, b1, w2, b2, ff_mask=None, *, impl: str = "scan"):
+    """Biased GELU MLP (the whisper encoder / decoder FFN) with
+    block-structured pruning; GELU is the tanh approximation, as
+    ``jax.nn.gelu`` defaults.
+
+    The same dispatch as ``swiglu``: the dense impls take a block-level or
+    expanded ``ff_mask``; ``impl="pallas"`` needs the block-level mask and
+    runs both matmuls through the block-pruned product (K3): mask over "n"
+    for the up-projection, then the bias, GELU and the re-zeroed mask, and
+    mask over "k" for the down-projection, then its bias.  Single-token
+    calls (decode) stay dense, as in the reference."""
+    assert impl in KERNEL_IMPLS, impl
+    d_ff = w1.shape[1]
+    if impl == "pallas" and x.shape[-2] > 1:
+        bmask = (torch.ones(1, device=x.device) if ff_mask is None
+                 else ff_mask)
+        nb = bmask.shape[0]
+        if not (nb < d_ff and d_ff % nb == 0):
+            raise ValueError(("pallas gelu_mlp needs a block-level ff_mask",
+                              tuple(bmask.shape), d_ff))
+        bf = d_ff // nb
+        h = pm_ops.pruned_matmul(x, w1, bmask, mask_axis="n", bn=bf) + b1
+        h = F.gelu(h, approximate="tanh") * bmask.repeat_interleave(bf).to(
+            x.dtype)
+        return pm_ops.pruned_matmul(h.to(x.dtype), w2, bmask, mask_axis="k",
+                                    bk=bf) + b2
+    h = F.gelu(matmul(x, w1) + b1, approximate="tanh")
+    if ff_mask is not None:
+        h = h * expand_ff_mask(ff_mask, d_ff).to(x.dtype)
+    return matmul(h, w2) + b2
+
+
+def layer_norm(x, scale, bias, eps: float):
+    """LayerNorm in float32 with a scale and a bias, returned in x's dtype
+    (``repro.models.blocks._layer_norm``)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale.float()
+            + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------

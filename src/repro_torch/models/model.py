@@ -1,5 +1,5 @@
-"""Whole-model assembly on top of the slot-block layer — the serving and
-training subset of ``repro.models.model``.
+"""Whole-model assembly on top of the slot-block layer — the port of
+``repro.models.model``.
 
 Parameters (same keys and stacked layout as the reference)
   params = {
@@ -7,7 +7,7 @@ Parameters (same keys and stacked layout as the reference)
     "head":   [d, V]            (absent when tied),
     "final_norm": [d],
     "stages": {field: [S, L_max, ...]},     # stacked slot params
-    "shared": {},
+    "shared": {...},                        # zamba2 shared attn, whisper pos
   }
 
 Assignment — host tensors (it steers host control flow: which slot runs)
@@ -95,8 +95,8 @@ def param_dtype(dcfg: DistConfig) -> torch.dtype:
 
 
 def param_spec(cfg: ModelConfig, dcfg: DistConfig) -> Dict[str, Any]:
-    """Stage params in the configured dtype; embed / head / final_norm in
-    float32, as in the reference."""
+    """Stage params in the configured dtype; embed / head / final_norm and
+    the shared params in float32, as in the reference."""
     dt = param_dtype(dcfg)
     S, L_max = dcfg.num_stages, dcfg.slots_for(cfg)
     stages = {k: B.TensorSpec((S, L_max) + v.shape, v.dtype)
@@ -105,7 +105,7 @@ def param_spec(cfg: ModelConfig, dcfg: DistConfig) -> Dict[str, Any]:
         "embed": B.TensorSpec((cfg.vocab_size, cfg.d_model), torch.float32),
         "final_norm": B.TensorSpec((cfg.d_model,), torch.float32),
         "stages": stages,
-        "shared": {},
+        "shared": B.shared_param_spec(cfg, torch.float32),
     }
     if not cfg.tie_embeddings:
         spec["head"] = B.TensorSpec((cfg.d_model, cfg.vocab_size),
@@ -125,11 +125,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dcfg: DistConfig,
         "final_norm": torch.ones((d,), device=device),
         "stages": B.init_slot(gen, cfg, param_dtype(dcfg), lead=(S, L_max),
                               device=device),
-        "shared": {},
     }
     if not cfg.tie_embeddings:
         params["head"] = (torch.randn((d, V), generator=gen, device=device)
                           * d ** -0.5)
+    params["shared"] = B.init_shared(gen, cfg, torch.float32, device)
     return params
 
 
@@ -194,9 +194,47 @@ def init_paged_cache(cfg: ModelConfig, dcfg: DistConfig, pool_pages: int,
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
-def embed(params, cfg: ModelConfig, tokens) -> Dict[str, torch.Tensor]:
-    """tokens: [b, s] int -> carry dict {"x": [b, s, d]}."""
-    return {"x": params["embed"][tokens.long()]}
+def embed(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
+          pos_offset=0) -> Dict[str, torch.Tensor]:
+    """tokens: [b, s] int -> carry dict {"x": [b, s, d]}.
+
+    ``prefix_emb``: [b, p, d] precomputed modality embeddings — VLM patches,
+    prepended to the token stream, or whisper's audio frames, which become
+    the encoder stream ``carry["enc"]`` (plus a sinusoid).  Encoder–decoder
+    archs add the decoder's learned positions ``dec_pos`` from
+    ``pos_offset`` (an int, or a 0-d tensor: one position)."""
+    x = params["embed"][tokens.long()]
+    if cfg.is_encdec:
+        s = tokens.shape[1]
+        dec_pos = params["shared"]["dec_pos"]
+        if isinstance(pos_offset, int):
+            pos = dec_pos[pos_offset:pos_offset + s]
+        else:
+            pos = dec_pos[pos_offset.reshape(1).long()]
+        x = x + pos[None].to(x.dtype)
+        carry = {"x": x}
+        if prefix_emb is not None:
+            carry["enc"] = prefix_emb + _sinusoidal(
+                prefix_emb.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        return carry
+    if cfg.family == "vlm" and prefix_emb is not None:
+        x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
+    return {"x": x}
+
+
+def _sinusoidal(length: int, channels: int, device=None):
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(channels // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    inv = torch.exp(-torch.log(torch.tensor(10000.0)) * dim
+                    / (channels // 2))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def prefix_len(cfg: ModelConfig) -> int:
+    """Positions the VLM patch prefix adds in front of the tokens."""
+    return cfg.num_patches if cfg.family == "vlm" else 0
 
 
 def lm_logits(params, cfg: ModelConfig, h):
@@ -333,14 +371,20 @@ def head_weight(params):
 
 def reference_loss(cfg: ModelConfig, dcfg: DistConfig,
                    dyncfg: DynamicsConfig, params, assignment, dyn, tokens,
-                   labels, label_mask=None, *, hash_proj=None):
+                   labels, label_mask=None, prefix_emb=None, *,
+                   hash_proj=None):
     """Apply all blocks in global order, unpipelined — the oracle the
     pipelined loss is held against; same math (MoE aux weighting added
-    identically)."""
+    identically).  ``prefix_emb``: the VLM patches or whisper's frames, as
+    ``embed`` takes them; the loss reads the positions after the VLM
+    prefix."""
     check_ported(cfg, dyncfg)
     tags = assignment["tags"].tolist()
-    carry = embed(params, cfg, tokens)
-    carry["x"] = carry["x"].to(param_dtype(dcfg))
+    dt = param_dtype(dcfg)
+    carry = embed(params, cfg, tokens, prefix_emb=prefix_emb)
+    carry["x"] = carry["x"].to(dt)
+    if "enc" in carry:
+        carry["enc"] = carry["enc"].to(dt)
     if dyncfg.uses_early_exit:
         carry["exited"] = torch.zeros(carry["x"].shape[:2],
                                       device=carry["x"].device)
@@ -355,7 +399,7 @@ def reference_loss(cfg: ModelConfig, dcfg: DistConfig,
             dyn_stage, carry, None, pos, depth, hash_proj=hash_proj)
         aux_total = aux_total + aux
         depth += sum(1 for t in row if t != BLOCK_PAD)
-    h = carry["x"]
+    h = carry["x"][:, prefix_len(cfg):]
     if label_mask is None:
         label_mask = torch.ones(labels.shape, device=h.device)
     hn = rms_norm(h, params["final_norm"], cfg.norm_eps).float()

@@ -1,4 +1,4 @@
-"""GPipe schedule on one device — the serving and training subset of
+"""GPipe schedule on one device — the port of
 ``repro.pipeline.pipeline``.
 
 The reference runs S stages as a ``shard_map`` over the ``model`` mesh axis
@@ -39,6 +39,21 @@ class PipelineShapes:
     mb_global: int          # per-microbatch batch (lanes)
     seq: int                # token positions fed to the decoder stream
     cache_len: int = 0      # decode cache capacity
+    prefix: int = 0         # VLM patch prefix length (prepended)
+    enc_seq: int = 0        # whisper encoder frames
+
+    @property
+    def seq_total(self) -> int:
+        return self.seq + self.prefix
+
+    @classmethod
+    def for_model(cls, cfg: ModelConfig, num_micro: int, mb_global: int,
+                  seq: int, cache_len: int = 0) -> "PipelineShapes":
+        """Shapes with the arch's modality prefix and encoder length, as
+        the reference's ``plan_shapes`` derives them."""
+        return cls(num_micro, mb_global, seq, cache_len,
+                   prefix=M.prefix_len(cfg),
+                   enc_seq=cfg.encoder_seq if cfg.is_encdec else 0)
 
 
 def _stage_slice(tree, s: int):
@@ -86,7 +101,11 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
     at the chosen id.  0 keeps the argmax.
 
     ``stage_timer`` (an ``obs.timing.StageTimer``) stamps each stage's
-    call, as the loss does."""
+    call, as the loss does.
+
+    Encoder–decoder archs decode at a scalar position only: their
+    embedding adds ``dec_pos[pos]``, and per-lane positions raise as the
+    reference does."""
     M.check_ported(cfg, dyncfg)
     S = dcfg.num_stages
     dt = M.param_dtype(dcfg)
@@ -98,6 +117,11 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
     def decode_fn(params, assignment, dyn, cache, tokens, pos,
                   page_table=None, seeds=None):
         per_lane = pos.dim() == 2
+        if per_lane and cfg.is_encdec:
+            raise ValueError(
+                "per-lane decode positions need a per-lane dec_pos gather; "
+                "encoder-decoder serving uses the scalar-pos path (the "
+                "reference lacks per-lane encoder-decoder decode)")
         if paged and (not per_lane or page_table is None):
             raise ValueError("paged decode requires per-lane positions and "
                              "a page table")
@@ -115,8 +139,10 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m_live, S):
             if idx == 0:
-                x = params["embed"].float()[tokens[mi].long()]
-                carry = {"x": x[:, None, :].to(dt)}
+                # encoder-decoder archs add dec_pos at the (scalar) position
+                x = M.embed(params, cfg, tokens[mi][:, None],
+                            pos_offset=pos.clamp(0, cfg.max_seq_len - 1))
+                carry = {"x": x["x"].to(dt)}
             else:
                 carry = buf.pop(idx)
             L_m = len(tags[idx])
@@ -168,8 +194,9 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
     -> (last_ids [m, B] i32, cache, moe_drop_sum f32 as in decode).
     ``stage_timer`` stamps each stage's call, as in decode.
 
-    batch = {"tokens": [m, B, seq] int}; cache: the dense {k, v:
-    [S, L_max, m, B, cap, kv, hd]}, whose lane lines are written in place
+    batch = {"tokens": [m, B, seq] int, optional "prefix_emb" [m, B, P, d]
+    (VLM) / "frames" [m, B, enc_seq, d] (whisper)}; cache: the dense
+    {field: [S, L_max, m, B, ...]}, whose lane lines are written in place
     and returned."""
     M.check_ported(cfg, dyncfg)
     S = dcfg.num_stages
@@ -180,14 +207,15 @@ def build_prefill_fn(cfg: ModelConfig, dcfg: DistConfig,
         device = tokens.device
         m = shapes.num_micro
         tags = assignment["tags"].tolist()
-        pos = torch.arange(shapes.seq, device=device)
+        pos = torch.arange(shapes.seq_total, device=device)
         ids_out = torch.zeros((m, shapes.mb_global), dtype=torch.int32,
                               device=device)
         drop = torch.zeros((), device=device)
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m, S):
             if idx == 0:
-                carry = _ingest(params, cfg, dyncfg, tokens[mi], dt)
+                carry = _ingest(params, cfg, dyncfg, tokens[mi], dt,
+                                _prefix(batch, mi))
             else:
                 carry = buf.pop(idx)
             cache_mb = {k: v[idx][:, mi] for k, v in cache.items()}
@@ -225,7 +253,10 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
     """Returns loss_fn(params, assignment, dyn, batch) -> (loss, stats).
 
     batch = {"tokens", "labels": [m, B, seq] int, "label_mask": [m, B, seq]
-    f32}.  loss = sum(nll) / sum(mask) + AUX_LOSS_COEF * aux; stats: the
+    f32, optional "prefix_emb" [m, B, P, d] (VLM patches, prepended: the
+    loss reads the positions after them) / "frames" [m, B, enc_seq, d]
+    (whisper's encoder stream, which rides the carry as ``enc``)}.
+    loss = sum(nll) / sum(mask) + AUX_LOSS_COEF * aux; stats: the
     per-slot profiler aggregates {field: [S, L_max, ...]} summed over the
     valid ticks (detached).  ``stage_timer`` (an ``obs.timing.StageTimer``)
     is stamped around each stage's forward call (in-step stage timing; the
@@ -240,7 +271,7 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
         m = shapes.num_micro
         tags = assignment["tags"].tolist()
         depth_base = assignment["depth_base"].tolist()
-        pos = torch.arange(shapes.seq, device=device)
+        pos = torch.arange(shapes.seq_total, device=device)
         per_stage = [None] * S
         aux_acc = 0.0
         h_seq = [None] * m
@@ -248,7 +279,8 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
         buf: Dict[int, dict] = {}
         for t, idx, mi in _ticks(m, S):
             if idx == 0:
-                carry = _ingest(params, cfg, dyncfg, tokens[mi], dt)
+                carry = _ingest(params, cfg, dyncfg, tokens[mi], dt,
+                                _prefix(batch, mi))
             else:
                 carry = buf.pop(idx)
 
@@ -274,7 +306,7 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
                                for k, v in stats.items()})
             aux_acc = aux_acc + aux
             if idx == S - 1:
-                h_seq[mi] = carry["x"]
+                h_seq[mi] = carry["x"][:, shapes.prefix:]
                 if "exited" in carry:
                     exited.append(carry["exited"].detach().mean())
             else:
@@ -301,14 +333,31 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
     return loss_fn
 
 
-def _ingest(params, cfg: ModelConfig, dyncfg: DynamicsConfig, tokens, dt):
-    """Stage 0's fresh carry for one microbatch: the embedding and, under
-    early exit, the ``exited`` [b, seq] marks (zeros) that ride the
-    stage-to-stage hand-off with it."""
-    carry = M.embed(params, cfg, tokens)
+def _prefix(batch, mi: int):
+    """One microbatch's modality input (VLM patches or whisper frames), or
+    None; the frames win when a batch holds both, as in the reference."""
+    for key in ("frames", "prefix_emb"):
+        if key in batch:
+            return batch[key][mi]
+    return None
+
+
+def _ingest(params, cfg: ModelConfig, dyncfg: DynamicsConfig, tokens, dt,
+            prefix=None):
+    """Stage 0's fresh carry for one microbatch: the embedding (with the
+    modality ``prefix`` cast to the stage dtype), the encoder stream for
+    encoder–decoder archs, and, under early exit, the ``exited`` [b,
+    seq_total] marks (zeros) that ride the stage-to-stage hand-off with
+    it."""
+    if prefix is not None:
+        prefix = prefix.to(dt)
+    carry = M.embed(params, cfg, tokens, prefix_emb=prefix)
     carry["x"] = carry["x"].to(dt)
+    if "enc" in carry:
+        carry["enc"] = carry["enc"].to(dt)
     if dyncfg.uses_early_exit:
-        carry["exited"] = torch.zeros(tokens.shape, device=tokens.device)
+        carry["exited"] = torch.zeros(carry["x"].shape[:2],
+                                      device=tokens.device)
     return carry
 
 

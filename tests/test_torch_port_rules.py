@@ -273,6 +273,44 @@ def test_cpu_moe_train_and_serve_import_no_jax_and_no_reference():
     assert "CLEAN" in out.stdout
 
 
+FAMILY_MODULES = ("repro_torch.models.mamba", "repro_torch.models.xlstm",
+                  "repro_torch.configs.whisper_large_v3",
+                  "repro_torch.configs.zamba2_1p2b",
+                  "repro_torch.configs.xlstm_1p3b",
+                  "repro_torch.configs.internvl2_26b")
+FAMILY_COMMON = ["--layers", "4", "--d-model", "64", "--d-ff", "256",
+                 "--vocab-size", "256", "--stages", "2", "--kernel-impl",
+                 "pallas", "--device", "cpu"]
+
+
+def test_cpu_family_train_and_serve_import_no_jax_and_no_reference():
+    """A CPU train and serve of whisper (the one-shot serve: scalar
+    positions), zamba2 and xLSTM (the elastic server) load the families'
+    modules and nothing of jax or the reference."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.serve import run as serve\n"
+        "from repro_torch.launch.train import run as train\n"
+        "for arch in ('whisper-large-v3', 'zamba2-1.2b', 'xlstm-1.3b'):\n"
+        f"    rep = train(['--arch', arch] + {FAMILY_COMMON!r} + ['--seq',"
+        " '16', '--num-micro', '2', '--mb-global', '2', '--steps', '2'])\n"
+        "    assert len(rep['losses']) == 2, rep['losses']\n"
+        "    flags = [] if arch.startswith('whisper') else ['--elastic',"
+        " '--requests', '4']\n"
+        f"    srv = serve(['--arch', arch, '--prompt-len', '8', '--gen',"
+        f" '4'] + flags + {FAMILY_COMMON!r})\n"
+        f"{BAD_CHECK.replace(chr(10), '')}\n"
+        "assert not bad, bad\n"
+        f"missing = [m for m in {FAMILY_MODULES!r} if m not in"
+        " sys.modules]\n"
+        "assert not missing, missing\n"
+        "print('CLEAN')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN" in out.stdout
+
+
 def test_no_jax_or_reference_imports_in_the_port():
     scripts = sorted((REPO / "scripts").glob("torch_*.py"))
     assert {f.name for f in scripts} >= {"torch_check_trace.py",
@@ -284,7 +322,7 @@ def test_no_jax_or_reference_imports_in_the_port():
     names = {str(f.relative_to(SRC)) for f in files if SRC in f.parents}
     for mod in (MOE_MODULES + ELASTIC_MODULES + CKPT_MODULES
                 + CLUSTER_MODULES + FAULT_MODULES + API_MODULES
-                + ("repro_torch.runtime.compression",)):
+                + FAMILY_MODULES + ("repro_torch.runtime.compression",)):
         if mod == "repro_torch.faults":
             mod = "repro_torch.faults.__init__"
         assert mod.replace(".", "/") + ".py" in names, mod
@@ -351,21 +389,39 @@ def test_features_outside_the_slice_raise(extra):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--chaos"], None),
-    (["--chaos", "--autoscale"], None),
+    (["--chaos"], "chaos"),
+    (["--chaos", "--autoscale"], "chaos"),
     (["--arch", "mixtral-8x7b", "--dynamism", "pruning"], "moe"),
 ])
 def test_train_features_outside_the_slice_raise(extra, what):
-    """Pruning an MoE arch still raises; ``--chaos`` now runs (an empty
-    plan without ``faults.*`` fields or ``--faults.auto``)."""
+    """Features once outside the port now run: ``--chaos`` (an empty plan
+    without ``faults.*`` fields or ``--faults.auto``) and pruning an MoE
+    arch (``[moe-rest]``: the experts' block magnitudes)."""
     from repro_torch.launch.train import run
-    if what is None:
-        rep = run(TRAIN_ARGS + ["--device", "cpu"] + extra)
-        assert len(rep["losses"]) == 2
+    rep = run(TRAIN_ARGS + ["--device", "cpu"] + extra)
+    assert len(rep["losses"]) == 2
+    if what == "chaos":
         assert rep["fault_plan"]["events"] == [] and rep["faults"] == []
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        run(TRAIN_ARGS + ["--device", "cpu"] + extra)
+    else:
+        assert all(np.isfinite(rep["losses"]))
+        assert rep["dyn"]["ff_mask"].shape[-1] == 2
+
+
+def test_per_lane_encoder_decoder_serving_raises_as_the_reference():
+    """The elastic server decodes at per-lane positions, which the
+    reference refuses for encoder–decoder archs (no per-lane ``dec_pos``
+    gather); the port raises the reference's words as a ``ValueError``
+    that says the reference lacks it.  The one-shot serve (scalar
+    positions) runs."""
+    from repro_torch.launch.serve import run
+    argv = ["--arch", "whisper-large-v3", "--stages", "2", "--layers", "4",
+            "--d-model", "64", "--d-ff", "256", "--vocab-size", "256",
+            "--prompt-len", "8", "--gen", "8", "--kernel-impl", "pallas",
+            "--device", "cpu"]
+    with pytest.raises(ValueError, match="reference lacks per-lane"):
+        run(["--elastic", "--requests", "4"] + argv)
+    rep = run(argv)
+    assert rep["tokens"].shape[-1] == 8
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -746,9 +802,10 @@ def test_roadmap_tags_in_the_port_are_current_items():
     ``NotImplementedError`` message, a flag table or a docstring — is an
     item of ROADMAP.md's Queue 1, so a user who follows it finds it."""
     items = _roadmap_items()
-    assert {"moe-rest", "block-families", "multi-card"} <= items, items
+    assert {"multi-card", "tpu-mesh"} <= items, items
     assert not {"checkpoint", "control-timing", "sim-data", "cluster",
-                "serve-sampling", "api", "faults-obs"} & items, items
+                "serve-sampling", "api", "faults-obs", "moe-rest",
+                "block-families"} & items, items
     stale, seen, named = [], 0, set()
     for path, line, text in _port_strings():
         if "ROADMAP" not in text:
@@ -760,9 +817,10 @@ def test_roadmap_tags_in_the_port_are_current_items():
             if tag not in items:
                 stale.append(f"{path}:{line} [{tag}]")
     # the scanner finds every refusal's item (the retired [faults-obs]
-    # mentions took the count from 21 to 10)
-    assert seen >= 10
-    assert {"moe-rest", "block-families", "multi-card"} <= named, named
+    # mentions took the count from 21 to 10, [moe-rest] and
+    # [block-families] from 10 to 3)
+    assert seen >= 3
+    assert {"multi-card"} <= named, named
     assert not stale, stale
 
 
