@@ -158,8 +158,10 @@ final line:
                around each stage's forward) on a [26, 2, 2, 2] split over
                4 buffers, 4 steps: the in-step times and the isolated probe
                must both rank stage 0 slowest, strictly above each 2-layer
-               stage; (ii) the training CLI on 2 buffers, 8 steps,
-               --straggler 1:2.0 --rebalance-every 4 --in-step-timing
+               stage; (ii) the training CLI on 2 buffers, 8 steps, smollm
+               at its widths cut to 8 layers (``CUT_LAYERS``; a 4x
+               straggler, as at 8 layers a 2x one moves nothing),
+               --straggler 1:4.0 --rebalance-every 4 --in-step-timing
                --measure-stage-times, inline and with --async-controller
                --async-drain (bitwise equal where their decisions agree:
                measured times differ from run to run), and the same flags
@@ -171,8 +173,8 @@ final line:
                cadence beside the cost model's per-stage loads, step ms at
                the cadence steps and after them in each mode, the training
                thread's decide seconds; (ii), (iii) and the untimed run
-               launch K1-K3 at the 4c counts a step, all on the tensor
-               cores;
+               launch K1-K3 at a quarter of the 4c counts a step, all on
+               the tensor cores;
   4m. sampling serve — phase 4's serve at temperature 0.8 (a Philox
                sampler per lane, Gumbel-max): counted and timed; two more
                runs with every draw recorded must give bitwise-equal ids and
@@ -324,7 +326,30 @@ final line:
                tensor cores; cut to 8 layers, fp32, a text-only paged serve
                of 4 requests through K1, K3 and K6 at hd 128, every K6
                launch split;
-  7. the kernels line (JSON: per kernel its launches on the main paths
+  7a. ranks — full-width, full-depth smollm-360m trained as 4 processes
+               (``--procs 4 --stages 4``, data 1), one stage each, all on
+               the one card: gloo through pinned host copies (NCCL refuses
+               two ranks on one device), 12 steps of phase 4c's schedule
+               (cadences after steps 4 and 9 under a 2x straggler on
+               worker 1, the prune at step 10); each rank's launches of
+               K1-K3 (all on the tensor cores), peak memory_allocated, rows
+               sent and received by the migrations, its time in staging
+               copies, sends and receives; their sum must be 4c's count a
+               step times the steps; the hand-off's own ms (two ranks pass
+               a 7.9 MB carry back and forth, both waiting); step ms beside
+               the card's name and power limit (four processes time-slice
+               one card: no speed-up is claimed);
+  7b.        smollm-360m at its published widths cut to 8 layers, 3 steps
+               with a migration after step 1 (a 4x straggler), as 4 ranks
+               and as one process with 4 stage buffers: losses, final
+               params, Adam moments and dyn state bitwise (a difference is
+               named and held to rtol 1e-6);
+  7c.        the one-shot serve of full-width smollm-360m (8 prompts of
+               1024 tokens, 16 generated) as 4 ranks, each holding its
+               stage's rows and KV cache: tokens identical to the one
+               process's, K1 and K3 summed over the ranks equal to its
+               counts;
+  8. the kernels line (JSON: per kernel its launches on the main paths
      and, as launches_tc, how many of them took a tensor-core variant; K6's
      ms is its cold graph-replay time at the main shape, its library_ms
      SDPA's graph-replay time, and "timing" holds both shapes' cold, warm
@@ -334,9 +359,11 @@ final line:
      launches_autoscale_serve, launches_tenants and launches_api are
      phases 4m-4q's, launches_chaos_train and launches_chaos_serve 4r's,
      launches_whisper, launches_zamba2, launches_xlstm and
-     launches_internvl2 6a-6d's; family_cases holds 3f's cases of the
-     kernel; before it, [phase_seconds]: the wall seconds of every phase
-     (6a-6d run after 4r, before 5).
+     launches_internvl2 6a-6d's, launches_train_across and
+     launches_serve_across 7a's and 7c's (summed over the ranks);
+     family_cases holds 3f's cases of the kernel; before it,
+     [phase_seconds]: the wall seconds of every phase (6a-6d and 7a-7c
+     run after 4r, before 5).
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -2691,12 +2718,15 @@ CTL_STEPS = 8
 
 
 def ctl_train_args(steps: int = CTL_STEPS):
-    """Phase 4l's flags: full-width smollm-360m on 2 stage buffers, 8192
-    tokens a step, a cadence every 4 steps under a 2x straggler on worker
-    1; the phase adds the timing and controller flags."""
-    return FULL_SIZE + ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
+    """Phase 4l's flags: smollm-360m at its published widths cut to 8
+    layers (``CUT_LAYERS``: at 32 its six runs took ~45 s) on 2 stage
+    buffers, 8192 tokens a step, a cadence every 4 steps under a 4x
+    straggler on worker 1 (at 8 layers a 2x one moves no layer); the phase
+    adds the timing and controller flags."""
+    return FULL_SIZE + ["--arch", cut_arch("smollm-360m", CUT_LAYERS),
+                        "--stages", "2", "--num-micro", "4", "--mb-global", "2",
             "--seq", "1024", "--steps", str(steps), "--rebalance-every", "4",
-            "--straggler", "1:2.0", "--dynamism", "pruning", "--kernel-impl",
+            "--straggler", "1:4.0", "--dynamism", "pruning", "--kernel-impl",
             "pallas", "--param-dtype", "float32", "--seed", "0",
             "--log-every", "4"]
 
@@ -2901,7 +2931,8 @@ def run_ctl_phase(torch, kernels):
     and the untimed inline run beside the timed one is the events'
     overhead; the probe alone gives its times at each cadence.
     Returns the launch counts of (ii), (iii) and the untimed runs (40
-    steps, exactly the 4c counts a step) plus (i) and the probe run."""
+    steps, exactly a quarter of the 4c counts a step at 8 layers) plus (i)
+    and the probe run."""
     import numpy as np
     from repro_torch.configs import DistConfig, get_config
     from repro_torch.data.loader import DataConfig, make_loader
@@ -3004,7 +3035,7 @@ def run_ctl_phase(torch, kernels):
         raise AssertionError(f"inline: source {a['source']}")
     if runs["async"]["controller"]["decided"] < 1:
         raise AssertionError("async without drain decided nothing")
-    check_launches("ctl train", launched, TRAIN_LAUNCHES_PER_STEP,
+    check_launches("ctl train", launched, CUT_LAUNCHES_PER_STEP,
                    CTL_STEPS * len(runs))
     check_tensor_core("ctl train", launched, launched_tc, FP32_TC_PATH)
     cad = [s for s in range(CTL_STEPS) if (s + 1) % 4 == 0]
@@ -3027,7 +3058,7 @@ def run_ctl_phase(torch, kernels):
         launches=json.dumps(probe_launches).replace(" ", ""))
     if rep["stage_time_source"] != "probe":
         raise AssertionError(f"probe run source {rep['stage_time_source']}")
-    for name, n in TRAIN_LAUNCHES_PER_STEP.items():
+    for name, n in CUT_LAUNCHES_PER_STEP.items():
         if probe_launches[name] < n * CTL_STEPS:
             raise AssertionError(f"probe run: {name} {probe_launches[name]}")
     check_tensor_core("ctl probe", probe_launches, probe_tc, FP32_TC_PATH)
@@ -5316,6 +5347,269 @@ def run_internvl2_phase(torch, kernels):
             {k: launched_tc[k] + served_tc[k] for k in launched_tc})
 
 
+# ---------------------------------------------------------------------------
+# phases 7a-7c: one process per pipeline stage (``launch.dist``): the
+# ranks share the one card, so their carries and collectives go through
+# host copies over gloo; these phases show correctness and the hand-off's
+# cost, not a speed-up (four processes time-slice one card)
+# ---------------------------------------------------------------------------
+ACROSS_PROCS = 4
+# phase 7a's steps: the cadences after steps 4 and 9 (a 2x straggler on
+# worker 1 moves layers), the prune at step 10
+ACROSS_STEPS = 12
+# phase 7b's steps and flags: a cadence every 2 steps under a 4x straggler
+# on worker 1 migrates rows across ranks after step 1 (a straggler of 4 —
+# not 3 — keeps the decision off a tie the wall clock's last bits could
+# break either way; step 2 runs on the moved rows)
+ACROSS_PARITY_STEPS = 3
+ACROSS_PATH = ("block_sparse_attention", "block_sparse_attention_bwd_dq",
+               "block_sparse_attention_bwd_dkv", "pruned_matmul")
+
+
+def across_train_args(steps: int = ACROSS_STEPS, layers: int = None,
+                      every: int = 5, straggler: str = "1:2.0"):
+    """Phase 7a's flags: phase 4c's run (full-width smollm-360m, 8192
+    tokens a step, the prune at step 10, a rebalance cadence every 5 steps
+    under a 2x straggler on worker 1) on 4 stages, as 4 ranks.  ``layers``
+    cuts it in depth at its published widths (phase 7b)."""
+    arch = [] if layers is None else ["--arch", cut_arch("smollm-360m",
+                                                         layers)]
+    return FULL_SIZE + arch + [
+        "--stages", "4", "--num-micro", "4", "--mb-global", "2", "--seq",
+        "1024", "--steps", str(steps), "--rebalance-every", str(every),
+        "--straggler", straggler, "--balancer", "diffusion", "--dynamism",
+        "pruning", "--kernel-impl", "pallas", "--param-dtype", "float32",
+        "--seed", "0", "--log-every", "5"]
+
+
+def summed_launches(ranks, key: str = "launches") -> dict:
+    """{kernel: launches summed over the ranks} (``key``: launches, tc,
+    bwd or split)."""
+    names = ranks[0]["launches"]
+    return {n: sum(r["launches"][n][key] for r in ranks) for n in names}
+
+
+def say_ranks(label: str, ranks, smi: str) -> None:
+    """One line per rank: its launches of K1-K3 (and how many took the
+    tensor cores), its peak memory_allocated, the rows it sent and received
+    in migrations and its hand-offs, beside the card's name and limit."""
+    for r in ranks:
+        c = r["comm"]
+        own = {n: r["launches"][n]["launches"] for n in ACROSS_PATH}
+        own_tc = {n: r["launches"][n]["tc"] for n in ACROSS_PATH}
+        peak = r["peak_allocated"]
+        # send_s and recv_wait_s include waiting for the peer (a blocking
+        # send returns once the receiver has taken it); staging_copy_s
+        # includes the wait for the stream's queued work before a copy
+        say(label, rank=r["rank"], stage=r["stage"], replica=r["replica"],
+            backend=r["backend"], device=r["device"],
+            launches=json.dumps(own).replace(" ", ""),
+            launches_tc=json.dumps(own_tc).replace(" ", ""),
+            peak_mem_gb=("none" if peak is None else f"{peak / 1e9:.3f}"),
+            rows_sent=c["rows_sent"], rows_recv=c["rows_recv"],
+            handoffs=c["handoffs"], staging_copy_s=f"{c['copy_s']:.3f}",
+            send_s=f"{c['send_s']:.3f}",
+            recv_wait_s=f"{c['recv_wait_s']:.3f}", card=repr(smi))
+
+
+def rank_phase7(mesh, train, parity, serve, archs):
+    """Phases 7a-7c in one set of 4 ranks (launched by ``launch.dist``; the
+    ranks import this module, which imports no jax): the 7a training, the
+    hand-off probe (ranks 0 and 1), the 7c one-shot serve and the 7b
+    parity training, each with the counters and transfer stats zeroed
+    just before it and read just after.  One launch pays the processes'
+    start and the card's first-call costs once.  Returns each part's
+    result, the rank's."""
+    from repro_torch import kernels
+    from repro_torch.api.session import rank_train
+    from repro_torch.launch.dist import ensure_arch, handoff_probe
+    from repro_torch.launch.serve import rank_serve
+    for cfg in archs:
+        ensure_arch(cfg)
+    out = {}
+    for part, fn in (("7a", lambda: rank_train(mesh, train)),
+                     ("probe", lambda: handoff_probe(mesh)),
+                     ("7c", lambda: rank_serve(mesh, **serve)),
+                     ("7b", lambda: rank_train(mesh, parity, gather=True))):
+        for k in kernels.KERNELS:
+            k.reset()
+        mesh.comm.stats = dict.fromkeys(mesh.comm.stats, 0)
+        out[part] = fn()
+    return out
+
+
+ACROSS_SERVE = dict(arch="smollm-360m", stages=4, micro=2, mb_global=4,
+                    prompt_len=1024, gen=16, layers=None,
+                    kernel_impl="pallas", param_dtype="float32", seed=0)
+
+
+def run_across_phases(torch, kernels, smi: str):
+    """Phases 7a-7c: one launch of 4 ranks (``rank_phase7``) on the card —
+    gloo through host copies, NCCL refuses two ranks on one device — and
+    the one-process runs they are held to.
+
+    7a: full-width, full-depth smollm-360m trained as 4 ranks
+    (``--procs 4 --stages 4``): the ranks' launches sum to phase 4c's
+    count a step times the steps (the same microbatches over the same 32
+    layers), every launch on the tensor cores, every rank launches, and
+    the migrations move rows across ranks; then the hand-off's own cost.
+    7c: the one-shot serve of full-width smollm-360m as 4 ranks, each
+    holding its stage's rows and KV cache, against one process with 4
+    stage buffers: tokens identical at temperature 0, K1 and K3 launched
+    in the ranks and their sums equal to the one process's counts.
+    7b: smollm-360m at its published widths cut to 8 layers, 3 steps with
+    a migration after step 1: 4 ranks against one process with 4 stage
+    buffers; losses, final params, Adam moments and dyn state bitwise (a
+    difference is named: the first differing step, the largest leaf
+    difference, and held to rtol 1e-6).
+
+    Returns {7a, 7c: (launches, tensor-core launches) summed over the
+    ranks}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import launch
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.launch.train import run as train_run
+    parity_args = across_train_args(ACROSS_PARITY_STEPS, CUT_LAYERS,
+                                    every=2, straggler="1:4.0")
+    train_spec = cli_spec("train", across_train_args())
+    parity_spec = cli_spec("train", parity_args)
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    res = timed("7", launch, "chip_smoke:rank_phase7", ACROSS_PROCS,
+                kwargs=dict(train=train_spec, parity=parity_spec,
+                            serve=ACROSS_SERVE, archs=[get_config(
+                                parity_spec.model.arch)]))
+    out = {}
+
+    # ---- 7a
+    rep = res[0]["7a"]["report"]
+    ranks = [r["7a"]["rank"] for r in res]
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    bwd = summed_launches(ranks, "bwd")
+    steps = rep["spec"]["steps"]
+    check_launches("train across ranks", launched, TRAIN_LAUNCHES_PER_STEP,
+                   steps)
+    if bwd["pruned_matmul"] != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"7a: K3 backward launches "
+                             f"{bwd['pruned_matmul']}, expected "
+                             f"{TRAIN_K3_BWD_PER_STEP} a step")
+    check_tensor_core("train across ranks", launched, tc, ACROSS_PATH)
+    idle = [r["rank"] for r in ranks
+            if r["launches"]["pruned_matmul"]["launches"] <= 0]
+    if idle or len(ranks) != ACROSS_PROCS:
+        raise AssertionError(f"7a: ranks {idle} launched no K3")
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - math.log(49152)) > 1.0:
+        raise AssertionError(f"7a: losses {losses}")
+    moved = [(e.iteration, e.moved_layers) for e in rep["events"]]
+    rows = sum(r["comm"]["rows_sent"] for r in ranks)
+    if not any(m > 0 for _, m in moved) or rows <= 0 or rows != sum(
+            r["comm"]["rows_recv"] for r in ranks):
+        raise AssertionError(f"7a: no migration across ranks: {moved}, "
+                             f"rows {rows}")
+    probe = res[0]["probe"]
+    if not probe["equal"]:
+        raise AssertionError("7a: the hand-off probe's carry came back "
+                             "changed")
+    t = rep["timing"]
+    say_ranks("train_across_rank", ranks, smi)
+    say("handoff_probe", bytes=probe["bytes"],
+        one_way_ms=f"{probe['one_way_ms']:.3f}",
+        staging_copy_ms=f"{probe['copy_ms']:.3f}",
+        gbps=f"{probe['bytes'] / probe['one_way_ms'] / 1e6:.2f}",
+        card=repr(smi))
+    say("train_across", procs=ACROSS_PROCS, steps=steps,
+        tokens_per_step=rep["tokens_per_step"],
+        steady_step_ms=f"{t['steady_step_mean_s'] * 1e3:.1f}",
+        steady_step_p50_ms=f"{t['steady_step_p50_s'] * 1e3:.1f}",
+        tokens_per_s=f"{rep['steady_tokens_per_s']:.1f}",
+        step0_ms=f"{rep['step_times'][0] * 1e3:.1f}",
+        wall_s=f"{rep['wall_s']:.2f}",
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        events=json.dumps(moved).replace(" ", ""),
+        final_lps=rep["final_lps"], rows_moved=rows,
+        handoff_ms_per_tick=f"{probe['one_way_ms']:.3f}",
+        launches=json.dumps(launched).replace(" ", ""),
+        k3_bwd_launches=bwd["pruned_matmul"], card=repr(smi))
+    out["train_across"] = (launched, tc)
+
+    # ---- 7c: the one process's serve, counters zeroed just before it
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    kw = {k: v for k, v in ACROSS_SERVE.items() if k != "arch"}
+    one = timed("7c", run_serving, ACROSS_SERVE["arch"], **kw)
+    torch.cuda.synchronize()
+    want = {k.name: k.launches for k in kernels.KERNELS}
+    across = res[0]["7c"]
+    ranks = [r["7c"]["rank"] for r in res]
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    if not np_equal(across["tokens"], one["tokens"]):
+        raise AssertionError("7c: the ranks' tokens differ from one "
+                             "process's")
+    missing = [n for n in ("block_sparse_attention", "pruned_matmul")
+               if launched[n] <= 0]
+    if missing or launched != want:
+        raise AssertionError(f"7c: launches {launched} vs one process's "
+                             f"{want}")
+    check_tensor_core("serve across ranks", launched, tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    say_ranks("serve_across_rank", ranks, smi)
+    say("serve_across", procs=ACROSS_PROCS, tokens=across["tokens"].size,
+        tokens_identical=True,
+        tokens_per_s=f"{across['tokens_per_s']:.1f}",
+        one_process_tokens_per_s=f"{one['tokens_per_s']:.1f}",
+        wall_s=f"{across['wall_s']:.2f}",
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["serve_across"] = (launched, tc)
+    del one
+
+    # ---- 7b: the one process's training of the same flags
+    free_cuda(torch)
+    across = res[0]["7b"]["report"]
+    del res
+    one = timed("7b", train_run, parity_args)
+    moved = [(e.iteration, e.moved_layers) for e in across["events"]]
+    if not any(m > 0 for _, m in moved) or moved != [
+            (e.iteration, e.moved_layers) for e in one["events"]]:
+        raise AssertionError(f"7b: events {moved} vs one process's")
+    worst, differ = 0.0, []
+    for tree in ("params", "opt_state", "dyn"):
+        theirs = dict(leaves(one[tree]))
+        for path, a in leaves(across[tree]):
+            b = theirs[path]
+            a = a.to(b.device)
+            if not torch.equal(a, b):
+                d = float((a.double() - b.double()).abs().max()
+                          / b.double().abs().max().clamp(min=1e-30))
+                differ.append(f"{tree}{path}")
+                worst = max(worst, d)
+    first = next((i for i, (x, y) in enumerate(zip(across["losses"],
+                                                     one["losses"]))
+                  if x != y), None)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(across["losses"],
+                                                   one["losses"]))
+    say("train_across_parity", layers=CUT_LAYERS, steps=len(one["losses"]),
+        events=json.dumps(moved).replace(" ", ""),
+        losses_bitwise=first is None, first_differing_step=first,
+        loss_max_rel=f"{rel:.3e}", leaves_differing=len(differ),
+        first_leaf=(differ[0] if differ else "none"),
+        worst_leaf_rel=f"{worst:.3e}", card=repr(smi))
+    if rel > 1e-6 or worst > 1e-6:
+        raise AssertionError(f"7b: 4 ranks vs one process: loss {rel:.3e}, "
+                             f"leaf {worst:.3e} ({differ[:4]})")
+    del across, one
+    free_cuda(torch)
+    return out
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5530,6 +5824,16 @@ def main() -> int:
         for n in got_tc:
             tc[n] += got_tc[n]
 
+    # 7a-7c. one process per pipeline stage: full-width smollm trained
+    # and served as 4 ranks, and 4 ranks against one process at 8 layers
+    # (each part's counters zeroed in the ranks just before it and read
+    # just after)
+    for key, (got, got_tc) in run_across_phases(torch, kernels,
+                                                 smi).items():
+        new_phases[key] = got
+        for n in got_tc:
+            tc[n] += got_tc[n]
+
     # 5. parity of the path: kernels vs plain versions from one state
     timed("5", serve_parity, torch)
 
@@ -5555,7 +5859,7 @@ def main() -> int:
     timed("5d", mod_bitwise, torch)
     timed("5d", serve_parity, torch, kind="early_exit")
 
-    # 6. the kernels line, the card line, the last line
+    # 8. the kernels line, the card line, the last line
     line = []
     for k in kernels.KERNELS:
         r = results[k.name]

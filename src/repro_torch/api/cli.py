@@ -265,6 +265,21 @@ PORT_ALIASES: List[Alias] = [
 ]
 TRAIN_ALIASES += PORT_ALIASES
 
+
+def add_dist_args(ap: argparse.ArgumentParser) -> None:
+    """The port's process-layout flags (not spec fields: ``--dump-config``
+    prints the same RunSpec with or without them)."""
+    ap.add_argument("--procs", type=int, default=1,
+                    help="run as N processes, one per cell of the "
+                         "parallel.data x parallel.stages mesh of ranks "
+                         "(torch.distributed); N must equal data x stages")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["gloo", "nccl"],
+                    help="force the ranks' backend (default: nccl when "
+                         "every rank has a card of its own, else gloo "
+                         "through host copies); nccl on a shared card "
+                         "raises")
+
 SERVE_ALIASES: List[Alias] = _COMMON + [
     Alias("--micro", "parallel.num_micro"),
     Alias("--prompt-len", "serve.prompt_len"),

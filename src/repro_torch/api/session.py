@@ -36,6 +36,15 @@ The port's differences from the reference:
   * ``train(on_step=f)`` calls ``f(step, session)`` after each step's safe
     point, just after the fault injector fires (``kill_manager`` and
     ``respawn_manager`` are public for such a hook).
+  * ``procs=N`` (``--procs N``) runs ``train`` as N processes, one per
+    cell of the ``parallel.data x parallel.stages`` mesh of ranks
+    (``launch.dist``; ``dist_backend`` forces ``gloo`` or ``nccl``).  Rank
+    0's report comes back, with every rank's launches, memory and transfer
+    counters under ``ranks``; ``gather=True`` adds the final params and
+    optimizer state gathered whole.  In one process ``parallel.data > 1``
+    runs as one replica, which is numerically what the reference's data
+    axis computes.  What the ranks cannot do yet raises and names ROADMAP
+    Queue 1 [multi-card] (``refuse_across``).
 
 Teardown order matters and is centralized in ``close()``: the metrics
 snapshot, then the control plane (its worker thread must stop deciding
@@ -87,10 +96,25 @@ class Session:
     """Context manager that executes one ``RunSpec``."""
 
     def __init__(self, spec: RunSpec, *, device: DeviceLike = None,
-                 params=None):
+                 params=None, procs: int = 1,
+                 dist_backend: Optional[str] = None, gather: bool = False,
+                 mesh=None):
         self.spec = spec
         self.device = resolve_device(device)
         self.params = params
+        self.procs = int(procs)
+        self.dist_backend = dist_backend
+        self.gather = gather
+        # a rank's Session (launch.dist): its launch.mesh.Mesh
+        self._mesh = mesh
+        if self.procs > 1:
+            p = spec.parallel
+            if p.data * p.stages != self.procs:
+                raise ValueError(
+                    f"parallel.data x parallel.stages = {p.data} x "
+                    f"{p.stages} = {p.data * p.stages} ranks, but procs="
+                    f"{self.procs}: across processes every rank runs one "
+                    f"cell of the data x model mesh")
         self.events: List[SessionEvent] = []
         self._cp = None          # cluster.service.ControlPlane
         self._engine = None      # launch.engine.ElasticEngine
@@ -366,6 +390,8 @@ class Session:
         """Run the DynMo training loop for ``steps`` (default: spec.steps).
         ``on_step(step, session)`` runs after each step's safe point.
         Returns the report dict (losses, events, resizes, telemetry)."""
+        if self.procs > 1 and self._mesh is None:
+            return self._train_across(steps, on_step)
         import numpy as np
 
         from repro_torch.cluster.autoscaler import Autoscaler, AutoscalerConfig
@@ -376,6 +402,8 @@ class Session:
         from repro_torch.dynamics import pruning as prn
         from repro_torch.dynamics.trajectories import zhu_gupta_sparsity
         from repro_torch.launch.engine import ElasticEngine
+        from repro_torch.launch.sharding import (gather_opt, gather_params,
+                                                 gather_rows)
         from repro_torch.optim.schedule import cosine_schedule
         from repro_torch.pipeline.pipeline import PipelineShapes
         from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
@@ -384,6 +412,10 @@ class Session:
 
         spec = self.spec
         obs = spec.obs
+        mesh = self._mesh
+        if mesh is not None:
+            refuse_across(spec, "train", resumed=self._resume_dir is not None,
+                          cfg=self._model_config())
         tracer = self._obs_begin("train")
         mreg = self.metrics
         steps = steps if steps is not None else spec.steps
@@ -448,7 +480,7 @@ class Session:
             pool = WorkerPool(stages, spares=spec.cluster.spares)
         engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, pool=pool,
                                job_manager=jm, device=self.device,
-                               in_step_timing=obs.in_step_timing)
+                               in_step_timing=obs.in_step_timing, mesh=mesh)
         self._engine = engine
         if injector is not None:
             import signal
@@ -506,7 +538,8 @@ class Session:
             ccfg.repack = False
         det = StragglerDetector(stages) \
             if (straggler or measure_stage_times) else None
-        ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det)
+        ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det,
+                               mesh=mesh)
         cp = ControlPlane(ctrl, async_mode=spec.controller.async_decide,
                           epoch_fn=lambda: engine.epoch)
         self._cp = cp
@@ -636,7 +669,7 @@ class Session:
                 keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
                 state.dyn = {**state.dyn, "ff_mask": prn.global_block_prune(
                     cfg, state.params["stages"], state.assignment["tags"],
-                    keep)}
+                    keep, mesh=mesh)}
             if dynamism == "freezing" and step and step % 10 == 0:
                 front = int(cfg.total_blocks() * min(0.6, step / steps))
                 tags_np = state.assignment["tags"].numpy()
@@ -648,6 +681,8 @@ class Session:
                             if g < front:
                                 fr[s, l] = 1.0
                             g += 1
+                if mesh is not None:
+                    fr = fr[mesh.stage:mesh.stage + 1]
                 state.dyn = {**state.dyn,
                              "frozen": state.dyn["frozen"].new_tensor(fr)}
 
@@ -669,6 +704,11 @@ class Session:
             # device -> host stats sync; in async mode a pointer swap)
             if ctrl.cadence(step + 1):
                 t_decide = time.perf_counter()
+                # across ranks every input of the decision is the same
+                # bytes on every rank: the step's wall time is rank 0's
+                wall_dt = (step_times[-1] if mesh is None else
+                           float(mesh.comm.all_gather_object(
+                               step_times[-1])[0]))
                 sp_dec = (tracer.span("controller.decide", cat="controller",
                                       step=step)
                           if tracer is not None else None)
@@ -702,7 +742,7 @@ class Session:
                     # worker id, which keeps its slowness across resizes
                     if measured is None:
                         share = np.asarray(state.lps, np.float64)
-                        measured = share / share.sum() * step_times[-1]
+                        measured = share / share.sum() * wall_dt
                     measured = measured * np.array(
                         [straggler.get(engine.stage_workers[s], 1.0)
                          for s in range(state.stages)])
@@ -713,14 +753,16 @@ class Session:
                     if mult is not None:
                         if measured is None:
                             share = np.asarray(state.lps, np.float64)
-                            measured = share / share.sum() * step_times[-1]
+                            measured = share / share.sum() * wall_dt
                         measured = measured * np.asarray(mult)
                 cp.publish(StatsSnapshot(
                     iteration=step + 1, epoch=engine.epoch,
                     stats=engine.stats_to_host(state, stats),
                     tags=state.assignment["tags"].numpy(),
                     num_micro=shapes.num_micro, tokens=tokens_per_step,
-                    seq=seq, frozen=state.dyn["frozen"].cpu().numpy(),
+                    seq=seq, frozen=(state.dyn["frozen"] if mesh is None
+                                     else gather_rows(state.dyn["frozen"],
+                                                      mesh)).cpu().numpy(),
                     stage_times=measured))
                 if spec.controller.async_drain:
                     cp.drain()
@@ -848,6 +890,8 @@ class Session:
                     print(f"step {step:4d} RELAYOUT skew {rl.skew:.2f} moved "
                           f"{rl.moved_experts} experts -> "
                           f"{list(rl.new.placement)}", flush=True)
+            if mesh is not None and ctrl.cadence(step + 1):
+                check_agreement(mesh, step, state.lps, state.assignment)
 
             # ---- autoscaler: heartbeat + watermark signals
             if scaler is not None:
@@ -938,6 +982,14 @@ class Session:
         wall = time.perf_counter() - t0
         if root_span is not None:
             root_span.end(steps_run=len(losses))
+        if mesh is not None:
+            # whole trees for the report (collective: every rank gathers)
+            state.dyn = gather_rows(state.dyn, mesh)
+            if self.gather:
+                state.params = gather_params(state.params, mesh)
+                state.opt_state = gather_opt(state.opt_state, mesh)
+            else:
+                state.params = state.opt_state = None
         steady_s = float(sum(steady_times))
         steady_tok_s = (tokens_per_step * len(steady_times) / steady_s
                         if steady_s > 0 else None)
@@ -1021,6 +1073,26 @@ class Session:
                    final_stages=state.stages)
         return report
 
+    def _train_across(self, steps, on_step) -> Dict[str, Any]:
+        """``train`` as ``procs`` ranks (``launch.dist.launch``): rank 0's
+        report, its event stream as this Session's, and every rank's
+        counters under ``ranks``."""
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch.dist import launch
+        refuse_across(self.spec, "train", resumed=self._resume_dir is not None,
+                      cfg=self._model_config())
+        res = launch("repro_torch.api.session:rank_train", self.procs,
+                     data=self.spec.parallel.data, device=self.device.type,
+                     backend=self.dist_backend,
+                     kwargs=dict(spec=self.spec, steps=steps,
+                                 params=self.params, on_step=on_step,
+                                 gather=self.gather,
+                                 arch=get_config(self.spec.model.arch)))
+        rep = res[0]["report"]
+        self.events = res[0]["events"]
+        rep["ranks"] = [r["rank"] for r in res]
+        return rep
+
     # =======================================================================
     # Serving
     # =======================================================================
@@ -1051,6 +1123,12 @@ class Session:
 
         spec = self.spec
         s = spec.serve
+        if self.procs > 1 or self._mesh is not None:
+            raise NotImplementedError(
+                "the elastic server across ranks (paged KV per rank) is not "
+                "in the port yet (ROADMAP Queue 1 [multi-card]); the one-"
+                "shot serve runs across ranks (launch.serve.run_serving "
+                "with procs)")
         tracer = self._obs_begin("serve")
         cfg = self._model_config()
         dcfg = self._dist_config()
@@ -1163,3 +1241,89 @@ class Session:
                    tokens_per_s=report["tokens_per_s"],
                    latency_p95_s=report["latency_p95_s"])
         return report
+
+
+# ---------------------------------------------------------------------------
+# Ranks
+# ---------------------------------------------------------------------------
+# what the ranks do not do yet: (spec test, what) — each refusal names
+# ROADMAP Queue 1 [multi-card]
+_ACROSS_REFUSED = (
+    (lambda sp: sp.controller.repack.enabled, "--repack (resizes across "
+     "ranks)"),
+    (lambda sp: sp.cluster.grow_back is not None, "--grow-back (resizes "
+     "across ranks)"),
+    (lambda sp: sp.cluster.autoscale, "the autoscaler (resizes across "
+     "ranks)"),
+    (lambda sp: bool(sp.ckpt_every or sp.ckpt_dir), "safe points and "
+     "checkpoints"),
+    (lambda sp: sp.faults.enabled, "--chaos"),
+    (lambda sp: (sp.cluster.job_manager != "inproc" or sp.cluster.tenant_id
+                 or sp.cluster.manager_url), "the job managers"),
+    (lambda sp: sp.controller.async_decide and not sp.controller.async_drain,
+     "--async-controller without --async-drain (ranks must apply each "
+     "plan at the same step)"),
+)
+
+
+def refuse_across(spec: RunSpec, kind: str, *, resumed: bool = False,
+                  cfg=None) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP Queue 1 [multi-card]
+    for what the ranks do not run yet."""
+    what = [w for test, w in _ACROSS_REFUSED if test(spec)]
+    if resumed:
+        what.append("resume")
+    if cfg is not None and cfg.family != "dense":
+        what.append(f"the {cfg.family} family")
+    if what:
+        raise NotImplementedError(
+            f"{kind} across ranks does not run {', '.join(what)} yet "
+            f"(ROADMAP Queue 1 [multi-card])")
+
+
+def check_agreement(mesh, step: int, lps, assignment) -> None:
+    """Every rank's split and assignment must be the same bytes after a
+    cadence (the ranks decide independently from gathered inputs)."""
+    import hashlib
+    h = hashlib.sha256(repr(list(lps)).encode())
+    for k in sorted(assignment):
+        h.update(assignment[k].cpu().numpy().tobytes())
+    seen = mesh.comm.all_gather_object(h.hexdigest())
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"step {step}: the ranks' assignments differ "
+                           f"({seen})")
+
+
+def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
+               gather: bool = False, arch=None) -> Dict[str, Any]:
+    """One rank of ``Session(procs=N).train`` (run by ``launch.dist``):
+    rank 0 keeps the observability outputs and returns the report.
+    ``arch``: the parent's ``ModelConfig`` of ``spec.model.arch``, which
+    the rank registers when its registry lacks it (a config registered at
+    run time in the parent)."""
+    import torch
+
+    from repro_torch.launch.dist import (ensure_arch, foreign_modules,
+                                         launch_counts)
+    ensure_arch(arch)
+    if mesh.rank != 0:
+        spec = dataclasses.replace(spec, obs=dataclasses.replace(
+            spec.obs, trace=False, trace_out=None, metrics_port=None,
+            metrics_out=None))
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    with Session(spec, device=mesh.device, params=params, gather=gather,
+                 mesh=mesh) as s:
+        rep = s.train(steps, on_step=on_step)
+    info = {"rank": mesh.rank, "stage": mesh.stage,
+            "replica": mesh.replica, "device": str(mesh.device),
+            "backend": mesh.backend, "launches": launch_counts(),
+            "peak_allocated": (torch.cuda.max_memory_allocated(mesh.device)
+                               if cuda else None),
+            "comm": dict(mesh.comm.stats),
+            "step_times": list(rep["step_times"]),
+            "foreign_modules": foreign_modules()}
+    if mesh.rank != 0:
+        return {"rank": info}
+    return {"rank": info, "report": rep, "events": s.events}

@@ -92,10 +92,15 @@ class DynMoController:
     def __init__(self, cfg: ModelConfig, dcfg: DistConfig,
                  dyncfg: DynamicsConfig, ccfg: ControllerConfig,
                  layers_per_stage: Optional[Sequence[int]] = None,
-                 straggler: Optional[StragglerDetector] = None):
+                 straggler: Optional[StragglerDetector] = None,
+                 mesh=None):
         from repro_torch.models.model import uniform_boundaries
         self.cfg, self.dcfg, self.dyncfg, self.ccfg = cfg, dcfg, dyncfg, ccfg
         self.straggler = straggler
+        # across ranks (a launch.mesh.Mesh) ``apply`` moves rows between
+        # them; every rank's controller decides from the same gathered
+        # inputs, so every rank applies the same plan
+        self.mesh = mesh
         self.lps: List[int] = list(
             layers_per_stage
             or uniform_boundaries(cfg.total_blocks(), dcfg.num_stages))
@@ -287,7 +292,8 @@ class DynMoController:
         (params, opt_state, dyn, assignment, cache)."""
         stages, nopt, ndyn, assignment, ncache, _ = mig.migrate(
             params["stages"], opt_state, dyn, self.lps, new_lps,
-            self.pattern, self.dcfg.slots_for(self.cfg), cache)
+            self.pattern, self.dcfg.slots_for(self.cfg), cache,
+            mesh=self.mesh)
         self.lps = list(new_lps)
         params = dict(params)
         params["stages"] = stages

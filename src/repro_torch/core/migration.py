@@ -4,9 +4,14 @@ of ``repro.core.migration``.
 A rebalance produces a new contiguous layers-per-stage split.  Stage state
 lives in ``[S, L_max, ...]`` slot buffers, so migration is a gather along
 the (stage, slot) axes with a host-computed (dst <- src) index map, applied
-to params, optimizer moments and dyn state alike.  All S buffers live on one
-card here, so the gather is one indexing op per leaf; PAD destinations are
-zeroed.  The plan itself is numpy, as in the reference.
+to params, optimizer moments and dyn state alike.  In one process all S
+buffers live on one card, so the gather is one indexing op per leaf; PAD
+destinations are zeroed.  Across ranks (``mesh``) each rank holds its row
+``[1, L_max, ...]``: it sends the rows a destination on another rank takes
+from it and receives the ones it takes from another rank — one
+``batch_isend_irecv`` per tree, every transfer listed in one global
+(destination stage, slot) order on both sides — and gathers the rows that
+stay.  The plan itself is numpy, as in the reference.
 """
 from __future__ import annotations
 
@@ -81,19 +86,75 @@ def _apply_plan_to_opt(opt_state: Any, plan: MigrationPlan) -> Any:
     return opt_state
 
 
+def apply_plan_across(tree: Any, plan: MigrationPlan, mesh) -> Any:
+    """``apply_plan`` on this rank's row of a stage-keyed tree: rows whose
+    source is another rank's arrive by point-to-point transfer (one
+    ``batch_isend_irecv`` for the whole tree), rows that stay are gathered
+    locally, PAD destinations hold zeros.  Adds the rows moved to
+    ``mesh.comm.stats`` (``rows_sent`` / ``rows_recv``, one per slot of
+    the tree)."""
+    leaves = []
+
+    def walk(t, path=()):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in sorted(t.items())}
+        out = torch.zeros_like(t)
+        leaves.append((t, out))
+        return out
+
+    new = walk(tree)
+    me = mesh.stage
+    S, L = plan.valid.shape
+    sends, recvs = [], []
+    for ds in range(S):
+        for dl in range(L):
+            if not plan.valid[ds, dl]:
+                continue
+            ss, sl = int(plan.src_stage[ds, dl]), int(plan.src_slot[ds, dl])
+            if ds == me and ss == me:
+                for old, out in leaves:
+                    out[0, dl] = old[0, sl]
+            elif ss == me:
+                sends += [(old[0, sl], mesh.rank_of(ds)) for old, _ in leaves]
+                mesh.comm.stats["rows_sent"] += 1
+            elif ds == me:
+                recvs += [(out[0, dl], mesh.rank_of(ss)) for _, out in leaves]
+                mesh.comm.stats["rows_recv"] += 1
+    mesh.comm.exchange(sends, recvs)
+    return new
+
+
+def _apply_plan_to_opt_across(opt_state: Any, plan: MigrationPlan, mesh):
+    if isinstance(opt_state, dict):
+        return {k: (apply_plan_across(v, plan, mesh) if k == "stages"
+                    else _apply_plan_to_opt_across(v, plan, mesh))
+                for k, v in opt_state.items()}
+    return opt_state
+
+
 def migrate(params_stages: Dict[str, torch.Tensor], opt_stages: Any,
             dyn: Dict[str, torch.Tensor], old_lps: Sequence[int],
             new_lps: Sequence[int], tags_pattern: Sequence[int],
-            L_max: int, cache: Any = None):
+            L_max: int, cache: Any = None, mesh=None):
     """One-call migration of all stage-keyed state + fresh assignment.
+    With a ``mesh`` the trees are this rank's rows and move across ranks
+    (``apply_plan_across``); the assignment is whole on every rank.
 
     Returns (params_stages, opt_stages, dyn, assignment, cache, plan)."""
     plan = build_plan(old_lps, new_lps, L_max)
-    new_params = apply_plan(params_stages, plan)
-    new_opt = (_apply_plan_to_opt(opt_stages, plan)
-               if opt_stages is not None else None)
-    new_dyn = apply_plan(dyn, plan)
-    new_cache = apply_plan(cache, plan) if cache is not None else None
+    if mesh is None:
+        new_params = apply_plan(params_stages, plan)
+        new_opt = (_apply_plan_to_opt(opt_stages, plan)
+                   if opt_stages is not None else None)
+        new_dyn = apply_plan(dyn, plan)
+        new_cache = apply_plan(cache, plan) if cache is not None else None
+    else:
+        new_params = apply_plan_across(params_stages, plan, mesh)
+        new_opt = (_apply_plan_to_opt_across(opt_stages, plan, mesh)
+                   if opt_stages is not None else None)
+        new_dyn = apply_plan_across(dyn, plan, mesh)
+        new_cache = (apply_plan_across(cache, plan, mesh)
+                     if cache is not None else None)
     S = len(new_lps)
     tags = np.full((S, L_max), BLOCK_PAD, np.int32)
     dst_st, dst_sl = _locate(new_lps)

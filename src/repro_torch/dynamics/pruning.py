@@ -25,7 +25,18 @@ from repro_torch.models.blocks import n_prune_blocks
 
 def block_magnitudes(cfg: ModelConfig, stage_params: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
-    """L2 magnitude per prunable feature block: [S, L_max, n_blocks] fp32.
+    """L2 magnitude per prunable feature block: [S, L_max, n_blocks] fp32,
+    computed one stage row at a time (a rank holding one row computes the
+    same bits as one process holding all of them)."""
+    S = next(iter(stage_params.values())).shape[0]
+    return torch.cat([_row_magnitudes(cfg, {k: v[s:s + 1]
+                                             for k, v in stage_params.items()})
+                      for s in range(S)])
+
+
+def _row_magnitudes(cfg: ModelConfig, stage_params: Dict[str, torch.Tensor]
+                    ) -> torch.Tensor:
+    """``block_magnitudes`` of stacked stage params.
 
     Dense / enc / dec archs: blocks of d_ff columns of the up-projections
     and rows of the down-projection; mLSTM: blocks of the up-projection's
@@ -68,11 +79,21 @@ def block_magnitudes(cfg: ModelConfig, stage_params: Dict[str, torch.Tensor]
 
 @torch.no_grad()
 def global_block_prune(cfg: ModelConfig, stage_params, tags,
-                       keep_blocks: int) -> torch.Tensor:
+                       keep_blocks: int, mesh=None) -> torch.Tensor:
     """Exact global top-k over block magnitudes -> ff_mask [S, L_max, npb]
     (float32, on the params' device).  PAD slots are excluded and always
-    masked."""
+    masked.  With a ``mesh`` the params are this rank's row: every rank
+    all-gathers the rows' magnitudes, takes the same top-k and returns its
+    row of the mask ([1, L_max, npb])."""
     mag = block_magnitudes(cfg, stage_params)          # [S, L, npb]
+    if mesh is not None:
+        mag = mesh.comm.all_gather(mag[0], mesh.model_group)
+        s = mesh.stage
+        return _top_k_mask(mag, tags, keep_blocks)[s:s + 1]
+    return _top_k_mask(mag, tags, keep_blocks)
+
+
+def _top_k_mask(mag, tags, keep_blocks: int) -> torch.Tensor:
     active = (torch.as_tensor(tags).to(mag.device) != BLOCK_PAD)[..., None]
     mag = torch.where(active, mag, torch.full_like(mag, -float("inf")))
     flat = mag.reshape(-1)

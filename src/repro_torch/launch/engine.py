@@ -33,6 +33,14 @@ stamped around every stage's forward call inside the step, and around
 each stage's prefill and decode calls when the world serves
 (``in_step_stage_times``); ``measure_stage_times`` is the reference's
 isolated per-stage probe.
+
+With a ``mesh`` (``launch.mesh.Mesh``: one process per cell of a ``data x
+model`` mesh of ranks) the engine is one rank's: its state holds the
+rank's stage row of every stage-keyed tree (``launch.sharding``) on its
+own device, the step runs the pipeline across the ranks, and the stage
+times — the timer's and the probe's — are all-gathered, so every rank's
+controller decides from the same bytes.  Only the world of the mesh's
+stage count exists: a resize across ranks raises.
 """
 from __future__ import annotations
 
@@ -50,6 +58,8 @@ from repro_torch.cluster.rpc import (InProcessJobManager, JobManagerClient,
 from repro_torch.configs.base import BLOCK_MOE, DistConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
+from repro_torch.launch.sharding import (check_layout, local_params,
+                                         local_rows, split_batch)
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.obs.timing import StageTimer
@@ -65,21 +75,26 @@ def make_train_step(cfg: ModelConfig, dcfg: DistConfig,
                     dyncfg: DynamicsConfig, shapes: PipelineShapes,
                     opt_cfg: Optional[OptConfig] = None, *,
                     device: DeviceLike = None, hash_proj=None,
-                    stage_timer=None):
+                    stage_timer=None, mesh=None):
     """Returns (init_opt_fn, train_step) with
     train_step(params, opt_state, assignment, dyn, batch, lr)
       -> (params, opt_state, loss, stats, gnorm);
     params and opt_state are updated in place; the batch is moved to
     ``device`` (the card unless ``"cpu"`` is asked for).  ``stage_timer``
-    threads an ``obs.timing.StageTimer`` into the pipelined loss."""
+    threads an ``obs.timing.StageTimer`` into the pipelined loss.  With a
+    ``mesh`` the state is the rank's rows, the batch is cut to its
+    replica's lanes, the gradients of the leaves replicated over ``model``
+    are summed over the ring and every gradient over ``data``, and the
+    clip norm is the mesh's."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or OptConfig(name=dcfg.optimizer)
     loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj,
-                            stage_timer=stage_timer)
-    init_fn, update_fn = make_optimizer(opt_cfg)
+                            stage_timer=stage_timer, mesh=mesh)
+    init_fn, update_fn = make_optimizer(opt_cfg, mesh=mesh)
 
     def train_step(params, opt_state, assignment, dyn, batch, lr):
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in split_batch(batch, mesh).items()}
         loss, stats, grads = value_and_grad(loss_fn, params, assignment, dyn,
                                             batch)
         params, opt_state, gnorm = update_fn(
@@ -176,8 +191,13 @@ class ElasticEngine:
                  job_manager: Optional[JobManagerClient] = None,
                  paged=None, temperature: float = 0.0,
                  device: DeviceLike = None, hash_proj=None,
-                 in_step_timing: bool = False):
+                 in_step_timing: bool = False, mesh=None):
         M.check_ported(cfg, dyncfg)
+        check_layout(cfg, mesh)
+        if mesh is not None and dcfg.num_stages != mesh.model:
+            raise ValueError(f"{dcfg.num_stages} stages on a model ring of "
+                             f"{mesh.model} ranks")
+        self.mesh = mesh
         self.cfg, self.base_dcfg, self.dyncfg = cfg, dcfg, dyncfg
         self.shapes = shapes
         # serving options: ``paged`` is a PagedKVConfig; ``temperature`` > 0
@@ -253,13 +273,21 @@ class ElasticEngine:
         window yet)."""
         w = self._worlds.get(stages)
         if w is None:
+            if self.mesh is not None and stages != self.mesh.model:
+                raise NotImplementedError(
+                    f"a world of {stages} stages on a mesh of "
+                    f"{self.mesh.model}: resizes across ranks (shrink, "
+                    f"evict, grow) are not in the port yet (ROADMAP Queue "
+                    f"1 [multi-card])")
             dcfg = self.dcfg_for(stages)
-            timer = (StageTimer(stages, self.device, self.shapes.num_micro)
+            # across ranks each rank times its own stage (as its stage 0)
+            timer = (StageTimer(1 if self.mesh is not None else stages,
+                                self.device, self.shapes.num_micro)
                      if self.in_step_timing else None)
             init_opt, step = make_train_step(
                 self.cfg, dcfg, self.dyncfg, self.shapes, self.opt_cfg,
                 device=self.device, hash_proj=self.hash_proj,
-                stage_timer=timer)
+                stage_timer=timer, mesh=self.mesh)
             w = EngineWorld(stages=stages, dcfg=dcfg, init_opt=init_opt,
                             step=step, timer=timer)
             self._worlds[stages] = w
@@ -375,6 +403,12 @@ class ElasticEngine:
                                            self.paged.page_size, dev)
             else:
                 cache = self.make_dense_scratch(dcfg.num_stages)
+        if self.mesh is not None:
+            # this rank's rows; the whole trees are dropped here
+            params = local_params(params, self.mesh)
+            dyn = local_rows(dyn, self.mesh)
+            if cache is not None:
+                cache = local_rows(cache, self.mesh)
         opt_state = (self.world(dcfg.num_stages).init_opt(params)
                      if with_opt else None)
         return EngineState(params, opt_state, dyn, assignment, lps,
@@ -411,9 +445,9 @@ class ElasticEngine:
         if w.eval_loss is None:
             w.eval_loss = build_loss_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
-                hash_proj=self.hash_proj)
+                hash_proj=self.hash_proj, mesh=self.mesh)
         loss, _ = w.eval_loss(state.params, state.assignment, state.dyn,
-                              self._batch(batch))
+                              self._batch(split_batch(batch, self.mesh)))
         return loss
 
     # -- safe-point resume ---------------------------------------------------
@@ -433,6 +467,10 @@ class ElasticEngine:
         and epoch, and load its shards into the world of its stage count
         and split on this engine's device."""
         from repro_torch.checkpoint.safepoint import restore
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "safe points across ranks are not in the port yet (ROADMAP "
+                "Queue 1 [multi-card])")
         meta = index["meta"]
         if meta.get("pool") and isinstance(self.jm, InProcessJobManager):
             # the in-process pool resumes here; a pool behind an RPC
@@ -461,7 +499,21 @@ class ElasticEngine:
         w = self.world(state.stages)
         if w.timer is None:
             return None
-        return w.timer.snapshot(ticks_per_step=self.shapes.num_micro)
+        t = w.timer.snapshot(ticks_per_step=self.shapes.num_micro)
+        if self.mesh is None:
+            return t
+        return self._gather_times(None if t is None else float(t[0]))
+
+    def _gather_times(self, mine: Optional[float]):
+        """Every stage's time from its rank ([S] numpy on every rank, the
+        first replica's; None when any stage has none yet)."""
+        mesh = self.mesh
+        v = torch.tensor([float("nan") if mine is None else mine],
+                         dtype=torch.float64)
+        full = mesh.comm.all_gather(v, None).reshape(-1).numpy()
+        if np.isnan(full).any():
+            return None
+        return full[:mesh.model].copy()
 
     @torch.no_grad()
     def measure_stage_times(self, state: EngineState, batch):
@@ -471,6 +523,8 @@ class ElasticEngine:
         which the carry flows stage to stage; each call is bracketed by a
         ``torch.cuda.synchronize`` on the card.  A host sync per stage: the
         trainer gates it on controller cadence."""
+        if self.mesh is not None:
+            return self._measure_stage_times_across(state, batch)
         w = self.world(state.stages)
         cfg, dev = self.cfg, self.device
         tokens = torch.as_tensor(batch["tokens"][0], device=dev)
@@ -501,6 +555,48 @@ class ElasticEngine:
                     carry = out          # the carry flows stage to stage
         return times
 
+    def _measure_stage_times_across(self, state: EngineState, batch):
+        """The probe across ranks: each rank times its own stage's forward
+        over the first microbatch of its lanes, the carry handed on by
+        point-to-point transfer (outside the timed span), then the times
+        are all-gathered."""
+        from repro_torch.launch.sharding import replica_shapes
+        from repro_torch.pipeline.pipeline import (_carry_spec, _recv_carry,
+                                                   _send_carry)
+        w = self.world(state.stages)
+        cfg, dev, mesh = self.cfg, self.device, self.mesh
+        s = mesh.stage
+        tokens = torch.as_tensor(split_batch(batch, mesh)["tokens"][0],
+                                 device=dev)
+        pos = torch.arange(tokens.shape[-1], device=dev)
+        starts = np.concatenate([[0], np.cumsum(state.lps)[:-1]])
+        dt = M.param_dtype(w.dcfg)
+        spec = _carry_spec(cfg, self.dyncfg,
+                           replica_shapes(self.shapes, mesh), dt)
+        took = 0.0
+        for warm in (True, False):
+            if s == 0:
+                carry = _ingest(state.params, cfg, self.dyncfg, tokens, dt)
+            else:
+                carry = _recv_carry(mesh.comm, spec, mesh.rank_of(s - 1),
+                                    dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = M.stage_forward(
+                cfg, w.dcfg, self.dyncfg, "train",
+                _stage_slice(state.params["stages"], 0),
+                state.params["shared"], state.assignment["tags"].tolist()[s],
+                _stage_slice(state.dyn, 0), carry, None, pos,
+                int(starts[s]), hash_proj=self.hash_proj)[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if not warm:
+                took = time.perf_counter() - t0
+            if s < mesh.model - 1:
+                _send_carry(mesh.comm, out, spec, mesh.rank_of(s + 1))
+        return self._gather_times(took)
+
     # -- serving -------------------------------------------------------------
     def serve_fns(self, stages: int, live_micros: Optional[int] = None):
         """(prefill, decode) for the world of ``stages``, built lazily next
@@ -512,14 +608,15 @@ class ElasticEngine:
         if w.prefill is None:
             w.prefill = build_prefill_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
-                hash_proj=self.hash_proj, stage_timer=w.timer)
+                hash_proj=self.hash_proj, stage_timer=w.timer,
+                mesh=self.mesh)
             w.decode = {}
         if mv not in w.decode:
             w.decode[mv] = build_decode_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 paged=self.paged is not None, temperature=self.temperature,
                 num_micro=mv, hash_proj=self.hash_proj,
-                stage_timer=w.timer)
+                stage_timer=w.timer, mesh=self.mesh)
         return w.prefill, w.decode[mv]
 
     def prefill(self, state: EngineState, batch, cache=None):

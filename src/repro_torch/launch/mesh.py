@@ -1,0 +1,126 @@
+"""A mesh of ranks — the port's counterpart of ``repro.launch.mesh``.
+
+The reference lays S pipeline stages and D data replicas out as a
+``data x model`` mesh of devices.  Here each cell of that mesh is one OS
+process (a rank of ``torch.distributed``), and a ``Mesh`` holds the
+process groups its axes need:
+
+  * ``model_group``: the pipeline ring of this rank's data row (stage s
+    hands its carry to stage s+1 of the same row);
+  * ``data_group``: the data replicas of this rank's stage column (the
+    gradients of a stage are summed over it);
+  * the whole world (the default group), over which the loss's numerator
+    and denominator are summed.
+
+The layout is data-major, as the reference's ``_devices_for`` orders
+devices: rank ``d * model + s`` runs stage s of data replica d.
+Collectives and point-to-point transfers go through ``mesh.comm``
+(``launch.dist.Comm``), which stages CUDA tensors through host buffers
+when the backend is ``gloo``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Sequence
+
+import torch
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This rank's view of a ``data x model`` mesh of ranks."""
+    data: int
+    model: int
+    rank: int
+    ranks: List[int]            # the mesh's global ranks, data-major
+    device: torch.device
+    backend: str
+    model_group: Any = None     # None: the default group covers the ring
+    data_group: Any = None
+    comm: Any = None            # launch.dist.Comm
+
+    axis_names = ("data", "model")
+
+    @property
+    def index(self) -> int:
+        return self.ranks.index(self.rank)
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (its position on the model ring)."""
+        return self.index % self.model
+
+    @property
+    def replica(self) -> int:
+        """This rank's data replica (its row of the mesh)."""
+        return self.index // self.model
+
+    def rank_of(self, stage: int, replica: Optional[int] = None) -> int:
+        """The global rank that runs ``stage`` of ``replica`` (default:
+        this rank's replica)."""
+        d = self.replica if replica is None else replica
+        return self.ranks[d * self.model + stage]
+
+
+def make_submesh(data: int, model: int, ranks: Optional[Sequence[int]] = None,
+                 *, device=None, backend: Optional[str] = None) -> Mesh:
+    """A mesh over an explicit rank subset (default: the first
+    ``data * model`` ranks of the world).  Every rank of the world must call
+    it with the same arguments: ``torch.distributed.new_group`` is
+    collective.  Raises when the world has fewer ranks than the mesh
+    needs."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dist import SOLO, Comm
+
+    world = dist.get_world_size()
+    rank = dist.get_rank()
+    ranks = list(range(data * model)) if ranks is None else list(ranks)
+    if len(ranks) != data * model:
+        raise ValueError(f"submesh needs {data * model} ranks (data={data} "
+                         f"x model={model}), got {len(ranks)}")
+    if len(ranks) > world:
+        raise ValueError(f"submesh needs {len(ranks)} ranks, the world has "
+                         f"{world}")
+    backend = backend or dist.get_backend()
+    full = len(ranks) == world
+
+    def group(members):
+        # new_group is collective over the whole world: every rank makes
+        # every group, in the same order
+        if len(members) == 1:
+            return SOLO
+        if full and len(members) == world:
+            return None
+        return dist.new_group(members)
+
+    rows = [[ranks[d * model + s] for s in range(model)]
+            for d in range(data)]
+    cols = [[ranks[d * model + s] for d in range(data)]
+            for s in range(model)]
+    row_groups = [group(r) for r in rows]
+    col_groups = [group(c) for c in cols]
+    mesh = Mesh(data=data, model=model, rank=rank, ranks=ranks,
+                device=torch.device("cpu" if device is None else device),
+                backend=backend)
+    if rank in ranks:
+        mesh.model_group = row_groups[mesh.replica]
+        mesh.data_group = col_groups[mesh.stage]
+    mesh.comm = Comm(backend, mesh.device)
+    return mesh
+
+
+def make_host_mesh(data: int = 1, model: int = 4, *, device=None,
+                   backend: Optional[str] = None) -> Mesh:
+    """The mesh over every rank of the world, ``data x model`` of them."""
+    return make_submesh(data, model, device=device, backend=backend)
+
+
+def data_axes(mesh) -> tuple:
+    """The data-parallel axes of a mesh (everything but the pipeline)."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def dp_degree(mesh) -> int:
+    """The number of data replicas."""
+    return 1 if mesh is None else int(mesh.data)

@@ -11,6 +11,9 @@ the legacy oracle, as ``repro.launch.serve`` is over ``repro.api``:
     prefill + ``gen`` decode rounds, an optional DynMo rebalance between
     rounds); kept as the parity oracle of the continuous scheduler: a full
     batch arriving at once through ``ElasticServer`` gives its tokens.
+    With ``procs`` (``--procs N``) it runs as N ranks of a ``data x
+    stages`` mesh (``launch.dist``): each rank holds its stage's rows of
+    the params and of the KV cache, and every rank gets the tokens.
 
 Like the reference's, the CLI cuts the arch to 8 layers unless
 ``--layers N`` or ``--set model.layers=null`` (the full model) is given.
@@ -24,6 +27,8 @@ It runs on the CUDA card unless ``--device cpu``.
       --autoscale --min-stages 2 --requests 24 --burst-period 16 \\
       --burst-len 4
   python -m repro_torch.launch.serve --device cpu --layers 8 --gen 16
+  python -m repro_torch.launch.serve --device cpu --procs 4 --stages 4 \\
+      --layers 8 --gen 16
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ import numpy as np
 
 from repro_torch.api.cli import (SERVE_ALIASES, SERVE_CLI_DEFAULTS,
                                  add_alias_flags, add_config_args,
-                                 add_spec_flags, build_spec, maybe_dump)
+                                 add_dist_args, add_spec_flags, build_spec,
+                                 maybe_dump)
 from repro_torch.api.session import Session
 from repro_torch.api.specs import (ClusterSpec, ControllerSpec, DynamicsSpec,
                                    ModelSpec, ParallelSpec, RunSpec,
@@ -49,7 +55,9 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
                 dynamism: str = "none", rebalance_every: int = 0,
                 seed: int = 0, kernel_impl: str = "scan",
                 param_dtype: str = "float32", device=None,
-                params=None) -> Dict[str, Any]:
+                params=None, procs: int = 1, data: int = 1,
+                dist_backend: Optional[str] = None,
+                mesh=None) -> Dict[str, Any]:
     """One fixed batch of ``micro`` x ``mb_global`` prompts (drawn from
     ``np.random.RandomState(seed)``): a prefill, then ``gen - 1`` decode
     rounds at one shared position, with a serving-time rebalance every
@@ -58,8 +66,33 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
     ``params`` (a converted reference tree) replaces the init, which
     draws from a torch generator seeded with ``seed`` as the engine's
     does.  Returns the tokens [micro, mb_global, gen], the wall seconds,
-    tokens/s and the final split."""
+    tokens/s and the final split.
+
+    ``procs`` > 1 runs it as that many ranks (``data x stages`` of them;
+    ``dist_backend`` forces the backend) and returns rank 0's result with
+    every rank's counters under ``ranks``; ``mesh`` is a rank's own call."""
     import torch
+    if procs > 1 and mesh is None:
+        if data * stages != procs:
+            raise ValueError(
+                f"data x stages = {data} x {stages} = {data * stages} "
+                f"ranks, but procs={procs}")
+        from repro_torch.configs import get_config
+        from repro_torch.launch.dist import launch
+        kw = dict(arch=arch, arch_config=get_config(arch), stages=stages,
+                  micro=micro, mb_global=mb_global, prompt_len=prompt_len,
+                  gen=gen,
+                  layers=layers, d_model=d_model, dynamism=dynamism,
+                  rebalance_every=rebalance_every, seed=seed,
+                  kernel_impl=kernel_impl, param_dtype=param_dtype,
+                  params=params)
+        res = launch("repro_torch.launch.serve:rank_serve", procs,
+                     data=data, device=torch.device(
+                         "cuda" if device is None else device).type,
+                     backend=dist_backend, kwargs=kw)
+        out = dict(res[0])
+        out["ranks"] = [r["rank"] for r in res]
+        return out
 
     from repro_torch.configs import DistConfig, get_config, reduced_config
     from repro_torch.core.controller import ControllerConfig, DynMoController
@@ -74,7 +107,7 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
                                                build_decode_fn,
                                                build_prefill_fn)
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     cfg = get_config(arch)
     if layers is not None:
         cfg = reduced_config(cfg, num_layers=layers, d_model=d_model,
@@ -93,19 +126,41 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
     else:
         _check_tree(params, M.param_spec(cfg, dcfg))
         params = _to(params, dev)
+    lanes_mb = mb_global
+    if mesh is not None:
+        from repro_torch.launch.sharding import (check_layout, lanes,
+                                                 local_params, local_rows)
+        check_layout(cfg, mesh)
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"the {cfg.family} family across ranks is not in the port "
+                f"yet (ROADMAP Queue 1 [multi-card])")
+        params = local_params(params, mesh)
+        sl = lanes(mesh, mb_global)
+        lanes_mb = sl.stop - sl.start
     hash_proj = (B.default_hash_projection(cfg.d_model,
                                            dyncfg.sparse_nbuckets, dev)
                  if dyncfg.uses_sparse_attention else None)
     assignment = M.make_assignment(cfg, dcfg)
     dyn = M.init_dyn(cfg, dcfg, dyncfg, dev)
-    cache = M.init_cache(cfg, dcfg, micro, mb_global, cache_len, dev)
+    if mesh is None:
+        cache = M.init_cache(cfg, dcfg, micro, mb_global, cache_len, dev)
+    else:
+        # this rank's row of its replica's lanes only
+        dyn = local_rows(dyn, mesh)
+        cache = {k: torch.zeros((1,) + tuple(sp.shape[1:]), dtype=sp.dtype,
+                                device=dev)
+                 for k, sp in M.cache_spec(cfg, dcfg, micro, lanes_mb,
+                                           cache_len).items()}
     prefill = build_prefill_fn(cfg, dcfg, dyncfg, shapes,
-                               hash_proj=hash_proj)
-    decode = build_decode_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj)
+                               hash_proj=hash_proj, mesh=mesh)
+    decode = build_decode_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj,
+                             mesh=mesh)
     ctrl = DynMoController(
         cfg, dcfg, dyncfg,
         ControllerConfig(method="partition", cost_by="time",
-                         rebalance_every=max(1, rebalance_every)))
+                         rebalance_every=max(1, rebalance_every)),
+        mesh=mesh)
 
     rng = np.random.RandomState(seed)
     tokens = torch.as_tensor(
@@ -141,6 +196,28 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
     tps = micro * mb_global * gen / wall
     return {"tokens": gen_tokens, "wall_s": wall, "tokens_per_s": tps,
             "final_lps": ctrl.lps}
+
+
+def rank_serve(mesh, arch_config=None, **kw) -> Dict[str, Any]:
+    """One rank of ``run_serving(procs=N)`` (run by ``launch.dist``);
+    ``arch_config`` as ``rank_train``'s ``arch``."""
+    import torch
+
+    from repro_torch.launch.dist import (ensure_arch, foreign_modules,
+                                         launch_counts)
+    ensure_arch(arch_config)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = run_serving(mesh=mesh, **kw)
+    out["rank"] = {"rank": mesh.rank, "stage": mesh.stage,
+                   "replica": mesh.replica, "device": str(mesh.device),
+                   "backend": mesh.backend, "launches": launch_counts(),
+                   "peak_allocated": (torch.cuda.max_memory_allocated(
+                       mesh.device) if cuda else None),
+                   "comm": dict(mesh.comm.stats),
+                   "foreign_modules": foreign_modules()}
+    return out
 
 
 def serve_spec(arch: str, *, stages: int = 4, micro: int = 2,
@@ -227,6 +304,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    add_dist_args(ap)
     add_config_args(ap)
     add_alias_flags(ap, SERVE_ALIASES)
     add_spec_flags(ap)
@@ -246,7 +324,8 @@ def run(argv: Optional[List[str]] = None, *, params=None,
     if maybe_dump(args, spec):
         return None
     if args.elastic or args.config:
-        with Session(spec, device=args.device, params=params) as s:
+        with Session(spec, device=args.device, params=params,
+                     procs=args.procs, dist_backend=args.dist_backend) as s:
             rep = s.serve(resize_at=resize_at)
         rep["session_events"] = [dataclasses.asdict(e) for e in s.events]
         if args.events_out:
@@ -267,7 +346,8 @@ def run(argv: Optional[List[str]] = None, *, params=None,
         dynamism=spec.dynamics.kind, rebalance_every=args.rebalance_every,
         seed=spec.seed, kernel_impl=spec.parallel.kernel_impl,
         param_dtype=spec.parallel.param_dtype, device=args.device,
-        params=params)
+        params=params, procs=args.procs, data=spec.parallel.data,
+        dist_backend=args.dist_backend)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -278,6 +358,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"generated {rep['tokens'].shape} in {rep['wall_s']:.1f}s "
               f"({rep['tokens_per_s']:.1f} tok/s); "
               f"final lps={rep['final_lps']}")
+        for r in rep.get("ranks", []):
+            launched = {k: v["launches"] for k, v in r["launches"].items()
+                        if v["launches"]}
+            print(f"  rank {r['rank']} (stage {r['stage']}, replica "
+                  f"{r['replica']}, {r['device']}, {r['backend']}): "
+                  f"launches {launched}; hand-offs {r['comm']['handoffs']}")
         return
     kinds = [r["kind"] for r in rep["resizes"]]
     print(f"served {len(rep['completions'])} requests / "

@@ -22,6 +22,13 @@ It runs on the CUDA card unless ``--device cpu``.
   python -m repro_torch.launch.train --dump-config --stages 2
   python -m repro_torch.launch.train --resume CKPT_DIR
 
+``--procs N`` runs the steps as N processes, one per cell of the
+``parallel.data x parallel.stages`` mesh of ranks (``launch.dist``), and
+prints rank 0's report:
+
+  python -m repro_torch.launch.train --device cpu --procs 4 --stages 4 \\
+      --layers 8 --d-model 64 --steps 6
+
 ``--resume DIR`` rebuilds the run from the newest complete safe point in
 ``DIR`` (it carries the producing RunSpec; only ``--device`` is read from
 the command line) and continues bit-identically; ``--events-out PATH``
@@ -35,7 +42,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.api.cli import (TRAIN_ALIASES, TRAIN_CLI_DEFAULTS,
                                  add_alias_flags, add_config_args,
-                                 add_spec_flags, build_spec, maybe_dump)
+                                 add_dist_args, add_spec_flags, build_spec,
+                                 maybe_dump)
 from repro_torch.api.session import Session
 from repro_torch.api.specs import (ClusterSpec, ControllerSpec, DynamicsSpec,
                                    ModelSpec, ParallelSpec, RepackSpec,
@@ -124,6 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    add_dist_args(ap)
     add_alias_flags(ap, TRAIN_ALIASES)
     add_spec_flags(ap)
     return ap
@@ -131,8 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv: Optional[List[str]] = None, *, params=None,
         resume: Optional[str] = None, resume_step: Optional[int] = None,
-        on_step: Optional[Callable[[int, Session], None]] = None
-        ) -> Optional[Dict[str, Any]]:
+        on_step: Optional[Callable[[int, Session], None]] = None,
+        gather: bool = False) -> Optional[Dict[str, Any]]:
     """Resolve the spec of ``argv`` and train it through a ``Session``;
     returns the report (with the event stream as ``session_events``), or
     None after ``--dump-config``.  ``params`` (a converted reference tree)
@@ -140,17 +149,25 @@ def run(argv: Optional[List[str]] = None, *, params=None,
     or ``--resume``) and ``resume_step`` continue a run from its newest
     complete safe point, or from the one of ``resume_step``, as
     ``Session.resume(dir, step=...)`` does.  ``on_step(step, session)``
-    runs after each step's safe point."""
+    runs after each step's safe point.  ``gather`` (with ``--procs``)
+    brings the final params and optimizer state back whole."""
     args = build_parser().parse_args(argv)
     path = resume or args.resume
     if path:
+        if args.procs > 1:
+            from repro_torch.api.session import refuse_across
+            refuse_across(Session.resume(path, step=resume_step,
+                                         device=args.device).spec,
+                          "train", resumed=True)
         sess = Session.resume(path, step=resume_step, device=args.device)
     else:
         spec = build_spec(args, TRAIN_ALIASES,
                           cli_defaults=TRAIN_CLI_DEFAULTS)
         if maybe_dump(args, spec):
             return None
-        sess = Session(spec, device=args.device, params=params)
+        sess = Session(spec, device=args.device, params=params,
+                       procs=args.procs, dist_backend=args.dist_backend,
+                       gather=gather)
     with sess as s:
         rep = s.train(on_step=on_step)
     rep["session_events"] = [dataclasses.asdict(e) for e in sess.events]
@@ -180,6 +197,14 @@ def main(argv=None):
     for d in out["autoscale_decisions"]:
         print(f"  autoscale @step {d['step']}: {d['action']} "
               f"x{d['workers']} ({d['reason']})")
+    for r in out.get("ranks", []):
+        launched = {k: v["launches"] for k, v in r["launches"].items()
+                    if v["launches"]}
+        print(f"  rank {r['rank']} (stage {r['stage']}, replica "
+              f"{r['replica']}, {r['device']}, {r['backend']}): launches "
+              f"{launched}; rows sent {r['comm']['rows_sent']} received "
+              f"{r['comm']['rows_recv']}; hand-offs "
+              f"{r['comm']['handoffs']}")
 
 
 if __name__ == "__main__":

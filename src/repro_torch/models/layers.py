@@ -326,13 +326,32 @@ def gqa_project(x, wq, wk, wv, num_heads, num_kv_heads, head_dim):
     return q, k, v
 
 
-def cross_entropy_with_head(h, head_w, labels, *, label_mask=None):
-    """Cross-entropy over the head: h [..., d], head_w [d, V], labels
-    [...] int.  (The reference's vocab-sharded variant waits for ROADMAP
-    Queue 1 [multi-card].)"""
+def cross_entropy_with_head(h, head_w, labels, *, label_mask=None,
+                            vocab_offset: int = 0, group=None, comm=None):
+    """Cross-entropy over a (possibly vocab-sharded) head: h [..., d],
+    head_w [d, V_local], labels [...] int.  With ``comm`` (a
+    ``launch.dist.Comm``) the head is this rank's vocab shard starting at
+    ``vocab_offset`` and ``group`` holds the shards (Megatron-style
+    vocab-parallel loss, the reference's ``axis_name``): a max all-reduce,
+    then sums of the shards' ``sumexp`` and in-shard label logits.  The
+    collectives carry values; the gradient of each rank's shard is the
+    local term's (the max is a constant of the log-sum-exp)."""
     logits = matmul(h, head_w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if comm is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        gmax = comm.all_reduce(logits.detach().amax(dim=-1), group,
+                               op="max")
+        sumexp = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+        sumexp = _sum_over(sumexp, comm, group)
+        lse = gmax + torch.log(sumexp)
+        local = labels.long() - vocab_offset
+        in_shard = (local >= 0) & (local < logits.shape[-1])
+        safe = local.clamp(0, logits.shape[-1] - 1)
+        ll = logits.gather(-1, safe[..., None])[..., 0]
+        ll = _sum_over(torch.where(in_shard, ll, torch.zeros_like(ll)),
+                       comm, group)
     nll = lse - ll
     if label_mask is not None:
         nll = nll * label_mask
@@ -340,3 +359,21 @@ def cross_entropy_with_head(h, head_w, labels, *, label_mask=None):
     else:
         denom = float(nll.numel())
     return nll.sum() / denom
+
+
+class _GroupSum(torch.autograd.Function):
+    """All-reduce sum whose backward passes the gradient through: every
+    rank computes the same loss from the sum, so each shard's term gets the
+    loss's gradient once (the reference's psum transposes the same way)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, group):
+        return comm.all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _sum_over(x, comm, group):
+    return _GroupSum.apply(x, comm, group)

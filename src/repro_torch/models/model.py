@@ -369,6 +369,20 @@ def head_weight(params):
     return params["embed"].T if head is None else head
 
 
+def lm_loss(params, cfg: ModelConfig, h, labels, label_mask=None,
+            vocab_axis=None, vocab_offset: int = 0):
+    """h: [b, s, d] final hidden -> mean cross-entropy.  ``vocab_axis``: a
+    ``(comm, group)`` pair when the head is vocab-sharded over the group's
+    ranks (this rank's shard starts at ``vocab_offset``), as the
+    reference's mesh axis name."""
+    hn = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    comm, group = (None, None) if vocab_axis is None else vocab_axis
+    return cross_entropy_with_head(hn, head_weight(params), labels,
+                                   label_mask=label_mask,
+                                   vocab_offset=vocab_offset, group=group,
+                                   comm=comm)
+
+
 def reference_loss(cfg: ModelConfig, dcfg: DistConfig,
                    dyncfg: DynamicsConfig, params, assignment, dyn, tokens,
                    labels, label_mask=None, prefix_emb=None, *,

@@ -45,16 +45,40 @@ def _map(fn, tree, path=()):
     return fn(path, tree)
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [x.float().square().sum() for _, x in _leaves(tree)]
+def _sq(x) -> torch.Tensor:
+    return x.float().square().sum()
+
+
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  A ``stages`` leaf adds one sum of
+    squares per stage row, in row order; with a ``mesh`` (each rank holding
+    its row ``[1, L_max, ...]``) the rows' sums are all-gathered over the
+    model ring and added in that same order, so every rank's norm is
+    bitwise the one process's."""
+    leaves = list(_leaves(tree))
+    gathered = None
+    if mesh is not None and mesh.model > 1:
+        mine = [_sq(x[0]) for p, x in leaves if p[0] == "stages"]
+        if mine:
+            gathered = mesh.comm.all_gather(torch.stack(mine),
+                                            mesh.model_group)    # [S, n]
+    sq, j = [], 0
+    for path, x in leaves:
+        if path[0] != "stages":
+            sq.append(_sq(x))
+        elif gathered is not None:
+            sq += list(gathered[:, j].unbind())
+            j += 1
+        else:
+            sq += [_sq(x[s]) for s in range(x.shape[0])]
     return torch.stack(sq).sum().sqrt()
 
 
-def clip_scale(grads, max_norm):
+def clip_scale(grads, max_norm, mesh=None):
     """(the factor that clips ``grads`` to ``max_norm`` global norm, the
     norm); the update applies it leaf by leaf, so no clipped copy of the
     whole gradient tree is ever held (one fp32 leaf at a time)."""
-    n = global_norm(grads)
+    n = global_norm(grads, mesh)
     return torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0), n
 
 
@@ -124,8 +148,9 @@ def _adafactor_update(cfg: OptConfig, g, st, p, t):
 # ---------------------------------------------------------------------------
 # Unified interface
 # ---------------------------------------------------------------------------
-def make_optimizer(cfg: OptConfig):
-    """Returns (init_fn, update_fn).
+def make_optimizer(cfg: OptConfig, mesh=None):
+    """Returns (init_fn, update_fn).  ``mesh``: the ranks' mesh, over which
+    the clip norm is taken (``global_norm``).
 
     update_fn(grads, state, params, lr, frozen=None) -> (params, state,
     gnorm): ``params`` and ``state`` are updated in place and returned;
@@ -140,7 +165,7 @@ def make_optimizer(cfg: OptConfig):
 
     @torch.no_grad()
     def update_fn(grads, state, params, lr, frozen=None):
-        scale, gnorm = clip_scale(grads, cfg.clip_norm)
+        scale, gnorm = clip_scale(grads, cfg.clip_norm, mesh)
         t = state["count"] + 1
         flat_g = dict(_leaves(grads))
         for path, p in _leaves(params):

@@ -6,14 +6,13 @@ Two codecs with error feedback:
   * int8 linear quantization (per-tensor scale).
 
 ``compressed_psum`` is the reference's psum over a named mesh axis with
-lossy compression: quantize → sum → dequantize (int8, with a scale common
-to every rank), or top-k scattered back dense before the sum.  The port
-runs on one card, so the collective takes one rank only: ``group`` (a
-``torch.distributed`` process group) must be None or of size 1, and the
-sum over ranks is the identity.  A larger group raises — a data-parallel
-reduce across cards waits for ROADMAP Queue 1 [multi-card].  The error
-feedback state (the residual carried to the next step) makes both codecs
-convergence-safe.
+lossy compression, over the ranks of a ``torch.distributed`` group:
+quantize → sum → dequantize (int8, with a scale common to every rank —
+the max of theirs — and the codes summed as int32), or top-k scattered
+back dense before the sum; without compression it is an all-reduce.  A
+group of one rank (or none) sums nothing.  The error feedback state (the
+residual carried to the next step) is each rank's own and makes both
+codecs convergence-safe.
 
 Rounding: ``torch.round`` rounds half to even, as ``jnp.round`` does.
 ``torch.topk`` and ``jax.lax.top_k`` may order ties in |g| differently.
@@ -59,37 +58,40 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor,
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def _one_rank(group) -> None:
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over ``group`` (host-staged for gloo and a CUDA
+    tensor); ``group`` None or of one rank: ``t``."""
     if group is None:
-        return
+        return t
     import torch.distributed as dist
-    if dist.get_world_size(group) > 1:
-        raise NotImplementedError(
-            "compressed_psum across more than one rank is not in "
-            "repro_torch yet (ROADMAP Queue 1 [multi-card])")
+    if dist.get_world_size(group) == 1:
+        return t
+    from repro_torch.launch.dist import Comm
+    return Comm(dist.get_backend(group), t.device).all_reduce(t, group, op)
 
 
 def compressed_psum(g: torch.Tensor, group=None, method: str = "int8",
                     err: Optional[torch.Tensor] = None, frac: float = 0.05
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum over the ranks of ``group`` with lossy compression and error
-    feedback (one rank: the sum is the identity).
+    feedback.
 
     Returns (reduced, new_error).  ``err`` is the carried residual."""
-    _one_rank(group)
     gf = g.to(torch.float32)
     if err is not None:
         gf = gf + err
     if method == "int8":
-        # the scale common to every rank is the max of theirs: on one rank
-        # its own, and the sum of the codes is its codes
-        q, scale = int8_quantize(gf)
-        red = int8_dequantize(q, scale)
-        new_err = gf - red
+        _, scale = int8_quantize(gf)
+        # the scale must be common across ranks: the max of theirs
+        scale = _all_reduce(scale, group, "max")
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        red_q = _all_reduce(q.to(torch.int32), group)
+        red = red_q.to(torch.float32) * scale
+        new_err = gf - q.to(torch.float32) * scale
     elif method == "topk":
         vals, idx, new_err = compress_topk(gf, frac)
-        red = decompress_topk(vals, idx, gf.shape)
+        red = _all_reduce(decompress_topk(vals, idx, gf.shape), group)
     else:
-        red = gf
+        red = _all_reduce(gf, group)
         new_err = torch.zeros_like(gf)
     return red.to(g.dtype), new_err

@@ -9,8 +9,10 @@ CPU (``repro_torch.runtime.compression`` vs ``repro.runtime.compression``).
   (its ``test_runtime.py`` setup) for int8 and the plain sum, and against
   the reference's top-k codecs for top-k (the reference's top-k branch
   fails to trace), with and without a carried residual: the same
-  reduction and new residual; a group of more than one rank raises,
-  naming its ROADMAP item.
+  reduction and new residual; over a group of two ranks (two processes,
+  ``gloo``) it is the sum of the ranks' codes (``test_torch_dist.py``
+  holds four ranks to the reference's ``compressed_psum`` on four
+  devices).
 
 The inputs are seeded normals, which have no ties in |g|: ``torch.topk``
 and ``jax.lax.top_k`` may order ties differently.  ``torch.round`` and
@@ -107,11 +109,29 @@ def test_compressed_psum_one_rank_matches_reference(method, with_err):
                                atol=1e-5)
 
 
-def test_compressed_psum_refuses_more_than_one_rank(monkeypatch):
-    import torch.distributed as dist
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match=r"\[multi-card\]"):
-        T.compressed_psum(torch.zeros(8), group=object())
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
-    red, err = T.compressed_psum(torch.ones(8), group=object())
+def test_compressed_psum_refuses_more_than_one_rank():
+    """The name is historical: across ranks the sum is real now.  Two
+    ranks reduce their own inputs — the plain sum is the sum, int8 the sum
+    of codes on a common scale — and a group of one (or none) is the
+    identity."""
+    from repro_torch.launch.dist import launch
+    gs = [torch.from_numpy(_g(10 + r, 64)) for r in range(2)]
+    red, err = T.compressed_psum(torch.ones(8), group=None)
     assert torch.equal(red, torch.ones(8)) and not err.any()
+    for method in ("none", "int8"):
+        out = launch("_dist_targets:compressed_psum", 2, device="cpu",
+                     kwargs=dict(gs=gs, errs=None, method=method),
+                     timeout_s=60, run_timeout_s=120)
+        assert torch.equal(out[0]["red"], out[1]["red"])
+        if method == "none":
+            np.testing.assert_array_equal(out[0]["red"].numpy(),
+                                          (gs[0] + gs[1]).numpy())
+        else:
+            scale = max(float(g.abs().max()) for g in gs) / 127.0
+            q = [torch.clamp(torch.round(g / scale), -127, 127) for g in gs]
+            np.testing.assert_allclose(out[0]["red"].numpy(),
+                                       ((q[0] + q[1]) * scale).numpy(),
+                                       rtol=1e-6, atol=1e-7)
+            np.testing.assert_allclose(
+                (out[0]["red"] - q[1] * scale + out[0]["err"]).numpy(),
+                gs[0].numpy(), rtol=0, atol=1e-5)

@@ -857,3 +857,48 @@ def test_async_drain_with_cuda_state_is_the_inline_run(cuda):
     assert [r["step"] for r in a["resizes"]] == [
         r["step"] for r in b["resizes"]] == [14]
     assert b["controller"]["mode"] == "async"
+
+
+def test_two_ranks_share_the_card_through_host_copies(cuda):
+    """A 2-rank world on the one card: the launcher picks gloo (the ranks
+    share the card), the ring and the all-reduce move CUDA tensors through
+    pinned host buffers, and an explicit nccl raises before any rank
+    starts."""
+    from repro_torch.launch.dist import choose_backend, launch
+    n = torch.cuda.device_count()
+    assert choose_backend(cuda, n + 1) == "gloo"
+    with pytest.raises(ValueError, match="refuses two ranks on one device"):
+        launch("_dist_targets:ring", n + 1, backend="nccl")
+    out = launch("_dist_targets:ring", 2, timeout_s=60,
+                 run_timeout_s=180)
+    for r in out:
+        prv = (r["rank"] - 1) % 2
+        assert r["got"] == [(float(prv * 10 + i), float(10 + 2 * i))
+                            for i in range(3)]
+
+
+def test_reduced_train_as_two_ranks_on_the_card_equals_one_process(cuda):
+    """Reduced smollm (8 layers, d_model 64) trained 4 steps as 2 ranks on
+    the card, a migration after step 1: bitwise the one-process run on the
+    card, and every rank's K1-K3 launches summed equal the one process's."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.train import run
+    argv = ["--layers", "8", "--d-model", "64", "--num-heads", "4",
+            "--num-kv-heads", "2", "--d-ff", "256", "--vocab-size", "256",
+            "--seq", "64", "--num-micro", "2", "--mb-global", "2",
+            "--stages", "2", "--steps", "4", "--rebalance-every", "2",
+            "--straggler", "1:4.0", "--dynamism", "pruning",
+            "--kernel-impl", "pallas", "--log-every", "100"]
+    across = run(argv + ["--procs", "2"], gather=True)
+    for k in KERNELS:
+        k.reset()
+    one = run(argv)
+    assert across["losses"] == one["losses"]
+    assert [e.moved_layers for e in across["events"]] == \
+        [e.moved_layers for e in one["events"]]
+    for k, a in across["params"]["stages"].items():
+        assert torch.equal(a.to(cuda), one["params"]["stages"][k]), k
+    for k in KERNELS:
+        total = sum(r["launches"][k.name]["launches"]
+                    for r in across["ranks"])
+        assert total == k.launches, k.name
