@@ -129,7 +129,7 @@ final line:
                bitwise equal after one more shrink / grow cycle on the live
                state (the trash block excluded), every K6 launch split;
   4j. early exit — the training CLI with --dynamism early_exit (2 stage
-               buffers, 8 steps, the exited share printed every step; K1,
+               buffers, 5 steps, the exited share printed every step; K1,
                K2a, K2b and K3 at the 4c per-step counts on the tensor
                cores) and the serve CLI with --dynamism early_exit
                --early-exit-frac 0.5 (K1 and K3 on the tensor cores, every
@@ -310,14 +310,14 @@ final line:
                steps through build_prefill_fn / build_decode_fn, ids equal
                to the plain run's where its top-2 gap exceeds 1e-3;
   6b. zamba2 — zamba2-1.2b at full size trained through the CLI (2
-               buffers of 27 slots, 4 x 2 x 1024 tokens, 10 steps, a 2x
+               buffers of 27 slots, 4 x 2 x 1024 tokens, 8 steps, a 2x
                straggler, the partition balancer every 4 steps): the net
                migration must move MAMBA and HYBRID_ATTN layers; K1 / K2a
                / K2b at the shared block's 32 heads of 64, on the tensor
                cores; two profiled steps; served with contiguous KV once
                fixed and once shrunk 2 -> 1 at tick 6, tokens identical;
-  6c. xLSTM — xlstm-1.3b at published widths cut to 16 layers (sLSTM at 3
-               and 11): 12 steps at seq 256 with the prune of the mLSTM
+  6c. xLSTM — xlstm-1.3b at published widths cut to 4 layers (sLSTM at
+               3): 12 steps at seq 256 with the prune of the mLSTM
                up-projection at step 10, then a serve of 4 requests; no
                kernel runs on this path (every count 0), step time printed;
   6d. InternVL2 — internvl2-26b at published widths cut to 4 layers,
@@ -326,24 +326,37 @@ final line:
                tensor cores; cut to 8 layers, fp32, a text-only paged serve
                of 4 requests through K1, K3 and K6 at hd 128, every K6
                launch split;
-  7a. ranks — full-width, full-depth smollm-360m trained as 4 processes
+  7d. ranks — full-width, full-depth smollm-360m trained as 4 processes
                (``--procs 4 --stages 4``, data 1), one stage each, all on
                the one card: gloo through pinned host copies (NCCL refuses
-               two ranks on one device), 12 steps of phase 4c's schedule
-               (cadences after steps 4 and 9 under a 2x straggler on
-               worker 1, the prune at step 10); each rank's launches of
-               K1-K3 (all on the tensor cores), peak memory_allocated, rows
-               sent and received by the migrations, its time in staging
-               copies, sends and receives; their sum must be 4c's count a
-               step times the steps; the hand-off's own ms (two ranks pass
-               a 7.9 MB carry back and forth, both waiting); step ms beside
-               the card's name and power limit (four processes time-slice
-               one card: no speed-up is claimed);
+               two ranks on one device), phase 4h's flags and schedule:
+               the controller's repack shrink 4 -> 2 at step 14 releases
+               ranks 2 and 3 to the job manager (they hold nothing: each
+               one's memory_allocated at most 64 MiB after it), the grow at
+               step 19 binds them back; the resizes, pool log, stages and
+               losses those of 4h's one process (bitwise, or the first
+               differing step named and held to 1e-6), the launches summed
+               over the ranks 4h's (all on the tensor cores, every rank
+               launching); per rank memory_allocated / memory_reserved
+               before the shrink, after it and after the grow, the
+               nvidia-smi per-process memory, the rows and bytes each
+               resize moved and its seconds, K1-K3 launches, peak memory
+               and staging / send / receive seconds, beside the card's
+               name and power limit (four processes time-slice one card:
+               no speed-up is claimed); the hand-off's own ms (two ranks
+               pass a 7.9 MB carry back and forth, both waiting);
+  7e.        phase 4i's elastic paged serve as 4 ranks, one stage each,
+               with its resize_at: tokens identical to 4i's, K6 launched
+               in every rank on its own layers (every launch split) with
+               sums equal to 4i's, the page pool gathered whole bitwise
+               4i's (the trash block excluded), each rank's memory around
+               the shrink, the tick p50 beside 4i's;
   7b.        smollm-360m at its published widths cut to 8 layers, 3 steps
                with a migration after step 1 (a 4x straggler), as 4 ranks
-               and as one process with 4 stage buffers: losses, final
-               params, Adam moments and dyn state bitwise (a difference is
-               named and held to rtol 1e-6);
+               and as one process with 4 stage buffers: the migration
+               moves rows across ranks; losses, final params, Adam moments
+               and dyn state bitwise (a difference is named and held to
+               rtol 1e-6);
   7c.        the one-shot serve of full-width smollm-360m (8 prompts of
                1024 tokens, 16 generated) as 4 ranks, each holding its
                stage's rows and KV cache: tokens identical to the one
@@ -359,11 +372,11 @@ final line:
      launches_autoscale_serve, launches_tenants and launches_api are
      phases 4m-4q's, launches_chaos_train and launches_chaos_serve 4r's,
      launches_whisper, launches_zamba2, launches_xlstm and
-     launches_internvl2 6a-6d's, launches_train_across and
-     launches_serve_across 7a's and 7c's (summed over the ranks);
-     family_cases holds 3f's cases of the kernel; before it,
-     [phase_seconds]: the wall seconds of every phase (6a-6d and 7a-7c
-     run after 4r, before 5).
+     launches_internvl2 6a-6d's, launches_elastic_train_across,
+     launches_serve_across and launches_elastic_serve_across 7d's, 7c's
+     and 7e's (summed over the ranks); family_cases holds 3f's cases of
+     the kernel; before it, [phase_seconds]: the wall seconds of every
+     phase (6a-6d and 7b-7e run after 4r, before 5).
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -470,12 +483,17 @@ def elastic_serve_args():
 
 # phase 4i's scripted resizes: {tick: stage buffers}
 ELASTIC_SERVE_RESIZE_AT = {8: 2, 16: 4}
+# 4h's and 4i's results, which 7d and 7e are held to
+ELASTIC_TRAIN = {}
+ELASTIC_SERVE = {}
+# a released rank's memory_allocated after the shrink (7d), at most
+RELEASED_MAX_BYTES = 64 << 20
 
 
-def ee_train_args(kind: str, steps: int = 8):
+def ee_train_args(kind: str, steps: int = 5):
     """Phase 4j's training flags: full-width smollm-360m, 2 stage buffers,
     ``--dynamism early_exit`` (or mod), the exited share logged every
-    step."""
+    step, one controller cadence (after step 4)."""
     return FULL_SIZE + ["--stages", "2", "--num-micro", "4", "--mb-global", "2",
             "--seq", "1024", "--steps", str(steps), "--rebalance-every",
             "5", "--dynamism", kind, "--kernel-impl", "pallas",
@@ -1705,18 +1723,28 @@ def profile_serve(torch):
             .replace(" ", "")}
 
 
-def profile_train(torch, args_fn=None):
+def first_two_ms(rep) -> float:
+    """The wall ms of a training report's first two steps."""
+    return sum(rep["step_times"][:2]) * 1e3
+
+
+def profile_train(torch, args_fn=None, wall_ms=None):
     """Device time by kernel over two train steps (``args_fn(2)``'s flags,
     smollm's by default) under torch.profiler, against the wall time of
-    the same two steps without the profiler."""
+    the same two steps without the profiler: ``wall_ms``, the first two
+    steps of the phase's own run of these flags (``first_two_ms``: the
+    families, whose run is not the process's first training), or a
+    two-step run of its own when None (4d and 4g: 4c's and 4e's first step
+    also pays the process's first training calls)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.train import run as train_run
     args_fn = args_fn or train_args
-    rep = train_run(args_fn(2))
-    torch.cuda.synchronize()
-    wall_ms = rep["wall_s"] * 1e3
-    del rep
-    free_cuda(torch)
+    if wall_ms is None:
+        rep = train_run(args_fn(2))
+        torch.cuda.synchronize()
+        wall_ms = rep["wall_s"] * 1e3
+        del rep
+        free_cuda(torch)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rep = train_run(args_fn(2))
         torch.cuda.synchronize()
@@ -2479,6 +2507,14 @@ def run_elastic_train_phase(torch, kernels):
         raise AssertionError(f"elastic train: K3 backward launches "
                              f"{pm.KERNEL.launches_bwd}")
     check_tensor_core("elastic train", launched, launched_tc, FP32_TC_PATH)
+    # phase 7d trains the same flags as 4 ranks and is held to this run
+    ELASTIC_TRAIN.update(
+        losses=list(losses), pool_log=list(rep["pool_log"]),
+        stages=list(rep["stages_history"]), launches=dict(launched),
+        launches_bwd={k.name: k.launches_bwd for k in kernels.KERNELS},
+        resizes=[(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+                  list(r["workers"])) for r in rep["resizes"]],
+        step_times=list(rep["step_times"]))
     rz = rep["resizes"]
     got = [(r["kind"], r["from_stages"], r["to_stages"]) for r in rz]
     if got != [("shrink", 4, 2), ("grow", 2, 4)]:
@@ -2556,6 +2592,13 @@ def run_elastic_serve_phase(torch, kernels):
              for r in rep["resizes"]]
     if kinds != [("shrink", 4, 2), ("grow", 2, 4)]:
         raise AssertionError(f"serve resizes {kinds}")
+    # phase 7e serves the same trace as 4 ranks and is held to this run
+    ELASTIC_SERVE.update(
+        tokens=got, launches=dict(launched), split=k6_split,
+        pool_digests=pool_digests(srv.state.cache),
+        tick_p50=_pct50(rep["tick_wall_s"]),
+        resizes=[(r["kind"], r["step"], r["from_stages"], r["to_stages"])
+                 for r in rep["resizes"]])
     # one more shrink / grow cycle on the live state: the pool bitwise
     before = {k: v.clone() for k, v in srv.state.cache.items()}
     torch.cuda.synchronize()
@@ -5097,8 +5140,10 @@ def run_whisper_phase(torch, kernels):
         raise AssertionError(f"whisper: the prune at step 10 masked no "
                              f"block (ff_active {ff})")
     say("whisper_prune", ff_active=f"{ff:.4f}", pruned_at=10)
+    wall2_ms = first_two_ms(rep)
     del rep
-    say("profile_whisper_train", **profile_train(torch, whisper_train_args))
+    say("profile_whisper_train", **profile_train(torch, whisper_train_args,
+                                                 wall_ms=wall2_ms))
     cfg = get_config(cut_arch("whisper-large-v3", 4, encoder_layers=4))
     dcfg = DistConfig(num_stages=2, slot_slack=0, remat="none",
                       param_dtype="float32", kernel_impl="pallas")
@@ -5113,7 +5158,9 @@ def run_whisper_phase(torch, kernels):
 # ---------------------------------------------------------------------------
 # 6b: zamba2-1.2b at full size (Mamba2 + the shared attention block)
 # ---------------------------------------------------------------------------
-ZAMBA_STEPS = 10
+# the cadences after steps 3 and 7 both migrate: the run ends with the
+# second
+ZAMBA_STEPS = 8
 
 
 def zamba2_train_args(steps: int = ZAMBA_STEPS):
@@ -5186,8 +5233,10 @@ def run_zamba2_phase(torch, kernels):
                              f"{moved}, not both MAMBA and HYBRID_ATTN")
     say("zamba2_migration", moved_types=sorted(moved),
         final_lps=rep["final_lps"])
+    wall2_ms = first_two_ms(rep)
     del rep
-    say("profile_zamba2_train", **profile_train(torch, zamba2_train_args))
+    say("profile_zamba2_train", **profile_train(torch, zamba2_train_args,
+                                                wall_ms=wall2_ms))
     free_cuda(torch)
     with serve_session(zamba2_serve_args()) as s:
         fixed = s.serve()
@@ -5223,13 +5272,19 @@ def run_zamba2_phase(torch, kernels):
 
 
 # ---------------------------------------------------------------------------
-# 6c: xlstm-1.3b at published widths, 16 layers (no kernel on this path)
+# 6c: xlstm-1.3b at published widths, 4 layers (no kernel on this path)
 # ---------------------------------------------------------------------------
+# phase 6c's depth: three mLSTM layers and the sLSTM at layer 3
+XLSTM_LAYERS = 4
+
+
 def xlstm_train_args(steps: int = 12):
-    """Phase 6c's flags: xlstm-1.3b at published widths cut to 16 layers
-    (sLSTM at 3 and 11), 2 stage buffers, 2 microbatches of 2 x 256
-    tokens, the prune of the mLSTM up-projection at step 10, fp32."""
-    return FULL_SIZE + ["--arch", cut_arch("xlstm-1.3b", 16), "--stages",
+    """Phase 6c's flags: xlstm-1.3b at published widths cut to
+    XLSTM_LAYERS layers (the sLSTM at 3), 2 stage buffers, 2 microbatches
+    of 2 x 256 tokens, the prune of the mLSTM up-projection at step 10,
+    fp32."""
+    return FULL_SIZE + ["--arch", cut_arch("xlstm-1.3b", XLSTM_LAYERS),
+                        "--stages",
                         "2", "--slot-slack", "0", "--num-micro", "2",
                         "--mb-global", "2", "--seq", "256", "--steps",
                         str(steps), "--dynamism", "pruning",
@@ -5238,7 +5293,8 @@ def xlstm_train_args(steps: int = 12):
 
 
 def xlstm_serve_args():
-    return FULL_SIZE + ["--elastic", "--arch", cut_arch("xlstm-1.3b", 16),
+    return FULL_SIZE + ["--elastic", "--arch", cut_arch("xlstm-1.3b",
+                                                         XLSTM_LAYERS),
                         "--stages", "2", "--slot-slack", "0", "--micro", "2",
                         "--mb-global", "2", "--prompt-len", "64", "--gen",
                         "16", "--requests", "4", "--kernel-impl", "pallas",
@@ -5348,15 +5404,12 @@ def run_internvl2_phase(torch, kernels):
 
 
 # ---------------------------------------------------------------------------
-# phases 7a-7c: one process per pipeline stage (``launch.dist``): the
+# phases 7b-7e: one process per pipeline stage (``launch.dist``): the
 # ranks share the one card, so their carries and collectives go through
 # host copies over gloo; these phases show correctness and the hand-off's
 # cost, not a speed-up (four processes time-slice one card)
 # ---------------------------------------------------------------------------
 ACROSS_PROCS = 4
-# phase 7a's steps: the cadences after steps 4 and 9 (a 2x straggler on
-# worker 1 moves layers), the prune at step 10
-ACROSS_STEPS = 12
 # phase 7b's steps and flags: a cadence every 2 steps under a 4x straggler
 # on worker 1 migrates rows across ranks after step 1 (a straggler of 4 —
 # not 3 — keeps the decision off a tie the wall clock's last bits could
@@ -5366,12 +5419,11 @@ ACROSS_PATH = ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                "block_sparse_attention_bwd_dkv", "pruned_matmul")
 
 
-def across_train_args(steps: int = ACROSS_STEPS, layers: int = None,
-                      every: int = 5, straggler: str = "1:2.0"):
-    """Phase 7a's flags: phase 4c's run (full-width smollm-360m, 8192
-    tokens a step, the prune at step 10, a rebalance cadence every 5 steps
-    under a 2x straggler on worker 1) on 4 stages, as 4 ranks.  ``layers``
-    cuts it in depth at its published widths (phase 7b)."""
+def across_train_args(steps: int, layers: int, every: int,
+                      straggler: str):
+    """Phase 7b's flags: smollm-360m at its published widths cut to
+    ``layers``, 8192 tokens a step, a rebalance cadence every ``every``
+    steps under a ``straggler`` (diffusion balancer), on 4 stages."""
     arch = [] if layers is None else ["--arch", cut_arch("smollm-360m",
                                                          layers)]
     return FULL_SIZE + arch + [
@@ -5412,29 +5464,86 @@ def say_ranks(label: str, ranks, smi: str) -> None:
             recv_wait_s=f"{c['recv_wait_s']:.3f}", card=repr(smi))
 
 
-def rank_phase7(mesh, train, parity, serve, archs):
-    """Phases 7a-7c in one set of 4 ranks (launched by ``launch.dist``; the
-    ranks import this module, which imports no jax): the 7a training, the
-    hand-off probe (ranks 0 and 1), the 7c one-shot serve and the 7b
-    parity training, each with the counters and transfer stats zeroed
-    just before it and read just after.  One launch pays the processes'
-    start and the card's first-call costs once.  Returns each part's
-    result, the rank's."""
+class MemoryAt:
+    """A ``train(on_step=...)`` hook (picklable: the ranks import this
+    module): after each step of ``steps`` every rank notes its pid,
+    memory_allocated and memory_reserved, and rank 0 the card's
+    per-process memory as ``nvidia-smi --query-compute-apps`` gives it."""
+
+    def __init__(self, steps):
+        self.steps = tuple(steps)
+        self.seen = []
+
+    def __call__(self, step, session):
+        import os
+
+        import torch
+        if step not in self.steps:
+            return
+        dev = session.device
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+        row = {"step": step, "pid": os.getpid(),
+               "allocated": torch.cuda.memory_allocated(dev) if cuda
+               else None,
+               "reserved": torch.cuda.memory_reserved(dev) if cuda
+               else None}
+        if session._mesh.rank == 0 and cuda:
+            row["smi"] = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip().splitlines()
+        self.seen.append(row)
+
+
+# 7d's memory probes: before the shrink (step 13), after it (14), after the
+# grow (19)
+MEMORY_STEPS = (13, 14, 19)
+
+
+def rank_phase7(mesh, elastic, parity, serve, elastic_serve, archs):
+    """Phases 7b-7e in one set of 4 ranks (launched by ``launch.dist``; the
+    ranks import this module, which imports no jax): the 7d elastic
+    training, the hand-off probe (ranks 0 and 1), the 7c one-shot serve,
+    the 7e elastic serve and the 7b parity training, each with the counters
+    and transfer stats zeroed just before it and read just after.  One
+    launch pays the processes' start and the card's first-call costs once.
+    Returns each part's result, the rank's."""
+    import torch
+
     from repro_torch import kernels
-    from repro_torch.api.session import rank_train
+    from repro_torch.api.session import rank_serve_elastic, rank_train
     from repro_torch.launch.dist import ensure_arch, handoff_probe
     from repro_torch.launch.serve import rank_serve
     for cfg in archs:
         ensure_arch(cfg)
-    out = {}
-    for part, fn in (("7a", lambda: rank_train(mesh, train)),
+    probe = MemoryAt(MEMORY_STEPS)
+
+    def elastic_serve_part():
+        got = rank_serve_elastic(mesh, elastic_serve, gather=True,
+                                 resize_at=ELASTIC_SERVE_RESIZE_AT)
+        if "report" in got:          # the gathered pool, as its digests
+            got["report"]["pool_digests"] = pool_digests(
+                got["report"].pop("cache"))
+        return got
+
+    out = {"seconds": {}}
+    for part, fn in (("7d", lambda: rank_train(mesh, elastic,
+                                               on_step=probe)),
                      ("probe", lambda: handoff_probe(mesh)),
                      ("7c", lambda: rank_serve(mesh, **serve)),
+                     ("7e", elastic_serve_part),
                      ("7b", lambda: rank_train(mesh, parity, gather=True))):
         for k in kernels.KERNELS:
             k.reset()
         mesh.comm.stats = dict.fromkeys(mesh.comm.stats, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         out[part] = fn()
+        out["seconds"][part] = time.perf_counter() - t0
+    out["7d_memory"] = probe.seen
     return out
 
 
@@ -5443,27 +5552,162 @@ ACROSS_SERVE = dict(arch="smollm-360m", stages=4, micro=2, mb_global=4,
                     kernel_impl="pallas", param_dtype="float32", seed=0)
 
 
+def pool_digests(cache) -> list:
+    """sha256 of each stage's rows of a page pool ({kp, vp: [S, L_max,
+    pool+1, page, kv, hd]}), the trash block (the last: nothing reads it)
+    excluded: equal lists mean bitwise equal pools."""
+    import hashlib
+
+    import torch
+    S = next(iter(cache.values())).shape[0]
+    out = []
+    for s in range(S):
+        h = hashlib.sha256()
+        for k in sorted(cache):
+            h.update(cache[k][s, :, :-1].contiguous().cpu().reshape(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _gb(x) -> str:
+    return "none" if x is None else f"{x / 1e9:.3f}"
+
+
+def check_elastic_across(rep, ranks, want) -> dict:
+    """7d against 4h's one-process run (``want``: ``ELASTIC_TRAIN``): the
+    same resizes, pool log and stages, the launches summed over the ranks
+    equal to 4h's (backward launches too), every rank launching, each
+    released rank holding at most ``RELEASED_MAX_BYTES`` after the shrink,
+    the losses bitwise (else the first differing step, held to rtol 1e-6).
+    Returns the summary."""
+    got = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+            list(r["workers"])) for r in rep["resizes"]]
+    if got != want["resizes"] or [g[0] for g in got] != ["shrink", "grow"]:
+        raise AssertionError(f"7d: resizes {got} vs 4h's {want['resizes']}")
+    if rep["pool_log"] != want["pool_log"] or \
+            rep["stages_history"] != want["stages"]:
+        raise AssertionError(f"7d: pool log {rep['pool_log']} / stages "
+                             f"{rep['stages_history']} vs 4h's")
+    launched = summed_launches(ranks)
+    if launched != want["launches"]:
+        raise AssertionError(f"7d: launches {launched} vs 4h's "
+                             f"{want['launches']}")
+    # the total alone would let forward and backward launches trade places
+    bwd = summed_launches(ranks, "bwd")
+    if bwd != want["launches_bwd"]:
+        raise AssertionError(f"7d: backward launches {bwd} vs 4h's "
+                             f"{want['launches_bwd']}")
+    idle = [r["rank"] for r in ranks
+            if r["launches"]["pruned_matmul"]["launches"] <= 0]
+    if idle or len(ranks) != ACROSS_PROCS:
+        raise AssertionError(f"7d: ranks {idle} launched no K3")
+    shrink = rep["resize_memory"][0]
+    released = [m for m in shrink["ranks"] if m["role"] == "released"]
+    if [m["rank"] for m in released] != [2, 3]:
+        raise AssertionError(f"7d: released ranks {released}")
+    heavy = [(m["rank"], m["allocated_after"]) for m in released
+             if m["allocated_after"] > RELEASED_MAX_BYTES
+             or m["held_bytes"] != 0]
+    if heavy:
+        raise AssertionError(f"7d: released ranks still hold memory: "
+                             f"{heavy}")
+    losses, base = rep["losses"], want["losses"]
+    first = next((i for i, (x, y) in enumerate(zip(losses, base))
+                  if x != y), None)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses, base))
+    if len(losses) != len(base) or rel > 1e-6:
+        raise AssertionError(f"7d: losses differ from 4h's from step "
+                             f"{first} (rel {rel:.3e})")
+    return {"losses_bitwise": first is None, "first_differing_step": first,
+            "loss_max_rel": rel, "launched": launched, "bwd": bwd}
+
+
+def check_elastic_serve_across(rep, ranks, want) -> int:
+    """7e against 4i's resized one-process serve (``want``:
+    ``ELASTIC_SERVE``): tokens identical, the resizes 4i's, K6 launched in
+    every rank (each rank was active before the shrink and after the
+    grow), split every time, summed to 4i's count, the gathered page pool
+    bitwise 4i's (``pool_digests``: each stage's rows, the trash block
+    excluded).  Returns K6's launches."""
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if got != want["tokens"]:
+        raise AssertionError("7e: the ranks' tokens differ from 4i's")
+    kinds = [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
+             for r in rep["resizes"]]
+    if kinds != want["resizes"]:
+        raise AssertionError(f"7e: resizes {kinds} vs 4i's "
+                             f"{want['resizes']}")
+    k6 = summed_launches(ranks)["paged_attention"]
+    split = summed_launches(ranks, "split")["paged_attention"]
+    if k6 != want["launches"]["paged_attention"] or split != k6:
+        raise AssertionError(f"7e: K6 {k6} ({split} split) vs 4i's "
+                             f"{want['launches']['paged_attention']}")
+    idle = [r["rank"] for r in ranks
+            if r["launches"]["paged_attention"]["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"7e: ranks {idle} launched no K6")
+    differ = [s for s, (a, b) in enumerate(zip(rep["pool_digests"],
+                                               want["pool_digests"]))
+              if a != b]
+    if differ or len(rep["pool_digests"]) != len(want["pool_digests"]):
+        raise AssertionError(f"7e: the page pool's rows of stages {differ} "
+                             f"differ from 4i's")
+    return k6
+
+
+def say_resize_memory(label: str, ranks, smi_rows, smi: str) -> None:
+    """7d's per-rank memory through the resizes (from each rank's
+    ``resize_memory``) and the card's per-process memory at the probes."""
+    for r in ranks:
+        shrink, grow = r["resize_memory"]
+        say(label, rank=r["rank"], role_after_shrink=shrink["role"],
+            allocated_gb=json.dumps([_gb(shrink["allocated_before"]),
+                                     _gb(shrink["allocated_after"]),
+                                     _gb(grow["allocated_after"])])
+            .replace(" ", ""),
+            reserved_gb=json.dumps([_gb(shrink["reserved_before"]),
+                                    _gb(shrink["reserved_after"]),
+                                    _gb(grow["reserved_after"])])
+            .replace(" ", ""),
+            shrink_rows=f"{shrink['rows_sent']}/{shrink['rows_recv']}",
+            shrink_mb=f"{shrink['bytes_sent'] / 1e6:.1f}/"
+                      f"{shrink['bytes_recv'] / 1e6:.1f}",
+            grow_rows=f"{grow['rows_sent']}/{grow['rows_recv']}",
+            grow_mb=f"{grow['bytes_sent'] / 1e6:.1f}/"
+                    f"{grow['bytes_recv'] / 1e6:.1f}",
+            shrink_s=f"{shrink['seconds']:.3f}",
+            grow_s=f"{grow['seconds']:.3f}", card=repr(smi))
+    for row in smi_rows:
+        say(label + "_smi", step=row["step"], pid=row["pid"],
+            allocated_gb=_gb(row["allocated"]),
+            reserved_gb=_gb(row["reserved"]),
+            **({"compute_apps": repr(";".join(row["smi"]))}
+               if "smi" in row else {}))
+
+
 def run_across_phases(torch, kernels, smi: str):
-    """Phases 7a-7c: one launch of 4 ranks (``rank_phase7``) on the card —
+    """Phases 7b-7e: one launch of 4 ranks (``rank_phase7``) on the card —
     gloo through host copies, NCCL refuses two ranks on one device — and
     the one-process runs they are held to.
 
-    7a: full-width, full-depth smollm-360m trained as 4 ranks
-    (``--procs 4 --stages 4``): the ranks' launches sum to phase 4c's
-    count a step times the steps (the same microbatches over the same 32
-    layers), every launch on the tensor cores, every rank launches, and
-    the migrations move rows across ranks; then the hand-off's own cost.
+    7d: full-width, full-depth smollm-360m trained as 4 ranks (``--procs
+    4 --stages 4``) on phase 4h's flags: the repack shrink releases ranks 2
+    and 3, the grow binds them back; held to 4h's one process
+    (``check_elastic_across``); then the hand-off's own cost.
     7c: the one-shot serve of full-width smollm-360m as 4 ranks, each
     holding its stage's rows and KV cache, against one process with 4
     stage buffers: tokens identical at temperature 0, K1 and K3 launched
     in the ranks and their sums equal to the one process's counts.
+    7e: 4i's elastic paged serve as 4 ranks, held to 4i
+    (``check_elastic_serve_across``).
     7b: smollm-360m at its published widths cut to 8 layers, 3 steps with
     a migration after step 1: 4 ranks against one process with 4 stage
-    buffers; losses, final params, Adam moments and dyn state bitwise (a
-    difference is named: the first differing step, the largest leaf
-    difference, and held to rtol 1e-6).
+    buffers; the migration moves rows across ranks; losses, final params,
+    Adam moments and dyn state bitwise (a difference is named: the first
+    differing step, the largest leaf difference, and held to rtol 1e-6).
 
-    Returns {7a, 7c: (launches, tensor-core launches) summed over the
+    Returns {7d, 7c, 7e: (launches, tensor-core launches) summed over the
     ranks}."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dist import launch
@@ -5471,69 +5715,115 @@ def run_across_phases(torch, kernels, smi: str):
     from repro_torch.launch.train import run as train_run
     parity_args = across_train_args(ACROSS_PARITY_STEPS, CUT_LAYERS,
                                     every=2, straggler="1:4.0")
-    train_spec = cli_spec("train", across_train_args())
+    elastic_spec = cli_spec("train", elastic_train_args())
+    serve_spec = cli_spec("serve", elastic_serve_args())
     parity_spec = cli_spec("train", parity_args)
     free_cuda(torch)
     for k in kernels.KERNELS:
         k.reset()
-    res = timed("7", launch, "chip_smoke:rank_phase7", ACROSS_PROCS,
-                kwargs=dict(train=train_spec, parity=parity_spec,
-                            serve=ACROSS_SERVE, archs=[get_config(
-                                parity_spec.model.arch)]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        res = timed("7", launch, "chip_smoke:rank_phase7", ACROSS_PROCS,
+                    kwargs=dict(elastic=elastic_spec, parity=parity_spec,
+                                serve=ACROSS_SERVE,
+                                elastic_serve=serve_spec,
+                                archs=[get_config(parity_spec.model.arch)]))
     out = {}
+    # the launch's parts, as rank 0 timed them
+    for part, sec in res[0]["seconds"].items():
+        PHASE_SECONDS[f"7:{part}"] = sec
 
-    # ---- 7a
-    rep = res[0]["7a"]["report"]
-    ranks = [r["7a"]["rank"] for r in res]
-    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
-    bwd = summed_launches(ranks, "bwd")
+    # ---- 7d
+    rep = res[0]["7d"]["report"]
+    ranks = [r["7d"]["rank"] for r in res]
+    got = check_elastic_across(rep, ranks, ELASTIC_TRAIN)
+    launched, tc = got["launched"], summed_launches(ranks, "tc")
     steps = rep["spec"]["steps"]
-    check_launches("train across ranks", launched, TRAIN_LAUNCHES_PER_STEP,
-                   steps)
-    if bwd["pruned_matmul"] != TRAIN_K3_BWD_PER_STEP * steps:
-        raise AssertionError(f"7a: K3 backward launches "
-                             f"{bwd['pruned_matmul']}, expected "
+    check_launches("elastic train across ranks", launched,
+                   TRAIN_LAUNCHES_PER_STEP, steps)
+    if got["bwd"]["pruned_matmul"] != TRAIN_K3_BWD_PER_STEP * steps:
+        raise AssertionError(f"7d: K3 backward launches "
+                             f"{got['bwd']['pruned_matmul']}, expected "
                              f"{TRAIN_K3_BWD_PER_STEP} a step")
-    check_tensor_core("train across ranks", launched, tc, ACROSS_PATH)
-    idle = [r["rank"] for r in ranks
-            if r["launches"]["pruned_matmul"]["launches"] <= 0]
-    if idle or len(ranks) != ACROSS_PROCS:
-        raise AssertionError(f"7a: ranks {idle} launched no K3")
+    check_tensor_core("elastic train across ranks", launched, tc,
+                      ACROSS_PATH)
     losses = rep["losses"]
     if not all(math.isfinite(x) for x in losses) or \
             abs(losses[0] - math.log(49152)) > 1.0:
-        raise AssertionError(f"7a: losses {losses}")
-    moved = [(e.iteration, e.moved_layers) for e in rep["events"]]
-    rows = sum(r["comm"]["rows_sent"] for r in ranks)
-    if not any(m > 0 for _, m in moved) or rows <= 0 or rows != sum(
-            r["comm"]["rows_recv"] for r in ranks):
-        raise AssertionError(f"7a: no migration across ranks: {moved}, "
-                             f"rows {rows}")
+        raise AssertionError(f"7d: losses {losses}")
     probe = res[0]["probe"]
     if not probe["equal"]:
-        raise AssertionError("7a: the hand-off probe's carry came back "
+        raise AssertionError("7d: the hand-off probe's carry came back "
                              "changed")
     t = rep["timing"]
-    say_ranks("train_across_rank", ranks, smi)
+    say_ranks("elastic_train_across_rank", ranks, smi)
+    say_resize_memory("elastic_train_across_memory", ranks,
+                      [row for r in res for row in r["7d_memory"]], smi)
     say("handoff_probe", bytes=probe["bytes"],
         one_way_ms=f"{probe['one_way_ms']:.3f}",
         staging_copy_ms=f"{probe['copy_ms']:.3f}",
         gbps=f"{probe['bytes'] / probe['one_way_ms'] / 1e6:.2f}",
         card=repr(smi))
-    say("train_across", procs=ACROSS_PROCS, steps=steps,
+    say("elastic_train_across", procs=ACROSS_PROCS, steps=steps,
         tokens_per_step=rep["tokens_per_step"],
-        steady_step_ms=f"{t['steady_step_mean_s'] * 1e3:.1f}",
+        resizes=json.dumps([(r["kind"], r["step"], r["workers"],
+                             round(r["seconds"], 4))
+                            for r in rep["resizes"]]).replace(" ", ""),
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        losses_bitwise=got["losses_bitwise"],
+        first_differing_step=got["first_differing_step"],
+        loss_max_rel=f"{got['loss_max_rel']:.3e}",
+        step_ms_by_world=json.dumps(world_ms(rep["step_times"],
+                                             rep["stages_history"]))
+        .replace(" ", ""),
+        one_process_step_ms_by_world=json.dumps(world_ms(
+            ELASTIC_TRAIN["step_times"], ELASTIC_TRAIN["stages"]))
+        .replace(" ", ""),
         steady_step_p50_ms=f"{t['steady_step_p50_s'] * 1e3:.1f}",
-        tokens_per_s=f"{rep['steady_tokens_per_s']:.1f}",
         step0_ms=f"{rep['step_times'][0] * 1e3:.1f}",
         wall_s=f"{rep['wall_s']:.2f}",
-        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
-        events=json.dumps(moved).replace(" ", ""),
-        final_lps=rep["final_lps"], rows_moved=rows,
-        handoff_ms_per_tick=f"{probe['one_way_ms']:.3f}",
+        loss_first=f"{rep['losses'][0]:.4f}",
+        loss_last=f"{rep['losses'][-1]:.4f}",
         launches=json.dumps(launched).replace(" ", ""),
-        k3_bwd_launches=bwd["pruned_matmul"], card=repr(smi))
-    out["train_across"] = (launched, tc)
+        k3_bwd_launches=got["bwd"]["pruned_matmul"], card=repr(smi))
+    out["elastic_train_across"] = (launched, tc)
+
+    # ---- 7e
+    rep = res[0]["7e"]["report"]
+    ranks = [r["7e"]["rank"] for r in res]
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    k6 = check_elastic_serve_across(rep, ranks, ELASTIC_SERVE)
+    check_tensor_core("elastic serve across ranks", launched, tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    for r in ranks:
+        mem = {m["kind"]: m for m in r["resize_memory"]}
+        say("elastic_serve_across_rank", rank=r["rank"],
+            k6_launches=r["launches"]["paged_attention"]["launches"],
+            k6_split=r["launches"]["paged_attention"]["split"],
+            allocated_gb=json.dumps([
+                _gb(mem["shrink"]["allocated_before"]),
+                _gb(mem["shrink"]["allocated_after"]),
+                _gb(mem["grow"]["allocated_after"])]).replace(" ", ""),
+            reserved_gb=json.dumps([
+                _gb(mem["shrink"]["reserved_before"]),
+                _gb(mem["shrink"]["reserved_after"]),
+                _gb(mem["grow"]["reserved_after"])]).replace(" ", ""),
+            role_after_shrink=mem["shrink"]["role"],
+            shrink_s=f"{mem['shrink']['seconds']:.3f}",
+            grow_s=f"{mem['grow']['seconds']:.3f}",
+            peak_mem_gb=_gb(r["peak_allocated"]), card=repr(smi))
+    say("elastic_serve_across", procs=ACROSS_PROCS,
+        requests=len(rep["completions"]), tokens=rep["total_tokens"],
+        ticks=rep["ticks"], tokens_identical=True, pool_bitwise=True,
+        k6_launches=k6, k6_split_launches=k6,
+        tick_p50_ms=f"{_pct50(rep['tick_wall_s']) * 1e3:.1f}",
+        one_process_tick_p50_ms=f"{ELASTIC_SERVE['tick_p50'] * 1e3:.1f}",
+        tick_ms_by_world=json.dumps(world_ms(rep["tick_wall_s"],
+                                             rep["stages_history"]))
+        .replace(" ", ""),
+        tokens_per_s=f"{rep['tokens_per_s']:.1f}",
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["elastic_serve_across"] = (launched, tc)
 
     # ---- 7c: the one process's serve, counters zeroed just before it
     free_cuda(torch)
@@ -5569,12 +5859,17 @@ def run_across_phases(torch, kernels, smi: str):
     # ---- 7b: the one process's training of the same flags
     free_cuda(torch)
     across = res[0]["7b"]["report"]
+    ranks = [r["7b"]["rank"] for r in res]
     del res
     one = timed("7b", train_run, parity_args)
     moved = [(e.iteration, e.moved_layers) for e in across["events"]]
     if not any(m > 0 for _, m in moved) or moved != [
             (e.iteration, e.moved_layers) for e in one["events"]]:
         raise AssertionError(f"7b: events {moved} vs one process's")
+    rows = sum(r["comm"]["rows_sent"] for r in ranks)
+    if rows <= 0 or rows != sum(r["comm"]["rows_recv"] for r in ranks):
+        raise AssertionError(f"7b: the migration moved no rows across "
+                             f"ranks: {rows}")
     worst, differ = 0.0, []
     for tree in ("params", "opt_state", "dyn"):
         theirs = dict(leaves(one[tree]))
@@ -5592,7 +5887,7 @@ def run_across_phases(torch, kernels, smi: str):
     rel = max(abs(x - y) / abs(y) for x, y in zip(across["losses"],
                                                    one["losses"]))
     say("train_across_parity", layers=CUT_LAYERS, steps=len(one["losses"]),
-        events=json.dumps(moved).replace(" ", ""),
+        events=json.dumps(moved).replace(" ", ""), rows_moved=rows,
         losses_bitwise=first is None, first_differing_step=first,
         loss_max_rel=f"{rel:.3e}", leaves_differing=len(differ),
         first_leaf=(differ[0] if differ else "none"),
@@ -5824,10 +6119,11 @@ def main() -> int:
         for n in got_tc:
             tc[n] += got_tc[n]
 
-    # 7a-7c. one process per pipeline stage: full-width smollm trained
-    # and served as 4 ranks, and 4 ranks against one process at 8 layers
-    # (each part's counters zeroed in the ranks just before it and read
-    # just after)
+    # 7b-7e. one process per pipeline stage: full-width smollm trained
+    # with a shrink and a grow across ranks and served (one-shot and
+    # elastic, paged) as 4 ranks, and 4 ranks against one process at 8
+    # layers (each part's counters zeroed in the ranks just before it and
+    # read just after)
     for key, (got, got_tc) in run_across_phases(torch, kernels,
                                                  smi).items():
         new_phases[key] = got

@@ -39,12 +39,19 @@ The port's differences from the reference:
   * ``procs=N`` (``--procs N``) runs ``train`` as N processes, one per
     cell of the ``parallel.data x parallel.stages`` mesh of ranks
     (``launch.dist``; ``dist_backend`` forces ``gloo`` or ``nccl``).  Rank
-    0's report comes back, with every rank's launches, memory and transfer
-    counters under ``ranks``; ``gather=True`` adds the final params and
-    optimizer state gathered whole.  In one process ``parallel.data > 1``
-    runs as one replica, which is numerically what the reference's data
-    axis computes.  What the ranks cannot do yet raises and names ROADMAP
-    Queue 1 [multi-card] (``refuse_across``).
+    0's report comes back, with every rank's launches, memory, transfer
+    counters and final role (active, released or dead) under ``ranks``;
+    ``gather=True`` adds the final params and optimizer state gathered
+    whole.  Resizes run across the ranks: a shrink or an evict releases a
+    column of ranks (they hold nothing after it and stay in the host loop,
+    deciding from the same gathered bytes), a grow binds one back.  A file
+    or HTTP job manager has one client, rank 0's (``launch.jm_proxy``).
+    ``serve`` with ``procs`` runs the elastic server as one rank per stage
+    (data 1, as the reference's server): each rank holds its stage's rows
+    of the paged KV pool.  In one process ``parallel.data > 1`` runs as one
+    replica, which is numerically what the reference's data axis computes.
+    What the ranks cannot do yet raises and names ROADMAP Queue 1
+    [multi-card] (``refuse_across``).
 
 Teardown order matters and is centralized in ``close()``: the metrics
 snapshot, then the control plane (its worker thread must stop deciding
@@ -270,6 +277,19 @@ class Session:
 
     def _connect_job_manager(self, plan=None, injector=None,
                              pool_state=None):
+        """The job-manager client (``_connect_one``); across ranks rank 0
+        connects and every rank holds a ``launch.jm_proxy.RankJobManager``
+        whose verbs run on rank 0's client."""
+        mesh = self._mesh
+        if mesh is None or self.spec.cluster.job_manager == "inproc":
+            return self._connect_one(plan, injector, pool_state)
+        from repro_torch.launch.jm_proxy import RankJobManager
+        inner = (self._connect_one(plan, injector, pool_state)
+                 if mesh.rank == 0 else None)
+        self._jm = RankJobManager(inner, mesh.comm, mesh.rank)
+        return self._jm
+
+    def _connect_one(self, plan=None, injector=None, pool_state=None):
         """'file' spawns the WorkerPool server in a separate process and
         returns a client speaking atomic request / response JSON files to
         it; 'http' connects to ``cluster.manager_url`` when set (several
@@ -381,6 +401,20 @@ class Session:
         import torch
         return torch.cuda.memory_allocated(self.device)
 
+    def _mem(self) -> Dict[str, Any]:
+        """``memory_allocated`` and ``memory_reserved`` (None on the CPU)
+        and, across ranks, the rows and bytes moved so far."""
+        out: Dict[str, Any] = {"allocated": self._allocated(),
+                               "reserved": None}
+        if self.device.type == "cuda":
+            import torch
+            out["reserved"] = torch.cuda.memory_reserved(self.device)
+        if self._mesh is not None:
+            st = self._mesh.comm.stats
+            out.update({k: st[k] for k in ("rows_sent", "rows_recv",
+                                           "bytes_sent", "bytes_recv")})
+        return out
+
     # =======================================================================
     # Training
     # =======================================================================
@@ -402,8 +436,6 @@ class Session:
         from repro_torch.dynamics import pruning as prn
         from repro_torch.dynamics.trajectories import zhu_gupta_sparsity
         from repro_torch.launch.engine import ElasticEngine
-        from repro_torch.launch.sharding import (gather_opt, gather_params,
-                                                 gather_rows)
         from repro_torch.optim.schedule import cosine_schedule
         from repro_torch.pipeline.pipeline import PipelineShapes
         from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
@@ -416,6 +448,14 @@ class Session:
         if mesh is not None:
             refuse_across(spec, "train", resumed=self._resume_dir is not None,
                           cfg=self._model_config())
+
+        def leader_dt() -> float:
+            # across ranks every input of a decision is the same bytes on
+            # every rank: a step's wall time is the world leader's
+            if mesh is None:
+                return step_times[-1]
+            return float(mesh.comm.all_gather_object(
+                step_times[-1])[engine.mesh.leader])
         tracer = self._obs_begin("train")
         mreg = self.metrics
         steps = steps if steps is not None else spec.steps
@@ -539,7 +579,7 @@ class Session:
         det = StragglerDetector(stages) \
             if (straggler or measure_stage_times) else None
         ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det,
-                               mesh=mesh)
+                               mesh=engine.mesh)
         cp = ControlPlane(ctrl, async_mode=spec.controller.async_decide,
                           epoch_fn=lambda: engine.epoch)
         self._cp = cp
@@ -577,7 +617,8 @@ class Session:
         resize_mem: List[Dict[str, Any]] = []
 
         def after_resize(step: int, kind: str, mem_before) -> None:
-            cp.rebind(engine.dcfg_for(state.stages), state.lps)
+            cp.rebind(engine.dcfg_for(state.stages), state.lps,
+                      mesh=engine.mesh)
             if scaler is not None:
                 scaler.note_resize(step, state.stages)
             rz = engine.resizes[-1]
@@ -597,12 +638,30 @@ class Session:
                        workers=list(rz.workers),
                        ticks_before=rz.ticks_before,
                        ticks_after=rz.ticks_after)
-            resize_mem.append({"step": step, "kind": rz.kind,
-                               "allocated_before": mem_before,
-                               "allocated_after": self._allocated()})
+            after = self._mem()
+            entry = {"step": step, "kind": rz.kind,
+                     "allocated_before": mem_before["allocated"],
+                     "allocated_after": after["allocated"]}
+            if mesh is not None:
+                # every rank's memory and transfers around the resize
+                mine = {"rank": mesh.rank, "role": engine.role(),
+                        "held_bytes": engine.held_bytes(state),
+                        "seconds": rz.seconds,
+                        **{f"{k}_before": mem_before[k]
+                           for k in ("allocated", "reserved")},
+                        **{f"{k}_after": after[k]
+                           for k in ("allocated", "reserved")},
+                        **{k: after[k] - mem_before[k]
+                           for k in ("rows_sent", "rows_recv",
+                                     "bytes_sent", "bytes_recv")}}
+                entry["ranks"] = mesh.comm.all_gather_object(mine)
+                check_agreement(mesh, step, state.lps, state.assignment,
+                                engine)
+            resize_mem.append(entry)
+            active = engine.pool_active()      # every rank: a broadcast
             print(f"step {step:4d} {kind.upper()} {rz.from_stages}->"
                   f"{rz.to_stages} stages; workers {rz.workers}; "
-                  f"pool active={engine.jm.num_active}; schedule "
+                  f"pool active={active}; schedule "
                   f"{rz.ticks_before}->{rz.ticks_after} ticks", flush=True)
 
         # multi-tenant: poll the cluster scheduler's directive mailbox each
@@ -615,6 +674,8 @@ class Session:
         absorb_cooldown = max(1, spec.controller.rebalance_every)
 
         losses, gnorms, events, step_times, stages_hist = [], [], [], [], []
+        # across ranks: the bytes of state this rank held after each step
+        held: List[int] = []
         exited_frac: Dict[int, float] = {}
         relayouts: List[Dict[str, Any]] = []
         expert_skew_last = moe_dropped_last = None
@@ -667,9 +728,12 @@ class Session:
                         dyncfg, prune_start_iter=0,
                         prune_end_iter=steps * 100, prune_frequency=1))
                 keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
-                state.dyn = {**state.dyn, "ff_mask": prn.global_block_prune(
-                    cfg, state.params["stages"], state.assignment["tags"],
-                    keep, mesh=mesh)}
+                if engine.active():
+                    state.dyn = {**state.dyn,
+                                 "ff_mask": prn.global_block_prune(
+                                     cfg, state.params["stages"],
+                                     state.assignment["tags"], keep,
+                                     mesh=engine.mesh)}
             if dynamism == "freezing" and step and step % 10 == 0:
                 front = int(cfg.total_blocks() * min(0.6, step / steps))
                 tags_np = state.assignment["tags"].numpy()
@@ -681,10 +745,11 @@ class Session:
                             if g < front:
                                 fr[s, l] = 1.0
                             g += 1
-                if mesh is not None:
-                    fr = fr[mesh.stage:mesh.stage + 1]
-                state.dyn = {**state.dyn,
-                             "frozen": state.dyn["frozen"].new_tensor(fr)}
+                if engine.active():
+                    if mesh is not None:
+                        fr = fr[engine.mesh.stage:engine.mesh.stage + 1]
+                    state.dyn = {**state.dyn, "frozen":
+                                 state.dyn["frozen"].new_tensor(fr)}
 
             # ---- heartbeats (simulated per-step liveness: active workers
             # beat; released / dead ones go silent and time out)
@@ -704,11 +769,7 @@ class Session:
             # device -> host stats sync; in async mode a pointer swap)
             if ctrl.cadence(step + 1):
                 t_decide = time.perf_counter()
-                # across ranks every input of the decision is the same
-                # bytes on every rank: the step's wall time is rank 0's
-                wall_dt = (step_times[-1] if mesh is None else
-                           float(mesh.comm.all_gather_object(
-                               step_times[-1])[0]))
+                wall_dt = leader_dt()
                 sp_dec = (tracer.span("controller.decide", cat="controller",
                                       step=step)
                           if tracer is not None else None)
@@ -760,9 +821,8 @@ class Session:
                     stats=engine.stats_to_host(state, stats),
                     tags=state.assignment["tags"].numpy(),
                     num_micro=shapes.num_micro, tokens=tokens_per_step,
-                    seq=seq, frozen=(state.dyn["frozen"] if mesh is None
-                                     else gather_rows(state.dyn["frozen"],
-                                                      mesh)).cpu().numpy(),
+                    seq=seq, frozen=engine.gather_state(
+                        state.dyn and state.dyn["frozen"]).cpu().numpy(),
                     stage_times=measured))
                 if spec.controller.async_drain:
                     cp.drain()
@@ -814,7 +874,7 @@ class Session:
                         and state.stages < stages
                         and step - last_cluster_resize >= absorb_cooldown):
                     prev = state.stages
-                    mem_before = self._allocated()
+                    mem_before = self._mem()
                     state = engine.grow(
                         state, min(directives["offer"],
                                    stages - state.stages), step=step)
@@ -853,7 +913,7 @@ class Session:
                             parent_id=parent, step=step,
                             policy=plan.resize.policy,
                             target=plan.resize.target_stages)
-                    mem_before = self._allocated()
+                    mem_before = self._mem()
                     state = engine.shrink(state, plan.resize.target_stages,
                                           plan.resize.layers_per_stage,
                                           step=step)
@@ -872,8 +932,10 @@ class Session:
                         plan, state.params, state.opt_state, state.dyn)
                     state.lps = cp.with_ctrl(lambda c: list(c.lps))
                 # expert re-layout: orthogonal to the stage plan above (it
-                # rewrites only the expert_map dyn leaf)
+                # rewrites only the expert_map dyn leaf); MoE refuses ranks
+                # ([multi-card]), so no released rank (dyn None) gets here
                 if (plan.expert_relayout is not None
+                        and state.dyn is not None
                         and "expert_map" in state.dyn):
                     rl = plan.expert_relayout
                     em = state.dyn["expert_map"]
@@ -891,15 +953,17 @@ class Session:
                           f"{rl.moved_experts} experts -> "
                           f"{list(rl.new.placement)}", flush=True)
             if mesh is not None and ctrl.cadence(step + 1):
-                check_agreement(mesh, step, state.lps, state.assignment)
+                check_agreement(mesh, step, state.lps, state.assignment,
+                                engine)
 
             # ---- autoscaler: heartbeat + watermark signals
             if scaler is not None:
                 # "logical" clock: a schedule-derived step time (the tick
                 # count) instead of the wall clock — deterministic
-                wm_dt = step_times[-1]
                 if spec.cluster.watermark_clock == "logical":
                     wm_dt = engine.ticks(state.stages) * 1e-3
+                else:
+                    wm_dt = leader_dt()
                 d = scaler.observe(step, wm_dt, state.stages,
                                    engine.stage_workers, tokens_per_step)
                 if d.action != "none":
@@ -907,12 +971,12 @@ class Session:
                                workers=d.workers, reason=d.reason,
                                ids=list(d.ids))
                 if d.action == "evict":
-                    mem_before = self._allocated()
+                    mem_before = self._mem()
                     state = engine.evict(state, d.ids, step=step)
                     after_resize(step, "evict", mem_before)
                 elif d.action == "grow" and state.stages < stages:
                     prev = state.stages
-                    mem_before = self._allocated()
+                    mem_before = self._mem()
                     state = engine.grow(state, d.workers, step=step)
                     if state.stages > prev:   # the pool may grant nothing
                         # granted workers stay for this job: stop planning
@@ -922,7 +986,7 @@ class Session:
                         after_resize(step, "grow", mem_before)
                 elif (d.action == "shrink"
                         and state.stages > max(1, repack_target)):
-                    mem_before = self._allocated()
+                    mem_before = self._mem()
                     state = engine.shrink(
                         state, max(max(1, repack_target),
                                    state.stages - d.workers), step=step)
@@ -934,7 +998,7 @@ class Session:
                     and state.stages < stages
                     and step >= engine.last_shrink_step + grow_back):
                 prev_stages = state.stages
-                mem_before = self._allocated()
+                mem_before = self._mem()
                 state = engine.grow(state, stages - state.stages, step=step)
                 if state.stages > prev_stages:
                     cp.with_ctrl(lambda c: setattr(c.ccfg, "repack", False))
@@ -965,6 +1029,8 @@ class Session:
                 injector.on_step(step, workers=engine.stage_workers)
             if on_step is not None:
                 on_step(step, self)
+            if mesh is not None:
+                held.append(engine.held_bytes(state))
             gnorms.append(float(gnorm))
             if step % spec.log_every == 0:
                 self._emit("log", step, loss=float(loss),
@@ -984,10 +1050,11 @@ class Session:
             root_span.end(steps_run=len(losses))
         if mesh is not None:
             # whole trees for the report (collective: every rank gathers)
-            state.dyn = gather_rows(state.dyn, mesh)
+            state.dyn = engine.gather_state(state.dyn)
             if self.gather:
-                state.params = gather_params(state.params, mesh)
-                state.opt_state = gather_opt(state.opt_state, mesh)
+                state.params = engine.gather_state(state.params, "params")
+                state.opt_state = engine.gather_state(state.opt_state,
+                                                      "opt")
             else:
                 state.params = state.opt_state = None
         steady_s = float(sum(steady_times))
@@ -1065,6 +1132,10 @@ class Session:
                      "breaker": jm.breaker.state_dict()}
                     if jm is not None else None),
             "device": str(self.device),
+            # across ranks: this rank's role at the end and the bytes of
+            # state it held after each step
+            "role": engine.role() if mesh is not None else None,
+            "held_bytes": held,
         }
         self._emit("train_summary", steps - 1,
                    loss_first=losses[0] if losses else None,
@@ -1123,12 +1194,11 @@ class Session:
 
         spec = self.spec
         s = spec.serve
-        if self.procs > 1 or self._mesh is not None:
-            raise NotImplementedError(
-                "the elastic server across ranks (paged KV per rank) is not "
-                "in the port yet (ROADMAP Queue 1 [multi-card]); the one-"
-                "shot serve runs across ranks (launch.serve.run_serving "
-                "with procs)")
+        if self.procs > 1 and self._mesh is None:
+            return self._serve_across(trace, resize_at)
+        mesh = self._mesh
+        if mesh is not None:
+            refuse_across(spec, "serve", cfg=self._model_config())
         tracer = self._obs_begin("serve")
         cfg = self._model_config()
         dcfg = self._dist_config()
@@ -1192,8 +1262,11 @@ class Session:
                             initial_workers=granted, paged=paged,
                             temperature=s.temperature,
                             in_step_timing=spec.obs.in_step_timing,
-                            tracer=tracer, metrics=self.metrics,
-                            device=self.device, params=self.params)
+                            tracer=tracer,
+                            metrics=(self.metrics if mesh is None
+                                     or mesh.rank == 0 else None),
+                            device=self.device, params=self.params,
+                            mesh=mesh)
         self._server = srv
         root_span = (tracer.span("serve", cat="session",
                                  requests=len(trace))
@@ -1240,7 +1313,39 @@ class Session:
                    total_tokens=report["total_tokens"],
                    tokens_per_s=report["tokens_per_s"],
                    latency_p95_s=report["latency_p95_s"])
+        if mesh is not None:
+            report["role"] = srv.engine.role()
+            if self.gather:
+                # the page pool (or dense cache) whole, for the report
+                report["cache"] = srv.engine.gather_state(srv.state.cache)
         return report
+
+    def _serve_across(self, trace, resize_at) -> Dict[str, Any]:
+        """``serve`` as ``procs`` ranks, one per stage (``launch.dist``):
+        rank 0's report, its event stream as this Session's, and every
+        rank's counters under ``ranks``.  The reference's ``Session.serve``
+        builds its server at data 1, so the ranks are the stages."""
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch.dist import launch
+        if self.spec.parallel.stages != self.procs:
+            raise ValueError(
+                f"the elastic server across ranks runs one rank per stage "
+                f"at data 1 (as the reference's Session.serve builds its "
+                f"server): parallel.stages={self.spec.parallel.stages} must "
+                f"equal procs={self.procs}")
+        refuse_across(self.spec, "serve", cfg=self._model_config())
+        spec = dataclasses.replace(self.spec, parallel=dataclasses.replace(
+            self.spec.parallel, data=1))
+        res = launch("repro_torch.api.session:rank_serve_elastic",
+                     self.procs, data=1, device=self.device.type,
+                     backend=self.dist_backend,
+                     kwargs=dict(spec=spec, trace=trace, resize_at=resize_at,
+                                 params=self.params, gather=self.gather,
+                                 arch=get_config(self.spec.model.arch)))
+        rep = res[0]["report"]
+        self.events = res[0]["events"]
+        rep["ranks"] = [r["rank"] for r in res]
+        return rep
 
 
 # ---------------------------------------------------------------------------
@@ -1249,17 +1354,9 @@ class Session:
 # what the ranks do not do yet: (spec test, what) — each refusal names
 # ROADMAP Queue 1 [multi-card]
 _ACROSS_REFUSED = (
-    (lambda sp: sp.controller.repack.enabled, "--repack (resizes across "
-     "ranks)"),
-    (lambda sp: sp.cluster.grow_back is not None, "--grow-back (resizes "
-     "across ranks)"),
-    (lambda sp: sp.cluster.autoscale, "the autoscaler (resizes across "
-     "ranks)"),
     (lambda sp: bool(sp.ckpt_every or sp.ckpt_dir), "safe points and "
      "checkpoints"),
     (lambda sp: sp.faults.enabled, "--chaos"),
-    (lambda sp: (sp.cluster.job_manager != "inproc" or sp.cluster.tenant_id
-                 or sp.cluster.manager_url), "the job managers"),
     (lambda sp: sp.controller.async_decide and not sp.controller.async_drain,
      "--async-controller without --async-drain (ranks must apply each "
      "plan at the same step)"),
@@ -1281,17 +1378,71 @@ def refuse_across(spec: RunSpec, kind: str, *, resumed: bool = False,
             f"(ROADMAP Queue 1 [multi-card])")
 
 
-def check_agreement(mesh, step: int, lps, assignment) -> None:
-    """Every rank's split and assignment must be the same bytes after a
-    cadence (the ranks decide independently from gathered inputs)."""
+def check_agreement(mesh, step: int, lps, assignment, engine=None) -> None:
+    """Every rank's split and assignment — and with the ``engine``, its
+    epoch, stage -> worker map and pool — must be the same bytes after a
+    cadence and after a resize (the ranks decide independently from
+    gathered inputs)."""
     import hashlib
     h = hashlib.sha256(repr(list(lps)).encode())
     for k in sorted(assignment):
         h.update(assignment[k].cpu().numpy().tobytes())
+    if engine is not None:
+        pool = (engine.pool.state_dict() if engine.pool is not None
+                else None)
+        h.update(repr((engine.epoch, list(engine.stage_workers),
+                       list(engine.jm.log), pool)).encode())
     seen = mesh.comm.all_gather_object(h.hexdigest())
     if len(set(seen)) != 1:
-        raise RuntimeError(f"step {step}: the ranks' assignments differ "
-                           f"({seen})")
+        raise RuntimeError(f"step {step}: the ranks' assignments, worlds or "
+                           f"pools differ ({seen})")
+
+
+def _rank_spec(mesh, spec: RunSpec) -> RunSpec:
+    """Rank 0 keeps the observability outputs; the other ranks' are off."""
+    if mesh.rank == 0:
+        return spec
+    return dataclasses.replace(spec, obs=dataclasses.replace(
+        spec.obs, trace=False, trace_out=None, metrics_port=None,
+        metrics_out=None))
+
+
+def _rank_info(mesh, **extra) -> Dict[str, Any]:
+    """A rank's counters for the report's ``ranks``."""
+    import torch
+
+    from repro_torch.launch.dist import foreign_modules, launch_counts
+    cuda = mesh.device.type == "cuda"
+    return {"rank": mesh.rank, "stage": mesh.stage,
+            "replica": mesh.replica, "device": str(mesh.device),
+            "backend": mesh.backend, "launches": launch_counts(),
+            "peak_allocated": (torch.cuda.max_memory_allocated(mesh.device)
+                               if cuda else None),
+            "comm": dict(mesh.comm.stats), **extra,
+            "foreign_modules": foreign_modules()}
+
+
+def rank_serve_elastic(mesh, spec: RunSpec, trace=None, resize_at=None,
+                       params=None, gather: bool = False,
+                       arch=None) -> Dict[str, Any]:
+    """One rank of ``Session(procs=N).serve`` (run by ``launch.dist``), in
+    the manner of ``rank_train``: rank 0 returns the report."""
+    import torch
+
+    from repro_torch.launch.dist import ensure_arch
+    ensure_arch(arch)
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    with Session(_rank_spec(mesh, spec), device=mesh.device, params=params,
+                 gather=gather, mesh=mesh) as s:
+        rep = s.serve(trace, resize_at=resize_at)
+        srv = s.server
+        info = _rank_info(mesh, role=rep["role"],
+                          resize_memory=list(srv.resize_memory),
+                          tick_wall_s=list(rep["tick_wall_s"]))
+    if mesh.rank != 0:
+        return {"rank": info}
+    return {"rank": info, "report": rep, "events": s.events}
 
 
 def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
@@ -1303,27 +1454,19 @@ def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
     run time in the parent)."""
     import torch
 
-    from repro_torch.launch.dist import (ensure_arch, foreign_modules,
-                                         launch_counts)
+    from repro_torch.launch.dist import ensure_arch
     ensure_arch(arch)
-    if mesh.rank != 0:
-        spec = dataclasses.replace(spec, obs=dataclasses.replace(
-            spec.obs, trace=False, trace_out=None, metrics_port=None,
-            metrics_out=None))
-    cuda = mesh.device.type == "cuda"
-    if cuda:
+    if mesh.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(mesh.device)
-    with Session(spec, device=mesh.device, params=params, gather=gather,
-                 mesh=mesh) as s:
+    with Session(_rank_spec(mesh, spec), device=mesh.device, params=params,
+                 gather=gather, mesh=mesh) as s:
         rep = s.train(steps, on_step=on_step)
-    info = {"rank": mesh.rank, "stage": mesh.stage,
-            "replica": mesh.replica, "device": str(mesh.device),
-            "backend": mesh.backend, "launches": launch_counts(),
-            "peak_allocated": (torch.cuda.max_memory_allocated(mesh.device)
-                               if cuda else None),
-            "comm": dict(mesh.comm.stats),
-            "step_times": list(rep["step_times"]),
-            "foreign_modules": foreign_modules()}
+    info = _rank_info(mesh, step_times=list(rep["step_times"]),
+                      role=rep["role"], held_bytes=list(rep["held_bytes"]),
+                      resize_memory=[
+                          next(r for r in m["ranks"]
+                               if r["rank"] == mesh.rank)
+                          for m in rep["resize_memory"]])
     if mesh.rank != 0:
         return {"rank": info}
     return {"rank": info, "report": rep, "events": s.events}

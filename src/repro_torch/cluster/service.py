@@ -177,10 +177,14 @@ class ControlPlane:
             return self.ctrl.apply(plan.new_lps, params, opt_state, dyn,
                                    cache)
 
-    def rebind(self, dcfg, layers_per_stage) -> None:
-        """Re-anchor the controller after an engine resize (new world)."""
+    def rebind(self, dcfg, layers_per_stage, mesh=None) -> None:
+        """Re-anchor the controller after an engine resize (new world;
+        across ranks, ``mesh`` is the new world's, which its migrations
+        run on)."""
         with self._ctrl_lock:
             self.ctrl.rebind(dcfg, layers_per_stage)
+            if mesh is not None:
+                self.ctrl.mesh = mesh
 
     def with_ctrl(self, fn: Callable[[DynMoController], Any]) -> Any:
         """Run ``fn(ctrl)`` under the controller lock — any other controller

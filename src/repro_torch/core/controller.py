@@ -289,12 +289,14 @@ class DynMoController:
     def apply(self, new_lps: Sequence[int], params: Dict[str, Any],
               opt_state: Any, dyn: Dict[str, Any], cache: Any = None):
         """Migrate stage-keyed state to the new split; returns updated
-        (params, opt_state, dyn, assignment, cache)."""
+        (params, opt_state, dyn, assignment, cache).  A rank outside the
+        mesh's world (None trees) gets the assignment alone."""
         stages, nopt, ndyn, assignment, ncache, _ = mig.migrate(
-            params["stages"], opt_state, dyn, self.lps, new_lps,
-            self.pattern, self.dcfg.slots_for(self.cfg), cache,
-            mesh=self.mesh)
+            None if params is None else params["stages"], opt_state, dyn,
+            self.lps, new_lps, self.pattern, self.dcfg.slots_for(self.cfg),
+            cache, mesh=self.mesh)
         self.lps = list(new_lps)
-        params = dict(params)
-        params["stages"] = stages
+        if params is not None:
+            params = dict(params)
+            params["stages"] = stages
         return params, nopt, ndyn, assignment, ncache

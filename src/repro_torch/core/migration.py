@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import BLOCK_PAD
+from repro_torch.launch.sharding import leaves, rebuild, zeros
 
 
 @dataclasses.dataclass
@@ -86,24 +87,33 @@ def _apply_plan_to_opt(opt_state: Any, plan: MigrationPlan) -> Any:
     return opt_state
 
 
-def apply_plan_across(tree: Any, plan: MigrationPlan, mesh) -> Any:
-    """``apply_plan`` on this rank's row of a stage-keyed tree: rows whose
-    source is another rank's arrive by point-to-point transfer (one
-    ``batch_isend_irecv`` for the whole tree), rows that stay are gathered
-    locally, PAD destinations hold zeros.  Adds the rows moved to
-    ``mesh.comm.stats`` (``rows_sent`` / ``rows_recv``, one per slot of
+def exchange_rows(tree: Any, plan: MigrationPlan, src, dst, *,
+                  template: Any = None, replica: int = None,
+                  device=None) -> Any:
+    """Move a stage-keyed tree's rows from the world of ``src`` (a
+    ``launch.mesh.Mesh``) to the world of ``dst`` under ``plan``: the row of
+    destination (stage ds, slot dl) comes from source (stage ss, slot sl)
+    of the same data replica.  A row whose source and destination are this
+    rank is copied; the others cross ranks, every send and receive of the
+    tree posted in one ``batch_isend_irecv`` in one global (destination
+    stage, slot, leaf) order on every rank; PAD destinations hold zeros.
+
+    ``tree``: this rank's ``[1, L_src, ...]`` rows, or None when the rank is
+    outside ``src``; ``template``: leaves of the destination's ``[1, L_dst,
+    ...]`` shapes and dtypes (default ``tree``: a migration within one
+    world); ``replica``: this rank's data row (default ``src``'s).  Returns
+    the rank's new rows, or None when it is outside ``dst``.  Adds the rows
+    moved to ``comm.stats`` (``rows_sent`` / ``rows_recv``: one per slot of
     the tree)."""
-    leaves = []
-
-    def walk(t, path=()):
-        if isinstance(t, dict):
-            return {k: walk(v, path + (k,)) for k, v in sorted(t.items())}
-        out = torch.zeros_like(t)
-        leaves.append((t, out))
-        return out
-
-    new = walk(tree)
-    me = mesh.stage
+    template = tree if template is None else template
+    paths = [p for p, _ in leaves(template)]
+    old = dict(leaves(tree)) if tree is not None else None
+    me, comm = src.rank, src.comm
+    d = src.replica if replica is None else replica
+    new = None
+    if dst.member:
+        dev = comm.device if device is None else device
+        new = dict(leaves(zeros(template, dev)))
     S, L = plan.valid.shape
     sends, recvs = [], []
     for ds in range(S):
@@ -111,17 +121,30 @@ def apply_plan_across(tree: Any, plan: MigrationPlan, mesh) -> Any:
             if not plan.valid[ds, dl]:
                 continue
             ss, sl = int(plan.src_stage[ds, dl]), int(plan.src_slot[ds, dl])
-            if ds == me and ss == me:
-                for old, out in leaves:
-                    out[0, dl] = old[0, sl]
-            elif ss == me:
-                sends += [(old[0, sl], mesh.rank_of(ds)) for old, _ in leaves]
-                mesh.comm.stats["rows_sent"] += 1
-            elif ds == me:
-                recvs += [(out[0, dl], mesh.rank_of(ss)) for _, out in leaves]
-                mesh.comm.stats["rows_recv"] += 1
-    mesh.comm.exchange(sends, recvs)
-    return new
+            s_rank, d_rank = src.rank_of(ss, d), dst.rank_of(ds, d)
+            if s_rank == me and d_rank == me:
+                for p in paths:
+                    new[p][0, dl] = old[p][0, sl]
+            elif s_rank == me:
+                sends += [(old[p][0, sl], d_rank) for p in paths]
+                comm.stats["rows_sent"] += 1
+            elif d_rank == me:
+                recvs += [(new[p][0, dl], s_rank) for p in paths]
+                comm.stats["rows_recv"] += 1
+    comm.exchange(sends, recvs)
+    return None if new is None else rebuild(template, lambda p, _: new[p])
+
+
+def apply_plan_across(tree: Any, plan: MigrationPlan, mesh) -> Any:
+    """``apply_plan`` on this rank's row of a stage-keyed tree
+    (``exchange_rows`` within one world): rows whose source is another
+    rank's arrive by point-to-point transfer, rows that stay are gathered
+    locally, PAD destinations hold zeros.  None (a rank outside the world
+    holds no rows) stays None."""
+    if tree is None or not mesh.member:
+        return None
+    dev = next(leaves(tree))[1].device
+    return exchange_rows(tree, plan, mesh, mesh, device=dev)
 
 
 def _apply_plan_to_opt_across(opt_state: Any, plan: MigrationPlan, mesh):
@@ -138,7 +161,8 @@ def migrate(params_stages: Dict[str, torch.Tensor], opt_stages: Any,
             L_max: int, cache: Any = None, mesh=None):
     """One-call migration of all stage-keyed state + fresh assignment.
     With a ``mesh`` the trees are this rank's rows and move across ranks
-    (``apply_plan_across``); the assignment is whole on every rank.
+    (``apply_plan_across``); the assignment is whole on every rank, and a
+    rank outside the mesh's world (released by a resize) gets it alone.
 
     Returns (params_stages, opt_stages, dyn, assignment, cache, plan)."""
     plan = build_plan(old_lps, new_lps, L_max)
@@ -148,6 +172,9 @@ def migrate(params_stages: Dict[str, torch.Tensor], opt_stages: Any,
                    if opt_stages is not None else None)
         new_dyn = apply_plan(dyn, plan)
         new_cache = apply_plan(cache, plan) if cache is not None else None
+    elif not mesh.member:
+        # a rank outside the world holds no rows: only the assignment
+        new_params = new_opt = new_dyn = new_cache = None
     else:
         new_params = apply_plan_across(params_stages, plan, mesh)
         new_opt = (_apply_plan_to_opt_across(opt_stages, plan, mesh)

@@ -20,8 +20,8 @@ each cell as an OS process.  ``launch`` is the parent's side:
      a deadline of its own, so no rank can hang the run.
 
 ``Comm`` is the ranks' side: point-to-point ``send`` / ``recv``,
-``exchange`` (one ``batch_isend_irecv``), ``all_reduce``, ``all_gather``
-and ``broadcast`` over a group.  With ``gloo`` (which moves host memory
+``exchange`` (one ``batch_isend_irecv``), ``all_reduce``, ``all_gather``,
+``broadcast`` and ``broadcast_object`` over a group.  With ``gloo`` (which moves host memory
 only) a CUDA tensor goes through the host on each side: the pipeline's
 carries and their gradients (whose shapes ``PipelineShapes`` fixes)
 through pinned buffers kept per shape and dtype, a migration's rows and
@@ -90,16 +90,22 @@ class Comm:
     ``stats`` counts the pipeline's hand-offs: ``handoffs`` (carries and
     carry gradients sent), ``copy_s`` (the device <-> host staging copies
     on both sides), ``send_s`` (inside ``send``) and ``recv_wait_s`` (inside
-    ``recv``, which includes waiting for the peer's compute), and the
-    migration's ``rows_sent`` / ``rows_recv``."""
+    ``recv``, which includes waiting for the peer's compute), the rows a
+    migration or a resize moved (``rows_sent`` / ``rows_recv``, one per
+    slot of a tree) and the bytes ``exchange`` moved (``bytes_sent`` /
+    ``bytes_recv``)."""
 
     def __init__(self, backend: str, device: torch.device):
         self.backend = backend
         self.device = torch.device(device)
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self._pinned: Dict[Tuple, torch.Tensor] = {}
+        # id(group) -> the group ranks' positions in the order the mesh
+        # lists its members (a process group orders them by global rank)
+        self.order: Dict[int, List[int]] = {}
         self.stats = {"handoffs": 0, "copy_s": 0.0, "send_s": 0.0,
-                      "recv_wait_s": 0.0, "rows_sent": 0, "rows_recv": 0}
+                      "recv_wait_s": 0.0, "rows_sent": 0, "rows_recv": 0,
+                      "bytes_sent": 0, "bytes_recv": 0}
 
     # -- helpers -------------------------------------------------------------
     @staticmethod
@@ -168,11 +174,13 @@ class Comm:
         for t, dst in sends:
             h = t.detach().to("cpu") if self.staged else t.contiguous()
             ops.append(dist.P2POp(dist.isend, h, dst))
+            self.stats["bytes_sent"] += h.numel() * h.element_size()
         for out, src in recvs:
             h = (torch.empty(out.shape, dtype=out.dtype) if self.staged
                  else out)
             landed.append((h, out))
             ops.append(dist.P2POp(dist.irecv, h, src))
+            self.stats["bytes_recv"] += h.numel() * h.element_size()
         if not ops:
             return
         for w in dist.batch_isend_irecv(ops):
@@ -204,6 +212,9 @@ class Comm:
             else t.contiguous()
         outs = [torch.empty_like(h) for _ in range(n)]
         dist.all_gather(outs, h, group=group)
+        order = self.order.get(id(group))
+        if order is not None:
+            outs = [outs[i] for i in order]
         return torch.stack(outs).to(t.device)
 
     def broadcast(self, t: torch.Tensor, src: int, group=None
@@ -220,6 +231,18 @@ class Comm:
             t.copy_(h)
         return t
 
+    def broadcast_object(self, obj, src: int, group=None):
+        """``obj`` (any picklable value; its tensors travel through the
+        host) as the global rank ``src`` holds it, on every member; tensors
+        land on this rank's device.  The other members' ``obj`` is
+        ignored."""
+        import torch.distributed as dist
+        if self.size(group) == 1:
+            return obj
+        box = [_to_device(obj, "cpu") if dist.get_rank() == src else None]
+        dist.broadcast_object_list(box, src, group=group)
+        return _to_device(box[0], self.device)
+
     def all_gather_object(self, obj, group=None) -> List[Any]:
         import torch.distributed as dist
         n = self.size(group)
@@ -228,6 +251,18 @@ class Comm:
         out = [None] * n
         dist.all_gather_object(out, obj, group=group)
         return out
+
+
+def _to_device(obj, device):
+    """``obj`` with every tensor in its dicts, lists and tuples moved to
+    ``device``."""
+    if torch.is_tensor(obj):
+        return obj.detach().to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(v, device) for v in obj)
+    return obj
 
 
 # ---------------------------------------------------------------------------

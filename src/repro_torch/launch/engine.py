@@ -35,12 +35,22 @@ each stage's prefill and decode calls when the world serves
 isolated per-stage probe.
 
 With a ``mesh`` (``launch.mesh.Mesh``: one process per cell of a ``data x
-model`` mesh of ranks) the engine is one rank's: its state holds the
-rank's stage row of every stage-keyed tree (``launch.sharding``) on its
-own device, the step runs the pipeline across the ranks, and the stage
-times — the timer's and the probe's — are all-gathered, so every rank's
-controller decides from the same bytes.  Only the world of the mesh's
-stage count exists: a resize across ranks raises.
+model`` mesh of ranks, the *launch*) the engine is one rank's: its state
+holds the rank's stage row of every stage-keyed tree (``launch.sharding``)
+on its own device, and the step runs the pipeline across the ranks.  A
+worker is a column of ``data`` ranks (rank ``d * S0 + column``, as the
+reference's ``_columns``); a world of k stages runs on its k workers'
+columns, over a submesh cached per (stages, columns).  A resize moves
+every row from its rank in the old world to its rank in the new one
+(``checkpoint.elastic.elastic_restore_across``); a rank that leaves the
+world drops everything it held (its rows, the replicated leaves and their
+moments) and empties the card's cache, a rank that joins receives its
+rows and the replicated leaves (``launch.sharding.send_replicated``), whose
+digests every rank of the world then compares.  Every rank of the launch
+stays in the host loop: a rank outside the world runs no compute, and the
+world's results — loss, stats, gradient norm, ids, logprobs, stage times —
+reach it from the world's leader, so every rank's controller, pool and
+autoscaler decide from the same bytes.
 """
 from __future__ import annotations
 
@@ -52,14 +62,18 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.elastic import (_resplit_stage_tree,
-                                            elastic_restore)
+                                            elastic_restore,
+                                            elastic_restore_across)
 from repro_torch.cluster.rpc import (InProcessJobManager, JobManagerClient,
                                      JobManagerUnavailable)
 from repro_torch.configs.base import BLOCK_MOE, DistConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
 from repro_torch.launch.sharding import (check_layout, local_params,
-                                         local_rows, split_batch)
+                                         local_rows, merge_trees,
+                                         row_template, send_replicated,
+                                         split_batch, split_stages,
+                                         state_bytes, tree_digest, zeros)
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.obs.timing import StageTimer
@@ -137,13 +151,15 @@ def _copy_block(pool, src: int, dst: int):
 
 @dataclasses.dataclass
 class EngineWorld:
-    """Everything tied to one stage count, built once and cached: its
-    ``DistConfig`` and functions (no tensors — a world outlives the state
-    it ran on)."""
+    """Everything tied to one stage count (across ranks: one stage count on
+    one set of worker columns), built once and cached: its ``DistConfig``,
+    its mesh and functions (no tensors — a world outlives the state it ran
+    on).  A rank outside a world's mesh builds no functions for it."""
     stages: int
     dcfg: DistConfig
     init_opt: Any
     step: Any
+    mesh: Any = None          # launch.mesh.Mesh of the world (ranks)
     eval_loss: Any = None     # lazily built loss-only fn (no update)
     prefill: Any = None       # lazily built serving prefill
     decode: Any = None        # {live_micros: decode fn}
@@ -197,6 +213,9 @@ class ElasticEngine:
         if mesh is not None and dcfg.num_stages != mesh.model:
             raise ValueError(f"{dcfg.num_stages} stages on a model ring of "
                              f"{mesh.model} ranks")
+        # the launch's mesh (every rank), and the current world's (a
+        # submesh after a resize)
+        self.launch = mesh
         self.mesh = mesh
         self.cfg, self.base_dcfg, self.dyncfg = cfg, dcfg, dyncfg
         self.shapes = shapes
@@ -212,7 +231,10 @@ class ElasticEngine:
                           else hash_proj.to(self.device, torch.float32))
         self.opt_cfg = opt_cfg
         self.in_step_timing = in_step_timing
-        self._worlds: Dict[int, EngineWorld] = {}
+        self._worlds: Dict[Any, EngineWorld] = {}
+        # what the state carries (a rank outside the world holds none of
+        # it, yet must know the shapes a grow hands it)
+        self._has_opt = self._has_cache = False
         self.last_step_compiled = False
         # serve telemetry: the last prefill / decode call's mean MoE
         # capacity-drop fraction (a device scalar; None for non-MoE archs)
@@ -228,11 +250,12 @@ class ElasticEngine:
             self.jm = job_manager
             self.pool = pool
         self.stage_workers: List[int] = list(range(dcfg.num_stages))
-        # worker id -> stage-buffer slot ("column").  All stage buffers
-        # share the one card, so a column is a slot id; there are as many
-        # as the base world has stages.  A worker granted later under a
-        # never-seen id (the manager provisioned a fresh process) is bound
-        # to a free slot on arrival
+        # worker id -> stage-buffer slot ("column").  In one process all
+        # stage buffers share the one card, so a column is a slot id;
+        # across ranks it is a column of ``data`` ranks.  There are as
+        # many as the base world has stages.  A worker granted later under
+        # a never-seen id (the manager provisioned a fresh process) is
+        # bound to a free column on arrival
         self.num_columns = dcfg.num_stages
         self.worker_column: Dict[int, int] = {
             w: w for w in range(dcfg.num_stages)}
@@ -242,6 +265,8 @@ class ElasticEngine:
         self._pending_jm: List[Any] = []
         self.degraded_events: List[str] = []
         self.resizes: List[ResizeEvent] = []
+        # workers evicted as dead (a rank of theirs ends the run "dead")
+        self.dead_workers: set = set()
         self.last_shrink_step: Optional[int] = None
         # world epoch: bumped by every resize; the control plane fences
         # its plans with it
@@ -267,31 +292,108 @@ class ElasticEngine:
     def ticks(self, stages: int) -> int:
         return self.shapes.num_micro + stages - 1
 
-    def world(self, stages: int) -> EngineWorld:
+    def world(self, stages: int,
+              workers: Optional[Sequence[int]] = None) -> EngineWorld:
         """The world of ``stages`` stage buffers, built on first use (with
         its own stage timer when in-step timing is on: a fresh world has no
-        window yet)."""
-        w = self._worlds.get(stages)
+        window yet).  Across ranks it runs on the columns of ``workers``
+        (default: the current stage -> worker map's first ``stages``);
+        every rank builds it, in the same order, since its process groups
+        are made collectively."""
+        key: Any = stages
+        cols = None
+        if self.launch is not None:
+            ws = (self.stage_workers[:stages] if workers is None
+                  else list(workers))
+            if len(ws) != stages:
+                raise ValueError(f"{len(ws)} workers for {stages} stages")
+            cols = tuple(self.worker_column[w] for w in ws)
+            key = (stages, cols)
+        w = self._worlds.get(key)
         if w is None:
-            if self.mesh is not None and stages != self.mesh.model:
-                raise NotImplementedError(
-                    f"a world of {stages} stages on a mesh of "
-                    f"{self.mesh.model}: resizes across ranks (shrink, "
-                    f"evict, grow) are not in the port yet (ROADMAP Queue "
-                    f"1 [multi-card])")
             dcfg = self.dcfg_for(stages)
-            # across ranks each rank times its own stage (as its stage 0)
-            timer = (StageTimer(1 if self.mesh is not None else stages,
-                                self.device, self.shapes.num_micro)
-                     if self.in_step_timing else None)
-            init_opt, step = make_train_step(
-                self.cfg, dcfg, self.dyncfg, self.shapes, self.opt_cfg,
-                device=self.device, hash_proj=self.hash_proj,
-                stage_timer=timer, mesh=self.mesh)
+            mesh = None if cols is None else self._submesh(cols)
+            init_opt = step = timer = None
+            if mesh is None or mesh.member:
+                # across ranks each rank times its own stage (as its
+                # stage 0)
+                timer = (StageTimer(1 if mesh is not None else stages,
+                                    self.device, self.shapes.num_micro)
+                         if self.in_step_timing else None)
+                init_opt, step = make_train_step(
+                    self.cfg, dcfg, self.dyncfg, self.shapes, self.opt_cfg,
+                    device=self.device, hash_proj=self.hash_proj,
+                    stage_timer=timer, mesh=mesh)
             w = EngineWorld(stages=stages, dcfg=dcfg, init_opt=init_opt,
-                            step=step, timer=timer)
-            self._worlds[stages] = w
+                            step=step, timer=timer, mesh=mesh)
+            self._worlds[key] = w
         return w
+
+    def _submesh(self, cols: Sequence[int]):
+        """The mesh of the worker columns ``cols`` (stage order): ranks
+        ``d * S0 + cols[s]``, data-major; the launch's own mesh when
+        ``cols`` is every column in order."""
+        from repro_torch.launch.mesh import make_submesh
+        launch = self.launch
+        S0 = launch.model
+        if tuple(cols) == tuple(range(S0)):
+            return launch
+        ranks = [d * S0 + c for d in range(launch.data) for c in cols]
+        return make_submesh(launch.data, len(cols), ranks,
+                            device=launch.device, backend=launch.backend,
+                            comm=launch.comm)
+
+    def active(self) -> bool:
+        """Whether this rank runs a cell of the current world (always, in
+        one process)."""
+        return self.mesh is None or self.mesh.member
+
+    def _from_world(self, value):
+        """``value`` as the current world's leader computed it, on every
+        rank of the launch (a rank outside the world passes None); the
+        identity while the world is the whole launch."""
+        if self.launch is None or self.mesh is self.launch:
+            return value
+        return self.launch.comm.broadcast_object(value, self.mesh.leader)
+
+    def pool_active(self) -> int:
+        """The job manager's count of active workers.  Across ranks under a
+        file or HTTP manager it is rank 0's answer, broadcast
+        (``jm_proxy.RankJobManager.poll_active``): every rank must call
+        it, in the same order."""
+        poll = getattr(self.jm, "poll_active", None)
+        return poll() if poll is not None else self.jm.num_active
+
+    def role(self) -> str:
+        """This rank's part in the current world: ``active``, ``released``
+        (its worker went back to the job manager) or ``dead`` (evicted)."""
+        if self.active():
+            return "active"
+        col = self.launch.rank % self.launch.model
+        mine = [w for w, c in self.worker_column.items() if c == col]
+        return "dead" if set(mine) & self.dead_workers else "released"
+
+    def gather_state(self, tree, kind: str = "rows"):
+        """``tree`` whole on every rank: in one process the tree itself;
+        across ranks the world's ranks gather it over their ring (``kind``:
+        ``rows`` for a stage-keyed tree, ``params`` or ``opt``) and the
+        world's leader hands it to the rest of the launch."""
+        if self.launch is None:
+            return tree
+        from repro_torch.launch.sharding import (gather_opt, gather_params,
+                                                 gather_rows)
+        out = None
+        if self.active():
+            fn = {"rows": gather_rows, "params": gather_params,
+                  "opt": gather_opt}[kind]
+            out = fn(tree, self.mesh)
+        return self._from_world(out)
+
+    def held_bytes(self, state: "EngineState") -> int:
+        """Bytes of the state's tensors this rank holds (0 outside the
+        world)."""
+        return state_bytes(state.params, state.opt_state, state.dyn,
+                           state.cache)
 
     def _bind_new_workers(self, granted: Sequence[int]) -> tuple:
         """Bind stage-buffer slots for granted workers.  Known ids keep
@@ -395,22 +497,30 @@ class ElasticEngine:
                else M.uniform_boundaries(cfg.total_blocks(), dcfg.num_stages))
         assignment = M.make_assignment(cfg, dcfg, lps)
         dyn = M.init_dyn(cfg, dcfg, self.dyncfg, dev)
+        self._has_opt, self._has_cache = with_opt, with_cache
+        world = self.world(dcfg.num_stages)
         cache = None
         if with_cache:
             assert self.shapes.cache_len > 0, "shapes.cache_len required"
-            if self.paged is not None:
+            if world.mesh is not None:
+                # zero rows of the world's shapes, allocated as rows
+                cache = (zeros(self._row_templates(dcfg)["cache"], dev)
+                         if world.mesh.member else None)
+            elif self.paged is not None:
                 cache = M.init_paged_cache(cfg, dcfg, self.paged.pool_pages,
                                            self.paged.page_size, dev)
             else:
                 cache = self.make_dense_scratch(dcfg.num_stages)
-        if self.mesh is not None:
-            # this rank's rows; the whole trees are dropped here
-            params = local_params(params, self.mesh)
-            dyn = local_rows(dyn, self.mesh)
-            if cache is not None:
-                cache = local_rows(cache, self.mesh)
-        opt_state = (self.world(dcfg.num_stages).init_opt(params)
-                     if with_opt else None)
+        if world.mesh is not None:
+            self.mesh = world.mesh
+            if world.mesh.member:
+                # this rank's rows; the whole trees are dropped here
+                params = local_params(params, world.mesh)
+                dyn = local_rows(dyn, world.mesh)
+            else:
+                params = dyn = None
+        opt_state = (world.init_opt(params)
+                     if with_opt and params is not None else None)
         return EngineState(params, opt_state, dyn, assignment, lps,
                            dcfg.num_stages, cache)
 
@@ -426,11 +536,14 @@ class ElasticEngine:
         w = self.world(state.stages)
         self.last_step_compiled = not w.stepped
         w.stepped = True
-        params, opt_state, loss, stats, gnorm = w.step(
-            state.params, state.opt_state, state.assignment, state.dyn,
-            batch, lr)
-        state.params, state.opt_state = params, opt_state
-        return loss, stats, gnorm
+        out = None
+        if w.step is not None:
+            params, opt_state, loss, stats, gnorm = w.step(
+                state.params, state.opt_state, state.assignment, state.dyn,
+                batch, lr)
+            state.params, state.opt_state = params, opt_state
+            out = (loss, stats, gnorm)
+        return self._from_world(out)
 
     @staticmethod
     def stats_to_host(state: EngineState, stats):
@@ -442,13 +555,15 @@ class ElasticEngine:
     def eval_loss(self, state: EngineState, batch):
         """Loss only (no update) in the state's world."""
         w = self.world(state.stages)
-        if w.eval_loss is None:
-            w.eval_loss = build_loss_fn(
-                self.cfg, w.dcfg, self.dyncfg, self.shapes,
-                hash_proj=self.hash_proj, mesh=self.mesh)
-        loss, _ = w.eval_loss(state.params, state.assignment, state.dyn,
-                              self._batch(split_batch(batch, self.mesh)))
-        return loss
+        loss = None
+        if self.active():
+            if w.eval_loss is None:
+                w.eval_loss = build_loss_fn(
+                    self.cfg, w.dcfg, self.dyncfg, self.shapes,
+                    hash_proj=self.hash_proj, mesh=w.mesh)
+            loss, _ = w.eval_loss(state.params, state.assignment, state.dyn,
+                                  self._batch(split_batch(batch, w.mesh)))
+        return self._from_world(loss)
 
     # -- safe-point resume ---------------------------------------------------
     def state_templates(self, stages: int):
@@ -496,24 +611,27 @@ class ElasticEngine:
         (the port skips the schedule's invalid ticks), so that is the
         scale.  None when in-step timing is off or the world has no full
         window yet (e.g. right after a resize onto a fresh world)."""
-        w = self.world(state.stages)
-        if w.timer is None:
+        if not self.in_step_timing:
             return None
-        t = w.timer.snapshot(ticks_per_step=self.shapes.num_micro)
-        if self.mesh is None:
+        w = self.world(state.stages)
+        t = (None if w.timer is None
+             else w.timer.snapshot(ticks_per_step=self.shapes.num_micro))
+        if self.launch is None:
             return t
         return self._gather_times(None if t is None else float(t[0]))
 
     def _gather_times(self, mine: Optional[float]):
-        """Every stage's time from its rank ([S] numpy on every rank, the
-        first replica's; None when any stage has none yet)."""
-        mesh = self.mesh
+        """Every stage's time from its rank ([S] numpy on every rank of the
+        launch, the world's first replica's; None when any stage has none
+        yet).  A rank outside the world adds a blank."""
         v = torch.tensor([float("nan") if mine is None else mine],
                          dtype=torch.float64)
-        full = mesh.comm.all_gather(v, None).reshape(-1).numpy()
-        if np.isnan(full).any():
+        full = self.launch.comm.all_gather(v, None).reshape(-1).numpy()
+        mesh = self.mesh
+        times = full[[mesh.rank_of(s, 0) for s in range(mesh.model)]]
+        if np.isnan(times).any():
             return None
-        return full[:mesh.model].copy()
+        return times.copy()
 
     @torch.no_grad()
     def measure_stage_times(self, state: EngineState, batch):
@@ -523,7 +641,9 @@ class ElasticEngine:
         which the carry flows stage to stage; each call is bracketed by a
         ``torch.cuda.synchronize`` on the card.  A host sync per stage: the
         trainer gates it on controller cadence."""
-        if self.mesh is not None:
+        if self.launch is not None:
+            if not self.active():
+                return self._gather_times(None)
             return self._measure_stage_times_across(state, batch)
         w = self.world(state.stages)
         cfg, dev = self.cfg, self.device
@@ -609,14 +729,14 @@ class ElasticEngine:
             w.prefill = build_prefill_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 hash_proj=self.hash_proj, stage_timer=w.timer,
-                mesh=self.mesh)
+                mesh=w.mesh)
             w.decode = {}
         if mv not in w.decode:
             w.decode[mv] = build_decode_fn(
                 self.cfg, w.dcfg, self.dyncfg, self.shapes,
                 paged=self.paged is not None, temperature=self.temperature,
                 num_micro=mv, hash_proj=self.hash_proj,
-                stage_timer=w.timer, mesh=self.mesh)
+                stage_timer=w.timer, mesh=w.mesh)
         return w.prefill, w.decode[mv]
 
     def prefill(self, state: EngineState, batch, cache=None):
@@ -625,15 +745,18 @@ class ElasticEngine:
         of the batch, so the server prefills into a scratch and merges the
         admitted lanes (dense) or packs their pages (paged).
         ``self.last_moe_drop`` holds the call's mean MoE capacity-drop
-        fraction."""
-        pf, _ = self.serve_fns(state.stages)
+        fraction.  A rank outside the world runs nothing: it gets the ids
+        from the world."""
         target = state.cache if cache is None else cache
-        batch = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in batch.items()}
-        ids, cache, drop = pf(state.params, state.assignment, state.dyn,
-                              target, batch)
-        self._note_moe_drop(drop)
-        return ids, cache
+        ids = None
+        if self.active():
+            pf, _ = self.serve_fns(state.stages)
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in batch.items()}
+            ids, target, drop = pf(state.params, state.assignment,
+                                   state.dyn, target, batch)
+            self._note_moe_drop(drop)
+        return self._from_world(ids), target
 
     def decode(self, state: EngineState, tokens, pos, *, page_table=None,
                seeds=None, live_micros: Optional[int] = None):
@@ -642,6 +765,8 @@ class ElasticEngine:
         engine is paged; ``seeds`` [m, B] int32 iff temperature > 0;
         ``live_micros`` selects the decode variant; ``self.last_moe_drop``
         as in :meth:`prefill`."""
+        if not self.active():
+            return self._from_world(None)
         _, dec = self.serve_fns(state.stages, live_micros)
         tokens = torch.as_tensor(tokens, device=self.device)
         pos = torch.as_tensor(pos, device=self.device)
@@ -660,7 +785,7 @@ class ElasticEngine:
                                          state.dyn, state.cache, tokens, pos,
                                          pt, sd)
         self._note_moe_drop(drop)
-        return ids, lp
+        return self._from_world((ids, lp))
 
     def _note_moe_drop(self, drop):
         """A serve call's summed MoE drop signal as a mean fraction over
@@ -674,15 +799,27 @@ class ElasticEngine:
     # -- KV helpers ----------------------------------------------------------
     def make_dense_scratch(self, stages: int):
         """A dense stacked decode cache (zeros) — the paged server's prefill
-        scratch and the dense server's cache and scratch."""
+        scratch and the dense server's cache and scratch; across ranks the
+        rank's rows of its replica's lanes (None outside the world)."""
         dcfg = dataclasses.replace(self.base_dcfg, num_stages=stages)
-        return M.init_cache(self.cfg, dcfg, self.shapes.num_micro,
-                            self.shapes.mb_global, self.shapes.cache_len,
-                            self.device)
+        if self.launch is None:
+            return M.init_cache(self.cfg, dcfg, self.shapes.num_micro,
+                                self.shapes.mb_global, self.shapes.cache_len,
+                                self.device)
+        if not self.active():
+            return None
+        from repro_torch.launch.sharding import replica_shapes
+        rs = replica_shapes(self.shapes, self.mesh)
+        return zeros(row_template(_meta(M.cache_spec(
+            self.cfg, dcfg, rs.num_micro, rs.mb_global, rs.cache_len))),
+            self.device)
 
     def pack_pages(self, state: EngineState, scratch, table, mask):
         """Scatter the admitted lanes' prompt pages from the dense prefill
-        scratch into the block pool (``table``/``mask``: [m, B, J])."""
+        scratch into the block pool (``table``/``mask``: [m, B, J]); a rank
+        outside the world holds no pool."""
+        if state.cache is None:
+            return None
         dev = self.device
         return _pack_pages(state.cache, scratch["k"], scratch["v"],
                            torch.as_tensor(table, dtype=torch.int32,
@@ -692,24 +829,32 @@ class ElasticEngine:
 
     def copy_block(self, state: EngineState, src: int, dst: int):
         """Copy-on-write fork: duplicate one physical block across every
-        stage-slot pool."""
+        stage-slot pool (the rank's rows across ranks)."""
+        if state.cache is None:
+            return None
         return _copy_block(state.cache, int(src), int(dst))
 
     # -- live resize ---------------------------------------------------------
     def resize(self, state: EngineState, new_stages: int,
-               new_lps: Optional[Sequence[int]] = None) -> EngineState:
+               new_lps: Optional[Sequence[int]] = None,
+               workers: Optional[Sequence[int]] = None) -> EngineState:
         """Re-split all stage-keyed state to ``new_stages`` stage buffers
         — no checkpoint, no restart, no host round trip.  A serving cache
         rides the same re-split plan (its [S, L_max] leading dims gather
         like params), so in-flight KV state survives bit for bit.  Falls
         back to a uniform split when ``new_lps`` does not fit the target
         world's slot capacity.  Returns a new state; the caller drops the
-        old one, and with it the old buffers."""
-        world = self.world(new_stages)
+        old one, and with it the old buffers.  Across ranks the new world
+        runs on the columns of ``workers`` (default: the current map's
+        first ``new_stages``) and the old state is consumed: its trees are
+        cleared, and a rank outside the new world holds nothing."""
+        world = self.world(new_stages, workers)
         L_new = world.dcfg.slots_for(self.cfg)
         if new_lps is not None and (len(new_lps) != new_stages
                                     or max(new_lps) > L_new):
             new_lps = None
+        if self.launch is not None:
+            return self._resize_across(state, world, new_lps)
         params, opt_state, dyn, assignment, lps = elastic_restore(
             self.cfg, self.dcfg_for(state.stages), world.dcfg,
             state.params, state.opt_state, state.dyn, state.lps, new_lps)
@@ -719,6 +864,94 @@ class ElasticEngine:
         self.epoch += 1
         return EngineState(params, opt_state, dyn, assignment, lps,
                            new_stages, cache)
+
+    def _row_templates(self, dcfg: DistConfig) -> Dict[str, Any]:
+        """The ``meta`` shapes a rank of the world of ``dcfg`` holds: its
+        stage rows (``params``, the optimizer's ``opt``, ``dyn``, the
+        serving ``cache``) and the replicated leaves with their moments
+        (``replicated``)."""
+        from repro_torch.optim.optimizers import OptConfig, make_optimizer
+        meta = torch.device("meta")
+        rows, rest = split_stages(_meta(M.param_spec(self.cfg, dcfg)))
+        rows = {"stages": row_template(rows["stages"])}
+        out: Dict[str, Any] = {
+            "params": rows["stages"], "replicated": rest,
+            "dyn": row_template(M.init_dyn(self.cfg, dcfg, self.dyncfg,
+                                           meta))}
+        if self._has_opt:
+            init, _ = make_optimizer(self.opt_cfg
+                                     or OptConfig(name=dcfg.optimizer))
+            opt_rows, opt_rest = split_stages(init(merge_trees(rest, rows)))
+            out["opt"] = opt_rows
+            out["replicated"] = {"params": rest, "opt": opt_rest}
+        else:
+            out["replicated"] = {"params": rest}
+        if self._has_cache:
+            spec = (M.paged_cache_spec(self.cfg, dcfg, self.paged.pool_pages,
+                                       self.paged.page_size)
+                    if self.paged is not None else
+                    M.cache_spec(self.cfg, dcfg, self.shapes.num_micro,
+                                 self.shapes.mb_global,
+                                 self.shapes.cache_len))
+            out["cache"] = row_template(_meta(spec))
+        return out
+
+    def _resize_across(self, state: EngineState, world: EngineWorld,
+                       new_lps) -> EngineState:
+        """``resize`` across ranks: every row moves from its rank in the
+        current world to its rank in ``world``; a rank new to the world
+        receives the replicated leaves from its data row's stage-0 rank
+        (their digests then compared over the world); a rank that left
+        drops everything and empties the card's cache."""
+        src, dst = self.world(state.stages).mesh, world.mesh
+        tmpl = self._row_templates(world.dcfg)
+        opt_rows = opt_rest = None
+        if state.opt_state is not None:
+            opt_rows, opt_rest = split_stages(state.opt_state)
+        params_rest = (None if state.params is None
+                       else split_stages(state.params)[1])
+        stages, opt_rows, dyn, cache, assignment, lps = \
+            elastic_restore_across(
+                self.cfg, world.dcfg, state.params, opt_rows, state.dyn,
+                state.cache, state.lps, new_lps, src=src, dst=dst,
+                templates=tmpl, replica=self.launch.replica,
+                device=self.device)
+        rest = send_replicated(
+            {"params": params_rest, "opt": opt_rest}
+            if self._has_opt else {"params": params_rest},
+            tmpl["replicated"], src, dst, self.device)
+        joined = any(r not in src.ranks for r in dst.ranks)
+        # the old state is consumed: its buffers go with it
+        state.params = state.opt_state = state.dyn = state.cache = None
+        params_rest = opt_rest = None
+        params = opt_state = None
+        if dst.member:
+            params = merge_trees(rest["params"], {"stages": stages})
+            if self._has_opt:
+                opt_state = merge_trees(rest["opt"], opt_rows)
+        elif self.device.type == "cuda":
+            # nothing of the state is left here: hand the blocks back, the
+            # cuBLAS workspaces too (64 MiB on this card; the next matmul
+            # after a grow allocates them again)
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.empty_cache()
+        if joined:
+            self._check_replicated(dst, rest)
+        self.mesh = dst
+        self.epoch += 1
+        return EngineState(params, opt_state, dyn, assignment, lps,
+                           world.stages, cache)
+
+    def _check_replicated(self, dst, rest) -> None:
+        """After a rank joined the world: the replicated leaves and their
+        moments are the same bytes on every rank of it (digests gathered
+        over the launch)."""
+        seen = self.launch.comm.all_gather_object(
+            tree_digest(rest) if dst.member else None)
+        got = {seen[r] for r in dst.ranks}
+        if len(got) != 1:
+            raise RuntimeError(f"the replicated leaves differ across the "
+                               f"world's ranks {dst.ranks}: {seen}")
 
     def _event(self, step: int, kind: str, state: EngineState, to: int,
                workers: Sequence[int], t0: float) -> None:
@@ -737,7 +970,8 @@ class ElasticEngine:
         the tail of the stage -> worker map to the job manager."""
         assert target_stages < state.stages
         t0 = time.perf_counter()
-        new_state = self.resize(state, target_stages, new_lps)
+        new_state = self.resize(state, target_stages, new_lps,
+                                workers=self.stage_workers[:target_stages])
         released = self.stage_workers[target_stages:]
         self.stage_workers = self.stage_workers[:target_stages]
         self._jm_release(released)
@@ -757,9 +991,12 @@ class ElasticEngine:
         target = len(self.stage_workers) - len(lost)
         assert target >= 1, "cannot evict every worker"
         t0 = time.perf_counter()
-        new_state = self.resize(state, target)
-        self.stage_workers = [w for w in self.stage_workers
-                              if w not in set(lost)]
+        survivors = [w for w in self.stage_workers if w not in set(lost)]
+        # across ranks the new world runs on the survivors' columns; the
+        # lost workers' ranks send their rows, then hold nothing
+        new_state = self.resize(state, target, workers=survivors)
+        self.stage_workers = survivors
+        self.dead_workers.update(lost)
         for w in lost:
             self._jm_fail(w)
         self._event(step, "evict", state, target, lost, t0)
@@ -801,8 +1038,10 @@ class ElasticEngine:
         if not granted:
             return state
         target = state.stages + len(granted)
-        new_state = self.resize(state, target)
+        new_state = self.resize(state, target,
+                                workers=self.stage_workers + granted)
         self.stage_workers = self.stage_workers + granted
+        self.dead_workers.difference_update(granted)
         self._event(step, "grow", state, target, granted, t0)
         return new_state
 

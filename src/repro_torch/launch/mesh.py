@@ -9,14 +9,19 @@ process groups its axes need:
     hands its carry to stage s+1 of the same row);
   * ``data_group``: the data replicas of this rank's stage column (the
     gradients of a stage are summed over it);
-  * the whole world (the default group), over which the loss's numerator
-    and denominator are summed.
+  * ``world_group``: every rank of the mesh, over which the loss's
+    numerator and denominator are summed (None: the mesh is the whole
+    launch, the default group).
 
 The layout is data-major, as the reference's ``_devices_for`` orders
-devices: rank ``d * model + s`` runs stage s of data replica d.
-Collectives and point-to-point transfers go through ``mesh.comm``
-(``launch.dist.Comm``), which stages CUDA tensors through host buffers
-when the backend is ``gloo``.
+devices: rank ``d * model + s`` runs stage s of data replica d.  A world of
+fewer stages after a resize runs on a subset of the launch's ranks: the
+columns of its workers (``make_submesh(data, k, ranks=...)``, ranks
+``d * S0 + column``); a rank outside it is not a ``member`` and holds no
+group of it.  Collectives and point-to-point transfers go through
+``mesh.comm`` (``launch.dist.Comm``, one per rank, shared by every world's
+mesh), which stages CUDA tensors through host buffers when the backend is
+``gloo``.
 """
 from __future__ import annotations
 
@@ -38,8 +43,20 @@ class Mesh:
     model_group: Any = None     # None: the default group covers the ring
     data_group: Any = None
     comm: Any = None            # launch.dist.Comm
+    world_group: Any = None     # None: the mesh is the whole launch
 
     axis_names = ("data", "model")
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank runs a cell of the mesh."""
+        return self.rank in self.ranks
+
+    @property
+    def leader(self) -> int:
+        """The global rank of the mesh's first cell (stage 0, replica 0):
+        its clocks are the ones every rank's decisions read."""
+        return self.ranks[0]
 
     @property
     def index(self) -> int:
@@ -63,12 +80,14 @@ class Mesh:
 
 
 def make_submesh(data: int, model: int, ranks: Optional[Sequence[int]] = None,
-                 *, device=None, backend: Optional[str] = None) -> Mesh:
+                 *, device=None, backend: Optional[str] = None,
+                 comm=None) -> Mesh:
     """A mesh over an explicit rank subset (default: the first
     ``data * model`` ranks of the world).  Every rank of the world must call
     it with the same arguments: ``torch.distributed.new_group`` is
-    collective.  Raises when the world has fewer ranks than the mesh
-    needs."""
+    collective.  ``comm`` (a ``launch.dist.Comm``) is shared with the
+    caller's other meshes; default: a new one.  Raises when the world has
+    fewer ranks than the mesh needs."""
     import torch.distributed as dist
 
     from repro_torch.launch.dist import SOLO, Comm
@@ -84,15 +103,22 @@ def make_submesh(data: int, model: int, ranks: Optional[Sequence[int]] = None,
                          f"{world}")
     backend = backend or dist.get_backend()
     full = len(ranks) == world
+    dev = torch.device("cpu" if device is None else device)
+    comm = Comm(backend, dev) if comm is None else comm
 
     def group(members):
         # new_group is collective over the whole world: every rank makes
         # every group, in the same order
         if len(members) == 1:
             return SOLO
-        if full and len(members) == world:
+        if full and len(members) == world and members == sorted(members):
             return None
-        return dist.new_group(members)
+        g = dist.new_group(members)
+        if members != sorted(members):
+            # the group orders its ranks by global rank; a gather over it
+            # is put back into the mesh's (stage) order
+            comm.order[id(g)] = [sorted(members).index(r) for r in members]
+        return g
 
     rows = [[ranks[d * model + s] for s in range(model)]
             for d in range(data)]
@@ -100,13 +126,14 @@ def make_submesh(data: int, model: int, ranks: Optional[Sequence[int]] = None,
             for s in range(model)]
     row_groups = [group(r) for r in rows]
     col_groups = [group(c) for c in cols]
+    # with one replica the ring is every rank of the mesh
+    whole = row_groups[0] if data == 1 else group(ranks)
     mesh = Mesh(data=data, model=model, rank=rank, ranks=ranks,
-                device=torch.device("cpu" if device is None else device),
-                backend=backend)
+                device=dev, backend=backend, comm=comm)
     if rank in ranks:
         mesh.model_group = row_groups[mesh.replica]
         mesh.data_group = col_groups[mesh.stage]
-    mesh.comm = Comm(backend, mesh.device)
+        mesh.world_group = whole
     return mesh
 
 

@@ -29,6 +29,12 @@ It runs on the CUDA card unless ``--device cpu``.
   python -m repro_torch.launch.serve --device cpu --layers 8 --gen 16
   python -m repro_torch.launch.serve --device cpu --procs 4 --stages 4 \\
       --layers 8 --gen 16
+  python -m repro_torch.launch.serve --elastic --device cpu --procs 4 \\
+      --stages 4 --kv-page-size 4 --requests 8
+
+With ``--elastic``, ``--procs N`` runs the elastic server as N ranks, one
+per stage (``--stages N``, data 1): each rank holds its stage's rows of
+the paged KV pool and runs its layers' decode attention.
 """
 from __future__ import annotations
 

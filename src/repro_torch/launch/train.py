@@ -28,6 +28,12 @@ prints rank 0's report:
 
   python -m repro_torch.launch.train --device cpu --procs 4 --stages 4 \\
       --layers 8 --d-model 64 --steps 6
+  python -m repro_torch.launch.train --device cpu --procs 4 --stages 4 \\
+      --layers 8 --d-model 128 --num-micro 4 --seq 32 --steps 26 \\
+      --dynamism pruning --repack --grow-back 6 --rebalance-every 5
+
+The ranks resize too: the second run's repack shrink releases ranks 2 and
+3 to the job manager at step 14 and the grow binds them back at step 20.
 
 ``--resume DIR`` rebuilds the run from the newest complete safe point in
 ``DIR`` (it carries the producing RunSpec; only ``--device`` is read from

@@ -119,9 +119,11 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
     reference does.
 
     With a ``mesh`` the cache is this rank's row ``[1, L_max, m, B / dp,
-    ...]`` and every rank returns the whole ``[m, B]`` ids and logprobs
-    (the last stage's, broadcast over the ring and gathered over
-    ``data``)."""
+    ...]`` — paged: its rows of the pool, ``[1, L_max, pool+1, page, kv,
+    hd]``, read through the whole page table's replica lanes — and every
+    rank returns the whole ``[m, B]`` ids and logprobs (the last stage's,
+    sampled there from the lane seeds at T > 0, broadcast over the ring and
+    gathered over ``data``)."""
     M.check_ported(cfg, dyncfg)
     S = dcfg.num_stages
     dt = M.param_dtype(dcfg)
@@ -130,12 +132,8 @@ def build_decode_fn(cfg: ModelConfig, dcfg: DistConfig,
         raise ValueError(f"num_micro={m_live} outside [1, "
                          f"{shapes.num_micro}]")
     if mesh is not None:
-        if paged:
-            raise NotImplementedError(
-                "paged decode across ranks comes with the elastic server "
-                "(ROADMAP Queue 1 [multi-card])")
         return _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live,
-                               temperature, hash_proj, stage_timer)
+                               temperature, hash_proj, stage_timer, paged)
 
     def decode_fn(params, assignment, dyn, cache, tokens, pos,
                   page_table=None, seeds=None):
@@ -673,7 +671,7 @@ def _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh, hash_proj,
         tot = comm.all_reduce(torch.stack([
             torch.as_tensor(nll, device=device).detach().float(),
             torch.as_tensor(cnt, device=device).detach().float(),
-            aux_t.detach()]), None)
+            aux_t.detach()]), mesh.world_group)
         aux_tot = tot[2] / mesh.data
         loss = tot[0] / torch.clamp(tot[1], min=1.0)
         loss = loss + M.AUX_LOSS_COEF * aux_tot / (m * max(
@@ -769,7 +767,7 @@ def _mesh_prefill_fn(cfg, dcfg, dyncfg, shapes, mesh, hash_proj,
 
 
 def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
-                    hash_proj, stage_timer):
+                    hash_proj, stage_timer, paged=False):
     from repro_torch.launch.sharding import lanes, replica_shapes
     _check_mesh(dcfg, mesh)
     S, s = mesh.model, mesh.stage
@@ -788,6 +786,9 @@ def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
                 "per-lane decode positions need a per-lane dec_pos gather; "
                 "encoder-decoder serving uses the scalar-pos path (the "
                 "reference lacks per-lane encoder-decoder decode)")
+        if paged and (not per_lane or page_table is None):
+            raise ValueError("paged decode requires per-lane positions and "
+                             "a page table")
         if (temperature > 0.0) != (seeds is not None):
             raise ValueError("per-lane seeds are required iff temperature "
                              "> 0")
@@ -797,6 +798,8 @@ def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
             pos = pos[:, sl]
         if seeds is not None:
             seeds = seeds[:, sl]
+        if page_table is not None:
+            page_table = page_table[:, sl]
         device = tokens.device
         tags = assignment["tags"].tolist()[s]
         stage_p = _stage_slice(params["stages"], 0)
@@ -816,7 +819,16 @@ def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
                 carry = {"x": x["x"].to(dt)}
             else:
                 carry = _recv_carry(comm, spec, prev, device)
-            cache_mb = {k: v[0][:, mi] for k, v in cache.items()}
+            if paged:
+                # the rank's rows of the pool; the tick's page table and
+                # write-ok flag ride as per-slot entries, as in one process
+                L_m = len(tags)
+                pt_mb = page_table[mi]
+                cache_mb = {"kp": cache["kp"][0], "vp": cache["vp"][0],
+                            "pt": pt_mb[None].expand(L_m, *pt_mb.shape),
+                            "wok": [1] * L_m}
+            else:
+                cache_mb = {k: v[0][:, mi] for k, v in cache.items()}
             pos_mb = pos[mi] if per_lane else pos
             if stage_timer is not None:
                 stage_timer.stamp(0, 0)

@@ -26,6 +26,15 @@ tick re-admits onto the smaller world.  ``tracer`` records ``serve.tick``
 queue and tick series, and with ``in_step_timing`` the engine's stage
 timer brackets each stage's prefill and decode calls, read once after the
 trace drains.  The report keeps every key of the reference's.
+
+With a ``mesh`` (one rank per stage, data 1) the server is one rank's:
+the engine holds the rank's stage rows of the params and of the KV page
+pool and launches its layers' work (the paged decode attention among it);
+every rank runs the scheduler and the page allocator on the same ids, and
+resizes — scripted or the autoscaler's — move rows across ranks
+(``launch.engine``): a released rank holds nothing and keeps scheduling.
+The autoscaler's latency signal is the world leader's tick wall; only rank
+0 prints.
 """
 from __future__ import annotations
 
@@ -67,6 +76,14 @@ def _permute_lanes(cache, src_of_dst: np.ndarray, m: int, B: int):
     return cache
 
 
+def _memory(device) -> Dict[str, Optional[int]]:
+    """``memory_allocated`` / ``memory_reserved`` (None off the card)."""
+    if device.type != "cuda":
+        return {"allocated": None, "reserved": None}
+    return {"allocated": torch.cuda.memory_allocated(device),
+            "reserved": torch.cuda.memory_reserved(device)}
+
+
 def _pct(xs: Sequence[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else 0.0
 
@@ -83,7 +100,7 @@ class ElasticServer:
                  seed: int = 0, paged=None, temperature: float = 0.0,
                  measure_stage_times: bool = False,
                  in_step_timing: bool = False, tracer=None, metrics=None,
-                 device: DeviceLike = None, params=None):
+                 device: DeviceLike = None, params=None, mesh=None):
         assert shapes.cache_len >= shapes.seq, "cache must hold the prompt"
         self.paged = paged
         self.measure_stage_times = measure_stage_times
@@ -95,7 +112,12 @@ class ElasticServer:
         self.engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, paged=paged,
                                     job_manager=job_manager,
                                     temperature=temperature, device=device,
-                                    in_step_timing=in_step_timing)
+                                    in_step_timing=in_step_timing,
+                                    mesh=mesh)
+        self.mesh = mesh
+        self._quiet = mesh is not None and mesh.rank != 0
+        # memory around each resize (None on the CPU)
+        self.resize_memory: List[Dict[str, Any]] = []
         stages = None
         if initial_workers is not None:
             # multi-tenant start: serve on exactly the workers the cluster
@@ -151,6 +173,7 @@ class ElasticServer:
         urgent grow preempt a lower-priority tenant through the cluster
         scheduler (a plain request on a single-tenant manager)."""
         prev = self.state.stages
+        mem_before = _memory(self.engine.device)
         sp = (self.tracer.span("serve.resize", cat="resize", tick=tick,
                                target=target_stages, reason=reason,
                                steal=steal)
@@ -175,9 +198,17 @@ class ElasticServer:
         if changed:
             self._scratch = None      # the old world's scratch goes too
             rz = self.engine.resizes[-1]
-            print(f"tick {tick:4d} {rz.kind.upper()} {rz.from_stages}->"
-                  f"{rz.to_stages} stages ({reason}); workers {rz.workers}; "
-                  f"pool active={self.engine.jm.num_active}")
+            after = _memory(self.engine.device)
+            self.resize_memory.append({
+                "tick": tick, "kind": rz.kind, "seconds": rz.seconds,
+                "role": self.engine.role(),
+                **{f"{k}_before": v for k, v in mem_before.items()},
+                **{f"{k}_after": v for k, v in after.items()}})
+            active = self.engine.pool_active()  # every rank: a broadcast
+            if not self._quiet:
+                print(f"tick {tick:4d} {rz.kind.upper()} {rz.from_stages}->"
+                      f"{rz.to_stages} stages ({reason}); workers "
+                      f"{rz.workers}; pool active={active}")
             if self.scaler is not None:
                 self.scaler.note_resize(tick, self.state.stages)
         return changed
@@ -244,7 +275,7 @@ class ElasticServer:
                 if alloc is not None:
                     self.engine.pack_pages(self.state, self._scratch,
                                            adm.page_table, adm.pack_mask)
-                else:
+                elif self.state.cache is not None:
                     _merge_lanes(self.state.cache, self._scratch,
                                  adm.admit_mask)
                 sched.note_prefill(adm, ids.cpu().numpy(), tick)
@@ -275,11 +306,16 @@ class ElasticServer:
                 if self.engine.last_moe_drop is not None:
                     moe_drops.append(self.engine.last_moe_drop)
             perm = sched.maybe_defrag(tick)
-            if perm is not None and alloc is None:
+            if (perm is not None and alloc is None
+                    and self.state.cache is not None):
                 # dense lines move with their lanes; the paged pool never
                 # moves — lanes only carry table rows, rebuilt every tick
                 _permute_lanes(self.state.cache, perm, m, B)
             wall = time.perf_counter() - t0
+            if self.mesh is not None:
+                # every rank's latency signal is the world leader's clock
+                wall = float(self.mesh.comm.all_gather_object(wall)[
+                    self.engine.mesh.leader])
             if sp_tick is not None:
                 sp_tick.end(tokens=emitted, queue=sched.queue_depth)
             tick_wall.append(wall)

@@ -90,3 +90,132 @@ def modules(mesh):
     x = torch.ones(2) * mesh.rank
     return {"foreign": foreign_modules(),
             "sum": float(mesh.comm.all_reduce(x, None)[0])}
+
+
+W8 = dict(num_layers=8, d_model=64, num_heads=4, num_kv_heads=2, d_ff=256,
+          vocab_size=512)
+
+
+def engine_scenario(mesh=None):
+    """The engine's resizes on reduced smollm (8 layers, 4 stages, two
+    microbatches of 2 x 32 tokens): one step, resize(2), back to 4 (the
+    round trip), resize(2) and a step on it, back to 4, evict worker 1, a
+    grant of a never-seen id, a step.  Run in one process (``mesh=None``)
+    and as one rank of 4; returns the losses, the trees gathered whole at
+    each point and, across ranks, the rank's world and bytes held."""
+    import numpy as np
+
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    from repro_torch.runtime.fault_tolerance import WorkerPool
+    cfg = reduced_config(get_config("smollm-360m"), **W8)
+    dcfg = DistConfig(num_stages=4, slot_slack=2, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    eng = ElasticEngine(cfg, dcfg, DynamicsConfig(), PipelineShapes(2, 2, 32),
+                        pool=WorkerPool(4), device="cpu", mesh=mesh)
+    r = np.random.RandomState(0)
+    batch = {"tokens": r.randint(0, cfg.vocab_size, (2, 2, 32)),
+             "labels": r.randint(0, cfg.vocab_size, (2, 2, 32)),
+             "label_mask": np.ones((2, 2, 32), np.float32)}
+    out = {"losses": {}, "trees": {}, "held": {}, "world": {}}
+
+    def note(name, st):
+        out["trees"][name] = {
+            "params": eng.gather_state(st.params, "params"),
+            "opt": eng.gather_state(st.opt_state, "opt"),
+            "dyn": eng.gather_state(st.dyn)}
+        out["held"][name] = eng.held_bytes(st)
+        out["world"][name] = (None if mesh is None else
+                              (list(eng.mesh.ranks), eng.role()))
+
+    st = eng.init_state(0, with_opt=True)
+    loss, _, gnorm = eng.step(st, batch, 3e-4)
+    out["losses"]["step"] = (float(loss), float(gnorm))
+    note("start", st)
+    out["losses"]["l4"] = float(eng.eval_loss(st, batch))
+    s2 = eng.resize(st, 2)
+    out["losses"]["l2"] = float(eng.eval_loss(s2, batch))
+    note("resize2", s2)
+    s4 = eng.resize(s2, 4)
+    note("round_trip", s4)
+    s2 = eng.resize(s4, 2)
+    loss, _, gnorm = eng.step(s2, batch, 3e-4)
+    out["losses"]["step2"] = (float(loss), float(gnorm))
+    out["losses"]["l2b"] = float(eng.eval_loss(s2, batch))
+    s4 = eng.resize(s2, 4)
+    s3 = eng.evict(s4, [1], step=7)
+    out["losses"]["l3"] = float(eng.eval_loss(s3, batch))
+    note("evict", s3)
+    out["evict"] = {"stage_workers": list(eng.stage_workers),
+                    "dead": sorted(eng.pool.dead),
+                    "request": eng.jm.request(1)}
+    # the manager provisions a fresh machine: a never-seen id
+    eng.pool.spares = 1
+    s4 = eng.grow(s3, 1, step=8)
+    out["grow"] = {"stage_workers": list(eng.stage_workers),
+                   "column": eng.worker_column[eng.stage_workers[-1]]}
+    loss, _, gnorm = eng.step(s4, batch, 3e-4)
+    out["losses"]["step4"] = (float(loss), float(gnorm))
+    note("grow", s4)
+    out["pool_log"] = list(eng.pool.log)
+    out["epoch"] = eng.epoch
+    return out
+
+
+def engine_elastic(mesh):
+    """``engine_scenario`` as one rank; rank 0 returns the trees."""
+    from repro_torch.launch.dist import foreign_modules
+    out = engine_scenario(mesh)
+    if mesh.rank != 0:
+        out.pop("trees")
+    out["foreign"] = foreign_modules()
+    return out
+
+
+def fail_released(mesh):
+    """A shrink releases ranks 2 and 3; rank 3 then raises while the world
+    of ranks 0 and 1 goes on (the launcher must end the run)."""
+    import numpy as np
+
+    from repro_torch.configs import DistConfig, get_config, reduced_config
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    cfg = reduced_config(get_config("smollm-360m"), **W8)
+    dcfg = DistConfig(num_stages=4, slot_slack=2, remat="none",
+                      param_dtype="float32")
+    eng = ElasticEngine(cfg, dcfg, DynamicsConfig(), PipelineShapes(2, 2, 32),
+                        device="cpu", mesh=mesh)
+    st = eng.shrink(eng.init_state(0, with_opt=True), 2, step=0)
+    if mesh.rank == 3:
+        raise RuntimeError(f"rank 3 fails while released "
+                           f"({eng.role()}, {eng.held_bytes(st)} bytes)")
+    r = np.random.RandomState(0)
+    batch = {"tokens": r.randint(0, cfg.vocab_size, (2, 2, 32)),
+             "labels": r.randint(0, cfg.vocab_size, (2, 2, 32)),
+             "label_mask": np.ones((2, 2, 32), np.float32)}
+    for _ in range(3):
+        eng.step(st, batch, 3e-4)
+    return {}
+
+
+def serve_cycle(mesh, spec, trace, resize_at, params):
+    """``Session.serve`` as one rank of the elastic server, then one more
+    shrink / grow cycle on the live state; rank 0 returns the report and
+    the page pool gathered whole."""
+    from repro_torch.api.session import Session
+    from repro_torch.launch.dist import foreign_modules
+    with Session(spec, device=mesh.device, params=params, mesh=mesh) as s:
+        rep = s.serve(trace, resize_at=resize_at)
+        eng = s.server.engine
+        st = eng.shrink(s.server.state, 2, step=100)
+        held = eng.held_bytes(st)
+        st = eng.grow(st, 2, step=101)
+        pool = eng.gather_state(st.cache)
+    out = {"role": rep["role"], "held_after_shrink": held,
+           "foreign": foreign_modules()}
+    if mesh.rank == 0:
+        out.update(report=rep, pool=pool)
+    return out

@@ -13,7 +13,9 @@ ranks, on the CPU, against the reference on four host devices.
   rebalance cadence (its survival-curve costs keep this split; moving a
   cache's rows across ranks is ``test_torch_dist.py``'s): the tokens are
   identical to the reference's at temperature 0, on every rank;
-* ``procs`` that is not ``data x stages`` raises, naming both numbers.
+* ``procs`` that is not ``data x stages`` raises, naming both numbers;
+  what the ranks leave out (safe points, chaos, an undrained asynchronous
+  controller, the other families) raises naming [multi-card].
 """
 import json
 
@@ -130,14 +132,14 @@ def test_procs_must_be_data_times_stages():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--repack"], ["--grow-back", "5"], ["--autoscale"],
     ["--ckpt-every", "2", "--ckpt-dir", "CKPT"],
-    ["--chaos"], ["--job-manager", "file"],
+    ["--chaos"],
     ["--async-controller"],
     ["--arch", "mixtral-8x7b", "--dynamism", "moe"]])
 def test_features_outside_the_slice_refuse_ranks(extra, tmp_path):
     """What the ranks do not run yet raises before any rank starts, naming
-    ROADMAP Queue 1 [multi-card]; so does the elastic server."""
+    ROADMAP Queue 1 [multi-card]; the elastic server across ranks runs one
+    rank per stage (data 1), so a 2 x 2 mesh of ranks refuses it."""
     from repro_torch.api.cli import (TRAIN_ALIASES, TRAIN_CLI_DEFAULTS,
                                      build_spec)
     from repro_torch.api.session import Session
@@ -148,6 +150,6 @@ def test_features_outside_the_slice_refuse_ranks(extra, tmp_path):
         run(argv + ["--device", "cpu", "--procs", "4"])
     spec = build_spec(build_parser().parse_args(FLAGS + PORT_WIDTHS),
                       TRAIN_ALIASES, cli_defaults=TRAIN_CLI_DEFAULTS)
-    with pytest.raises(NotImplementedError, match=r"\[multi-card\]"):
+    with pytest.raises(ValueError, match=r"stages=2 must equal procs=4"):
         with Session(spec, device="cpu", procs=4) as s:
             s.serve()

@@ -22,6 +22,14 @@
   elastic run (a 4-device subprocess), and the page pool bitwise equal
   after one more shrink / grow cycle on the live state, the trash block
   excluded.
+* The same serve over four ranks (``ElasticServer(mesh=)``, one rank a
+  stage, each holding its stage's rows of the params and the page pool
+  and running the paged decode attention on its own layers): the
+  completions, resizes and pool log of the reference and of one process;
+  after one more shrink / grow cycle the pool, gathered whole, bitwise the
+  one-process pool (the trash block excluded), the released ranks holding
+  nothing in between; phase 7e of ``chip_smoke.py`` accepts the run and
+  refuses wrong ones.
 """
 import copy
 import dataclasses
@@ -35,6 +43,8 @@ pytest.importorskip("jax")
 import torch  # noqa: E402
 
 from conftest import run_in_subprocess  # noqa: E402
+from repro_torch.api.specs import (ModelSpec, ParallelSpec,  # noqa: E402
+                                   RunSpec, ServeSpec)
 from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint.elastic import (_resplit_stage_tree,  # noqa: E402
                                             resplit_indices)
@@ -46,6 +56,7 @@ from repro_torch.core import repack as trp  # noqa: E402
 from repro_torch.core.controller import (ControllerConfig,  # noqa: E402
                                          DynMoController)
 from repro_torch.dynamics.config import DynamicsConfig as TDyn  # noqa: E402
+from repro_torch.launch.dist import launch  # noqa: E402
 from repro_torch.launch.engine import ElasticEngine  # noqa: E402
 from repro_torch.pipeline.pipeline import PipelineShapes  # noqa: E402
 from repro_torch.runtime.fault_tolerance import StragglerDetector  # noqa: E402,E501
@@ -377,8 +388,11 @@ def _serve_port(params, resize_at):
     return srv, rep, {c["rid"]: c["tokens"] for c in rep["completions"]}
 
 
-def test_serving_resize_matches_fixed_and_reference(tmp_path):
-    npz = os.path.join(str(tmp_path), "params.npz")
+@pytest.fixture(scope="module")
+def serve_ref(tmp_path_factory):
+    """The reference's elastic serve (a 4-device subprocess) and its
+    params, handed over."""
+    npz = os.path.join(str(tmp_path_factory.mktemp("ref")), "params.npz")
     out = run_in_subprocess(f"NPZ = {npz!r}\n" + SERVE_REF, devices=4)
     line = [ln for ln in out.splitlines() if ln.startswith("REPORT ")][-1]
     want = json.loads(line[7:])
@@ -390,7 +404,11 @@ def test_serving_resize_matches_fixed_and_reference(tmp_path):
             for p in path:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
-    params = convert.to_torch(tree["params"], "cpu")
+    return want, convert.to_torch(tree["params"], "cpu")
+
+
+def test_serving_resize_matches_fixed_and_reference(serve_ref):
+    want, params = serve_ref
     _, _, fixed = _serve_port(params, None)
     srv, rep, elastic = _serve_port(params, {4: 2, 9: 4})
     assert elastic == fixed
@@ -407,3 +425,104 @@ def test_serving_resize_matches_fixed_and_reference(tmp_path):
     for k, v in before.items():
         assert st.cache[k].shape == v.shape, k
         assert torch.equal(st.cache[k][:, :, :-1], v[:, :, :-1]), k
+
+
+# ---------------------------------------------------------------------------
+# the serving resize over four ranks
+# ---------------------------------------------------------------------------
+RESIZE_AT = {4: 2, 9: 4}
+SPEC = RunSpec(model=ModelSpec(arch="smollm-360m", layers=6, d_model=64,
+                               num_heads=4, num_kv_heads=2, d_ff=128,
+                               vocab_size=256),
+               parallel=ParallelSpec(stages=4, num_micro=2, mb_global=2),
+               serve=ServeSpec(prompt_len=8, gen=8, kv_page_size=4,
+                               kv_pool_pages=16), seed=0)
+
+
+def _trace():
+    rng = np.random.RandomState(9)
+    return [Request(rid=i, arrival=[0, 0, 1, 3, 4, 6][i],
+                    prompt=rng.randint(0, 256, [8, 6, 8, 4, 7, 8][i])
+                    .astype(np.int32),
+                    gen=[6, 4, 5, 6, 3, 5][i]) for i in range(6)]
+
+
+@pytest.fixture(scope="module")
+def served(serve_ref):
+    want, params = serve_ref
+    ranks = launch("_dist_targets:serve_cycle", 4, device="cpu",
+                   run_timeout_s=240,
+                   kwargs=dict(spec=SPEC, trace=_trace(),
+                               resize_at=RESIZE_AT, params=params))
+    srv, rep, tokens = _serve_port(params, RESIZE_AT)
+    st = srv.engine.shrink(srv.state, 2, step=100)
+    st = srv.engine.grow(st, 2, step=101)
+    return want, ranks, (rep, tokens, st.cache)
+
+
+def test_paged_serve_over_four_ranks_matches_reference(served):
+    want, ranks, (one, one_tokens, _) = served
+    rep = ranks[0]["report"]
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    assert got == one_tokens
+    assert {str(k): v for k, v in got.items()} == want["tokens"]
+    assert [[r["kind"], r["from_stages"], r["to_stages"], r["workers"],
+             r["step"]] for r in rep["resizes"]] == want["resizes"] == [
+        ["shrink", 4, 2, [2, 3], 4], ["grow", 2, 4, [2, 3], 9]]
+    assert rep["pool_log"] == want["pool_log"] == one["pool_log"]
+    assert rep["stages_history"] == one["stages_history"]
+    assert [r["role"] for r in ranks] == ["active"] * 4
+    assert all(r["foreign"] == [] for r in ranks)
+
+
+def test_page_pool_after_a_cycle_is_bitwise_one_process(served):
+    _, ranks, (_, _, pool) = served
+    got = ranks[0]["pool"]
+    assert set(got) == set(pool) == {"kp", "vp"}
+    for k, v in pool.items():
+        assert got[k].shape == v.shape, k
+        assert torch.equal(got[k][:, :, :-1], v[:, :, :-1]), k
+    # the cycle's shrink released ranks 2 and 3: they held nothing
+    assert [r["held_after_shrink"] > 0 for r in ranks] == [True, True,
+                                                           False, False]
+
+
+def test_chip_smoke_7e_checks_refuse_a_wrong_run(served):
+    """Phase 7e holds the ranks' serve to 4i's one process: the run above
+    passes; a rank that launched no K6, a token or a pool entry that
+    differs fails it."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _, ranks, (one, one_tokens, pool) = served
+    rep = dict(ranks[0]["report"],
+               pool_digests=smoke.pool_digests(ranks[0]["pool"]))
+    infos = [{"rank": i, "launches": {"paged_attention": {
+        "launches": 3, "tc": 0, "bwd": 0, "split": 3}}} for i in range(4)]
+    want = {"tokens": one_tokens, "pool_digests": smoke.pool_digests(pool),
+            "launches": {"paged_attention": 12},
+            "resizes": [(r["kind"], r["step"], r["from_stages"],
+                         r["to_stages"]) for r in one["resizes"]]}
+    assert smoke.check_elastic_serve_across(rep, infos, want) == 12
+    idle = copy.deepcopy(infos)
+    idle[3]["launches"]["paged_attention"].update(launches=0, split=0)
+    idle[0]["launches"]["paged_attention"].update(launches=6, split=6)
+    with pytest.raises(AssertionError, match="launched no K6"):
+        smoke.check_elastic_serve_across(rep, idle, want)
+    bad = copy.deepcopy(rep)
+    bad["completions"][0]["tokens"][0] += 1
+    with pytest.raises(AssertionError, match="tokens differ"):
+        smoke.check_elastic_serve_across(bad, infos, want)
+    moved = {k: v.clone() for k, v in ranks[0]["pool"].items()}
+    moved["kp"][1, 0, 0] += 1.0
+    bad = dict(rep, pool_digests=smoke.pool_digests(moved))
+    with pytest.raises(AssertionError, match=r"rows of stages \[1\]"):
+        smoke.check_elastic_serve_across(bad, infos, want)
+    # the trash block (the last) is not compared: nothing reads it
+    moved = {k: v.clone() for k, v in ranks[0]["pool"].items()}
+    moved["vp"][2, 0, -1] += 1.0
+    assert smoke.check_elastic_serve_across(
+        dict(rep, pool_digests=smoke.pool_digests(moved)), infos, want) == 12

@@ -274,7 +274,7 @@ def test_cpu_moe_train_and_serve_import_no_jax_and_no_reference():
 
 
 DIST_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.dist",
-                "repro_torch.launch.sharding")
+                "repro_torch.launch.sharding", "repro_torch.launch.jm_proxy")
 FAMILY_MODULES = ("repro_torch.models.mamba", "repro_torch.models.xlstm",
                   "repro_torch.configs.whisper_large_v3",
                   "repro_torch.configs.zamba2_1p2b",
@@ -823,8 +823,9 @@ def test_roadmap_tags_in_the_port_are_current_items():
     # mentions took the count from 21 to 10, [moe-rest] and
     # [block-families] from 10 to 3; the ranks' refusals of what is left of
     # [multi-card] — resizes, safe points, the elastic server, the other
-    # families, FSDP — took it from 3 to 13)
-    assert seen >= 13
+    # families, FSDP — took it from 3 to 13; resizes across ranks and the
+    # elastic server across ranks, ported, took it to 9)
+    assert seen >= 9
     assert {"multi-card"} <= named, named
     assert not stale, stale
 
