@@ -8,7 +8,10 @@ final line:
   1. device  — require CUDA; the card's name and power limit (nvidia-smi),
                torch and CUDA versions;
   2. build   — compile every kernel from ``src/repro_torch/kernels/*/csrc``
-               with nvcc for sm_90a (one nvcc per source, in parallel);
+               with nvcc for sm_90a (one nvcc per source, K2a / K2b's as
+               5 translation units linked into one library, all in
+               parallel); prints each source's and unit's seconds, each to
+               its own exit, and the slowest;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at the main path's full-width shapes and at edge shapes,
                with the tolerance stated; kernel / plain / library times
@@ -138,13 +141,15 @@ final line:
   4k. safe points — the training CLI at 4h's flags without --grow-back,
                smollm-360m at its widths cut to 8 layers (CUT_LAYERS),
                17 steps, --ckpt-every 8 into a temporary directory (the
-               roomier of TMPDIR and build/, deleted at the end): safe
+               roomier of TMPDIR and build/, deleted after phase 7): safe
                points after step 7 (4 buffers) and 15 (2, after the
-               controller's shrink at 14); then resumed from 15 and from 7
-               through Session.resume (the resumed RunSpec must equal the
-               one that wrote the safe point; 7 must prune at 10 and
-               shrink at 14 on its own decision): both tails' losses, resizes, pool log, final
-               params and Adam moments bitwise the uninterrupted run's (on
+               controller's shrink at 14); then resumed from 15 through
+               Session.resume (the resumed RunSpec must equal the one that
+               wrote the safe point): the tail's losses, resizes, pool
+               log, final params and Adam moments bitwise the
+               uninterrupted run's (its resume from 7, which must prune at
+               10 and shrink at 14 on its own decision, reads 7f's
+               rank-written safe point in phase 7) (on
                a difference the phase names the first differing step and
                the largest leaf difference, runs the uninterrupted run
                twice more and prints whether it repeats itself); prints
@@ -152,8 +157,7 @@ final line:
                npz, sha256), each restore's seconds, memory_allocated after
                it and its growth over the phase's live state (the
                restored world alone); K1, K2a, K2b and K3 at the 4c counts
-               a step over
-               the 27 steps, all on the tensor cores;
+               a step over the 18 steps, all on the tensor cores;
   4l. control timing — (i) an engine with in-step timing (CUDA events
                around each stage's forward) on a [26, 2, 2, 2] split over
                4 buffers, 4 steps: the in-step times and the isolated probe
@@ -243,8 +247,8 @@ final line:
                ElasticServer on the same batch arriving at once, its
                tokens/s printed; (iv) the six configs/scenarios/*.json, 3
                steps each on the card (CPU scale, the scan path); (v)
-               phase 4k resumed both safe points through Session.resume
-               with the RunSpec that wrote them;
+               phase 4k resumed its safe point through Session.resume
+               with the RunSpec that wrote it;
   4r. faults — (i) 4n (i)'s training with a pinned FaultSpec: worker 2
                crashes after step 4 (it stops beating), a 2.5x straggler
                spike after step 14; the heartbeat -> autoscaler -> evict
@@ -296,13 +300,14 @@ final line:
                none step's from the same params; an early-exit prefill + 8
                decode steps, ids equal where the plain run's top-2 gap
                exceeds 1e-3;
-  6a. whisper — whisper-large-v3 at full size (32 encoder + 32 decoder
-               layers, published widths) trained through the train CLI:
-               2 stage buffers of 32 slots, 2 microbatches of one sample
-               (1500 frames from the loader, 448 decoder tokens), fp32,
-               block remat, 12 steps with the prune at step 10 inside the
-               run; K1 384, K2a / K2b 192, K3 1024 launches a step, all on
-               the tensor cores; tokens/s, step ms, peak memory, two
+  6a. whisper — whisper-large-v3 at its published widths cut to 16
+               encoder + 16 decoder layers (32 + 32 at full size) trained
+               through the train CLI: 2 stage buffers of 16
+               slots, 2 microbatches of one sample (1500 frames from the
+               loader, 448 decoder tokens), fp32, block remat, 12 steps
+               with the prune at step 10 inside the run; K1 192, K2a / K2b
+               96, K3 512 launches a step, all on the tensor cores;
+               tokens/s, step ms, peak memory, two
                profiled steps (busy share); one step's loss and gradients
                at full width cut to 4 + 4 layers through the kernels and
                the plain versions (1e-4, 1e-3); a full-size prefill (1500
@@ -362,6 +367,36 @@ final line:
                stage's rows and KV cache: tokens identical to the one
                process's, K1 and K3 summed over the ranks equal to its
                counts;
+  7b async.  7b's flags with --async-controller and no drain as 4 ranks:
+               every rank applies the same plans at the same steps (the
+               agreement hash and each rank's applied list); where those
+               are the inline run's steps, the losses bitwise its losses;
+  7f.        4k's flags as 4 ranks writing their own safe points after
+               steps 7 and 15 (each rank its stage's shard, rank 0 also
+               common.npz): losses, resizes and pool log bitwise 4k's,
+               both safe points' index and every array bitwise 4k's (the
+               zip entries' timestamps aside); the ranks resume from their
+               step 15 (the 2-buffer world: ranks 2 and 3 start released
+               and read nothing) and from 4k's one-process step 7; 4k's
+               one process resumes from 7f's step 7 (its RunSpec the
+               ranks' writer's): each tail's losses, resizes, pool log and
+               final params and moments (per-row sha256) bitwise 4k's,
+               each rank of the safe point's world reading common.npz and
+               its own shard only and holding less than the whole model
+               after the restore; per rank the safe points' seconds, bytes
+               and files, the restore's seconds, memory_allocated and
+               files, beside 4k's one-process seconds;
+  7g.        4r (ii)'s serve with worker 2 crashing at tick 8 as 4 ranks:
+               tokens, requeues and the evict 4r's, K6 launched in every
+               rank and split; 4n (iii)'s RPC-chaos training as 4 ranks
+               (the status calls through rank 0's client): the losses and
+               final state bitwise 4n (i)'s, the fault log, pool log,
+               resizes and degraded-mode events (iii)'s; then 7b's flags
+               with a safe point after step 1 and a trainer_kill after it:
+               every rank of the launch SIGKILLed (the launch raises
+               naming it, no rank process left), Session-resumed as 4
+               ranks in a second launch, its tail and final state bitwise
+               7b's one process, the kill not firing again;
   8. the kernels line (JSON: per kernel its launches on the main paths
      and, as launches_tc, how many of them took a tensor-core variant; K6's
      ms is its cold graph-replay time at the main shape, its library_ms
@@ -374,9 +409,13 @@ final line:
      launches_whisper, launches_zamba2, launches_xlstm and
      launches_internvl2 6a-6d's, launches_elastic_train_across,
      launches_serve_across and launches_elastic_serve_across 7d's, 7c's
-     and 7e's (summed over the ranks); family_cases holds 3f's cases of
-     the kernel; before it, [phase_seconds]: the wall seconds of every
-     phase (6a-6d and 7b-7e run after 4r, before 5).
+     and 7e's, launches_async_across 7b async's, launches_safepoints_across
+     7f's ranks' and launches_ckpt_cross its one process's,
+     launches_chaos_serve_across, launches_chaos_train_across and
+     launches_kill_resume_across 7g's (summed over the ranks);
+     family_cases holds 3f's cases of the kernel; before it,
+     [phase_seconds]: the wall seconds of every phase (6a-6d and 7b-7g
+     run after 4r, before 5).
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -401,6 +440,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2751,9 +2791,16 @@ CKPT_STEPS = 17
 # equalled the writer's (phase 4q (v) reads it)
 RESUMED_SPECS = []
 # the safe points of the 17-step run: after steps 7 (4 buffers) and 15
-# (2, after the controller's shrink at step 14); run (b) resumes from 15
-# and (a) from 7, 1 + 9 steps
-CKPT_RESUMES = ((15, 2), (7, 4))
+# (2, after the controller's shrink at step 14); 4k resumes from 15 (1
+# step); its resume from 7 (9 steps: the prune at 10, the shrink at 14)
+# reads phase 7f's rank-written safe point, and 7f's ranks resume from
+# 4k's step 7 (CKPT_CROSS)
+CKPT_RESUMES = ((15, 2),)
+CKPT_CROSS = 7
+# 4k's run, held for 7f: its safe points' directory (kept until phase 7
+# ends), losses, resizes, pool log, stages, final state digests, and the
+# seconds and bytes of its saves and restore
+CKPT_RUN = {}
 
 
 # phase 4l's steps: two controller decisions (after steps 3 and 7)
@@ -2805,6 +2852,32 @@ def _tree_diff(torch, got, want) -> tuple:
     return worst, where
 
 
+def state_digests(params, opt_state) -> dict:
+    """One process's final state as ``session.state_digest`` digests a
+    rank's: {"rows": [sha256 of stage s's rows of the params and both
+    moments, each s], "rest": sha256 of the replicated leaves and their
+    moments}."""
+    from repro_torch.launch.sharding import (leaves as tree_leaves,
+                                             rebuild, split_stages,
+                                             tree_digest)
+    p_rows, p_rest = split_stages(params)
+    o_rows, o_rest = split_stages(opt_state)
+    S = next(t for _, t in tree_leaves(p_rows)).shape[0]
+    return {"rows": [tree_digest({
+        "params": rebuild(p_rows, lambda _, t: t[s:s + 1]),
+        "opt": rebuild(o_rows, lambda _, t: t[s:s + 1])}) for s in range(S)],
+        "rest": tree_digest({"params": p_rest, "opt": o_rest})}
+
+
+def ranks_digests(ranks) -> dict:
+    """The ranks' ``digest`` counters as ``state_digests`` gives them."""
+    rows = {r["digest"]["stage"]: r["digest"]["rows"] for r in ranks
+            if r["digest"]["rows"] is not None}
+    rest = [r["digest"]["rest"] for r in ranks if r["digest"]["rest"]]
+    return {"rows": [rows[s] for s in sorted(rows)],
+            "rest": rest[0] if len(rest) == 1 else rest}
+
+
 def _bitwise(torch, got, want) -> bool:
     return all(torch.equal(a, b) for (_, a), (_, b)
                in zip(leaves(got), leaves(want)))
@@ -2814,12 +2887,12 @@ def run_ckpt_phase(torch, kernels):
     """Phase 4k: a 17-step run of ckpt_train_args() at CUT_LAYERS layers
     writing safe points
     every 8 steps into a temporary directory, then resumed from step 15
-    (2 buffers) and from step 7 (4 buffers, which must prune at 10 and
-    shrink 4 -> 2 at 14 on its own decision); both tails must equal the
-    uninterrupted run's losses, resizes, pool log, final params and
-    moments bitwise (the tails write no safe point of their own).  Counts
-    zeroed before the first run and read after the last (27 steps).
-    Returns the launch counts."""
+    (2 buffers); the tail must equal the uninterrupted run's losses,
+    resizes, pool log, final params and moments bitwise (it writes no
+    safe point of its own).  The directory stays for phase 7f, whose ranks
+    resume from its step 7 and whose step-7 safe point 4k's resume from 7
+    reads (``run_ckpt_cross``).  Counts zeroed before the first run and
+    read after the last (18 steps).  Returns the launch counts."""
     import os
     import shutil
     import tempfile
@@ -2853,6 +2926,12 @@ def run_ckpt_phase(torch, kernels):
         if saved != ["step_00000007", "step_00000015"]:
             raise AssertionError(f"safe points {saved}")
         sizes = {d: _dir_bytes(os.path.join(ck, d)) for d in saved}
+        CKPT_RUN.update(
+            losses=list(full["losses"]), pool_log=list(full["pool_log"]),
+            stages=list(full["stages_history"]), resizes=got,
+            spec=full["spec"], bytes=sizes,
+            save_s=list(full["timing"]["safepoint_s"]),
+            digests=state_digests(full["params"], full["opt_state"]))
         for d, secs in zip(saved, full["timing"]["safepoint_s"]):
             with open(os.path.join(ck, d, "index.json")) as fh:
                 idx = json.load(fh)
@@ -2897,6 +2976,8 @@ def run_ckpt_phase(torch, kernels):
             opt_same = _bitwise(torch, rep["opt_state"], full["opt_state"])
             diff = [i for i, (a, b) in enumerate(zip(rep["losses"], tail))
                     if a != b]
+            CKPT_RUN.setdefault("restore", {})[at] = (
+                rep["timing"]["restore_s"], restored)
             say("ckpt_resume", from_step=at, stages=stages,
                 restore_s=f"{rep['timing']['restore_s']:.2f}",
                 allocated_gb_after_restore=(
@@ -2946,8 +3027,11 @@ def run_ckpt_phase(torch, kernels):
         if k3_bwd != CUT_K3_BWD_PER_STEP * steps:
             raise AssertionError(f"ckpt train: K3 backward launches {k3_bwd}")
         check_tensor_core("ckpt train", launched, launched_tc, FP32_TC_PATH)
+        # phase 7f reads these safe points
+        CKPT_RUN.update(dir=ck, tmp=tmp)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if "dir" not in CKPT_RUN:
+            shutil.rmtree(tmp, ignore_errors=True)
     free_cuda(torch)
     return launched
 
@@ -3382,15 +3466,17 @@ AUTOSCALE_KILL, AUTOSCALE_RESPAWN = 12, 16
 AUTOSCALE_CHAOS_SEED, AUTOSCALE_STATUS_STEPS = 7, 4
 
 
-def autoscale_chaos_args(trace_out: str):
+def autoscale_chaos_args(trace_out: Optional[str] = None):
     """Phase 4n (iii)'s flags: (i)'s under the pinned RPC-chaos plan,
-    traced."""
+    traced into ``trace_out`` (7g: untraced)."""
+    trace = ([] if trace_out is None else
+             ["--set", "obs.trace=true",
+              "--set", f"obs.trace_out={trace_out}"])
     return autoscale_train_args("file") + [
         "--chaos", "--chaos-seed", str(AUTOSCALE_CHAOS_SEED),
         "--set", f"faults.manager_kill={AUTOSCALE_KILL}",
         "--set", f"faults.manager_respawn={AUTOSCALE_RESPAWN}",
-        "--set", "faults.rpc_loss=0.3", "--set", "faults.rpc_dup=0.3",
-        "--set", "obs.trace=true", "--set", f"obs.trace_out={trace_out}"]
+        "--set", "faults.rpc_loss=0.3", "--set", "faults.rpc_dup=0.3"] + trace
 
 
 def check_rpc_chaos(rep, journal, dead_seqs) -> dict:
@@ -3455,7 +3541,9 @@ def run_autoscale_train_phase(torch, kernels):
     AUTOSCALE_FILE_RUN.update(
         losses=list(file_run["losses"]),
         stages_history=list(file_run["stages_history"]),
-        step_times=list(file_run["step_times"]))
+        step_times=list(file_run["step_times"]),
+        pool_log=list(file_run["pool_log"]),
+        digests=state_digests(file_run["params"], file_run["opt_state"]))
     rz = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
            r["workers"]) for r in file_run["resizes"]]
     if ([(k, a, b, w) for k, _, a, b, w in rz]
@@ -3555,6 +3643,13 @@ def run_autoscale_train_phase(torch, kernels):
     if degraded["losses"] != file_run["losses"]:
         raise AssertionError("the run with the manager stopped differs from "
                              "the uninterrupted one")
+    # phase 7g's ranks run (iii)'s plan and are held to its logs
+    AUTOSCALE_FILE_RUN["chaos"] = {
+        "faults": fault_log(degraded),
+        "pool_log": list(degraded["pool_log"]),
+        "resizes": [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+                     list(r["workers"])) for r in degraded["resizes"]],
+        "degraded_events": list(degraded["degraded_events"])}
     rz_d = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
              r["workers"]) for r in degraded["resizes"]]
     if rz_d != rz:
@@ -4130,9 +4225,16 @@ FAULT_CRASH_STEP, FAULT_CRASH_WORKER, FAULT_SPIKE_STEP = 4, 2, 14
 FAULT_SERVE_TICK = 8
 # a near-tie: a token whose top-2 logit gap is at most this may flip
 NEAR_TIE = 1e-3
-# phase 4n (i)'s run and phase 4i's fixed serve, held for 4r
+# phase 4n (i)'s run (and under "chaos" (iii)'s logs) and phase 4i's
+# fixed serve, held for 4r and 7g; 4r (ii)'s crashed serve, held for 7g
 AUTOSCALE_FILE_RUN = {}
 ELASTIC_FIXED = {}
+CRASH_SERVE = {}
+
+
+def fault_log(rep) -> list:
+    """A report's fault records as (step, kind, detail)."""
+    return [(f["step"], f["kind"], f["detail"]) for f in rep["faults"]]
 
 
 class RecordGaps:
@@ -4411,6 +4513,13 @@ def run_fault_phase(torch, kernels):
                       ("block_sparse_attention", "pruned_matmul"))
     flips = check_crash_serve(rep, ELASTIC_FIXED["tokens"],
                               ELASTIC_FIXED["gaps"])
+    # phase 7g's ranks serve the same crash and are held to it
+    CRASH_SERVE.update(
+        tokens={c["rid"]: c["tokens"] for c in rep["completions"]},
+        requeues={c["rid"]: c["requeues"] for c in rep["completions"]},
+        requeued_total=rep["requeued_total"],
+        resizes=[(r["kind"], r["step"], list(r["workers"]))
+                 for r in rep["resizes"]])
     scraped, replayed = check_serve_scrape(page, rep)
     if rep["stage_time_source"] != "in_step" or not rep[
             "measured_stage_times"]:
@@ -4904,16 +5013,22 @@ def check_family_kernels(torch, F):
 # 6a: whisper-large-v3 at full size (the main path of the families' slice)
 # ---------------------------------------------------------------------------
 WHISPER_STEPS = 12       # the prune at step 10 and one step after it
+# 6a's encoder and decoder layers: whisper-large-v3 has 32 of each; cut in
+# depth to half (the full-size phases pay for 7f / 7g)
+WHISPER_LAYERS = 16
 
 
 def whisper_train_args(steps: int = WHISPER_STEPS):
-    """Phase 6a's flags: whisper-large-v3 at full size (32 encoder + 32
-    decoder layers, published widths), 2 stage buffers of 32 slots (slot
-    slack 0), 2 microbatches of one sample: 1500 frames from the loader
-    and 448 decoder tokens each; fp32 params with each block recomputed in
-    the backward (``--remat block``: the 64 slots' params, gradients and
-    moments take ~47 GB); the prune at step 10."""
-    return FULL_SIZE + ["--arch", "whisper-large-v3", "--stages", "2",
+    """Phase 6a's flags: whisper-large-v3 at its published widths cut to
+    WHISPER_LAYERS encoder + WHISPER_LAYERS decoder layers (32 + 32 at full
+    size, ~47 GB of params, gradients and moments), 2 stage buffers of as
+    many slots (slot slack 0), 2 microbatches of one sample: 1500 frames
+    from the loader and 448 decoder tokens each; fp32 params with each
+    block recomputed in the backward (``--remat block``); the prune at
+    step 10."""
+    arch = cut_arch("whisper-large-v3", WHISPER_LAYERS,
+                    encoder_layers=WHISPER_LAYERS)
+    return FULL_SIZE + ["--arch", arch, "--stages", "2",
                         "--slot-slack", "0", "--num-micro", "2",
                         "--mb-global", "1", "--seq", "448", "--steps",
                         str(steps), "--dynamism", "pruning", "--remat",
@@ -5120,9 +5235,10 @@ def whisper_serve_parity(torch):
 
 
 def run_whisper_phase(torch, kernels):
-    """Phase 6a: whisper-large-v3 trained at full size through the train
-    CLI (whisper_train_args), K1, K2a, K2b and K3 at
-    whisper_launches_per_step() a step, all on the tensor cores, the prune
+    """Phase 6a: whisper-large-v3 trained at its published widths, cut to
+    16 + 16 layers, through the train CLI (whisper_train_args), K1, K2a,
+    K2b and K3 at whisper_launches_per_step() a step, all on the tensor
+    cores, the prune
     at step 10 inside the run; two profiled steps (busy share); one step's
     loss and gradients through the kernels against the plain versions at
     full width cut to 4 + 4 layers; a full-size prefill with 1500 frames
@@ -5134,7 +5250,8 @@ def run_whisper_phase(torch, kernels):
     from repro_torch.pipeline.pipeline import PipelineShapes
     rep, launched, launched_tc, _ = run_train_family(
         torch, kernels, "whisper_train", whisper_train_args(),
-        whisper_launches_per_step(), FP32_TC_PATH)
+        whisper_launches_per_step(WHISPER_LAYERS, WHISPER_LAYERS),
+        FP32_TC_PATH)
     ff = _active_ff(rep)
     if not ff < 1.0:
         raise AssertionError(f"whisper: the prune at step 10 masked no "
@@ -5404,7 +5521,7 @@ def run_internvl2_phase(torch, kernels):
 
 
 # ---------------------------------------------------------------------------
-# phases 7b-7e: one process per pipeline stage (``launch.dist``): the
+# phases 7b-7g: one process per pipeline stage (``launch.dist``): the
 # ranks share the one card, so their carries and collectives go through
 # host copies over gloo; these phases show correctness and the hand-off's
 # cost, not a speed-up (four processes time-slice one card)
@@ -5415,6 +5532,10 @@ ACROSS_PROCS = 4
 # not 3 — keeps the decision off a tie the wall clock's last bits could
 # break either way; step 2 runs on the moved rows)
 ACROSS_PARITY_STEPS = 3
+# 7g's kill: 7b's flags with a safe point after this step, then a
+# trainer_kill after it (the launch of 7b-7g ends there); the resume runs
+# the last step
+KILL_AFTER = 1
 ACROSS_PATH = ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                "block_sparse_attention_bwd_dkv", "pruned_matmul")
 
@@ -5502,19 +5623,46 @@ class MemoryAt:
 MEMORY_STEPS = (13, 14, 19)
 
 
-def rank_phase7(mesh, elastic, parity, serve, elastic_serve, archs):
-    """Phases 7b-7e in one set of 4 ranks (launched by ``launch.dist``; the
+class StatusCalls:
+    """A ``train(on_step=...)`` hook (picklable: the ranks import this
+    module): a status round trip to the job manager after each step below
+    ``steps`` — phase 4n (iii)'s, on which the chaos transport rolls loss
+    and duplication.  Across ranks the call runs on rank 0's client
+    through ``launch.jm_proxy`` (every rank calls, rank 0's fault records
+    reach every rank), so the rolls come in 4n's order."""
+
+    def __init__(self, steps: int):
+        self.steps = steps
+
+    def __call__(self, step, session):
+        jm = session.job_manager
+        if step >= self.steps:
+            return
+        if hasattr(jm, "inner"):
+            jm._call("_call", "status")
+        else:
+            jm._call("status")
+
+
+def rank_phase7(mesh, elastic, parity, serve, elastic_serve, archs,
+                parity_async, ckpt, chaos, kill, outdir):
+    """Phases 7b-7g in one set of 4 ranks (launched by ``launch.dist``; the
     ranks import this module, which imports no jax): the 7d elastic
     training, the hand-off probe (ranks 0 and 1), the 7c one-shot serve,
-    the 7e elastic serve and the 7b parity training, each with the counters
-    and transfer stats zeroed just before it and read just after.  One
+    the 7e elastic serve, the 7b parity training and its asynchronous
+    twin, 7f's safe points (4k's run as ranks, its resume from 15 and the
+    resume from 4k's own step-7 safe point), 7g's crashed serve and RPC
+    chaos training, each with the counters and transfer stats zeroed just
+    before it and read just after.  Each rank then saves what it has under
+    ``outdir`` and runs ``kill``, whose trainer_kill ends the launch: one
     launch pays the processes' start and the card's first-call costs once.
-    Returns each part's result, the rank's."""
+    Returns each part's result, the rank's, only when the kill did not
+    fire."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.api.session import rank_serve_elastic, rank_train
-    from repro_torch.launch.dist import ensure_arch, handoff_probe
+    from repro_torch.launch.dist import _to_device, ensure_arch, handoff_probe
     from repro_torch.launch.serve import rank_serve
     for cfg in archs:
         ensure_arch(cfg)
@@ -5528,23 +5676,49 @@ def rank_phase7(mesh, elastic, parity, serve, elastic_serve, archs):
                 got["report"].pop("cache"))
         return got
 
+    tail = ckpt["tail"]
     out = {"seconds": {}}
-    for part, fn in (("7d", lambda: rank_train(mesh, elastic,
-                                               on_step=probe)),
-                     ("probe", lambda: handoff_probe(mesh)),
-                     ("7c", lambda: rank_serve(mesh, **serve)),
-                     ("7e", elastic_serve_part),
-                     ("7b", lambda: rank_train(mesh, parity, gather=True))):
+    for part, fn in (
+            ("7d", lambda: rank_train(mesh, elastic, on_step=probe)),
+            ("probe", lambda: handoff_probe(mesh)),
+            ("7c", lambda: rank_serve(mesh, **serve)),
+            ("7e", elastic_serve_part),
+            ("7b", lambda: rank_train(mesh, parity, gather=True)),
+            ("7b_async", lambda: rank_train(mesh, parity_async)),
+            ("7f", lambda: rank_train(mesh, ckpt["spec"])),
+            ("7f_r15", lambda: rank_train(mesh, tail, digest=True,
+                                          resume=(ckpt["own"], 15))),
+            ("7f_r7", lambda: rank_train(mesh, tail, digest=True,
+                                         resume=(ckpt["cross"],
+                                                 CKPT_CROSS))),
+            ("7g_serve", lambda: rank_serve_elastic(mesh, chaos["serve"])),
+            ("7g", lambda: rank_train(mesh, chaos["train"], digest=True,
+                                      on_step=StatusCalls(
+                                          AUTOSCALE_STATUS_STEPS)))):
         for k in kernels.KERNELS:
             k.reset()
         mesh.comm.stats = dict.fromkeys(mesh.comm.stats, 0)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        out[part] = fn()
+        # the results (7b's gathered trees among them) leave the card: the
+        # next part's memory is its own
+        out[part] = _to_device(fn(), "cpu")
         out["seconds"][part] = time.perf_counter() - t0
     out["7d_memory"] = probe.seen
+    import os
+    torch.save(out, os.path.join(outdir, f"rank{mesh.rank}.pt"))
+    mesh.comm.all_gather_object(None)    # every rank's result is on disk
+    # 7g's kill: every rank SIGKILLs itself after the step-1 safe point
+    rank_train(mesh, kill)
     return out
+
+
+def rank_resume_killed(mesh, spec, resume, arch):
+    """7g's resume of the killed launch's safe point as 4 ranks (``arch``:
+    the cut arch's config, which the ranks register)."""
+    from repro_torch.api.session import rank_train
+    return rank_train(mesh, spec, resume=resume, digest=True, arch=arch)
 
 
 ACROSS_SERVE = dict(arch="smollm-360m", stages=4, micro=2, mb_global=4,
@@ -5686,10 +5860,226 @@ def say_resize_memory(label: str, ranks, smi_rows, smi: str) -> None:
                if "smi" in row else {}))
 
 
+# ---------------------------------------------------------------------------
+# 7f / 7g: safe points, chaos and the asynchronous controller across ranks
+# ---------------------------------------------------------------------------
+def safepoint_members(ckdir: str) -> tuple:
+    """A safe point's index without its checksums and the writer's
+    directory, and its arrays as {(file, key): the .npy member's zip
+    entry}: the member is the array's dtype, shape and bytes, the zip
+    entry's timestamp aside."""
+    import os
+    import zipfile
+    with open(os.path.join(ckdir, "index.json")) as fh:
+        idx = json.load(fh)
+    idx.pop("sha256")
+    idx["meta"]["spec"].pop("ckpt_dir")
+    members = {}
+    for f in sorted(os.listdir(ckdir)):
+        if f.endswith(".npz"):
+            with zipfile.ZipFile(os.path.join(ckdir, f)) as z:
+                for info in z.infolist():
+                    members[(f, info.filename[:-len(".npy")])] = (
+                        os.path.join(ckdir, f), info.filename,
+                        info.file_size, info.CRC)
+    return idx, members
+
+
+def same_member(a, b) -> bool:
+    """Whether two npz members hold the same bytes (streamed)."""
+    import zipfile
+    if a[2:] != b[2:]:                  # size and CRC-32
+        return False
+    with zipfile.ZipFile(a[0]) as za, zipfile.ZipFile(b[0]) as zb, \
+            za.open(a[1]) as fa, zb.open(b[1]) as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def check_safepoints_across(want_dir: str, got_dir: str, steps, ranks
+                            ) -> dict:
+    """7f: the ranks' safe points against 4k's one process's, step by
+    step: the same index (checksums and the writer's directory aside) and
+    every array of every file bitwise (each .npy member's bytes: its
+    dtype, shape and data); each rank wrote its own stage's shard and
+    rank 0 also ``common.npz`` (a released rank nothing).  Returns {step:
+    arrays compared}."""
+    import os
+    compared = {}
+    for at in steps:
+        d = f"step_{at:08d}"
+        want_idx, want = safepoint_members(os.path.join(want_dir, d))
+        got_idx, got = safepoint_members(os.path.join(got_dir, d))
+        if got_idx != want_idx:
+            raise AssertionError(f"7f: safe point {at}'s index differs from "
+                                 f"4k's")
+        if sorted(got) != sorted(want) or not got:
+            raise AssertionError(f"7f: safe point {at}'s arrays "
+                                 f"{sorted(set(got) ^ set(want))[:4]}")
+        for key in want:
+            if not same_member(want[key], got[key]):
+                raise AssertionError(f"7f: safe point {at}: "
+                                     f"{key[0]}/{key[1]} differs from 4k's")
+        compared[at] = len(got)
+        stages = want_idx["num_stages"]
+        files = [r["safepoint_writes"][list(steps).index(at)]["files"]
+                 for r in ranks]
+        expect = [(["common.npz"] if r == 0 else [])
+                  + ([f"stage_{r:03d}.npz"] if r < stages else [])
+                  for r in range(len(ranks))]
+        if files != expect:
+            raise AssertionError(f"7f: safe point {at}: the ranks wrote "
+                                 f"{files}, not {expect}")
+    return compared
+
+
+def check_resume_across(label: str, rep, ranks, want, at: int, got_digests,
+                        released=()) -> dict:
+    """A resumed tail across ranks against 4k's uninterrupted run
+    (``want``: ``CKPT_RUN``): losses, stages, resizes after ``at``, pool
+    log and the final state's digests bitwise; each rank of the safe
+    point's world read ``common.npz`` and its own stage's shard alone, a
+    rank outside it (``released``) nothing, and no rank holds the whole
+    model after the restore.  Returns the summary."""
+    tail = want["losses"][at + 1:]
+    if rep["losses"] != tail or rep["start_step"] != at + 1:
+        first = next((i for i, (x, y) in enumerate(zip(rep["losses"],
+                                                       tail)) if x != y),
+                     None)
+        raise AssertionError(f"{label}: the tail from {at} differs from "
+                             f"4k's at step {at + 1 + (first or 0)}")
+    rz = [tuple(r) for r in want["resizes"] if r[1] > at]
+    got_rz = [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
+              for r in rep["resizes"]]
+    if got_rz != rz or rep["pool_log"] != want["pool_log"] or \
+            rep["stages_history"] != want["stages"][at + 1:]:
+        raise AssertionError(f"{label}: resizes {got_rz} / pool log "
+                             f"{rep['pool_log']} vs 4k's {rz} / "
+                             f"{want['pool_log']}")
+    if got_digests != want["digests"]:
+        raise AssertionError(f"{label}: the final params or moments differ "
+                             f"from 4k's")
+    whole = want["bytes"][f"step_{at:08d}"]
+    for r in ranks:
+        files = r["restore"]["files"]
+        mine = ([] if r["rank"] in released else
+                ["common.npz", f"stage_{r['rank']:03d}.npz"])
+        if files != mine:
+            raise AssertionError(f"{label}: rank {r['rank']} read {files}, "
+                                 f"not {mine}")
+        held = r["held_bytes"][0]
+        alloc = r["restore"]["allocated"]
+        if (r["rank"] in released and held != 0) or held >= whole or (
+                alloc is not None and alloc >= whole):
+            raise AssertionError(f"{label}: rank {r['rank']} holds {held} "
+                                 f"bytes ({alloc} allocated) of a {whole}-"
+                                 f"byte safe point after the restore")
+    return {"steps": len(rep["losses"]), "whole_bytes": whole}
+
+
+def check_chaos_across(rep, ranks, want, got_digests,
+                       kinds=("rpc_loss", "rpc_dup", "manager_kill",
+                              "manager_respawn")) -> dict:
+    """7g: 4n (iii)'s RPC-chaos training as 4 ranks against 4n: losses and
+    final state bitwise 4n (i)'s (4n holds its chaos run to them), the
+    fault log, pool log, resizes and degraded-mode events (iii)'s; every
+    rank's own fault log agreed (the agreement hash covers it).  Returns
+    the summary."""
+    chaos = want["chaos"]
+    if rep["losses"] != want["losses"] or got_digests != want["digests"]:
+        raise AssertionError("7g: the chaos run as ranks differs from 4n's "
+                             "losses or final state")
+    got = fault_log(rep)
+    if [list(f) for f in got] != [list(f) for f in chaos["faults"]]:
+        raise AssertionError(f"7g: fault log {got} vs 4n's "
+                             f"{chaos['faults']}")
+    rz = [(r["kind"], r["step"], r["from_stages"], r["to_stages"],
+           list(r["workers"])) for r in rep["resizes"]]
+    if rz != [tuple(r) for r in chaos["resizes"]] or \
+            rep["pool_log"] != chaos["pool_log"] or \
+            rep["degraded_events"] != chaos["degraded_events"]:
+        raise AssertionError(f"7g: resizes {rz} / pool log "
+                             f"{rep['pool_log']} / degraded "
+                             f"{rep['degraded_events']} vs 4n's")
+    seen = {f[1] for f in got}
+    if not set(kinds) <= seen:
+        raise AssertionError(f"7g: fault kinds {seen}, not {kinds}")
+    return {"faults": len(got), "kinds": sorted(seen)}
+
+
+def check_crash_serve_across(rep, ranks, want) -> int:
+    """7g: 4r (ii)'s serve with worker 2 crashing, as 4 ranks, against 4r
+    (``want``: ``CRASH_SERVE``): tokens and requeues identical, the same
+    evict, K6 launched in every rank (each decoded before the crash) and
+    split every time.  Returns K6's launches."""
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if got != want["tokens"]:
+        raise AssertionError("7g: the crashed serve's tokens differ from "
+                             "4r's")
+    req = {c["rid"]: c["requeues"] for c in rep["completions"]}
+    if req != want["requeues"] or \
+            rep["requeued_total"] != want["requeued_total"] or \
+            rep["requeued_total"] <= 0:
+        raise AssertionError(f"7g: requeues {rep['requeued_total']} vs "
+                             f"4r's {want['requeued_total']}")
+    rz = [(r["kind"], r["step"], list(r["workers"]))
+          for r in rep["resizes"]]
+    if rz != [tuple(r) for r in want["resizes"]]:
+        raise AssertionError(f"7g: resizes {rz} vs 4r's {want['resizes']}")
+    k6 = summed_launches(ranks)["paged_attention"]
+    split = summed_launches(ranks, "split")["paged_attention"]
+    idle = [r["rank"] for r in ranks
+            if r["launches"]["paged_attention"]["launches"] <= 0]
+    if idle or k6 <= 0 or split != k6:
+        raise AssertionError(f"7g: K6 {k6} ({split} split), ranks {idle} "
+                             f"launched none")
+    return k6
+
+
+def check_async_across(ranks, rep, one) -> dict:
+    """7b's flags with the asynchronous controller and no drain, as 4
+    ranks: every rank applied the same plans at the same steps; where the
+    steps are the one-process inline run's (``one``), the losses are
+    bitwise its losses."""
+    applied = [r["applied"] for r in ranks]
+    if any(a != applied[0] for a in applied) or \
+            rep["controller"]["applied"] != applied[0]:
+        raise AssertionError(f"7b async: the ranks applied {applied}")
+    same = applied[0] == one["controller"]["applied"]
+    if same and rep["losses"] != one["losses"]:
+        raise AssertionError("7b async: the plans landed on the inline "
+                             "run's steps, but the losses differ")
+    if not rep["controller"]["decided"]:
+        raise AssertionError("7b async: no decision")
+    return {"applied": applied[0], "inline_applied":
+            one["controller"]["applied"], "same_steps": same}
+
+
+def rank_processes() -> list:
+    """Pids of live rank processes (``python -m repro_torch.launch.dist``)
+    of any launch."""
+    import os
+    found = []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if b"repro_torch.launch.dist" in argv:
+            found.append(int(pid))
+    return found
+
+
 def run_across_phases(torch, kernels, smi: str):
-    """Phases 7b-7e: one launch of 4 ranks (``rank_phase7``) on the card —
-    gloo through host copies, NCCL refuses two ranks on one device — and
-    the one-process runs they are held to.
+    """Phases 7b-7g: one launch of 4 ranks (``rank_phase7``) on the card —
+    gloo through host copies, NCCL refuses two ranks on one device — that
+    ends with 7g's trainer kill, a second launch that resumes the killed
+    run, and the one-process runs they are held to.
 
     7d: full-width, full-depth smollm-360m trained as 4 ranks (``--procs
     4 --stages 4``) on phase 4h's flags: the repack shrink releases ranks 2
@@ -5705,10 +6095,22 @@ def run_across_phases(torch, kernels, smi: str):
     a migration after step 1: 4 ranks against one process with 4 stage
     buffers; the migration moves rows across ranks; losses, final params,
     Adam moments and dyn state bitwise (a difference is named: the first
-    differing step, the largest leaf difference, and held to rtol 1e-6).
+    differing step, the largest leaf difference, and held to rtol 1e-6);
+    7b async: the same flags, the controller on its thread without the
+    drain (``check_async_across``).
+    7f: 4k's run, safe points and resumes across ranks
+    (``check_safepoints_across``, ``check_resume_across``) and 4k's
+    one-process resume of 7f's safe point (``run_ckpt_cross``).
+    7g: 4r (ii)'s crashed serve and 4n (iii)'s RPC chaos as 4 ranks
+    (``check_crash_serve_across``, ``check_chaos_across``), the kill and
+    its resume.
 
-    Returns {7d, 7c, 7e: (launches, tensor-core launches) summed over the
+    Returns {part: (launches, tensor-core launches) summed over the
     ranks}."""
+    import os
+    import shutil
+    import tempfile
+
     from repro_torch.configs import get_config
     from repro_torch.launch.dist import launch
     from repro_torch.launch.serve import run_serving
@@ -5718,21 +6120,104 @@ def run_across_phases(torch, kernels, smi: str):
     elastic_spec = cli_spec("train", elastic_train_args())
     serve_spec = cli_spec("serve", elastic_serve_args())
     parity_spec = cli_spec("train", parity_args)
+    # 7f: 4k's flags into a directory of their own (beside 4k's), the
+    # tails without safe points; 7g: 4n (iii)'s chaos plan, untraced, and
+    # 4r (ii)'s crashed serve without its metrics endpoint; the kill: 7b's
+    # flags with a safe point after step 1 and a trainer_kill after it
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_",
+                            dir=os.path.dirname(CKPT_RUN["tmp"]))
+    ck7f = os.path.join(work, "ck")
+    ckpt_spec = cli_spec("train", ckpt_train_args(CKPT_STEPS, CUT_LAYERS) + [
+        "--ckpt-dir", ck7f, "--ckpt-every", str(CKPT_EVERY)])
+    ckpt = {"spec": ckpt_spec, "own": ck7f, "cross": CKPT_RUN["dir"],
+            "tail": ckpt_spec.override({"ckpt_every": 0, "ckpt_dir": None})}
+    chaos = {"train": cli_spec("train", autoscale_chaos_args()),
+             "serve": cli_spec("serve", elastic_serve_args()).override({
+                 "faults.enabled": True, "faults.seed": 1,
+                 "faults.worker_crash": {FAULT_SERVE_TICK:
+                                         FAULT_CRASH_WORKER},
+                 "cluster.spares": 1})}
+    kill_dir = os.path.join(work, "killed")
+    kill_spec = parity_spec.override({
+        "ckpt_dir": kill_dir, "ckpt_every": KILL_AFTER + 1,
+        "faults.enabled": True, "faults.kill_at": KILL_AFTER})
+    outdir = os.path.join(work, "out")
+    os.makedirs(outdir)
     free_cuda(torch)
     for k in kernels.KERNELS:
         k.reset()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        res = timed("7", launch, "chip_smoke:rank_phase7", ACROSS_PROCS,
-                    kwargs=dict(elastic=elastic_spec, parity=parity_spec,
-                                serve=ACROSS_SERVE,
-                                elastic_serve=serve_spec,
-                                archs=[get_config(parity_spec.model.arch)]))
-    out = {}
-    # the launch's parts, as rank 0 timed them
-    for part, sec in res[0]["seconds"].items():
-        PHASE_SECONDS[f"7:{part}"] = sec
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            try:
+                timed("7", launch, "chip_smoke:rank_phase7", ACROSS_PROCS,
+                      kwargs=dict(
+                          elastic=elastic_spec, parity=parity_spec,
+                          serve=ACROSS_SERVE, elastic_serve=serve_spec,
+                          archs=[get_config(parity_spec.model.arch)],
+                          parity_async=parity_spec.override({
+                              "controller.async_decide": True}),
+                          ckpt=ckpt, chaos=chaos, kill=kill_spec,
+                          outdir=outdir))
+            except RuntimeError as e:
+                killed = str(e)
+            else:
+                raise AssertionError("7g: the trainer_kill did not end the "
+                                     "launch")
+        want = (f"ranks {list(range(ACROSS_PROCS))} were killed by SIGKILL")
+        alive = rank_processes()
+        if want not in killed or alive:
+            raise AssertionError(f"7g: the kill left ranks {alive}: "
+                                 f"{killed[:2000]}")
+        res = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                          weights_only=False)
+               for r in range(ACROSS_PROCS)]
+        # the launch's parts, as rank 0 timed them
+        for part, sec in res[0]["seconds"].items():
+            PHASE_SECONDS[f"7:{part}"] = sec
+        # the killed run resumed from its step-1 safe point as 4 ranks, in
+        # a launch of its own beside the checks below (its ranks' counts
+        # are their own; the card is shared, so the one-process runs'
+        # times there are not the card's alone)
+        import threading
+        got = {}
 
+        def resume_killed():
+            t0 = time.perf_counter()
+            try:
+                got["res"] = launch(
+                    "chip_smoke:rank_resume_killed", ACROSS_PROCS,
+                    kwargs=dict(spec=kill_spec, resume=(kill_dir, KILL_AFTER),
+                                arch=get_config(parity_spec.model.arch)))
+            except BaseException as e:   # noqa: BLE001 — raised below
+                got["err"] = e
+            PHASE_SECONDS["7g_resume"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=resume_killed, daemon=True)
+        thread.start()
+
+        def resumed():
+            thread.join()
+            if "err" in got:
+                raise got["err"]
+            return got["res"]
+
+        try:
+            return across_checks(torch, kernels, smi, res, resumed, ckpt,
+                                 parity_args, train_run, run_serving)
+        finally:
+            thread.join()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(CKPT_RUN.pop("tmp"), ignore_errors=True)
+
+
+def across_checks(torch, kernels, smi, res, resumed, ckpt, parity_args,
+                  train_run, run_serving):
+    """Phase 7's checks and lines, from the launch's results (``res``, each
+    rank's) and the killed run's resume (``resumed``); the one-process
+    runs they need run here."""
+    out = {}
     # ---- 7d
     rep = res[0]["7d"]["report"]
     ranks = [r["7d"]["rank"] for r in res]
@@ -5860,6 +6345,9 @@ def run_across_phases(torch, kernels, smi: str):
     free_cuda(torch)
     across = res[0]["7b"]["report"]
     ranks = [r["7b"]["rank"] for r in res]
+    parts = {p: (res[0][p].get("report"), [r[p]["rank"] for r in res])
+             for p in ("7b_async", "7f", "7f_r15", "7f_r7", "7g_serve",
+                       "7g")}
     del res
     one = timed("7b", train_run, parity_args)
     moved = [(e.iteration, e.moved_layers) for e in across["events"]]
@@ -5895,9 +6383,193 @@ def run_across_phases(torch, kernels, smi: str):
     if rel > 1e-6 or worst > 1e-6:
         raise AssertionError(f"7b: 4 ranks vs one process: loss {rel:.3e}, "
                              f"leaf {worst:.3e} ({differ[:4]})")
-    del across, one
+    del across
+
+    # ---- 7b async: the same flags, the controller on its thread, no drain
+    rep, ranks = parts.pop("7b_async")
+    got = check_async_across(ranks, rep, one)
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_tensor_core("async train across ranks", launched, tc, ACROSS_PATH)
+    say("async_across", steps=len(rep["losses"]),
+        applied=json.dumps(got["applied"]).replace(" ", ""),
+        inline_applied=json.dumps(got["inline_applied"]).replace(" ", ""),
+        same_steps=got["same_steps"],
+        losses_bitwise_inline=rep["losses"] == one["losses"],
+        decided=rep["controller"]["decided"],
+        dropped=rep["controller"]["dropped"],
+        stale=rep["controller"]["stale_rejected"],
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["async_across"] = (launched, tc)
+
+    # 7g's kill is held to this run (checked last: its resume runs beside)
+    kill_want = {"losses": one["losses"][KILL_AFTER + 1:],
+                 "digests": state_digests(one["params"], one["opt_state"])}
+    del one
+    free_cuda(torch)
+
+    # ---- 7f: 4k's run as 4 ranks, its safe points, the resumes
+    rep, ranks = parts.pop("7f")
+    if rep["losses"] != CKPT_RUN["losses"] or \
+            rep["pool_log"] != CKPT_RUN["pool_log"] or \
+            [(r["kind"], r["step"], r["from_stages"], r["to_stages"])
+             for r in rep["resizes"]] != CKPT_RUN["resizes"]:
+        raise AssertionError("7f: the ranks' run differs from 4k's")
+    compared = check_safepoints_across(CKPT_RUN["dir"], ckpt["own"],
+                                       (CKPT_CROSS, 15), ranks)
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_launches("7f", launched, CUT_LAUNCHES_PER_STEP, CKPT_STEPS)
+    check_tensor_core("7f", launched, tc, ACROSS_PATH)
+    for r in ranks:
+        say("safepoint_across_rank", rank=r["rank"],
+            seconds=json.dumps([round(w["seconds"], 3)
+                                for w in r["safepoint_writes"]])
+            .replace(" ", ""),
+            gb=json.dumps([round(w["bytes"] / 1e9, 3)
+                           for w in r["safepoint_writes"]]).replace(" ", ""),
+            files=json.dumps([w["files"] for w in r["safepoint_writes"]])
+            .replace(" ", ""), card=repr(smi))
+    say("safepoint_across", steps=CKPT_STEPS, arrays_bitwise_4k=True,
+        arrays=json.dumps(compared).replace(" ", ""),
+        save_s=json.dumps([round(x, 3) for x in rep["timing"]
+                           ["safepoint_s"]]).replace(" ", ""),
+        one_process_save_s=json.dumps([round(x, 3) for x in
+                                       CKPT_RUN["save_s"]]).replace(" ", ""),
+        losses_bitwise=True, launches=json.dumps(launched).replace(" ", ""),
+        card=repr(smi))
+    total = dict(launched)
+    total_tc = dict(tc)
+    for part, at, released, src in (("7f_r15", 15, (2, 3), "own"),
+                                    ("7f_r7", CKPT_CROSS, (), "4k")):
+        rep, ranks = parts.pop(part)
+        got = check_resume_across(f"7f resume from {at}", rep, ranks,
+                                  CKPT_RUN, at, ranks_digests(ranks),
+                                  released)
+        launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+        check_launches(part, launched, CUT_LAUNCHES_PER_STEP, got["steps"])
+        check_tensor_core(part, launched, tc, ACROSS_PATH)
+        for r in ranks:
+            say("restore_across_rank", from_step=at, safepoint=src,
+                rank=r["rank"], role_after_restore=(
+                    "released" if r["rank"] in released else "active"),
+                restore_s=f"{r['restore']['seconds']:.3f}",
+                allocated_gb=_gb(r["restore"]["allocated"]),
+                held_gb=_gb(r["held_bytes"][0]),
+                whole_gb=_gb(got["whole_bytes"]),
+                files=json.dumps(r["restore"]["files"]).replace(" ", ""),
+                card=repr(smi))
+        say("resume_across", from_step=at, safepoint=src,
+            steps=got["steps"], losses_bitwise=True, state_bitwise=True,
+            one_process_restore_s=(f"{CKPT_RUN['restore'][at][0]:.3f}"
+                                   if at in CKPT_RUN.get("restore", {})
+                                   else "none"),
+            launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+        for n in total:
+            total[n] += launched[n]
+            total_tc[n] += tc[n]
+    out["safepoints_across"] = (total, total_tc)
+    out["ckpt_cross"] = run_ckpt_cross(torch, kernels, ckpt, smi)
+
+    # ---- 7g: 4r (ii)'s crashed serve and 4n (iii)'s chaos run as ranks
+    rep, ranks = parts.pop("7g_serve")
+    k6 = check_crash_serve_across(rep, ranks, CRASH_SERVE)
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_tensor_core("crashed serve across ranks", launched, tc,
+                      ("block_sparse_attention", "pruned_matmul"))
+    say("chaos_serve_across", requests=len(rep["completions"]),
+        requeued=rep["requeued_total"], tokens_identical=True,
+        resizes=json.dumps([(r["kind"], r["step"], r["workers"])
+                            for r in rep["resizes"]]).replace(" ", ""),
+        roles=json.dumps([r["role"] for r in ranks]).replace(" ", ""),
+        k6_by_rank=json.dumps([r["launches"]["paged_attention"]["launches"]
+                               for r in ranks]).replace(" ", ""),
+        k6_launches=k6, k6_split_launches=k6,
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["chaos_serve_across"] = (launched, tc)
+    rep, ranks = parts.pop("7g")
+    got = check_chaos_across(rep, ranks, AUTOSCALE_FILE_RUN,
+                             ranks_digests(ranks))
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_launches("7g", launched, CUT_LAUNCHES_PER_STEP,
+                   len(rep["losses"]))
+    check_tensor_core("7g", launched, tc, ACROSS_PATH)
+    say("chaos_train_across", steps=len(rep["losses"]),
+        faults=got["faults"], kinds=json.dumps(got["kinds"])
+        .replace(" ", ""), fault_log_equal_4n=True, losses_bitwise=True,
+        state_bitwise=True,
+        resizes=json.dumps([(r["kind"], r["step"], r["workers"])
+                            for r in rep["resizes"]]).replace(" ", ""),
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        degraded_events=json.dumps(rep["degraded_events"],
+                                   separators=(",", ":")),
+        wall_s=f"{rep['wall_s']:.2f}",
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["chaos_train_across"] = (launched, tc)
+
+    # ---- 7g's kill: the launch ended, every rank gone; resumed as 4 ranks
+    res = resumed()
+    rep = res[0]["report"]
+    ranks = [r["rank"] for r in res]
+    if (rep["start_step"] != KILL_AFTER + 1
+            or rep["losses"] != kill_want["losses"] or rep["faults"] != []
+            or ranks_digests(ranks) != kill_want["digests"]):
+        raise AssertionError(f"7g kill: the resume from step {KILL_AFTER} "
+                             f"differs from the uninterrupted 7b run")
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_tensor_core("killed train resumed across ranks", launched, tc,
+                      ACROSS_PATH)
+    say("kill_across", killed_after=KILL_AFTER, ranks_killed=ACROSS_PROCS,
+        ranks_left=0, resumed_from=rep["resumed_from"],
+        losses_bitwise=True, state_bitwise=True,
+        restore_s=json.dumps([round(r["restore"]["seconds"], 3)
+                              for r in ranks]).replace(" ", ""),
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["kill_resume_across"] = (launched, tc)
     free_cuda(torch)
     return out
+
+
+def run_ckpt_cross(torch, kernels, ckpt, smi):
+    """Phase 4k's one-process resume from step 7, reading 7f's
+    rank-written safe point (the resumed Session's RunSpec must be the
+    ranks' writer's): its tail held to 4k's uninterrupted run as 4k held
+    its own.  Counts zeroed just before, read just after; returns them
+    with the tensor-core ones."""
+    from repro_torch.api import Session
+    free_cuda(torch)
+    for k in kernels.KERNELS:
+        k.reset()
+    t0 = time.perf_counter()
+    sess = Session.resume(ckpt["own"], step=CKPT_CROSS)
+    if sess.spec != ckpt["spec"]:
+        raise AssertionError("7f: the resumed RunSpec differs from the "
+                             "ranks' writer's")
+    sess.spec = ckpt["tail"]
+    with sess:
+        rep = sess.train()
+    launched, launched_tc = _window(torch, kernels)
+    PHASE_SECONDS["7f_cross"] = time.perf_counter() - t0
+    got = check_resume_across("4k resume from 7f's step 7", rep, [],
+                              CKPT_RUN, CKPT_CROSS,
+                              state_digests(rep["params"],
+                                            rep["opt_state"]))
+    check_launches("ckpt cross", launched, CUT_LAUNCHES_PER_STEP,
+                   got["steps"])
+    check_tensor_core("ckpt cross", launched, launched_tc, FP32_TC_PATH)
+    say("ckpt_resume", from_step=CKPT_CROSS, stages=4,
+        safepoint="7f_ranks",
+        restore_s=f"{rep['timing']['restore_s']:.2f}",
+        allocated_gb_after_restore=(
+            f"{rep['timing']['restore_allocated'] / 1e9:.3f}"),
+        losses_bitwise=True, params_bitwise=True, moments_bitwise=True,
+        resumed_spec_equal=True,
+        resizes=json.dumps([(r["kind"], r["step"], r["from_stages"],
+                             r["to_stages"]) for r in rep["resizes"]])
+        .replace(" ", ""),
+        pool_log=json.dumps(rep["pool_log"]).replace(" ", ""),
+        wall_s=f"{rep['wall_s']:.2f}", card=repr(smi))
+    del rep, sess
+    free_cuda(torch)
+    return launched, launched_tc
 
 
 def np_equal(a, b) -> bool:
@@ -5936,8 +6608,15 @@ def main() -> int:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     took = timed("2", _build.build, kernels.KERNELS)
+    # each source's seconds to its own library (its units' to their own
+    # exits): the slowest sets the build's wall
+    sources = {k: round(v, 1) for k, v in took.items() if "." not in k}
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
-        per_kernel={k: round(v, 1) for k, v in took.items()})
+        per_source=json.dumps(sources).replace(" ", ""),
+        units=json.dumps({k: round(v, 1) for k, v in took.items()
+                          if "." in k}).replace(" ", ""),
+        slowest=max(sources, key=sources.get) if sources else "none",
+        card=repr(smi))
 
     # 3. kernels vs plain versions
     results = {
@@ -6119,10 +6798,11 @@ def main() -> int:
         for n in got_tc:
             tc[n] += got_tc[n]
 
-    # 7b-7e. one process per pipeline stage: full-width smollm trained
+    # 7b-7g. one process per pipeline stage: full-width smollm trained
     # with a shrink and a grow across ranks and served (one-shot and
-    # elastic, paged) as 4 ranks, and 4 ranks against one process at 8
-    # layers (each part's counters zeroed in the ranks just before it and
+    # elastic, paged) as 4 ranks, 4 ranks against one process at 8 layers
+    # (inline and asynchronous), safe points, chaos and a kill across
+    # ranks (each part's counters zeroed in the ranks just before it and
     # read just after)
     for key, (got, got_tc) in run_across_phases(torch, kernels,
                                                  smi).items():

@@ -40,18 +40,26 @@ The port's differences from the reference:
     cell of the ``parallel.data x parallel.stages`` mesh of ranks
     (``launch.dist``; ``dist_backend`` forces ``gloo`` or ``nccl``).  Rank
     0's report comes back, with every rank's launches, memory, transfer
-    counters and final role (active, released or dead) under ``ranks``;
-    ``gather=True`` adds the final params and optimizer state gathered
-    whole.  Resizes run across the ranks: a shrink or an evict releases a
-    column of ranks (they hold nothing after it and stay in the host loop,
-    deciding from the same gathered bytes), a grow binds one back.  A file
-    or HTTP job manager has one client, rank 0's (``launch.jm_proxy``).
-    ``serve`` with ``procs`` runs the elastic server as one rank per stage
-    (data 1, as the reference's server): each rank holds its stage's rows
-    of the paged KV pool.  In one process ``parallel.data > 1`` runs as one
-    replica, which is numerically what the reference's data axis computes.
-    What the ranks cannot do yet raises and names ROADMAP Queue 1
-    [multi-card] (``refuse_across``).
+    counters, safe-point writes, restore and final role (active, released
+    or dead) under ``ranks``; ``gather=True`` adds the final params and
+    optimizer state gathered whole.  Resizes run across the ranks: a
+    shrink or an evict releases a column of ranks (they hold nothing after
+    it and stay in the host loop, deciding from the same gathered bytes),
+    a grow binds one back.  A file or HTTP job manager has one client,
+    rank 0's (``launch.jm_proxy``), whose RPC faults reach every rank's
+    fault log.  Safe points are written per rank (the world's rank of each
+    stage at data 0 writes its shard) and resume onto any rank count
+    (``Session.resume(dir, procs=N)``); ``--chaos`` fires the same plan at
+    the same step on every rank (a trainer kill ends every rank); the
+    async control plane without the drain applies each plan at rank 0's
+    step on every rank, each rank deciding it on its own thread.  ``serve`` with
+    ``procs`` runs the elastic server as one rank per stage (data 1, as
+    the reference's server): each rank holds its stage's rows of the paged
+    KV pool, and a chaos worker crash evicts across the ranks.  In one
+    process ``parallel.data > 1`` runs as one replica, which is
+    numerically what the reference's data axis computes.  What the ranks
+    cannot do yet (the non-dense families) raises and names ROADMAP Queue
+    1 [multi-card] (``refuse_across``).
 
 Teardown order matters and is centralized in ``close()``: the metrics
 snapshot, then the control plane (its worker thread must stop deciding
@@ -132,6 +140,8 @@ class Session:
         self._closed = False
         self._resume_dir: Optional[str] = None
         self._resume_step: Optional[int] = None
+        # across ranks: (the final world, params, moments) a train left
+        self._final = None
         self.injector = None     # faults.ChaosInjector when chaos is on
         # ---- observability
         self.metrics = MetricsRegistry()   # always live; ~free when unread
@@ -140,18 +150,23 @@ class Session:
 
     @classmethod
     def resume(cls, ckpt_dir: str, *, step: Optional[int] = None,
-               device: DeviceLike = None) -> "Session":
+               device: DeviceLike = None, procs: int = 1,
+               dist_backend: Optional[str] = None,
+               gather: bool = False) -> "Session":
         """Rebuild a crashed run from its newest complete safe point (or
         the one of ``step``).  The safe point carries the producing
         ``RunSpec``, so the caller needs nothing but the directory;
         ``train()`` then restores the tensors, the stage -> worker map, the
         pool and the control plane's latches and continues from the step
         after the safe point, bit-identically to the run that never
-        stopped.  A safe point without a ``spec`` is refused by name."""
+        stopped.  A safe point without a ``spec`` is refused by name.
+        ``procs`` (as for a new Session) resumes as that many ranks,
+        whatever rank count wrote the safe point."""
         from repro_torch.checkpoint.safepoint import peek
         idx = peek(ckpt_dir, step)
         spec = RunSpec.from_dict(idx["meta"]["spec"])
-        s = cls(spec, device=device)
+        s = cls(spec, device=device, procs=procs, dist_backend=dist_backend,
+                gather=gather)
         s._resume_dir = ckpt_dir
         s._resume_step = int(idx["step"])
         return s
@@ -286,7 +301,8 @@ class Session:
         from repro_torch.launch.jm_proxy import RankJobManager
         inner = (self._connect_one(plan, injector, pool_state)
                  if mesh.rank == 0 else None)
-        self._jm = RankJobManager(inner, mesh.comm, mesh.rank)
+        self._jm = RankJobManager(inner, mesh.comm, mesh.rank,
+                                  injector=injector)
         return self._jm
 
     def _connect_one(self, plan=None, injector=None, pool_state=None):
@@ -354,15 +370,19 @@ class Session:
 
     def kill_manager(self) -> None:
         """Stop the spawned manager process at once: the engine defers its
-        calls (degraded mode) until ``respawn_manager``."""
+        calls (degraded mode) until ``respawn_manager``.  Across ranks only
+        rank 0 holds the manager: on the others it does nothing."""
         if self._jm_proc is not None and self._jm_proc.poll() is None:
             self._jm_proc.kill()
             self._jm_proc.wait()
 
     def respawn_manager(self) -> None:
         """Restart a killed file manager on its directory: it restores the
-        pool from its journal and re-serves answered requests."""
+        pool from its journal and re-serves answered requests (rank 0's,
+        across ranks: the others hold no manager)."""
         from repro_torch.cluster.rpc import spawn_file_manager
+        if self._mesh is not None and self._mesh.rank != 0:
+            return
         assert self.spec.cluster.job_manager == "file" and self._jm_dir
         self._jm_proc = spawn_file_manager(
             self._jm_dir, self.spec.parallel.stages,
@@ -429,7 +449,9 @@ class Session:
         import numpy as np
 
         from repro_torch.cluster.autoscaler import Autoscaler, AutoscalerConfig
-        from repro_torch.cluster.service import ControlPlane, StatsSnapshot
+        from repro_torch.cluster.service import (ControlPlane,
+                                                 RankControlPlane,
+                                                 StatsSnapshot)
         from repro_torch.core.controller import (ControllerConfig,
                                                  DynMoController)
         from repro_torch.data.loader import DataConfig, make_loader
@@ -446,8 +468,7 @@ class Session:
         obs = spec.obs
         mesh = self._mesh
         if mesh is not None:
-            refuse_across(spec, "train", resumed=self._resume_dir is not None,
-                          cfg=self._model_config())
+            refuse_across("train", self._model_config())
 
         def leader_dt() -> float:
             # across ranks every input of a decision is the same bytes on
@@ -488,7 +509,10 @@ class Session:
         start_step = 0
         if self._resume_dir:
             from repro_torch.checkpoint.safepoint import peek
-            resume_idx = peek(self._resume_dir, self._resume_step)
+            # a rank reads the index of the step its parent resolved, and
+            # verifies only the files it restores from
+            resume_idx = peek(self._resume_dir, self._resume_step,
+                              verify=mesh is None)
             start_step = int(resume_idx["step"]) + 1
         rmeta = resume_idx["meta"] if resume_idx is not None else {}
 
@@ -527,7 +551,9 @@ class Session:
             cbs = {}
             if any(e.kind == "trainer_kill" for e in fplan.events):
                 # bound only when the plan kills this process: a library
-                # caller's process never holds a SIGKILL it did not ask for
+                # caller's process never holds a SIGKILL it did not ask for.
+                # Across ranks every rank fires it at the same step, so the
+                # whole launch ends
                 cbs["kill_self"] = lambda: os.kill(os.getpid(),
                                                    signal.SIGKILL)
             if spec.cluster.job_manager == "file":
@@ -543,6 +569,9 @@ class Session:
             self._sync()
             restore_s = time.perf_counter() - t_restore
             restore_mem = self._allocated()
+            if mesh is not None:
+                check_agreement(mesh, start_step - 1, state.lps,
+                                state.assignment, engine, injector)
         else:
             granted = self._register_tenant(
                 jm, kind="train", workers=stages, max_workers=stages,
@@ -580,8 +609,15 @@ class Session:
             if (straggler or measure_stage_times) else None
         ctrl = DynMoController(cfg, dcfg, dyncfg, ccfg, straggler=det,
                                mesh=engine.mesh)
-        cp = ControlPlane(ctrl, async_mode=spec.controller.async_decide,
-                          epoch_fn=lambda: engine.epoch)
+        if (mesh is not None and spec.controller.async_decide
+                and not spec.controller.async_drain):
+            # every rank applies each plan at rank 0's step, deciding it on
+            # its own thread
+            cp = RankControlPlane(ctrl, comm=mesh.comm, rank=mesh.rank,
+                                  epoch_fn=lambda: engine.epoch)
+        else:
+            cp = ControlPlane(ctrl, async_mode=spec.controller.async_decide,
+                              epoch_fn=lambda: engine.epoch)
         self._cp = cp
         if resume_idx is not None:
             cp.rebind(engine.dcfg_for(state.stages), state.lps)
@@ -656,7 +692,7 @@ class Session:
                                      "bytes_sent", "bytes_recv")}}
                 entry["ranks"] = mesh.comm.all_gather_object(mine)
                 check_agreement(mesh, step, state.lps, state.assignment,
-                                engine)
+                                engine, injector)
             resize_mem.append(entry)
             active = engine.pool_active()      # every rank: a broadcast
             print(f"step {step:4d} {kind.upper()} {rz.from_stages}->"
@@ -682,6 +718,8 @@ class Session:
         last_measured = stage_time_source = None
         stage_times_log: List[Dict[str, Any]] = []
         safepoint_s: List[float] = []
+        # the plans applied: [step, the snapshot's iteration, its epoch]
+        applied: List[List[int]] = []
         # ---- step-time accounting: warm-up steps (the first step on each
         # freshly built world) and controller-cadence decide time are kept
         # apart from the steady-state step times
@@ -891,6 +929,7 @@ class Session:
             # rejected)
             plan = cp.poll(engine.epoch)
             if plan is not None:
+                applied.append([step, plan.iteration, plan.epoch])
                 if plan.event is not None:
                     expert_skew_last = plan.event.expert_skew
                     moe_dropped_last = plan.event.expert_dropped
@@ -954,7 +993,7 @@ class Session:
                           f"{list(rl.new.placement)}", flush=True)
             if mesh is not None and ctrl.cadence(step + 1):
                 check_agreement(mesh, step, state.lps, state.assignment,
-                                engine)
+                                engine, injector)
 
             # ---- autoscaler: heartbeat + watermark signals
             if scaler is not None:
@@ -1006,7 +1045,8 @@ class Session:
             # ---- checkpoints: after the step's resize and grow decisions
             if ckpt is not None:
                 ckpt.maybe_save(step, state.params, state.opt_state,
-                                state.dyn, state.lps)
+                                state.dyn, state.lps,
+                                mesh=None if mesh is None else engine.mesh)
             if safept is not None and safept.due(step):
                 sp_ck = (tracer.span("safepoint", cat="checkpoint",
                                      step=step)
@@ -1049,6 +1089,9 @@ class Session:
         if root_span is not None:
             root_span.end(steps_run=len(losses))
         if mesh is not None:
+            # this rank's final rows and replicated leaves, as digests
+            # (rank_train(digest=True))
+            self._final = (engine.mesh, state.params, state.opt_state)
             # whole trees for the report (collective: every rank gathers)
             state.dyn = engine.gather_state(state.dyn)
             if self.gather:
@@ -1079,6 +1122,13 @@ class Session:
             # and torch.cuda.memory_allocated just after the restore
             "safepoint_s": safepoint_s, "restore_s": restore_s,
             "restore_allocated": restore_mem,
+            # the safe point's files the restore read (across ranks: common
+            # and this rank's own stage shard) and what this rank wrote of
+            # each safe point (files, bytes, seconds)
+            "restore_files": (list(engine.restored_files)
+                              if resume_idx is not None else None),
+            "safepoint_writes": (list(safept.writes)
+                                 if safept is not None else []),
         }
         report = {
             "losses": losses, "gnorms": gnorms, "events": events,
@@ -1109,7 +1159,7 @@ class Session:
                          else "inline"),
                 "published": cp.published, "decided": cp.decided,
                 "dropped": cp.dropped,
-                "stale_rejected": cp.stale_rejected},
+                "stale_rejected": cp.stale_rejected, "applied": applied},
             # ---- expert-parallel telemetry (MoE archs; None otherwise)
             "relayouts": relayouts,
             "expert_skew_last": expert_skew_last,
@@ -1150,14 +1200,18 @@ class Session:
         counters under ``ranks``."""
         from repro_torch.configs.base import get_config
         from repro_torch.launch.dist import launch
-        refuse_across(self.spec, "train", resumed=self._resume_dir is not None,
-                      cfg=self._model_config())
+        from repro_torch.launch.sharding import check_layout
+        cfg = self._model_config()
+        refuse_across("train", cfg)
+        check_layout(cfg, self.spec.parallel.data)
+        resume = (None if self._resume_dir is None
+                  else (self._resume_dir, self._resume_step))
         res = launch("repro_torch.api.session:rank_train", self.procs,
                      data=self.spec.parallel.data, device=self.device.type,
                      backend=self.dist_backend,
                      kwargs=dict(spec=self.spec, steps=steps,
                                  params=self.params, on_step=on_step,
-                                 gather=self.gather,
+                                 gather=self.gather, resume=resume,
                                  arch=get_config(self.spec.model.arch)))
         rep = res[0]["report"]
         self.events = res[0]["events"]
@@ -1198,7 +1252,7 @@ class Session:
             return self._serve_across(trace, resize_at)
         mesh = self._mesh
         if mesh is not None:
-            refuse_across(spec, "serve", cfg=self._model_config())
+            refuse_across("serve", self._model_config())
         tracer = self._obs_begin("serve")
         cfg = self._model_config()
         dcfg = self._dist_config()
@@ -1333,7 +1387,7 @@ class Session:
                 f"at data 1 (as the reference's Session.serve builds its "
                 f"server): parallel.stages={self.spec.parallel.stages} must "
                 f"equal procs={self.procs}")
-        refuse_across(self.spec, "serve", cfg=self._model_config())
+        refuse_across("serve", self._model_config())
         spec = dataclasses.replace(self.spec, parallel=dataclasses.replace(
             self.spec.parallel, data=1))
         res = launch("repro_torch.api.session:rank_serve_elastic",
@@ -1351,38 +1405,21 @@ class Session:
 # ---------------------------------------------------------------------------
 # Ranks
 # ---------------------------------------------------------------------------
-# what the ranks do not do yet: (spec test, what) — each refusal names
-# ROADMAP Queue 1 [multi-card]
-_ACROSS_REFUSED = (
-    (lambda sp: bool(sp.ckpt_every or sp.ckpt_dir), "safe points and "
-     "checkpoints"),
-    (lambda sp: sp.faults.enabled, "--chaos"),
-    (lambda sp: sp.controller.async_decide and not sp.controller.async_drain,
-     "--async-controller without --async-drain (ranks must apply each "
-     "plan at the same step)"),
-)
-
-
-def refuse_across(spec: RunSpec, kind: str, *, resumed: bool = False,
-                  cfg=None) -> None:
+def refuse_across(kind: str, cfg) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP Queue 1 [multi-card]
-    for what the ranks do not run yet."""
-    what = [w for test, w in _ACROSS_REFUSED if test(spec)]
-    if resumed:
-        what.append("resume")
-    if cfg is not None and cfg.family != "dense":
-        what.append(f"the {cfg.family} family")
-    if what:
+    for a family the ranks do not run yet (every non-dense one)."""
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{kind} across ranks does not run {', '.join(what)} yet "
+            f"{kind} across ranks does not run the {cfg.family} family yet "
             f"(ROADMAP Queue 1 [multi-card])")
 
 
-def check_agreement(mesh, step: int, lps, assignment, engine=None) -> None:
+def check_agreement(mesh, step: int, lps, assignment, engine=None,
+                    injector=None) -> None:
     """Every rank's split and assignment — and with the ``engine``, its
-    epoch, stage -> worker map and pool — must be the same bytes after a
-    cadence and after a resize (the ranks decide independently from
-    gathered inputs)."""
+    epoch, stage -> worker map and pool, with the ``injector`` its fault
+    log — must be the same bytes after a cadence, a resize and a restore
+    (the ranks decide independently from gathered inputs)."""
     import hashlib
     h = hashlib.sha256(repr(list(lps)).encode())
     for k in sorted(assignment):
@@ -1392,10 +1429,13 @@ def check_agreement(mesh, step: int, lps, assignment, engine=None) -> None:
                 else None)
         h.update(repr((engine.epoch, list(engine.stage_workers),
                        list(engine.jm.log), pool)).encode())
+    if injector is not None:
+        h.update(repr([(r.step, r.kind, sorted(r.detail.items()))
+                       for r in injector.records]).encode())
     seen = mesh.comm.all_gather_object(h.hexdigest())
     if len(set(seen)) != 1:
-        raise RuntimeError(f"step {step}: the ranks' assignments, worlds or "
-                           f"pools differ ({seen})")
+        raise RuntimeError(f"step {step}: the ranks' assignments, worlds, "
+                           f"pools or fault logs differ ({seen})")
 
 
 def _rank_spec(mesh, spec: RunSpec) -> RunSpec:
@@ -1445,13 +1485,35 @@ def rank_serve_elastic(mesh, spec: RunSpec, trace=None, resize_at=None,
     return {"rank": info, "report": rep, "events": s.events}
 
 
+def state_digest(world, params, opt_state) -> Dict[str, Any]:
+    """sha256 of a rank's final state, to hold runs bitwise without
+    gathering it: ``rows`` (its stage's rows of the params and both
+    moments) at data 0 of the world, ``rest`` (the replicated leaves and
+    their moments) on the world's leader; None elsewhere.  One process's
+    state gives the same digests row by row (``chip_smoke.state_digests``
+    slices ``[s:s + 1]``)."""
+    from repro_torch.launch.sharding import split_stages, tree_digest
+    out: Dict[str, Any] = {"stage": None, "rows": None, "rest": None}
+    if world.member and world.replica == 0 and params is not None:
+        p_rows, p_rest = split_stages(params)
+        o_rows, o_rest = split_stages(opt_state)
+        out.update(stage=world.stage,
+                   rows=tree_digest({"params": p_rows, "opt": o_rows}))
+        if world.rank == world.leader:
+            out["rest"] = tree_digest({"params": p_rest, "opt": o_rest})
+    return out
+
+
 def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
-               gather: bool = False, arch=None) -> Dict[str, Any]:
+               gather: bool = False, arch=None, resume=None,
+               digest: bool = False) -> Dict[str, Any]:
     """One rank of ``Session(procs=N).train`` (run by ``launch.dist``):
     rank 0 keeps the observability outputs and returns the report.
     ``arch``: the parent's ``ModelConfig`` of ``spec.model.arch``, which
     the rank registers when its registry lacks it (a config registered at
-    run time in the parent)."""
+    run time in the parent).  ``resume``: (safe-point directory, step) as
+    the parent's ``Session.resume`` resolved it.  ``digest`` adds the
+    rank's ``state_digest`` to its counters."""
     import torch
 
     from repro_torch.launch.dist import ensure_arch
@@ -1460,9 +1522,18 @@ def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
         torch.cuda.reset_peak_memory_stats(mesh.device)
     with Session(_rank_spec(mesh, spec), device=mesh.device, params=params,
                  gather=gather, mesh=mesh) as s:
+        if resume is not None:
+            s._resume_dir, s._resume_step = resume
         rep = s.train(steps, on_step=on_step)
+    t = rep["timing"]
+    extra = {"digest": state_digest(*s._final)} if digest else {}
     info = _rank_info(mesh, step_times=list(rep["step_times"]),
                       role=rep["role"], held_bytes=list(rep["held_bytes"]),
+                      safepoint_writes=t["safepoint_writes"],
+                      applied=rep["controller"]["applied"],
+                      restore={"seconds": t["restore_s"],
+                               "allocated": t["restore_allocated"],
+                               "files": t["restore_files"]}, **extra,
                       resize_memory=[
                           next(r for r in m["ranks"]
                                if r["rank"] == mesh.rank)

@@ -24,6 +24,13 @@ the shards.  Not in the safe point, as in the reference: the engine's last
 shrink step (a resumed run does not grow back), the straggler detector's
 EMA and the controller's logical expert layout (it lives only in
 ``dyn["expert_map"]``).
+
+Across ranks (an engine with a launch mesh) every rank calls ``save`` at
+the same step: each writes its share (``checkpoint.save_across``) and the
+metadata is rank 0's, which alone reads a file manager's journal.  A
+safe point does not record how many processes wrote it: ``procs`` is a
+``Session`` keyword, not a RunSpec field, so either kind resumes onto
+either.
 """
 from __future__ import annotations
 
@@ -31,9 +38,8 @@ import json
 import os
 from typing import Any, Dict, List, Optional
 
-from repro_torch.checkpoint.checkpoint import (_gc, latest_index,
-                                               load_checkpoint,
-                                               save_checkpoint)
+from repro_torch.checkpoint.checkpoint import (INDEX, latest_index,
+                                               load_checkpoint, save_kept)
 
 
 class SafepointManager:
@@ -43,6 +49,9 @@ class SafepointManager:
         assert every > 0
         self.path, self.every, self.keep = path, every, keep
         self.saved: List[str] = []
+        # what this process wrote of each safe point (across ranks: its
+        # files, bytes and seconds)
+        self.writes: List[Dict[str, Any]] = []
         os.makedirs(path, exist_ok=True)
 
     def due(self, step: int) -> bool:
@@ -73,22 +82,33 @@ class SafepointManager:
             "scaler": scaler.state_dict() if scaler is not None else None,
             "repack_enabled": repack_enabled,
         }
-        out = save_checkpoint(self.path, step, state.params, state.opt_state,
-                              state.dyn, state.lps, extra_meta=meta)
+        out, wrote = save_kept(
+            self.path, self.keep, step, state.params, state.opt_state,
+            state.dyn, state.lps, meta,
+            None if engine.launch is None else engine.mesh)
+        if wrote is not None:
+            self.writes.append({"step": step, **wrote})
         self.saved.append(out)
-        self._gc()
         return out
 
-    def _gc(self) -> None:
-        _gc(self.path, self.keep)
 
-
-def peek(path: str, step: Optional[int] = None) -> Dict[str, Any]:
+def peek(path: str, step: Optional[int] = None, *,
+         verify: bool = True) -> Dict[str, Any]:
     """Index (with the safe-point metadata) of the newest complete safe
     point, or of ``step`` when that one is complete.  A safe point that
     carries the train CLI's flags (``args``) and no ``spec`` predates the
-    RunSpec front door and is refused."""
-    idx = latest_index(path, step)
+    RunSpec front door and is refused.  ``verify=False`` reads the index
+    of ``step`` and no shard (a rank, which verifies only the files it
+    restores from)."""
+    if verify:
+        idx = latest_index(path, step)
+    else:
+        try:
+            with open(os.path.join(path, f"step_{int(step):08d}",
+                                   INDEX)) as f:
+                idx = json.load(f)
+        except (OSError, ValueError):
+            idx = None
     if idx is None:
         raise FileNotFoundError(f"no complete safe point under {path}")
     meta = idx.get("meta", {})

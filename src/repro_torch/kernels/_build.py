@@ -6,8 +6,14 @@ Each kernel package keeps its sources under ``csrc/``.  On first use, one
 root; the file name carries a hash of the source, every header (``*.cuh``)
 under ``kernels/`` and the flags, so an edited source or header is rebuilt
 and a stale library is never loaded.  Kernels that share a source (K2a
-and K2b, K4 and K5) share one library, built once.  ``build`` starts every
-missing compile at once and waits for all of them.  The libraries are
+and K2b, K4 and K5) share one library, built once.  A source with
+``units`` > 1 is compiled as that many translation units, each with
+``-DREPRO_UNITS=n -DREPRO_UNIT=u`` (``common.cuh``'s ``RT_UNIT``: unit u
+holds a share of the source's template variants, unit 0 the C interface),
+into objects that one more ``nvcc`` links into the same library; the
+unit count is part of the hash.  ``build`` starts every missing compile
+at once, links a library as soon as its units are done, and times each
+process to its own exit.  The libraries are
 loaded with ``ctypes``: pointers and the CUDA stream go in as
 ``c_void_p``, every launcher returns ``cudaGetLastError()`` and ``launch``
 raises when that is not 0.
@@ -23,9 +29,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +41,8 @@ REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+# a unit's compile: the same flags, without linking
+UNIT_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"]
 
 
 def nvcc_path() -> str:
@@ -63,9 +72,10 @@ class Kernel:
     one block per output row (K6's page splits)."""
 
     def __init__(self, name: str, source: str, replaces: str,
-                 functions: Dict[str, Sequence]):
+                 functions: Dict[str, Sequence], units: int = 1):
         self.name = name
         self.source = KERNELS_DIR / source
+        self.units = int(units)
         self.replaces = replaces
         self.functions = dict(functions)     # C symbol -> ctypes argtypes
         self.launches = 0
@@ -87,11 +97,22 @@ class Kernel:
         for p in (self.source, *sorted(KERNELS_DIR.rglob("*.cuh"))):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(f"units={self.units}".encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
-    def compile_command(self, out: Path) -> List[str]:
-        return [nvcc_path(), *NVCC_FLAGS, f"-I{KERNELS_DIR}", "-o", str(out),
-                str(self.source)]
+    def commands(self, out: Path) -> Tuple[List[List[str]],
+                                           Optional[List[str]]]:
+        """(the compiles, run in parallel; the link that joins their
+        objects, or None) that write the library ``out``."""
+        nvcc, inc = nvcc_path(), f"-I{KERNELS_DIR}"
+        if self.units == 1:
+            return [[nvcc, *NVCC_FLAGS, inc, "-o", str(out),
+                     str(self.source)]], None
+        objs = [f"{out}.u{u}.o" for u in range(self.units)]
+        return ([[nvcc, *UNIT_FLAGS, "-c", f"-DREPRO_UNITS={self.units}",
+                  f"-DREPRO_UNIT={u}", inc, "-o", obj, str(self.source)]
+                 for u, obj in enumerate(objs)],
+                [nvcc, *NVCC_FLAGS, "-o", str(out), *objs])
 
     def relpath(self) -> str:
         return str(self.source.relative_to(REPO_ROOT))
@@ -130,34 +151,79 @@ class Kernel:
 
 
 def build(kernels: Iterable[Kernel]) -> Dict[str, float]:
-    """Compile every kernel whose library is missing, all ``nvcc``s in
-    parallel; returns {name: seconds} for the ones it built.  Raises with
-    the compiler's output when one fails."""
+    """Compile every kernel whose library is missing: every compile of
+    every source at once, each library linked as soon as its units are
+    done.  Returns {source stem: seconds from the start to its library},
+    and for a source of several units {"stem.uN": seconds of unit N's
+    compile} too, each process timed to its own exit.  Raises with the
+    compiler's output when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, seen = [], set()
+    libs, seen = [], set()
+    t0 = time.perf_counter()
     for k in kernels:
         out = k.library_path()
         if out.exists() or out in seen:
             continue
         seen.add(out)
         tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-        procs.append((k, out, tmp, time.perf_counter(), subprocess.Popen(
-            k.compile_command(tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+        compiles, link = k.commands(tmp)
+        running = [(f"{k.source.stem}.u{u}" if len(compiles) > 1
+                    else None, _start(cmd)) for u, cmd in enumerate(compiles)]
+        libs.append({"kernel": k, "out": out, "tmp": tmp, "link": link,
+                     "running": running})
     took: Dict[str, float] = {}
-    failed = []
-    for k, out, tmp, t0, proc in procs:
-        log, _ = proc.communicate()
-        took[k.source.stem] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"--- {k.name} (nvcc exit {proc.returncode})\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, out)       # atomic: a concurrent build never sees
-        #                            a half-written library
+    failed: List[str] = []
+    while any(lib["running"] for lib in libs):
+        time.sleep(0.02)
+        for lib in libs:
+            k, still = lib["kernel"], []
+            for label, proc in lib["running"]:
+                if proc.poll() is None:
+                    still.append((label, proc))
+                    continue
+                now = time.perf_counter() - t0
+                proc.log.seek(0)
+                log = proc.log.read().decode(errors="replace")
+                proc.log.close()
+                if label is not None:
+                    took[label] = now
+                if proc.returncode != 0:
+                    failed.append(f"--- {k.name} (nvcc exit "
+                                  f"{proc.returncode})\n{log}")
+                    lib["link"] = None
+            lib["running"] = still
+            if still or lib.get("done"):
+                continue
+            if lib["link"] is not None:
+                # the units are done: link them (its exit ends the library)
+                lib["running"] = [(None, _start(lib["link"]))]
+                lib["link"] = None
+                continue
+            lib["done"] = True
+            objs = [Path(f"{lib['tmp']}.u{u}.o") for u in range(k.units)]
+            if k.units > 1:
+                for o in objs:
+                    o.unlink(missing_ok=True)
+            if lib["tmp"].exists() and not any(
+                    f.startswith(f"--- {k.name} ") for f in failed):
+                took[k.source.stem] = time.perf_counter() - t0
+                # atomic: a concurrent build never sees a half-written
+                # library
+                os.replace(lib["tmp"], lib["out"])
+            else:
+                lib["tmp"].unlink(missing_ok=True)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
+
+
+def _start(cmd: List[str]) -> subprocess.Popen:
+    # the output goes to a file: a pipe nobody reads until the exit could
+    # fill and stall the compiler
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
 
 
 def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:

@@ -74,7 +74,33 @@
 #include "bsa_tile.cuh"
 #include "tf32x3.cuh"
 
+// the launch arguments: in a named namespace, so that the variants of
+// several translation units (RT_UNIT) share the type
+namespace bsa_bwd {
+
+struct Args {
+  const void *q, *k, *v, *mask, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, Sq, Sk, Hq, Hkv, block, nkb;
+  long long mask_sb, mask_sh;
+  int causal;
+  float scale;
+};
+
+// K2b's schedule: int4 items (kv tile, first step, end step, slot), the
+// kv tiles' slot offsets, and the fp32 partial buffers [slots][64][D]
+struct Sched {
+  const void *items, *offsets;
+  void *pdk, *pdv;
+  int n_items;
+};
+
+}  // namespace bsa_bwd
+
 namespace {
+
+using bsa_bwd::Args;
+using bsa_bwd::Sched;
 
 using bsa::sw;
 
@@ -417,73 +443,114 @@ __global__ void __launch_bounds__(NT_SUM) bsa_dkv_sum_kernel(
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *mask, *dout, *lse, *delta;
-  void *dq, *dk, *dv;
-  int B, Sq, Sk, Hq, Hkv, block, nkb;
-  long long mask_sb, mask_sh;
-  int causal;
-  float scale;
-};
-
-// K2b's schedule: int4 items (kv tile, first step, end step, slot), the
-// kv tiles' slot offsets, and the fp32 partial buffers [slots][64][D]
-struct Sched {
-  const void *items, *offsets;
-  void *pdk, *pdv;
-  int n_items;
-};
+template <typename T, int D>
+cudaError_t run_dq(const Args& a, cudaStream_t st) {
+  dim3 grid(a.Hq, a.B, (a.Sq + BQ - 1) / BQ);
+  return rt_launch(bsa_dq_tc_kernel<T, D>, grid, dim3(NT), DqLayout<D>::SMEM,
+                   st, (const T*)a.q, (const T*)a.k, (const T*)a.v,
+                   (const int32_t*)a.mask, (const T*)a.dout,
+                   (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
+                   a.Sq, a.Sk, a.Hq, a.Hkv, a.block, a.nkb, a.mask_sb,
+                   a.mask_sh, a.causal, a.scale);
+}
 
 template <typename T, int D>
-cudaError_t run(const Args& a, const Sched* sc, cudaStream_t st) {
-  if (sc == nullptr) {
-    dim3 grid(a.Hq, a.B, (a.Sq + BQ - 1) / BQ);
-    return rt_launch(bsa_dq_tc_kernel<T, D>, grid, dim3(NT),
-                     DqLayout<D>::SMEM, st,
-                     (const T*)a.q, (const T*)a.k, (const T*)a.v,
-                     (const int32_t*)a.mask, (const T*)a.dout,
-                     (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
-                     a.Sq, a.Sk, a.Hq, a.Hkv, a.block, a.nkb, a.mask_sb,
-                     a.mask_sh, a.causal, a.scale);
-  }
-  if (sc->n_items > 0) {
+cudaError_t run_dkv(const Args& a, const Sched& sc, cudaStream_t st) {
+  if (sc.n_items > 0) {
     cudaError_t e = rt_launch(
-        bsa_dkv_tc_kernel<T, D>, dim3(sc->n_items), dim3(NT),
+        bsa_dkv_tc_kernel<T, D>, dim3(sc.n_items), dim3(NT),
         DkvLayout<D>::SMEM, st, (const T*)a.q, (const T*)a.k,
         (const T*)a.v, (const int32_t*)a.mask, (const T*)a.dout,
-        (const float*)a.lse, (const float*)a.delta, (const int4*)sc->items,
-        (float*)sc->pdk, (float*)sc->pdv, a.Sq, a.Sk, a.Hq, a.Hkv, a.block,
+        (const float*)a.lse, (const float*)a.delta, (const int4*)sc.items,
+        (float*)sc.pdk, (float*)sc.pdv, a.Sq, a.Sk, a.Hq, a.Hkv, a.block,
         a.nkb, a.mask_sb, a.mask_sh, a.causal, a.scale);
     if (e != cudaSuccess) return e;
   }
   const int tiles = a.B * a.Hkv * ((a.Sk + BK - 1) / BK);
   return rt_launch(bsa_dkv_sum_kernel<T, D>, dim3(tiles), dim3(NT_SUM), 0, st,
-                   (const float*)sc->pdk, (const float*)sc->pdv,
-                   (const int32_t*)sc->offsets, (T*)a.dk, (T*)a.dv, a.Sk,
+                   (const float*)sc.pdk, (const float*)sc.pdv,
+                   (const int32_t*)sc.offsets, (T*)a.dk, (T*)a.dv, a.Sk,
                    a.Hkv);
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const Args& a, const Sched* sc,
-                       cudaStream_t st) {
-  switch (D) {
-    case 16: return run<T, 16>(a, sc, st);
-    case 32: return run<T, 32>(a, sc, st);
-    case 64: return run<T, 64>(a, sc, st);
-    case 128: return run<T, 128>(a, sc, st);
-    default: return cudaErrorInvalidValue;
+}  // namespace
+
+// Each sweep of each (dtype, D) variant is a function of its own, in one
+// translation unit (common.cuh's RT_UNIT): variant v = 4 * dtype +
+// log2(D / 16).
+namespace bsa_bwd {
+
+#define BSA_BWD_DECLARE(v)                                            \
+  cudaError_t dq_v##v(const Args&, cudaStream_t);                     \
+  cudaError_t dkv_v##v(const Args&, const Sched&, cudaStream_t);
+BSA_BWD_DECLARE(0) BSA_BWD_DECLARE(1) BSA_BWD_DECLARE(2) BSA_BWD_DECLARE(3)
+BSA_BWD_DECLARE(4) BSA_BWD_DECLARE(5) BSA_BWD_DECLARE(6) BSA_BWD_DECLARE(7)
+#undef BSA_BWD_DECLARE
+
+#define BSA_BWD_DQ(v, T, D)                                           \
+  cudaError_t dq_v##v(const Args& a, cudaStream_t st) {               \
+    return run_dq<T, D>(a, st);                                       \
   }
-}
+#define BSA_BWD_DKV(v, T, D)                                          \
+  cudaError_t dkv_v##v(const Args& a, const Sched& sc,                \
+                       cudaStream_t st) {                             \
+    return run_dkv<T, D>(a, sc, st);                                  \
+  }
+// the units, by compile time (scripts/torch_build_times.py times them):
+// the head dim 128 sweeps are the slowest, the fp32 ones most of all, so
+// each fp32 one has a unit of its own
+#if RT_UNIT(0)
+BSA_BWD_DQ(3, float, 128)
+#endif
+#if RT_UNIT(1)
+BSA_BWD_DKV(3, float, 128)
+#endif
+#if RT_UNIT(2)
+BSA_BWD_DQ(7, __nv_bfloat16, 128)
+BSA_BWD_DKV(7, __nv_bfloat16, 128)
+#endif
+#if RT_UNIT(3)
+BSA_BWD_DQ(2, float, 64)
+BSA_BWD_DKV(2, float, 64)
+BSA_BWD_DQ(6, __nv_bfloat16, 64)
+BSA_BWD_DKV(6, __nv_bfloat16, 64)
+#endif
+#if RT_UNIT(4)
+BSA_BWD_DQ(0, float, 16)
+BSA_BWD_DKV(0, float, 16)
+BSA_BWD_DQ(1, float, 32)
+BSA_BWD_DKV(1, float, 32)
+BSA_BWD_DQ(4, __nv_bfloat16, 16)
+BSA_BWD_DKV(4, __nv_bfloat16, 16)
+BSA_BWD_DQ(5, __nv_bfloat16, 32)
+BSA_BWD_DKV(5, __nv_bfloat16, 32)
+#endif
+#undef BSA_BWD_DQ
+#undef BSA_BWD_DKV
+
+}  // namespace bsa_bwd
+
+#if RT_INTERFACE
+namespace {
 
 cudaError_t dispatch(const Args& a, int D, int dtype, const Sched* sc,
                      void* stream) {
+  using namespace bsa_bwd;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.block <= 0)
     return cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0 || a.Sk == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == RT_F32) return dispatch_d<float>(D, a, sc, st);
-  if (dtype == RT_BF16) return dispatch_d<__nv_bfloat16>(D, a, sc, st);
-  return cudaErrorInvalidValue;
+  const int d = D == 16 ? 0 : D == 32 ? 1 : D == 64 ? 2 : D == 128 ? 3 : -1;
+  if (d < 0 || (dtype != RT_F32 && dtype != RT_BF16))
+    return cudaErrorInvalidValue;
+  using Dq = cudaError_t (*)(const Args&, cudaStream_t);
+  using Dkv = cudaError_t (*)(const Args&, const Sched&, cudaStream_t);
+  static const Dq dq[8] = {dq_v0, dq_v1, dq_v2, dq_v3,
+                           dq_v4, dq_v5, dq_v6, dq_v7};
+  static const Dkv dkv[8] = {dkv_v0, dkv_v1, dkv_v2, dkv_v3,
+                             dkv_v4, dkv_v5, dkv_v6, dkv_v7};
+  const int v = 4 * (dtype == RT_BF16) + d;
+  return sc == nullptr ? dq[v](a, st) : dkv[v](a, *sc, st);
 }
 
 }  // namespace
@@ -521,3 +588,4 @@ extern "C" int bsa_bwd_dkv(const void* q, const void* k, const void* v,
   Sched sc{items, offsets, pdk, pdv, n_items};
   return dispatch(a, D, dtype, &sc, stream);
 }
+#endif  // RT_INTERFACE

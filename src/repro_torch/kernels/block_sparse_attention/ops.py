@@ -45,6 +45,10 @@ from repro_torch.kernels.block_sparse_attention.ref import (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _TAIL = [_I] * 8 + [_L] * 2 + [_I, _F, _I, _P]
 _SRC = "src/repro/kernels/block_sparse_attention/"
+# K2a / K2b's source builds as this many translation units (its sweeps'
+# (dtype, head dim) variants split by compile time): as one unit it was
+# the build's slowest compile
+BWD_UNITS = 5
 KERNEL = Kernel(
     "block_sparse_attention",
     "block_sparse_attention/csrc/block_sparse_attention.cu",
@@ -54,12 +58,12 @@ KERNEL_DQ = Kernel(
     "block_sparse_attention_bwd_dq",
     "block_sparse_attention/csrc/block_sparse_attention_bwd.cu",
     replaces=_SRC + "backward.py:144",
-    functions={"bsa_bwd_dq": [_P] * 8 + _TAIL})
+    functions={"bsa_bwd_dq": [_P] * 8 + _TAIL}, units=BWD_UNITS)
 KERNEL_DKV = Kernel(
     "block_sparse_attention_bwd_dkv",
     "block_sparse_attention/csrc/block_sparse_attention_bwd.cu",
     replaces=_SRC + "backward.py:164",
-    functions={"bsa_bwd_dkv": [_P] * 13 + [_I] + _TAIL})
+    functions={"bsa_bwd_dkv": [_P] * 13 + [_I] + _TAIL}, units=BWD_UNITS)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 

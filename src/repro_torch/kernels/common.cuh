@@ -9,6 +9,19 @@
 
 #define RT_NEG_INF (-1e30f)  // the reference's NEG_INF sentinel
 
+// A source builds as one translation unit, or as REPRO_UNITS of them
+// compiled in parallel and linked into one library (kernels/_build.py,
+// Kernel.units; -DREPRO_UNITS=n -DREPRO_UNIT=u): the code under
+// `#if RT_UNIT(u)` goes into unit u (every unit's, built as one), the C
+// interface into unit 0 (RT_INTERFACE).
+#ifdef REPRO_UNITS
+#define RT_UNIT(u) ((u) % REPRO_UNITS == REPRO_UNIT)
+#define RT_INTERFACE (REPRO_UNIT == 0)
+#else
+#define RT_UNIT(u) 1
+#define RT_INTERFACE 1
+#endif
+
 // element-type codes passed from Python (kernels/_build.py::dtype_code)
 enum RtDtype { RT_F32 = 0, RT_BF16 = 1 };
 

@@ -331,7 +331,7 @@ def launch(target: str, nprocs: int, *, data: int = 1,
         while failed is None and any(p.poll() is None for p in procs):
             for r, p in enumerate(procs):
                 if p.poll() not in (None, 0):
-                    failed = (r, f"exited {p.returncode}")
+                    failed = (r, _exit_words(p.returncode))
                     break
             else:
                 if deadline is not None and time.monotonic() > deadline:
@@ -340,7 +340,7 @@ def launch(target: str, nprocs: int, *, data: int = 1,
         if failed is None:
             for r, p in enumerate(procs):
                 if p.returncode != 0:
-                    failed = (r, f"exited {p.returncode}")
+                    failed = (r, _exit_words(p.returncode))
                     break
         if failed is not None:
             # a rank's failure ends its peers' collectives: give them a
@@ -350,6 +350,8 @@ def launch(target: str, nprocs: int, *, data: int = 1,
             while time.monotonic() < grace and any(
                     p.poll() is None for p in procs):
                 time.sleep(0.05)
+            # the ranks a SIGKILL ended before the parent kills the rest
+            killed = [i for i, p in enumerate(procs) if p.poll() == -9]
             _kill(procs)
             r, why = failed
             shown = [i for i, p in enumerate(procs)
@@ -358,6 +360,11 @@ def launch(target: str, nprocs: int, *, data: int = 1,
                               f"---\n{_tail(rundir, i, 3000)}"
                               for i in shown)
             who = "the run" if r is None else f"rank {r}"
+            if killed:
+                # a SIGKILL's rank says nothing: name it (a fault plan's
+                # trainer_kill fires it in every rank at the same step)
+                why += (f"; ranks {killed} were killed by SIGKILL (exit -9, "
+                        f"as a trainer_kill ends the run)")
             raise RuntimeError(f"{who} {why}; every rank stopped\n{tails}")
         sys.stdout.write(_tail(rundir, 0, limit=None))
         sys.stdout.flush()
@@ -368,6 +375,11 @@ def launch(target: str, nprocs: int, *, data: int = 1,
         for log in logs:
             log.close()
         shutil.rmtree(rundir, ignore_errors=True)
+
+
+def _exit_words(code: int) -> str:
+    return ("was killed by SIGKILL (exit -9)" if code == -9
+            else f"exited {code}")
 
 
 def _kill(procs) -> None:
@@ -419,12 +431,15 @@ def _rank_main(rundir: str, rank: int) -> None:
     dist.init_process_group(
         job["backend"], init_method=job["init"], world_size=n, rank=rank,
         timeout=datetime.timedelta(seconds=job["timeout_s"]))
-    # the first non-reentrant checkpoint imports torch._dynamo (with a
-    # process group up, FSDP and DTensor too: seconds); paid here, every
-    # rank at once, it is not paid stage after stage in the first tick
-    from torch.utils.checkpoint import checkpoint
-    checkpoint(torch.neg, torch.ones(1, requires_grad=True),
-               use_reentrant=False)
+    if dev.type == "cuda":
+        # the first non-reentrant checkpoint imports torch._dynamo (with a
+        # process group up, FSDP and DTensor too: seconds); paid here,
+        # every rank at once, it is not paid stage after stage in the
+        # card's first tick (the CPU's ranks, which time nothing, pay it
+        # at their first checkpoint, if any)
+        from torch.utils.checkpoint import checkpoint
+        checkpoint(torch.neg, torch.ones(1, requires_grad=True),
+                   use_reentrant=False)
     try:
         mesh = make_host_mesh(job["data"], n // job["data"], device=dev,
                               backend=job["backend"])

@@ -27,7 +27,9 @@ free stage-buffer slot (``_bind_new_workers``).
 A safe point's resume builds the world of the checkpoint's stage count and
 split, adopts its stage -> worker map, pool and epoch, and loads the
 shards into tensors allocated from the param spec and the optimizer's zero
-tree (``restore_state``: no random init is made only to be overwritten).
+tree (``restore_state``: no random init is made only to be overwritten);
+across ranks each rank of that world loads its own stage's shard and the
+replicated leaves, whatever rank count wrote the safe point.
 With ``in_step_timing`` each world carries an ``obs.timing.StageTimer``
 stamped around every stage's forward call inside the step, and around
 each stage's prefill and decode calls when the world serves
@@ -236,6 +238,8 @@ class ElasticEngine:
         # it, yet must know the shapes a grow hands it)
         self._has_opt = self._has_cache = False
         self.last_step_compiled = False
+        # the safe point's files the last restore_state read
+        self.restored_files: List[str] = []
         # serve telemetry: the last prefill / decode call's mean MoE
         # capacity-drop fraction (a device scalar; None for non-MoE archs)
         self.last_moe_drop = None
@@ -580,12 +584,14 @@ class ElasticEngine:
         """Resume from the safe point under ``path`` whose ``index``
         (``safepoint.peek``) names it: adopt its pool, stage -> worker map
         and epoch, and load its shards into the world of its stage count
-        and split on this engine's device."""
+        and split on this engine's device.  Across ranks the world runs on
+        the safe point's workers' columns, whatever rank count wrote it: a
+        rank of that world reads ``common.npz`` and its own stage's shard
+        alone (``restored_files``), a rank outside it (a safe point of
+        fewer stages than the launch has columns) starts released and holds
+        nothing."""
+        from repro_torch.checkpoint.checkpoint import load_rows
         from repro_torch.checkpoint.safepoint import restore
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "safe points across ranks are not in the port yet (ROADMAP "
-                "Queue 1 [multi-card])")
         meta = index["meta"]
         if meta.get("pool") and isinstance(self.jm, InProcessJobManager):
             # the in-process pool resumes here; a pool behind an RPC
@@ -597,10 +603,26 @@ class ElasticEngine:
         self.bind_workers(meta["stage_workers"])
         stages = int(index["num_stages"])
         lps = [int(x) for x in index["layers_per_stage"]]
-        params, opt, dyn, _ = restore(path, self.state_templates(stages),
-                                      int(index["step"]), device=self.device)
+        step = int(index["step"])
         assignment = M.make_assignment(self.cfg, self.dcfg_for(stages), lps)
         self.epoch = int(meta.get("epoch", 0))
+        self._has_opt = True
+        if self.launch is None:
+            params, opt, dyn, _ = restore(path, self.state_templates(stages),
+                                          step, device=self.device)
+            self.restored_files = list(index["files"])
+            return EngineState(params, opt, dyn, assignment, lps, stages)
+        world = self.world(stages)
+        self.mesh = world.mesh
+        params = opt = dyn = None
+        self.restored_files = []
+        if world.mesh.member:
+            t = self._row_templates(world.dcfg)
+            rest = t["replicated"]
+            params, opt, dyn, self.restored_files = load_rows(
+                path, (merge_trees(rest["params"], {"stages": t["params"]}),
+                       merge_trees(rest["opt"], t["opt"]), t["dyn"]),
+                step, world.mesh.stage, device=self.device)
         return EngineState(params, opt, dyn, assignment, lps, stages)
 
     # -- measured per-stage times ----------------------------------------------

@@ -10,7 +10,9 @@ defers the same way: a
 ``JobManagerUnavailable`` (or a manager's rejection) on rank 0 is raised on
 every rank.  The client-side mirrors a report reads (``log``,
 ``rpc_stats``, the breaker's counters, ``tenant``) travel with every
-answer.  Every rank must call the verbs in the same order, which the
+answer, and so do the fault records rank 0's chaos transport logged
+during the call (``rpc_loss``, ``rpc_dup``): every rank's
+``ChaosInjector`` holds them, so the ranks' fault logs are the same.  Every rank must call the verbs in the same order, which the
 ranks' identical host loops do.
 """
 from __future__ import annotations
@@ -35,9 +37,11 @@ class RankJobManager:
     client (None on the other ranks) and reach every rank of ``comm``'s
     launch."""
 
-    def __init__(self, inner, comm, rank: int, root: int = 0):
+    def __init__(self, inner, comm, rank: int, root: int = 0,
+                 injector=None):
         self.inner = inner if rank == root else None
         self.comm, self.rank, self.root = comm, rank, root
+        self.injector = injector
         self.log: List[str] = []
         self.rpc_stats: Dict[str, int] = {}
         self.breaker = _Breaker()
@@ -45,13 +49,14 @@ class RankJobManager:
 
     def _call(self, verb: str, *args, **kw) -> Any:
         msg = None
+        inj = self.injector
         if self.inner is not None:
+            n0 = len(inj.records) if inj is not None else 0
             out = err = None
             try:
                 # a verb, or a property of the client (``num_active``)
-                out = getattr(self.inner, verb)
-                if callable(out):
-                    out = out(*args, **kw)
+                fn = getattr(self.inner, verb)
+                out = fn(*args, **kw) if callable(fn) else fn
             except JobManagerUnavailable as e:
                 err = ("unavailable", str(e))
             except RuntimeError as e:
@@ -61,8 +66,12 @@ class RankJobManager:
                    "rpc_stats": dict(getattr(inner, "rpc_stats", {})),
                    "breaker": (inner.breaker.state_dict()
                                if hasattr(inner, "breaker") else {}),
-                   "tenant": getattr(inner, "tenant", None)}
+                   "tenant": getattr(inner, "tenant", None),
+                   "faults": (inj.records[n0:] if inj is not None
+                              else [])}
         msg = self.comm.broadcast_object(msg, self.root)
+        if self.inner is None and inj is not None:
+            inj.records.extend(msg["faults"])
         self.log = msg["log"]
         self.rpc_stats = msg["rpc_stats"]
         self.breaker.state = msg["breaker"]

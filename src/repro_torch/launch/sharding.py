@@ -35,8 +35,12 @@ FSDP_PARAMS = 8e9
 
 
 def check_layout(cfg, mesh) -> None:
-    """Refuse what this layout cannot hold: FSDP over ``data``."""
-    if mesh is not None and mesh.data > 1 and cfg.param_count() > FSDP_PARAMS:
+    """Refuse what this layout cannot hold: FSDP over ``data``.  ``mesh``:
+    a ``launch.mesh.Mesh``, or the data degree a launch will have (checked
+    before any rank starts)."""
+    data = mesh if isinstance(mesh, int) else (1 if mesh is None
+                                               else mesh.data)
+    if data > 1 and cfg.param_count() > FSDP_PARAMS:
         raise NotImplementedError(
             f"{cfg.name} has {cfg.param_count() / 1e9:.1f}B parameters: the "
             f"reference shards its stage weights over data (FSDP), which "

@@ -34,11 +34,19 @@ prints rank 0's report:
 
 The ranks resize too: the second run's repack shrink releases ranks 2 and
 3 to the job manager at step 14 and the grow binds them back at step 20.
+They write safe points (``--ckpt-dir DIR --ckpt-every K``: each rank its
+own stage's shard), run ``--chaos`` (every rank fires the same plan at the
+same step) and ``--async-controller`` without ``--async-drain`` (every rank
+applies each plan at the same step).
 
 ``--resume DIR`` rebuilds the run from the newest complete safe point in
-``DIR`` (it carries the producing RunSpec; only ``--device`` is read from
-the command line) and continues bit-identically; ``--events-out PATH``
-writes the session's structured event stream.
+``DIR`` (it carries the producing RunSpec; only ``--device``, ``--procs``
+and ``--dist-backend`` are read from the command line) and continues
+bit-identically, as one process or as ranks, whichever wrote it:
+
+  python -m repro_torch.launch.train --device cpu --resume DIR --procs 4
+
+``--events-out PATH`` writes the session's structured event stream.
 """
 from __future__ import annotations
 
@@ -129,8 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default=None, metavar="CKPT_DIR",
                     help="resume from the newest safe point in this "
                          "directory; the safe point carries the producing "
-                         "RunSpec, so every other flag but --device is "
-                         "ignored")
+                         "RunSpec, so every other flag but --device, "
+                         "--procs and --dist-backend is ignored")
     ap.add_argument("--events-out", default=None, metavar="PATH",
                     help="write the session's structured telemetry stream "
                          "(one JSON record per rebalance / resize / "
@@ -160,12 +168,11 @@ def run(argv: Optional[List[str]] = None, *, params=None,
     args = build_parser().parse_args(argv)
     path = resume or args.resume
     if path:
-        if args.procs > 1:
-            from repro_torch.api.session import refuse_across
-            refuse_across(Session.resume(path, step=resume_step,
-                                         device=args.device).spec,
-                          "train", resumed=True)
-        sess = Session.resume(path, step=resume_step, device=args.device)
+        # the RunSpec is the safe point's; --device and --procs (Session
+        # keywords, not spec fields) come from the command line
+        sess = Session.resume(path, step=resume_step, device=args.device,
+                              procs=args.procs,
+                              dist_backend=args.dist_backend, gather=gather)
     else:
         spec = build_spec(args, TRAIN_ALIASES,
                           cli_defaults=TRAIN_CLI_DEFAULTS)

@@ -161,9 +161,10 @@ class ElasticServer:
         self._scratch = None          # the old world's scratch goes too
         if self.scaler is not None:
             self.scaler.note_resize(tick, self.state.stages)
-        print(f"tick {tick:4d} CRASH worker {worker}: requeued "
-              f"{len(requeued)} in-flight requests, serving on "
-              f"{self.state.stages} stages", flush=True)
+        if not self._quiet:
+            print(f"tick {tick:4d} CRASH worker {worker}: requeued "
+                  f"{len(requeued)} in-flight requests, serving on "
+                  f"{self.state.stages} stages", flush=True)
 
     # -- safe-point resize ---------------------------------------------------
     def resize(self, target_stages: int, tick: int, reason: str,

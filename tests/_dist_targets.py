@@ -219,3 +219,59 @@ def serve_cycle(mesh, spec, trace, resize_at, params):
     if mesh.rank == 0:
         out.update(report=rep, pool=pool)
     return out
+
+
+def fixed_latency(base, k: int):
+    """``base`` (a ``ControlPlane`` class) whose decisions take ``k`` steps:
+    the timing authority (every plane in one process) decides a snapshot
+    as soon as it is published, and its plan reaches the outbox at the
+    (k + 1)-th poll after the publish — the apply step is then the same in
+    one process and across ranks, whatever each thread's pace."""
+    from repro_torch.cluster.service import ControlPlane
+
+    class Fixed(base):
+        def publish(self, snap):
+            super().publish(snap)
+            if getattr(self, "lead", True):
+                ControlPlane.drain(self)
+            self._age = 0
+
+        def poll(self, epoch):
+            age = getattr(self, "_age", None)
+            if age is not None:
+                self._age = age = age + 1
+            if not getattr(self, "lead", True) or (age is not None
+                                                    and age > k):
+                return super().poll(epoch)
+            with self._cv:
+                held, self._outbox = self._outbox, None
+            try:
+                return super().poll(epoch)
+            finally:
+                with self._cv:
+                    if self._outbox is None:
+                        self._outbox = held
+
+    return Fixed
+
+
+def patch_latency(k: int):
+    """Make ``Session.train``'s control planes ``fixed_latency`` ones."""
+    from repro_torch.cluster import service
+    for name in ("ControlPlane", "RankControlPlane"):
+        cls = getattr(service, name)
+        setattr(service, name, fixed_latency(getattr(cls, "_unfixed", cls),
+                                             k))
+        getattr(service, name)._unfixed = getattr(cls, "_unfixed", cls)
+
+
+def latency_train(mesh, spec, k: int):
+    """``rank_train`` with decisions that take ``k`` steps
+    (``fixed_latency``); every rank returns its counters."""
+    from repro_torch.api.session import rank_train
+    patch_latency(k)
+    out = rank_train(mesh, spec)
+    if "report" in out:
+        out["report"] = {key: out["report"][key] for key in
+                         ("losses", "controller", "stages_history")}
+    return out

@@ -354,3 +354,41 @@ def test_mailbox_counts_survive_a_stress_of_threads():
             assert cp.decided >= 1 and cp.stale_rejected == 0
     finally:
         sys.setswitchinterval(old)
+
+
+LATENCY = ["--layers", "8", "--d-model", "64", "--num-heads", "4",
+           "--num-kv-heads", "2", "--d-ff", "256", "--vocab-size", "512",
+           "--stages", "4", "--num-micro", "4", "--mb-global", "2", "--seq",
+           "32", "--steps", "10", "--rebalance-every", "3", "--straggler",
+           "1:3.0", "--dynamism", "pruning", "--log-every", "1000",
+           "--device", "cpu"]
+
+
+def test_async_without_drain_across_ranks_applies_each_plan_at_one_step(
+        monkeypatch):
+    """``--async-controller`` without ``--async-drain`` over 4 ranks, with
+    decisions that take two steps (``_dist_targets.fixed_latency``): every
+    rank applies the same plans at the same steps, and the run is bitwise
+    the one-process run with the same latency."""
+    from repro_torch.api.specs import RunSpec
+    from repro_torch.cluster import service
+    from repro_torch.launch.dist import launch
+
+    import _dist_targets as T
+    for name in ("ControlPlane", "RankControlPlane"):
+        monkeypatch.setattr(service, name, getattr(service, name))
+    T.patch_latency(2)
+    one = run(LATENCY + ["--async-controller"])
+    ranks = launch("_dist_targets:latency_train", 4, device="cpu",
+                   kwargs=dict(spec=RunSpec.from_dict(one["spec"]), k=2))
+    rep = ranks[0]["report"]
+    applied = one["controller"]["applied"]
+    # published after steps 2, 5 and 8; applied two steps later (the last
+    # after the run's end), the first migrating under the straggler
+    assert [a[0] - a[1] for a in applied] == [1, 1]
+    assert one["events"][0].moved_layers > 0
+    assert [r["rank"]["applied"] for r in ranks] == [applied] * 4
+    assert rep["controller"]["applied"] == applied
+    assert rep["losses"] == one["losses"]
+    assert rep["stages_history"] == one["stages_history"]
+    assert rep["controller"]["decided"] == one["controller"]["decided"] == 3

@@ -14,8 +14,8 @@ ranks, on the CPU, against the reference on four host devices.
   cache's rows across ranks is ``test_torch_dist.py``'s): the tokens are
   identical to the reference's at temperature 0, on every rank;
 * ``procs`` that is not ``data x stages`` raises, naming both numbers;
-  what the ranks leave out (safe points, chaos, an undrained asynchronous
-  controller, the other families) raises naming [multi-card].
+  what the ranks leave out (the other families, FSDP) raises naming
+  [multi-card].
 """
 import json
 
@@ -132,19 +132,20 @@ def test_procs_must_be_data_times_stages():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--ckpt-every", "2", "--ckpt-dir", "CKPT"],
-    ["--chaos"],
-    ["--async-controller"],
-    ["--arch", "mixtral-8x7b", "--dynamism", "moe"]])
+    ["--arch", "mixtral-8x7b", "--dynamism", "moe"],
+    ["--arch", "internvl2-26b"],
+    # full size at data 2: the reference shards it over data (FSDP)
+    ["--arch", "command-r-plus-104b", "--set", "model.layers=null"]])
 def test_features_outside_the_slice_refuse_ranks(extra, tmp_path):
-    """What the ranks do not run yet raises before any rank starts, naming
-    ROADMAP Queue 1 [multi-card]; the elastic server across ranks runs one
-    rank per stage (data 1), so a 2 x 2 mesh of ranks refuses it."""
+    """What the ranks do not run yet (the non-dense families; FSDP of an
+    arch above 8B parameters at data 2) raises before any rank starts,
+    naming ROADMAP Queue 1 [multi-card]; the elastic server across ranks
+    runs one rank per stage (data 1), so a 2 x 2 mesh of ranks refuses
+    it."""
     from repro_torch.api.cli import (TRAIN_ALIASES, TRAIN_CLI_DEFAULTS,
                                      build_spec)
     from repro_torch.api.session import Session
     from repro_torch.launch.train import build_parser
-    extra = [str(tmp_path) if a == "CKPT" else a for a in extra]
     argv = FLAGS + PORT_WIDTHS + extra
     with pytest.raises(NotImplementedError, match=r"\[multi-card\]"):
         run(argv + ["--device", "cpu", "--procs", "4"])

@@ -24,6 +24,13 @@
   same fault records and resizes.
 * A trainer SIGKILLed by ``faults.kill_at`` in a child process resumes
   through ``Session.resume`` bitwise the uninterrupted run.
+* Across 4 ranks (one per stage): the chaos train is bitwise the one
+  process's and matches the reference as it does (the evict runs across
+  the ranks, every rank's fault log is the same); the chaos serve is
+  token-identical to the reference with its requeues and evict; a
+  ``kill_at`` kills every rank of a launch in a child process, leaves no
+  rank and no rendezvous directory, and ``Session.resume(procs=4)``
+  continues bitwise.
 """
 import json
 import os
@@ -455,9 +462,12 @@ def test_chaos_serve_token_identical_to_fault_free_and_reference(reference):
     assert sum(base["tick_tokens"]) == base["total_tokens"]
 
 
-def test_chaos_train_within_tolerance_and_matches_reference(reference,
-                                                            tmp_path):
-    want, params = reference
+@pytest.fixture(scope="module")
+def train_runs(reference, tmp_path_factory):
+    """The port's fault-free and chaos trains at ``TRAIN_BASE`` from the
+    reference's params, in one process."""
+    _, params = reference
+    tmp_path = tmp_path_factory.mktemp("jm")
     runs = {}
     for name, faults in (("base", None), ("chaos", TRAIN_FAULTS)):
         d = dict(TRAIN_BASE, **({"faults": faults} if faults else {}))
@@ -465,8 +475,16 @@ def test_chaos_train_within_tolerance_and_matches_reference(reference,
         with Session(RunSpec.from_dict(d), device="cpu",
                      params=convert.to_torch(params["train"], "cpu")) as s:
             runs[name] = s.train()
-            assert s.injector is (None if faults is None else s.injector)
-    base, chaos = runs["base"], runs["chaos"]
+            runs[name + "_injector"] = s.injector
+    return runs
+
+
+def test_chaos_train_within_tolerance_and_matches_reference(reference,
+                                                            train_runs):
+    want, _ = reference
+    base, chaos = train_runs["base"], train_runs["chaos"]
+    assert train_runs["base_injector"] is None
+    assert train_runs["chaos_injector"] is not None
     w = want["train"]
     assert len(chaos["losses"]) == TRAIN_BASE["steps"]
     diffs = [abs(a - b) for a, b in zip(base["losses"], chaos["losses"])]
@@ -547,3 +565,156 @@ def test_torch_chaos_soak_script_passes(tmp_path, mode):
     else:
         assert {"worker_crash", "manager_kill", "manager_respawn"} <= kinds
         assert log["fault_plan"]["rpc_loss"] == 0.3
+
+
+
+# ---------------------------------------------------------------------------
+# across ranks
+# ---------------------------------------------------------------------------
+def test_chaos_train_across_ranks_is_the_one_process_run(reference,
+                                                         train_runs,
+                                                         tmp_path):
+    want, params = reference
+    d = dict(TRAIN_BASE, faults=TRAIN_FAULTS)
+    d["cluster"] = dict(d["cluster"], job_manager_dir=str(tmp_path))
+    with Session(RunSpec.from_dict(d), device="cpu", procs=4, gather=True,
+                 params=convert.to_torch(params["train"], "cpu")) as s:
+        ranks = s.train()
+    one = train_runs["chaos"]
+    w = want["train"]
+    assert ranks["losses"] == one["losses"]
+    np.testing.assert_allclose(ranks["losses"], w["losses"], rtol=0,
+                               atol=1e-4)
+    assert [[r["kind"], r["step"], r["from_stages"], r["to_stages"],
+             r["workers"]] for r in ranks["resizes"]] == w["resizes"]
+    assert [[f["step"], f["kind"], f["detail"]]
+            for f in ranks["faults"]] == w["faults"]
+    assert ranks["pool_log"] == w["pool_log"] == one["pool_log"]
+    assert ranks["autoscale_decisions"] == w["decisions"]
+    # the evict released worker 2's rank: it ends dead, holding nothing
+    assert [r["role"] for r in ranks["ranks"]] == ["active", "active",
+                                                   "dead", "active"]
+    assert ranks["ranks"][2]["held_bytes"][-1] == 0
+    # chip_smoke.py 7g's check takes this run against the one process's,
+    # and refuses another fault log, pool log or final state
+    smoke = _smoke()
+    want = {"losses": one["losses"],
+            "digests": smoke.state_digests(one["params"], one["opt_state"]),
+            "chaos": {"faults": smoke.fault_log(one),
+                      "pool_log": one["pool_log"],
+                      "resizes": [(r["kind"], r["step"], r["from_stages"],
+                                   r["to_stages"], r["workers"])
+                                  for r in one["resizes"]],
+                      "degraded_events": one["degraded_events"]}}
+    got = smoke.state_digests(ranks["params"], ranks["opt_state"])
+    kinds = ("worker_crash", "straggler_spike")
+    assert smoke.check_chaos_across(ranks, ranks["ranks"], want, got,
+                                    kinds)["faults"] == 2
+    with pytest.raises(AssertionError, match="fault log"):
+        smoke.check_chaos_across(dict(ranks, faults=ranks["faults"][:1]),
+                                 ranks["ranks"], want, got, kinds)
+    with pytest.raises(AssertionError, match="pool log"):
+        smoke.check_chaos_across(dict(ranks, pool_log=[]), ranks["ranks"],
+                                 want, got, kinds)
+    with pytest.raises(AssertionError, match="final state"):
+        smoke.check_chaos_across(ranks, ranks["ranks"], want,
+                                 dict(got, rest="0"), kinds)
+    with pytest.raises(AssertionError, match="fault kinds"):
+        smoke.check_chaos_across(ranks, ranks["ranks"], want, got)
+
+
+def test_chaos_serve_across_ranks_matches_reference(reference):
+    want, params = reference
+    d = dict(SERVE_BASE, faults=SERVE_FAULTS)
+    with Session(RunSpec.from_dict(d), device="cpu", procs=4,
+                 params=convert.to_torch(params["serve"], "cpu")) as s:
+        rep = s.serve()
+    w = want["serve"]
+    assert {str(c["rid"]): c["tokens"] for c in rep["completions"]} == \
+        w["tokens"]
+    assert rep["requeued_total"] == w["requeued_total"] > 0
+    assert {str(c["rid"]): c["requeues"] for c in rep["completions"]} == \
+        w["requeues"]
+    assert [[r["kind"], r["step"], r["workers"]]
+            for r in rep["resizes"]] == w["resizes"] == [["evict", 4, [2]]]
+    assert [[f["step"], f["kind"], f["detail"]]
+            for f in rep["faults"]] == w["faults"]
+    assert [r["role"] for r in rep["ranks"]] == ["active", "active",
+                                                 "dead", "active"]
+    # chip_smoke.py 7g's check of the crashed serve takes this run (the
+    # CPU launches no K6: every rank is given launches here), and refuses
+    # other tokens or a rank that launched no K6
+    import copy
+    smoke = _smoke()
+    want = {"tokens": {c["rid"]: c["tokens"] for c in rep["completions"]},
+            "requeues": {c["rid"]: c["requeues"]
+                         for c in rep["completions"]},
+            "requeued_total": w["requeued_total"],
+            "resizes": [tuple(r) for r in w["resizes"]]}
+    ranks = copy.deepcopy(rep["ranks"])
+    for r in ranks:
+        r["launches"]["paged_attention"].update(launches=3, split=3)
+    assert smoke.check_crash_serve_across(rep, ranks, want) == 12
+    bad = copy.deepcopy(rep)
+    bad["completions"][0]["tokens"] = bad["completions"][0]["tokens"][:-1]
+    with pytest.raises(AssertionError, match="tokens differ"):
+        smoke.check_crash_serve_across(bad, ranks, want)
+    ranks[2]["launches"]["paged_attention"].update(launches=0, split=0)
+    with pytest.raises(AssertionError, match=r"ranks \[2\] launched none"):
+        smoke.check_crash_serve_across(rep, ranks, want)
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_trainer_kill9_of_four_ranks_then_resume_bitwise(tmp_path):
+    """``faults.kill_at`` across 4 ranks in a child process: every rank
+    SIGKILLs itself after step 9, the launch raises naming the kill (no
+    rank survives, no rendezvous directory is left), and
+    ``Session.resume(dir, procs=4)`` continues from the step-7 safe point
+    bitwise the uninterrupted run, the kill not firing again."""
+    full = dict(KILL_BASE, ckpt_dir=str(tmp_path / "full"))
+    with Session(RunSpec.from_dict(full), device="cpu") as s:
+        rep_full = s.train()
+    doomed = dict(KILL_BASE, ckpt_dir=str(tmp_path / "killed"),
+                  faults={"enabled": True, "kill_at": 9})
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    code = ("import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from repro_torch.api import RunSpec, Session\n"
+            f"with Session(RunSpec.from_dict({doomed!r}), device='cpu', "
+            "procs=4) as s:\n"
+            "    s.train()\n"
+            "raise SystemExit('unreachable: kill_at did not fire')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": SRC,
+                               "TMPDIR": str(tmp)})
+    assert proc.returncode == 1, (proc.returncode, proc.stderr[-3000:])
+    assert "ranks [0, 1, 2, 3] were killed by SIGKILL" in proc.stderr
+    assert "unreachable" not in proc.stderr
+    assert os.listdir(tmp) == []                 # the rendezvous is gone
+    alive = []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if any(str(tmp).encode() in a for a in argv):
+            alive.append(pid)
+    assert alive == []
+    with Session.resume(str(tmp_path / "killed"), device="cpu",
+                        procs=4) as s:
+        rep = s.train()
+    assert rep["start_step"] == 8
+    assert rep["losses"] == rep_full["losses"][8:]
+    assert rep["faults"] == []

@@ -824,8 +824,9 @@ def test_roadmap_tags_in_the_port_are_current_items():
     # [block-families] from 10 to 3; the ranks' refusals of what is left of
     # [multi-card] — resizes, safe points, the elastic server, the other
     # families, FSDP — took it from 3 to 13; resizes across ranks and the
-    # elastic server across ranks, ported, took it to 9)
-    assert seen >= 9
+    # elastic server across ranks, ported, took it to 9; safe points
+    # across ranks, ported, took the engine's restore refusal: 8)
+    assert seen >= 8
     assert {"multi-card"} <= named, named
     assert not stale, stale
 
