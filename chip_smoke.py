@@ -300,13 +300,14 @@ final line:
                none step's from the same params; an early-exit prefill + 8
                decode steps, ids equal where the plain run's top-2 gap
                exceeds 1e-3;
-  6a. whisper — whisper-large-v3 at its published widths cut to 16
-               encoder + 16 decoder layers (32 + 32 at full size) trained
-               through the train CLI: 2 stage buffers of 16
-               slots, 2 microbatches of one sample (1500 frames from the
-               loader, 448 decoder tokens), fp32, block remat, 12 steps
-               with the prune at step 10 inside the run; K1 192, K2a / K2b
-               96, K3 512 launches a step, all on the tensor cores;
+  6a. whisper — whisper-large-v3 at its published widths cut to 8
+               encoder + 8 decoder layers (32 + 32 at full size; 16 + 16
+               in PR 26) trained through the train CLI: 2 stage buffers
+               of 8 slots, 2 microbatches of one sample (1500 frames from
+               the loader, 448 decoder tokens), fp32, block remat, 12
+               steps with the prune at step 10 inside the run; K1 96,
+               K2a / K2b 48, K3 256 launches a step, all on the tensor
+               cores;
                tokens/s, step ms, peak memory, two
                profiled steps (busy share); one step's loss and gradients
                at full width cut to 4 + 4 layers through the kernels and
@@ -396,7 +397,31 @@ final line:
                every rank of the launch SIGKILLed (the launch raises
                naming it, no rank process left), Session-resumed as 4
                ranks in a second launch, its tail and final state bitwise
-               7b's one process, the kill not firing again;
+               7b's one process, the kill not firing again; 7b prints
+               [rank_step_parts]: a step's wall per rank cut into sends,
+               waits for a peer's carry, staging copies, the replicated
+               leaves' gradient sum, the data sums and the rest;
+  7h.        every block family across ranks (PR 27), one launch of 2
+               ranks (data 1 x model 2) after 7b-7g's has exited: 4e's
+               Mixtral-8x7B training (2 layers at published widths, bf16,
+               8192 tokens a step, live re-layout) as 2 ranks: losses,
+               re-layouts, placements, each decision's skew and drop
+               fraction and every rank's committed layout bitwise 4e's,
+               the final rows and replicated leaves 4e's (``fingerprint``
+               digests taken on the card), K4 and K5 summed over the ranks
+               4e's counts a step, all on the tensor cores, both ranks
+               launching both; per rank peak memory, step ms, hand-offs
+               and their bytes, and [rank_step_parts];
+  7i.        6b's zamba2-1.2b training at full size, its first 5 steps,
+               as 2 ranks: losses, the migration after step 3 (rows moved
+               across the ranks, sent = received), each step's split and
+               the moved block types bitwise 6b's; K1 / K2a / K2b summed
+               over the ranks 6b's counts a step, all on the tensor cores;
+  7j.        4f's MoE serve (4 layers, fp32, contiguous KV) as the
+               elastic server at 2 stages over the 2 ranks: tokens and the
+               mean drop fraction equal 4f's (one stage; slot slack 0 gives
+               both the same init), K4 launched in each rank, the tick p50
+               beside 4f's;
   8. the kernels line (JSON: per kernel its launches on the main paths
      and, as launches_tc, how many of them took a tensor-core variant; K6's
      ms is its cold graph-replay time at the main shape, its library_ms
@@ -412,10 +437,12 @@ final line:
      and 7e's, launches_async_across 7b async's, launches_safepoints_across
      7f's ranks' and launches_ckpt_cross its one process's,
      launches_chaos_serve_across, launches_chaos_train_across and
-     launches_kill_resume_across 7g's (summed over the ranks);
+     launches_kill_resume_across 7g's, launches_moe_train_across,
+     launches_zamba2_train_across and launches_moe_serve_across 7h's, 7i's
+     and 7j's (summed over the ranks);
      family_cases holds 3f's cases of the kernel; before it,
-     [phase_seconds]: the wall seconds of every phase (6a-6d and 7b-7g
-     run after 4r, before 5).
+     [phase_seconds]: the wall seconds of every phase (6a-6d, 7b-7g and
+     7h-7j run after 4r, before 5).
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -2444,6 +2471,12 @@ def run_moe_train_phase(torch, kernels):
         launches=json.dumps(launched).replace(" ", ""),
         launches_tc=json.dumps(launched_tc).replace(" ", ""),
         k4_dx_launches=gm.KERNEL.launches_bwd)
+    # what 7h's ranks are held to
+    MOE_TRAIN.update(
+        losses=rep["losses"], relayouts=rep["relayouts"],
+        moe_history=rep["moe_history"], expert_layout=rep["expert_layout"],
+        digests=state_fingerprints(rep["params"], rep["opt_state"]),
+        step_ms=sum(st[1:]) / (len(st) - 1) * 1e3, peak_gb=peak_gb)
     del rep
     free_cuda(torch)
     return launched
@@ -2500,6 +2533,9 @@ def run_moe_serve_phase(torch, kernels):
         moe_dropped_mean=f"{drop:.5f}",
         decode_cap=moe_capacity(get_config(moe_arch(4)), 1),
         launches=json.dumps(launched).replace(" ", ""))
+    # what 7j's ranks are held to
+    MOE_SERVE.update(tokens={c["rid"]: c["tokens"] for c in comps},
+                     drop=drop, tick_p50=_pct50(rep["tick_wall_s"]))
     del rep
     free_cuda(torch)
     return launched
@@ -5014,8 +5050,8 @@ def check_family_kernels(torch, F):
 # ---------------------------------------------------------------------------
 WHISPER_STEPS = 12       # the prune at step 10 and one step after it
 # 6a's encoder and decoder layers: whisper-large-v3 has 32 of each; cut in
-# depth to half (the full-size phases pay for 7f / 7g)
-WHISPER_LAYERS = 16
+# depth to a quarter (the full-size phases pay for 7f / 7g and 7h-7j)
+WHISPER_LAYERS = 8
 
 
 def whisper_train_args(steps: int = WHISPER_STEPS):
@@ -5318,8 +5354,8 @@ def zamba2_serve_args():
 
 def _moved_types(cfg, events_lps):
     """The block types of the layers that changed stage between
-    consecutive layer splits."""
-    pattern = cfg.block_pattern()
+    consecutive layer splits (``cfg``: a config, or its block pattern)."""
+    pattern = cfg if isinstance(cfg, list) else cfg.block_pattern()
     moved = set()
     for a, b in zip(events_lps, events_lps[1:]):
         sa = [s for s, n in enumerate(a) for _ in range(n)]
@@ -5350,6 +5386,12 @@ def run_zamba2_phase(torch, kernels):
                              f"{moved}, not both MAMBA and HYBRID_ATTN")
     say("zamba2_migration", moved_types=sorted(moved),
         final_lps=rep["final_lps"])
+    # what 7i's ranks are held to
+    st = rep["step_times"]
+    ZAMBA_TRAIN.update(
+        losses=rep["losses"], lps_history=rep["lps_history"],
+        events=[[e.iteration, e.moved_layers] for e in rep["events"]],
+        step_ms=sum(st[1:]) / max(1, len(st) - 1) * 1e3)
     wall2_ms = first_two_ms(rep)
     del rep
     say("profile_zamba2_train", **profile_train(torch, zamba2_train_args,
@@ -6169,9 +6211,9 @@ def run_across_phases(torch, kernels, smi: str):
         if want not in killed or alive:
             raise AssertionError(f"7g: the kill left ranks {alive}: "
                                  f"{killed[:2000]}")
-        res = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
-                          weights_only=False)
-               for r in range(ACROSS_PROCS)]
+        res = timed("7load", lambda: [
+            torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(ACROSS_PROCS)])
         # the launch's parts, as rank 0 timed them
         for part, sec in res[0]["seconds"].items():
             PHASE_SECONDS[f"7:{part}"] = sec
@@ -6203,8 +6245,8 @@ def run_across_phases(torch, kernels, smi: str):
             return got["res"]
 
         try:
-            return across_checks(torch, kernels, smi, res, resumed, ckpt,
-                                 parity_args, train_run, run_serving)
+            return timed("7checks", across_checks, torch, kernels, smi, res,
+                         resumed, ckpt, parity_args, train_run, run_serving)
         finally:
             thread.join()
     finally:
@@ -6383,6 +6425,7 @@ def across_checks(torch, kernels, smi, res, resumed, ckpt, parity_args,
     if rel > 1e-6 or worst > 1e-6:
         raise AssertionError(f"7b: 4 ranks vs one process: loss {rel:.3e}, "
                              f"leaf {worst:.3e} ({differ[:4]})")
+    rank_step_parts("7b", ranks, smi)
     del across
 
     # ---- 7b async: the same flags, the controller on its thread, no drain
@@ -6570,6 +6613,359 @@ def run_ckpt_cross(torch, kernels, ckpt, smi):
     del rep, sess
     free_cuda(torch)
     return launched, launched_tc
+
+
+# ---------------------------------------------------------------------------
+# phases 7h-7j: the block families across ranks (2 ranks, data 1 x model 2)
+# ---------------------------------------------------------------------------
+# 2 ranks: 4e's Mixtral training takes 57.88 GB in one process, so neither
+# 4 ranks nor data 2 hold it at full width on the one card
+FAMILY_PROCS = 2
+# 7i's prefix of 6b's steps: the cadence after step 3 migrates rows across
+# the ranks and step 4 runs on them
+ZAMBA_ACROSS_STEPS = 5
+MOE_TRAIN = {}       # 4e's run, what 7h is held to
+MOE_SERVE = {}       # 4f's serve, what 7j is held to
+ZAMBA_TRAIN = {}     # 6b's run, what 7i is held to
+MOE_PATH = ("grouped_matmul", "grouped_matmul_dw")
+
+
+def fingerprint(tree) -> str:
+    """A digest of a tree's bytes taken on the tensors' device: for each
+    leaf (paths in order), three int64 sums of its words (plain, weighted
+    by position, squared; wrapping), hashed with its path, shape and
+    dtype.  Equal digests mean equal bytes unless all three sums collide;
+    no host copy of the state is made (sha256 of 4e's ~28 GB of rows and
+    moments on the host would take about a minute)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.launch.sharding import leaves as tree_leaves
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    h = hashlib.sha256()
+    for path, t in tree_leaves(tree):
+        v = t.detach().contiguous().reshape(-1).view(words[t.element_size()])
+        acc = torch.zeros(3, dtype=torch.int64, device=v.device)
+        chunk = 1 << 25
+        for i in range(0, v.numel(), chunk):
+            x = v[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + x.numel(), dtype=torch.int64,
+                             device=x.device) % 65521 + 1
+            acc += torch.stack([x.sum(), (x * w).sum(), (x * x).sum()])
+        h.update(repr(("/".join(path), tuple(t.shape), str(t.dtype),
+                       acc.tolist())).encode())
+    return h.hexdigest()
+
+
+def state_fingerprints(params, opt_state) -> dict:
+    """``state_digests`` with ``fingerprint`` digests (on the card)."""
+    from repro_torch.launch.sharding import (leaves as tree_leaves,
+                                             rebuild, split_stages)
+    p_rows, p_rest = split_stages(params)
+    o_rows, o_rest = split_stages(opt_state)
+    S = next(t for _, t in tree_leaves(p_rows)).shape[0]
+    return {"rows": [fingerprint({
+        "params": rebuild(p_rows, lambda _, t: t[s:s + 1]),
+        "opt": rebuild(o_rows, lambda _, t: t[s:s + 1])}) for s in range(S)],
+        "rest": fingerprint({"params": p_rest, "opt": o_rest})}
+
+
+def rank_fingerprints(world, params, opt_state) -> dict:
+    """A rank's ``session.state_digest`` fields with ``fingerprint``
+    digests (``rank_train``'s ``digest``; picklable: the ranks import this
+    module)."""
+    from repro_torch.launch.sharding import split_stages
+    out = {"stage": None, "rows": None, "rest": None}
+    if world.member and world.replica == 0 and params is not None:
+        p_rows, p_rest = split_stages(params)
+        o_rows, o_rest = split_stages(opt_state)
+        out.update(stage=world.stage,
+                   rows=fingerprint({"params": p_rows, "opt": o_rows}))
+        if world.rank == world.leader:
+            out["rest"] = fingerprint({"params": p_rest, "opt": o_rest})
+    return out
+
+
+def _lean(got):
+    """A rank part's result without the trees of its report (rank 0's
+    rows and moments stay on the rank)."""
+    rep = got.get("report")
+    if rep is not None:
+        for k in ("params", "opt_state", "dyn", "cache"):
+            rep.pop(k, None)
+    return got
+
+
+def rank_families(mesh, moe, zamba, serve, archs):
+    """Phases 7h-7j in one set of 2 ranks (launched by ``launch.dist``):
+    4e's Mixtral training with its live expert re-layout, 6b's zamba2
+    training (a prefix holding its first migration) and 4f's MoE serve at
+    2 stages, each with the counters and transfer stats zeroed just before
+    it and read just after.  Returns each part's result (rank 0's report,
+    each rank's counters) and its seconds."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api.session import rank_serve_elastic, rank_train
+    from repro_torch.launch.dist import _to_device, ensure_arch
+    for cfg in archs:
+        ensure_arch(cfg)
+    out = {"seconds": {}}
+    for part, fn in (
+            ("7h", lambda: rank_train(mesh, moe, digest=rank_fingerprints)),
+            ("7i", lambda: rank_train(mesh, zamba)),
+            ("7j", lambda: rank_serve_elastic(mesh, serve))):
+        for k in kernels.KERNELS:
+            k.reset()
+        mesh.comm.stats = dict.fromkeys(mesh.comm.stats, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[part] = _to_device(_lean(fn()), "cpu")
+        out["seconds"][part] = time.perf_counter() - t0
+    return out
+
+
+def _first_parting(got, want):
+    return next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def check_moe_across(rep, ranks, want) -> tuple:
+    """7h against 4e (``want``: ``MOE_TRAIN``): the losses, the re-layouts
+    (step, skew, tokens, experts moved, placement), the skew and drop
+    fraction of every decision and every rank's committed layout bitwise;
+    the final rows and replicated leaves 4e's (``fingerprint`` digests);
+    K4 and K5 summed over the ranks 4e's counts a step, every launch on
+    the tensor cores, each rank launching both.  Returns (launches,
+    tensor-core launches) summed over the ranks."""
+    first = _first_parting(rep["losses"], want["losses"])
+    if first is not None:
+        raise AssertionError(f"7h: the losses part from 4e's at step "
+                             f"{first}")
+    if rep["relayouts"] != want["relayouts"] or \
+            rep["moe_history"] != want["moe_history"]:
+        raise AssertionError(f"7h: re-layouts {rep['relayouts']} / skew "
+                             f"and drops {rep['moe_history']} vs 4e's")
+    if sum(1 for r in rep["relayouts"] if r["moved_experts"] > 0) < 1:
+        raise AssertionError("7h: no re-layout moved experts")
+    layouts = [r["expert_layout"] for r in ranks]
+    if any(x != want["expert_layout"] for x in layouts):
+        raise AssertionError(f"7h: the ranks' committed layouts {layouts} "
+                             f"vs 4e's {want['expert_layout']}")
+    if ranks_digests(ranks) != want["digests"]:
+        raise AssertionError("7h: the final rows or replicated leaves "
+                             "differ from 4e's")
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_launches("7h", launched, MOE_TRAIN_LAUNCHES_PER_STEP,
+                   len(rep["losses"]))
+    check_tensor_core("7h", launched, tc, MOE_PATH)
+    idle = [(r["rank"], n) for r in ranks for n in MOE_PATH
+            if r["launches"][n]["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"7h: (rank, kernel) {idle} launched nothing")
+    return launched, tc
+
+
+def check_zamba_across(rep, ranks, want) -> tuple:
+    """7i against 6b (``want``: ``ZAMBA_TRAIN``), over the prefix's steps:
+    the losses, the migrations (iteration, layers moved), each step's
+    split and the block types the migration moved bitwise; rows moved
+    across the ranks (sent = received > 0); K1 / K2a / K2b summed over the
+    ranks ``ZAMBA_LAUNCHES_PER_STEP`` a step, all on the tensor cores.
+    Returns (launches, tensor-core launches, the moved types)."""
+    from repro_torch.configs import BLOCK_PAD
+    n = len(rep["losses"])
+    first = _first_parting(rep["losses"], want["losses"][:n])
+    if first is not None or n > len(want["losses"]):
+        raise AssertionError(f"7i: the losses part from 6b's at step "
+                             f"{first}")
+    events = [[e.iteration, e.moved_layers] for e in rep["events"]]
+    if events != [e for e in want["events"] if e[0] <= n] or not events:
+        raise AssertionError(f"7i: migrations {events} vs 6b's "
+                             f"{want['events']}")
+    if rep["lps_history"] != want["lps_history"][:n] or (
+            n < len(want["lps_history"])
+            and list(rep["final_lps"]) != want["lps_history"][n]):
+        raise AssertionError(f"7i: splits {rep['lps_history']} -> "
+                             f"{rep['final_lps']} vs 6b's")
+    # the run's block pattern, from its final assignment (PAD slots out)
+    pattern = [int(t) for row in rep["assignment"]["tags"].tolist()
+               for t in row if t != BLOCK_PAD]
+    moved = _moved_types(pattern, [rep["lps_history"][0], rep["final_lps"]])
+    if not moved:
+        raise AssertionError("7i: the migration moved no block")
+    rows = [sum(r["comm"][k] for r in ranks)
+            for k in ("rows_sent", "rows_recv")]
+    if rows[0] <= 0 or rows[0] != rows[1]:
+        raise AssertionError(f"7i: rows sent / received {rows}")
+    launched, tc = summed_launches(ranks), summed_launches(ranks, "tc")
+    check_launches("7i", launched, ZAMBA_LAUNCHES_PER_STEP, n)
+    check_tensor_core("7i", launched, tc, FP32_TC_PATH[:3])
+    return launched, tc, moved
+
+
+def check_moe_serve_across(rep, ranks, want) -> tuple:
+    """7j against 4f (``want``: ``MOE_SERVE``): every request's tokens
+    identical, the mean drop fraction equal, each rank launching K4.
+    Returns (launches, tensor-core launches) summed over the ranks."""
+    got = {c["rid"]: c["tokens"] for c in rep["completions"]}
+    if got != want["tokens"]:
+        raise AssertionError("7j: the ranks' tokens differ from 4f's")
+    if rep["moe_dropped_mean"] != want["drop"]:
+        raise AssertionError(f"7j: drop {rep['moe_dropped_mean']} vs 4f's "
+                             f"{want['drop']}")
+    idle = [r["rank"] for r in ranks
+            if r["launches"]["grouped_matmul"]["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"7j: ranks {idle} launched no K4")
+    return summed_launches(ranks), summed_launches(ranks, "tc")
+
+
+def say_family_ranks(label: str, ranks, smi: str, names) -> None:
+    """Per rank: its launches of ``names``, peak memory_allocated, mean
+    step (tick) ms, hand-offs and their bytes, the gradient sums'
+    seconds."""
+    for r in ranks:
+        c = r["comm"]
+        times = r.get("step_times") or r.get("tick_wall_s") or []
+        tail = times[1:] or times
+        say(label, rank=r["rank"], stage=r["stage"],
+            launches=json.dumps({n: r["launches"][n]["launches"]
+                                 for n in names}).replace(" ", ""),
+            peak_mem_gb=_gb(r["peak_allocated"]),
+            peak_reserved_gb=_gb(r.get("peak_reserved")),
+            mean_ms=f"{sum(tail) / max(1, len(tail)) * 1e3:.1f}",
+            handoffs=c["handoffs"], handoff_bytes=c["handoff_bytes"],
+            grad_ring_s=f"{c['grad_ring_s']:.3f}",
+            rows_sent=c["rows_sent"], rows_recv=c["rows_recv"],
+            card=repr(smi))
+
+
+def rank_step_parts(label: str, ranks, smi: str) -> None:
+    """``[rank_step_parts]``: a train step's wall per rank (the mean over
+    its steps) cut into the hand-offs' sends, the waits for a peer's
+    carry, the staging copies, the replicated leaves' gradient sum over
+    the ring, the gradient sums over ``data``, and the rest (compute and
+    host work)."""
+    rows = []
+    for r in ranks:
+        c = r["comm"]
+        n = max(1, len(r["step_times"]))
+        part = {k: c[s] / n * 1e3 for k, s in (
+            ("send_ms", "send_s"), ("recv_wait_ms", "recv_wait_s"),
+            ("staging_copy_ms", "copy_s"), ("grad_ring_ms", "grad_ring_s"),
+            ("grad_data_ms", "grad_data_s"))}
+        step = sum(r["step_times"]) / n * 1e3
+        rows.append({"rank": r["rank"], "steps": n, "step_ms": step,
+                     **part, "rest_ms": step - sum(part.values())})
+    print("[rank_step_parts] " + json.dumps(
+        {"phase": label, "card": smi, "ranks": rows}), flush=True)
+
+
+def run_family_ranks(torch, kernels, smi: str):
+    """Phases 7h-7j: one launch of 2 ranks (``rank_families``), after
+    phase 7's launch has exited and freed the card, held to the one-process
+    runs 4e, 6b and 4f made.
+
+    7h: full-width Mixtral-8x7B cut to 2 layers on 4e's flags (bf16, 8192
+    tokens a step, live re-layout every 3 steps), one layer a rank
+    (``check_moe_across``).  7i: full-size zamba2-1.2b on 6b's flags, the
+    first ``ZAMBA_ACROSS_STEPS`` steps (``check_zamba_across``).  7j: 4f's
+    MoE serve (4 layers, fp32, contiguous KV) as the elastic server at 2
+    stages, one a rank (``check_moe_serve_across``).  Returns {part:
+    (launches, tensor-core launches) summed over the ranks}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import launch
+    moe = cli_spec("train", moe_train_args())
+    zamba = cli_spec("train", zamba2_train_args(ZAMBA_ACROSS_STEPS))
+    serve = cli_spec("serve", moe_serve_args()).override(
+        {"parallel.stages": FAMILY_PROCS})
+    free_cuda(torch)
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    for k in kernels.KERNELS:
+        k.reset()
+    # the card's 80 GB hold 7h's two ranks (~32 GB each) with little to
+    # spare: what this process still holds, and segments that grow in
+    # place in the ranks (no reserved-but-unallocated tail)
+    free, total = torch.cuda.mem_get_info()
+    say("families_across_start",
+        parent_allocated_gb=_gb(torch.cuda.memory_allocated()),
+        parent_reserved_gb=_gb(torch.cuda.memory_reserved()),
+        card_free_gb=_gb(free), card_total_gb=_gb(total), card=repr(smi))
+    import os
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        res = timed("7hij", launch, "chip_smoke:rank_families",
+                    FAMILY_PROCS, kwargs=dict(
+                        moe=moe, zamba=zamba, serve=serve,
+                        archs=[get_config(moe.model.arch),
+                               get_config(serve.model.arch)]))
+    finally:
+        if env is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    for part, sec in res[0]["seconds"].items():
+        PHASE_SECONDS[f"7:{part}"] = sec
+    out = {}
+    # ---- 7h
+    rep = res[0]["7h"]["report"]
+    ranks = [r["7h"]["rank"] for r in res]
+    launched, tc = check_moe_across(rep, ranks, MOE_TRAIN)
+    say_family_ranks("moe_train_across_rank", ranks, smi, MOE_PATH)
+    rank_step_parts("7h", ranks, smi)
+    st = rep["step_times"]
+    say("moe_train_across", procs=FAMILY_PROCS, steps=len(st),
+        losses_bitwise=True, relayouts_bitwise=True, state_bitwise=True,
+        relayouts=json.dumps([[r["step"], r["moved_experts"],
+                               r["placement"]] for r in rep["relayouts"]])
+        .replace(" ", ""),
+        step_ms=f"{sum(st[1:]) / max(1, len(st) - 1) * 1e3:.1f}",
+        one_process_step_ms=f"{MOE_TRAIN['step_ms']:.1f}",
+        one_process_peak_gb=f"{MOE_TRAIN['peak_gb']:.2f}",
+        expert_skew_last=f"{rep['expert_skew_last']:.4f}",
+        moe_dropped_last=f"{rep['moe_dropped_last']:.4f}",
+        launches=json.dumps(launched).replace(" ", ""),
+        launches_tc=json.dumps({n: tc[n] for n in MOE_PATH})
+        .replace(" ", ""), card=repr(smi))
+    out["moe_train_across"] = (launched, tc)
+    # ---- 7i
+    rep = res[0]["7i"]["report"]
+    ranks = [r["7i"]["rank"] for r in res]
+    launched, tc, moved = check_zamba_across(rep, ranks, ZAMBA_TRAIN)
+    say_family_ranks("zamba2_train_across_rank", ranks, smi,
+                     FP32_TC_PATH[:3])
+    st = rep["step_times"]
+    say("zamba2_train_across", procs=FAMILY_PROCS, steps=len(st),
+        losses_bitwise=True, split_bitwise=True,
+        events=json.dumps([[e.iteration, e.moved_layers]
+                           for e in rep["events"]]).replace(" ", ""),
+        moved_types=sorted(moved), final_lps=rep["final_lps"],
+        rows_moved=sum(r["comm"]["rows_sent"] for r in ranks),
+        step_ms=f"{sum(st[1:]) / max(1, len(st) - 1) * 1e3:.1f}",
+        one_process_step_ms=f"{ZAMBA_TRAIN['step_ms']:.1f}",
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["zamba2_train_across"] = (launched, tc)
+    # ---- 7j
+    rep = res[0]["7j"]["report"]
+    ranks = [r["7j"]["rank"] for r in res]
+    launched, tc = check_moe_serve_across(rep, ranks, MOE_SERVE)
+    say_family_ranks("moe_serve_across_rank", ranks, smi,
+                     ("grouped_matmul",))
+    say("moe_serve_across", procs=FAMILY_PROCS, stages=FAMILY_PROCS,
+        requests=len(rep["completions"]), tokens=rep["total_tokens"],
+        tokens_identical=True, moe_dropped_mean=f"{rep['moe_dropped_mean']}",
+        one_process_moe_dropped_mean=f"{MOE_SERVE['drop']}",
+        tick_p50_ms=f"{_pct50(rep['tick_wall_s']) * 1e3:.1f}",
+        one_process_tick_p50_ms=f"{MOE_SERVE['tick_p50'] * 1e3:.1f}",
+        launches=json.dumps(launched).replace(" ", ""), card=repr(smi))
+    out["moe_serve_across"] = (launched, tc)
+    free_cuda(torch)
+    return out
 
 
 def np_equal(a, b) -> bool:
@@ -6806,6 +7202,16 @@ def main() -> int:
     # read just after)
     for key, (got, got_tc) in run_across_phases(torch, kernels,
                                                  smi).items():
+        new_phases[key] = got
+        for n in got_tc:
+            tc[n] += got_tc[n]
+    # 7h-7j. the block families across 2 ranks, after phase 7's launch has
+    # exited: Mixtral trained with its live re-layout (K4 and K5 in each
+    # rank), zamba2 trained through a migration across the ranks, the MoE
+    # elastic serve at 2 stages (each part's counters zeroed in the ranks
+    # just before it and read just after)
+    for key, (got, got_tc) in run_family_ranks(torch, kernels,
+                                                smi).items():
         new_phases[key] = got
         for n in got_tc:
             tc[n] += got_tc[n]

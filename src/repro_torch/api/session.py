@@ -57,9 +57,10 @@ The port's differences from the reference:
     the reference's server): each rank holds its stage's rows of the paged
     KV pool, and a chaos worker crash evicts across the ranks.  In one
     process ``parallel.data > 1`` runs as one replica, which is
-    numerically what the reference's data axis computes.  What the ranks
-    cannot do yet (the non-dense families) raises and names ROADMAP Queue
-    1 [multi-card] (``refuse_across``).
+    numerically what the reference's data axis computes.  Every block
+    family runs across the ranks (MoE with its live expert re-layout
+    decided and committed on every rank; encoder–decoder, VLM, Mamba2 and
+    xLSTM stages with their shared leaves and carries).
 
 Teardown order matters and is centralized in ``close()``: the metrics
 snapshot, then the control plane (its worker thread must stop deciding
@@ -467,8 +468,6 @@ class Session:
         spec = self.spec
         obs = spec.obs
         mesh = self._mesh
-        if mesh is not None:
-            refuse_across("train", self._model_config())
 
         def leader_dt() -> float:
             # across ranks every input of a decision is the same bytes on
@@ -692,7 +691,7 @@ class Session:
                                      "bytes_sent", "bytes_recv")}}
                 entry["ranks"] = mesh.comm.all_gather_object(mine)
                 check_agreement(mesh, step, state.lps, state.assignment,
-                                engine, injector)
+                                engine, injector, ctrl.expert_layout)
             resize_mem.append(entry)
             active = engine.pool_active()      # every rank: a broadcast
             print(f"step {step:4d} {kind.upper()} {rz.from_stages}->"
@@ -710,6 +709,9 @@ class Session:
         absorb_cooldown = max(1, spec.controller.rebalance_every)
 
         losses, gnorms, events, step_times, stages_hist = [], [], [], [], []
+        lps_hist: List[List[int]] = []
+        # MoE: [step, expert skew, drop fraction] at each applied decision
+        moe_hist: List[List[Any]] = []
         # across ranks: the bytes of state this rank held after each step
         held: List[int] = []
         exited_frac: Dict[int, float] = {}
@@ -747,6 +749,7 @@ class Session:
             dt = time.perf_counter() - t_step
             step_times.append(dt)
             stages_hist.append(state.stages)
+            lps_hist.append(list(state.lps))
             if engine.last_step_compiled:
                 warmup_steps += 1
                 warmup_s += dt
@@ -933,6 +936,9 @@ class Session:
                 if plan.event is not None:
                     expert_skew_last = plan.event.expert_skew
                     moe_dropped_last = plan.event.expert_dropped
+                    if cfg.num_experts:
+                        moe_hist.append([step, expert_skew_last,
+                                         moe_dropped_last])
                 if plan.event is not None and plan.event.rebalanced:
                     events.append(plan.event)
                     self._emit("rebalance", step,
@@ -971,15 +977,18 @@ class Session:
                         plan, state.params, state.opt_state, state.dyn)
                     state.lps = cp.with_ctrl(lambda c: list(c.lps))
                 # expert re-layout: orthogonal to the stage plan above (it
-                # rewrites only the expert_map dyn leaf); MoE refuses ranks
-                # ([multi-card]), so no released rank (dyn None) gets here
-                if (plan.expert_relayout is not None
-                        and state.dyn is not None
-                        and "expert_map" in state.dyn):
+                # rewrites only the expert_map dyn leaf).  Every rank
+                # commits it to its controller and records it; only a rank
+                # holding rows (a released one's dyn is None) rewrites its
+                # expert_map row
+                if plan.expert_relayout is not None:
                     rl = plan.expert_relayout
-                    em = state.dyn["expert_map"]
-                    state.dyn = {**state.dyn, "expert_map": em.new_tensor(
-                        rl.new.as_array()).expand_as(em).clone()}
+                    if state.dyn is not None and "expert_map" in state.dyn:
+                        em = state.dyn["expert_map"]
+                        state.dyn = {**state.dyn,
+                                     "expert_map": em.new_tensor(
+                                         rl.new.as_array()).expand_as(
+                                             em).clone()}
                     cp.with_ctrl(lambda c: c.commit_relayout(rl))
                     rec = {"iteration": rl.iteration, "skew": rl.skew,
                            "tokens": rl.total_tokens,
@@ -993,7 +1002,7 @@ class Session:
                           f"{list(rl.new.placement)}", flush=True)
             if mesh is not None and ctrl.cadence(step + 1):
                 check_agreement(mesh, step, state.lps, state.assignment,
-                                engine, injector)
+                                engine, injector, ctrl.expert_layout)
 
             # ---- autoscaler: heartbeat + watermark signals
             if scaler is not None:
@@ -1137,6 +1146,8 @@ class Session:
             "dyn": state.dyn, "opt_state": state.opt_state,
             "tokens_per_step": tokens_per_step,
             "step_times": step_times, "stages_history": stages_hist,
+            # the split each step ran on
+            "lps_history": lps_hist,
             "resizes": [dataclasses.asdict(e) for e in engine.resizes],
             # the pool's transitions; behind an RPC boundary, the client's
             # mirror of them
@@ -1164,6 +1175,7 @@ class Session:
             "relayouts": relayouts,
             "expert_skew_last": expert_skew_last,
             "moe_dropped_last": moe_dropped_last,
+            "moe_history": moe_hist,
             "expert_layout": (list(ctrl.expert_layout.placement)
                               if ctrl.expert_layout is not None else None),
             "autoscale_decisions": ([dataclasses.asdict(d)
@@ -1200,10 +1212,6 @@ class Session:
         counters under ``ranks``."""
         from repro_torch.configs.base import get_config
         from repro_torch.launch.dist import launch
-        from repro_torch.launch.sharding import check_layout
-        cfg = self._model_config()
-        refuse_across("train", cfg)
-        check_layout(cfg, self.spec.parallel.data)
         resume = (None if self._resume_dir is None
                   else (self._resume_dir, self._resume_step))
         res = launch("repro_torch.api.session:rank_train", self.procs,
@@ -1251,8 +1259,6 @@ class Session:
         if self.procs > 1 and self._mesh is None:
             return self._serve_across(trace, resize_at)
         mesh = self._mesh
-        if mesh is not None:
-            refuse_across("serve", self._model_config())
         tracer = self._obs_begin("serve")
         cfg = self._model_config()
         dcfg = self._dist_config()
@@ -1387,7 +1393,6 @@ class Session:
                 f"at data 1 (as the reference's Session.serve builds its "
                 f"server): parallel.stages={self.spec.parallel.stages} must "
                 f"equal procs={self.procs}")
-        refuse_across("serve", self._model_config())
         spec = dataclasses.replace(self.spec, parallel=dataclasses.replace(
             self.spec.parallel, data=1))
         res = launch("repro_torch.api.session:rank_serve_elastic",
@@ -1405,23 +1410,17 @@ class Session:
 # ---------------------------------------------------------------------------
 # Ranks
 # ---------------------------------------------------------------------------
-def refuse_across(kind: str, cfg) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP Queue 1 [multi-card]
-    for a family the ranks do not run yet (every non-dense one)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{kind} across ranks does not run the {cfg.family} family yet "
-            f"(ROADMAP Queue 1 [multi-card])")
-
-
 def check_agreement(mesh, step: int, lps, assignment, engine=None,
-                    injector=None) -> None:
+                    injector=None, layout=None) -> None:
     """Every rank's split and assignment — and with the ``engine``, its
     epoch, stage -> worker map and pool, with the ``injector`` its fault
-    log — must be the same bytes after a cadence, a resize and a restore
-    (the ranks decide independently from gathered inputs)."""
+    log, with the ``layout`` its controller's logical expert placement —
+    must be the same bytes after a cadence, a resize and a restore (the
+    ranks decide independently from gathered inputs)."""
     import hashlib
     h = hashlib.sha256(repr(list(lps)).encode())
+    if layout is not None:
+        h.update(repr(list(layout.placement)).encode())
     for k in sorted(assignment):
         h.update(assignment[k].cpu().numpy().tobytes())
     if engine is not None:
@@ -1435,7 +1434,8 @@ def check_agreement(mesh, step: int, lps, assignment, engine=None,
     seen = mesh.comm.all_gather_object(h.hexdigest())
     if len(set(seen)) != 1:
         raise RuntimeError(f"step {step}: the ranks' assignments, worlds, "
-                           f"pools or fault logs differ ({seen})")
+                           f"pools, fault logs or expert layouts differ "
+                           f"({seen})")
 
 
 def _rank_spec(mesh, spec: RunSpec) -> RunSpec:
@@ -1458,6 +1458,8 @@ def _rank_info(mesh, **extra) -> Dict[str, Any]:
             "backend": mesh.backend, "launches": launch_counts(),
             "peak_allocated": (torch.cuda.max_memory_allocated(mesh.device)
                                if cuda else None),
+            "peak_reserved": (torch.cuda.max_memory_reserved(mesh.device)
+                              if cuda else None),
             "comm": dict(mesh.comm.stats), **extra,
             "foreign_modules": foreign_modules()}
 
@@ -1506,14 +1508,15 @@ def state_digest(world, params, opt_state) -> Dict[str, Any]:
 
 def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
                gather: bool = False, arch=None, resume=None,
-               digest: bool = False) -> Dict[str, Any]:
+               digest=False) -> Dict[str, Any]:
     """One rank of ``Session(procs=N).train`` (run by ``launch.dist``):
     rank 0 keeps the observability outputs and returns the report.
     ``arch``: the parent's ``ModelConfig`` of ``spec.model.arch``, which
     the rank registers when its registry lacks it (a config registered at
     run time in the parent).  ``resume``: (safe-point directory, step) as
     the parent's ``Session.resume`` resolved it.  ``digest`` adds the
-    rank's ``state_digest`` to its counters."""
+    rank's ``state_digest`` to its counters (a callable takes its place:
+    ``digest(world, params, opt_state)``)."""
     import torch
 
     from repro_torch.launch.dist import ensure_arch
@@ -1526,11 +1529,14 @@ def rank_train(mesh, spec: RunSpec, steps=None, params=None, on_step=None,
             s._resume_dir, s._resume_step = resume
         rep = s.train(steps, on_step=on_step)
     t = rep["timing"]
-    extra = {"digest": state_digest(*s._final)} if digest else {}
+    extra = ({"digest": (digest if callable(digest) else state_digest)(
+        *s._final)} if digest else {})
     info = _rank_info(mesh, step_times=list(rep["step_times"]),
                       role=rep["role"], held_bytes=list(rep["held_bytes"]),
                       safepoint_writes=t["safepoint_writes"],
                       applied=rep["controller"]["applied"],
+                      expert_layout=rep["expert_layout"],
+                      relayouts=list(rep["relayouts"]),
                       restore={"seconds": t["restore_s"],
                                "allocated": t["restore_allocated"],
                                "files": t["restore_files"]}, **extra,

@@ -88,12 +88,15 @@ class Comm:
     """Collectives and point-to-point transfers of one rank.
 
     ``stats`` counts the pipeline's hand-offs: ``handoffs`` (carries and
-    carry gradients sent), ``copy_s`` (the device <-> host staging copies
-    on both sides), ``send_s`` (inside ``send``) and ``recv_wait_s`` (inside
-    ``recv``, which includes waiting for the peer's compute), the rows a
-    migration or a resize moved (``rows_sent`` / ``rows_recv``, one per
-    slot of a tree) and the bytes ``exchange`` moved (``bytes_sent`` /
-    ``bytes_recv``)."""
+    carry gradients sent) and their ``handoff_bytes``, ``copy_s`` (the
+    device <-> host staging copies on both sides), ``send_s`` (inside
+    ``send``) and ``recv_wait_s`` (inside ``recv``, which includes waiting
+    for the peer's compute), the seconds of a train step's gradient sums
+    (``grad_ring_s``: the replicated leaves' over the model ring,
+    ``grad_data_s``: every gradient's over ``data``; both from an idle
+    card when staged), the rows a migration or a resize moved
+    (``rows_sent`` / ``rows_recv``, one per slot of a tree) and the bytes
+    ``exchange`` moved (``bytes_sent`` / ``bytes_recv``)."""
 
     def __init__(self, backend: str, device: torch.device):
         self.backend = backend
@@ -103,8 +106,10 @@ class Comm:
         # id(group) -> the group ranks' positions in the order the mesh
         # lists its members (a process group orders them by global rank)
         self.order: Dict[int, List[int]] = {}
-        self.stats = {"handoffs": 0, "copy_s": 0.0, "send_s": 0.0,
-                      "recv_wait_s": 0.0, "rows_sent": 0, "rows_recv": 0,
+        self.stats = {"handoffs": 0, "handoff_bytes": 0, "copy_s": 0.0,
+                      "send_s": 0.0, "recv_wait_s": 0.0,
+                      "grad_ring_s": 0.0, "grad_data_s": 0.0,
+                      "rows_sent": 0, "rows_recv": 0,
                       "bytes_sent": 0, "bytes_recv": 0}
 
     # -- helpers -------------------------------------------------------------
@@ -152,6 +157,7 @@ class Comm:
         dist.send(h, dst)
         self.stats["send_s"] += time.perf_counter() - t0
         self.stats["handoffs"] += 1
+        self.stats["handoff_bytes"] += h.numel() * h.element_size()
 
     def recv(self, out: torch.Tensor, src: int) -> torch.Tensor:
         """Receive into ``out`` (a tensor of the expected shape and dtype on
@@ -164,23 +170,32 @@ class Comm:
         return self._in(h, out)
 
     def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]],
-                 recvs: Sequence[Tuple[torch.Tensor, int]]) -> None:
+                 recvs: Sequence[Tuple[torch.Tensor, int]],
+                 tally: bool = True) -> None:
         """Post every send and receive at once (one ``batch_isend_irecv``)
         and wait for all of them; ``recvs``' tensors are filled in place.
         Both sides list their transfers in one global order, so the k-th
-        message between two ranks is the one both sides mean."""
+        message between two ranks is the one both sides mean.  ``tally``
+        counts the bytes in ``bytes_sent`` / ``bytes_recv`` (a resize's
+        moves; a train step's gradient sums are not counted there)."""
         import torch.distributed as dist
-        ops, landed = [], []
+        ops, landed, staged = [], [], {}
         for t, dst in sends:
-            h = t.detach().to("cpu") if self.staged else t.contiguous()
+            # a tensor sent to several ranks is staged once
+            h = staged.get(id(t))
+            if h is None:
+                h = staged[id(t)] = (t.detach().to("cpu") if self.staged
+                                     else t.contiguous())
             ops.append(dist.P2POp(dist.isend, h, dst))
-            self.stats["bytes_sent"] += h.numel() * h.element_size()
+            if tally:
+                self.stats["bytes_sent"] += h.numel() * h.element_size()
         for out, src in recvs:
             h = (torch.empty(out.shape, dtype=out.dtype) if self.staged
                  else out)
             landed.append((h, out))
             ops.append(dist.P2POp(dist.irecv, h, src))
-            self.stats["bytes_recv"] += h.numel() * h.element_size()
+            if tally:
+                self.stats["bytes_recv"] += h.numel() * h.element_size()
         if not ops:
             return
         for w in dist.batch_isend_irecv(ops):

@@ -71,8 +71,8 @@ from repro_torch.cluster.rpc import (InProcessJobManager, JobManagerClient,
 from repro_torch.configs.base import BLOCK_MOE, DistConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dynamics.config import DynamicsConfig
-from repro_torch.launch.sharding import (check_layout, local_params,
-                                         local_rows, merge_trees,
+from repro_torch.launch.sharding import (local_params, local_rows,
+                                         merge_trees,
                                          row_template, send_replicated,
                                          split_batch, split_stages,
                                          state_bytes, tree_digest, zeros)
@@ -211,7 +211,6 @@ class ElasticEngine:
                  device: DeviceLike = None, hash_proj=None,
                  in_step_timing: bool = False, mesh=None):
         M.check_ported(cfg, dyncfg)
-        check_layout(cfg, mesh)
         if mesh is not None and dcfg.num_stages != mesh.model:
             raise ValueError(f"{dcfg.num_stages} stages on a model ring of "
                              f"{mesh.model} ranks")

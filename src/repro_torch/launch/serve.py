@@ -72,7 +72,9 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
     ``params`` (a converted reference tree) replaces the init, which
     draws from a torch generator seeded with ``seed`` as the engine's
     does.  Returns the tokens [micro, mb_global, gen], the wall seconds,
-    tokens/s and the final split.
+    tokens/s, the final split and, for an MoE arch, ``moe_drop_sum``: the
+    capacity-drop fractions summed over the prefill's and every decode's
+    stage calls (None otherwise).
 
     ``procs`` > 1 runs it as that many ranks (``data x stages`` of them;
     ``dist_backend`` forces the backend) and returns rank 0's result with
@@ -134,13 +136,8 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
         params = _to(params, dev)
     lanes_mb = mb_global
     if mesh is not None:
-        from repro_torch.launch.sharding import (check_layout, lanes,
-                                                 local_params, local_rows)
-        check_layout(cfg, mesh)
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"the {cfg.family} family across ranks is not in the port "
-                f"yet (ROADMAP Queue 1 [multi-card])")
+        from repro_torch.launch.sharding import (lanes, local_params,
+                                                 local_rows)
         params = local_params(params, mesh)
         sl = lanes(mesh, mb_global)
         lanes_mb = sl.stop - sl.start
@@ -175,13 +172,14 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
     outs = []
     t0 = time.perf_counter()
     with torch.no_grad():
-        ids, cache, _ = prefill(params, assignment, dyn, cache,
-                                {"tokens": tokens})
+        ids, cache, drop = prefill(params, assignment, dyn, cache,
+                                   {"tokens": tokens})
         outs.append(ids.cpu().numpy())
         for g in range(1, gen):
             pos = torch.tensor(prompt_len + g - 1, device=dev)
-            ids, _, cache, _ = decode(params, assignment, dyn, cache, ids,
+            ids, _, cache, d = decode(params, assignment, dyn, cache, ids,
                                       pos)
+            drop = drop + d
             outs.append(ids.cpu().numpy())
             if rebalance_every and g % rebalance_every == 0:
                 # serving-time profile: the survival-curve cost vector
@@ -201,7 +199,8 @@ def run_serving(arch: str, *, stages: int = 4, micro: int = 2,
     gen_tokens = np.stack(outs, axis=-1)
     tps = micro * mb_global * gen / wall
     return {"tokens": gen_tokens, "wall_s": wall, "tokens_per_s": tps,
-            "final_lps": ctrl.lps}
+            "final_lps": ctrl.lps,
+            "moe_drop_sum": float(drop) if cfg.num_experts else None}
 
 
 def rank_serve(mesh, arch_config=None, **kw) -> Dict[str, Any]:

@@ -18,8 +18,12 @@ moments from the new world's stage-0 rank of its data row
 (``send_replicated``); ``row_template`` gives the shapes a receive lands
 in, ``tree_digest`` the bytes every rank of a world must agree on.
 
-FSDP (the reference shards stage weights over ``data`` for archs above 8B
-parameters) is not in the port yet.
+Stage rows stay on their ``model`` rank and are replicated over ``data``
+for every arch, as the reference's runtime places them
+(``ElasticEngine._place``: stage leaves on ``model``, everything else
+replicated).  The reference's FSDP sharding over ``data`` (archs above 8B
+parameters) is read only by its AOT dry-run's input specs; its port
+belongs with that dry-run (ROADMAP Queue 1 [tpu-mesh]).
 """
 from __future__ import annotations
 
@@ -28,23 +32,6 @@ import hashlib
 from typing import Any, Optional, Tuple
 
 import torch
-
-# the reference turns FSDP on above this many parameters
-# (``repro.launch.specs``)
-FSDP_PARAMS = 8e9
-
-
-def check_layout(cfg, mesh) -> None:
-    """Refuse what this layout cannot hold: FSDP over ``data``.  ``mesh``:
-    a ``launch.mesh.Mesh``, or the data degree a launch will have (checked
-    before any rank starts)."""
-    data = mesh if isinstance(mesh, int) else (1 if mesh is None
-                                               else mesh.data)
-    if data > 1 and cfg.param_count() > FSDP_PARAMS:
-        raise NotImplementedError(
-            f"{cfg.name} has {cfg.param_count() / 1e9:.1f}B parameters: the "
-            f"reference shards its stage weights over data (FSDP), which "
-            f"the port's ranks do not yet (ROADMAP Queue 1 [multi-card])")
 
 
 def local_rows(tree: Any, mesh) -> Any:

@@ -24,7 +24,8 @@ a PAD slot costs nothing and no device value is read back.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+import contextlib
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -492,6 +493,24 @@ def moe_capacity(cfg: ModelConfig, s: int) -> int:
     return max(4, min(s, (cap + 3) // 4 * 4))
 
 
+# (sum over the data replicas, replica count) while a pipeline loss runs
+# across data replicas (``data_sum``); None: the microbatch is whole here
+_DATA_SUM: Optional[Tuple[Callable, int]] = None
+
+
+@contextlib.contextmanager
+def data_sum(fn: Optional[Callable], data: int = 1):
+    """Within the block, ``moe_ffn``'s load-balancing loss is taken over
+    the whole microbatch: ``fn`` sums a tensor over the ``data`` replicas
+    (None: nothing to sum)."""
+    global _DATA_SUM
+    prev, _DATA_SUM = _DATA_SUM, (None if fn is None else (fn, data))
+    try:
+        yield
+    finally:
+        _DATA_SUM = prev
+
+
 def moe_ffn(p, x, cfg: ModelConfig, *, kernel_impl: str = "scan",
             expert_map=None):
     """x: [mb, s, d] -> (y, expert_load [E], aux_loss, dropped_frac), as
@@ -514,7 +533,14 @@ def moe_ffn(p, x, cfg: ModelConfig, *, kernel_impl: str = "scan",
     The combine is a reshape of the k-major pairs to [K, s, d] and a sum
     over k in a fixed order — no atomics, so its bits do not change from
     run to run (the reference scatter-adds; with two terms per token the
-    sums are equal)."""
+    sums are equal).
+
+    Under ``data_sum`` (a replica's lanes of the microbatch) the auxiliary
+    loss is the whole microbatch's: the router's probability sums and the
+    loads are summed over the replicas before the product, the other
+    replicas' sums entering as constants (the router's gradient stays
+    local and is summed over ``data`` with every gradient).  ``load`` and
+    the drop fraction stay the replica's own."""
     E, K = cfg.num_experts, cfg.experts_per_token
     b, s, d = x.shape
     cap = moe_capacity(cfg, s)
@@ -564,8 +590,16 @@ def moe_ffn(p, x, cfg: ModelConfig, *, kernel_impl: str = "scan",
     # expert's cap — the same keep mask on every impl
     dropped = 1.0 - keep.float().mean()
     # auxiliary load-balancing loss (Mixtral-style), returned via stats
-    me = probs.reshape(-1, E).mean(0)
-    ce = load / torch.clamp(load.sum(), min=1.0)
+    if _DATA_SUM is None:
+        me = probs.reshape(-1, E).mean(0)
+        ce = load / torch.clamp(load.sum(), min=1.0)
+    else:
+        red, data = _DATA_SUM
+        sp = probs.reshape(-1, E).sum(0)
+        sp = sp + (red(sp.detach()) - sp.detach())
+        me = sp / float(b * s * data)
+        load_all = red(load)
+        ce = load_all / torch.clamp(load_all.sum(), min=1.0)
     aux_loss = E * (me * ce).sum()
     return y, load, aux_loss, dropped
 

@@ -27,11 +27,17 @@ gradients of every param leaf, stage params per active slot.  Across
 ranks the backward walks each rank's ticks in reverse, receiving the
 carry's gradient from s+1 and sending its input's gradient to s-1; the
 loss's numerator and denominator are summed over every rank before the
-division, as the reference's ``psum(nll) / psum(cnt)``.
+division, as the reference's ``psum(nll) / psum(cnt)``.  Every sum the
+ranks split — a slot leaf read several times in a call (its running sum
+enters each call first), a shared leaf read on several stages (per stage,
+then in stage order, in one process too), the MoE aux losses and drop
+fractions (in the one-process tick order) — adds in the one process's
+order, so at data 1 the ranks are bitwise one process.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional
 
 import torch
@@ -300,7 +306,7 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
         return _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh,
                              hash_proj, stage_timer)
 
-    def loss_fn(params, assignment, dyn, batch):
+    def loss_fn(params, assignment, dyn, batch, sites=None):
         tokens = batch["tokens"]
         device = tokens.device
         m = shapes.num_micro
@@ -319,10 +325,12 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
             else:
                 carry = buf.pop(idx)
 
-            def stage_fn(carry, idx=idx):
+            shared = _site(params["shared"], sites, idx)
+
+            def stage_fn(carry, idx=idx, shared=shared):
                 return M.stage_forward(
                     cfg, dcfg, dyncfg, mode,
-                    _stage_slice(params["stages"], idx), params["shared"],
+                    _stage_slice(params["stages"], idx), shared,
                     tags[idx], _stage_slice(dyn, idx), carry, None, pos,
                     depth_base[idx], hash_proj=hash_proj)
 
@@ -366,6 +374,64 @@ def build_loss_fn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
         return loss, stats
 
     return loss_fn
+
+
+def _site(shared, sites, stage: int):
+    """The shared leaves one stage call reads: ``shared`` itself, or — under
+    ``value_and_grad`` (``sites`` a list) — leaves of their own, recorded
+    as ``(stage, leaves)``, so each call's gradient is taken apart and the
+    calls' gradients are summed in one fixed order (``_sum_sites``) in one
+    process and across ranks alike."""
+    if sites is None or not shared:
+        return shared
+    own = {k: v.detach().requires_grad_(v.requires_grad)
+           for k, v in shared.items()}
+    sites.append((stage, own))
+    return own
+
+
+def _add_in_order(parts, like):
+    """The non-None ``parts`` added in order; zeros of ``like`` when there
+    are none (None when ``like`` is None)."""
+    got = [g for g in parts if g is not None]
+    if not got:
+        return None if like is None else torch.zeros_like(like)
+    tot = got[0]
+    for g in got[1:]:
+        tot = tot + g
+    return tot
+
+
+def _sum_sites(base, sites, stages, name):
+    """Each stage's gradient of the shared leaf ``name``: the direct
+    uses' (``base``, stage 0's ingest) and then its calls' in tick order;
+    None where a stage has none."""
+    out = []
+    for s in stages:
+        g = base if s == stages[0] else None
+        for st, own in sites:
+            t = own[name]
+            if st == s and t.grad is not None:
+                g = t.grad if g is None else g + t.grad
+        out.append(g)
+    return out
+
+
+def _call_leaves(stage_p):
+    """One stage call's own leaves of the per-slot param leaves
+    (``value_and_grad``'s; detached views, no copy) and the (slot leaf,
+    call leaf) pairs."""
+    pairs = []
+
+    def own(t):
+        if not (torch.is_tensor(t) and t.requires_grad):
+            return t
+        q = t.detach().requires_grad_(True)
+        pairs.append((t, q))
+        return q
+    if not all(isinstance(v, list) for v in stage_p.values()):
+        return stage_p, pairs
+    return {k: [own(t) for t in row] for k, row in stage_p.items()}, pairs
 
 
 def _prefix(batch, mi: int):
@@ -452,11 +518,18 @@ def value_and_grad(loss_fn, params, assignment, dyn, batch):
             flat.append(v)
     if tied is not None:
         flat.append(tied)
+    sites = []
     if mesh is None:
-        loss, stats = loss_fn(view, assignment, dyn, batch)
-        got = list(torch.autograd.grad(loss, flat, allow_unused=True))
+        loss, stats = loss_fn(view, assignment, dyn, batch, sites=sites)
+        own = [t for _, leaves_ in sites for t in leaves_.values()
+               if t.requires_grad]
+        got = list(torch.autograd.grad(loss, flat + own, allow_unused=True))
+        for t, g in zip(own, got[len(flat):]):
+            t.grad = g
+        del got[len(flat):]
     else:
-        loss, stats = loss_fn(view, assignment, dyn, batch, backward=True)
+        loss, stats = loss_fn(view, assignment, dyn, batch, backward=True,
+                              sites=sites)
         got = [t.grad for t in flat]
     got.reverse()
 
@@ -477,13 +550,28 @@ def value_and_grad(loss_fn, params, assignment, dyn, batch):
                             full[s, l] = take(t)
                 grads[k][f] = full
         elif k == "shared":
-            grads[k] = {n: take(t) for n, t in v.items()}
+            # a shared leaf's gradient is summed per stage, then over the
+            # stages that read it, in stage order: the same additions in
+            # one process and across ranks (``_reduce_grads``)
+            grads[k] = {}
+            for n, t in v.items():
+                parts = _sum_sites(got.pop(), sites,
+                                   list(range(len(tags))) if mesh is None
+                                   else [mesh.stage], n)
+                grads[k][n] = (_add_in_order(parts, t) if mesh is None
+                               else parts[0])
         else:
-            grads[k] = take(v)
+            g = got.pop()
+            # across ranks a leaf this rank never read stays None: the
+            # ranks that read it send theirs (``_reduce_grads``)
+            grads[k] = g if mesh is not None or g is not None else \
+                torch.zeros_like(v)
     if tied is not None:
-        grads["embed"] = grads["embed"] + take(tied)
+        grads["embed"] = _add_in_order([grads["embed"], got.pop()],
+                                       None if mesh is not None
+                                       else params["embed"])
     if mesh is not None:
-        grads = _reduce_grads(grads, mesh)
+        grads = _reduce_grads(grads, params, mesh)
     return loss.detach(), stats, grads
 
 
@@ -528,14 +616,23 @@ def _diff_leaves(carry):
     return [k for k in sorted(carry) if k != "exited"]
 
 
+# stats that count (summed over ``data``); the rest are means over a
+# replica's lanes (averaged over ``data``)
+COUNT_STATS = ("expert_load",)
+
+
 def _gather_stats(stats, mesh):
     """This stage's ``{field: [L_max, ...]}`` -> ``{field: [S, L_max,
-    ...]}`` on every rank, averaged over ``data`` (each replica's are its
-    lanes' sums, as the reference's over the whole microbatch)."""
+    ...]}`` on every rank, as the reference's over the whole microbatch:
+    the per-expert token counts summed over ``data``, the fractions (each
+    replica's over its equal share of the lanes) averaged."""
     keys = sorted(stats)
     flat = torch.cat([stats[k].reshape(-1).float() for k in keys])
     if mesh.data > 1:
-        flat = mesh.comm.all_reduce(flat, mesh.data_group) / mesh.data
+        tot = mesh.comm.all_reduce(flat, mesh.data_group)
+        count = torch.cat([torch.full((stats[k].numel(),), k in COUNT_STATS,
+                                      device=flat.device) for k in keys])
+        flat = torch.where(count, tot, tot / mesh.data)
     full = mesh.comm.all_gather(flat, mesh.model_group)     # [S, n]
     out, o = {}, 0
     for k in keys:
@@ -546,26 +643,109 @@ def _gather_stats(stats, mesh):
     return out
 
 
-def _reduce_grads(grads, mesh):
-    """Sum the replicated leaves' gradients over the model ring, then every
-    gradient over ``data``."""
-    comm = mesh.comm
-    out = {}
-    for k, v in grads.items():
-        if k == "stages":
-            out[k] = v
-        elif k == "shared":
-            out[k] = {n: comm.all_reduce(g, mesh.model_group)
-                      for n, g in v.items()}
+def _replicated(tree, path=()):
+    """(path, leaf) of the leaves replicated over ``model`` (everything but
+    ``stages``), None leaves included, keys in sorted order."""
+    for k in sorted(tree):
+        if k == "stages" and not path:
+            continue
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _replicated(v, path + (k,))
         else:
-            out[k] = comm.all_reduce(v, mesh.model_group)
+            yield path + (k,), v
+
+
+def _reduce_grads(grads, params, mesh):
+    """Sum the replicated leaves' gradients over the model ring, then every
+    gradient over ``data``.
+
+    A replicated leaf's gradient comes from the stages that read it (the
+    embedding's from stage 0 and, tied, the last; the head's and
+    ``final_norm``'s from the last; a shared leaf's from its stages; None
+    elsewhere).  The first of them sums the others' in stage order — as
+    one process adds them — and hands the sum to every other rank of the
+    ring: point-to-point transfers (``Comm.exchange``) in three rounds
+    (the readers' gradients to the first; the sum cut into a piece for
+    each other rank; each piece passed on among them).  A leaf no stage
+    read is zeros everywhere."""
+    comm = mesh.comm
+    if comm.staged:
+        # the sums' own seconds: the backward's queued work first
+        torch.cuda.synchronize(comm.device)
+    t0 = time.perf_counter()
+    flat = list(_replicated(grads))
+    like = dict(_replicated(params))
+    like[("embed",)] = params["embed"]
+    S, me = mesh.model, mesh.stage
+    ring = [mesh.rank_of(st) for st in range(S)]
+    have = torch.tensor([g is not None for _, g in flat], dtype=torch.uint8)
+    seen = comm.all_gather(have, mesh.model_group).tolist()   # [S, n]
+    readers = [[st for st in range(S) if seen[st][i]]
+               for i in range(len(flat))]
+    # round 1: each reader's gradient to the leaf's first reader
+    sends, recvs, got = [], [], {}
+    for i, (path, g) in enumerate(flat):
+        rd = readers[i]
+        if len(rd) < 2 or me not in rd:
+            continue
+        if me == rd[0]:
+            for st in rd[1:]:
+                got[i, st] = torch.empty_like(g)
+                recvs.append((got[i, st], ring[st]))
+        else:
+            sends.append((g, ring[rd[0]]))
+    comm.exchange(sends, recvs, tally=False)
+    # rounds 2 and 3: the sum from the first reader to every other rank,
+    # cut into one piece per receiver (round 2), which each receiver
+    # passes on to the others (round 3): the first reader sends the
+    # leaf's bytes once, not once per rank
+    out = {}
+    rounds = ([], []), ([], [])
+    for i, (path, g) in enumerate(flat):
+        rd = readers[i]
+        if not rd:
+            out[path] = torch.zeros_like(like[path])
+            continue
+        src = rd[0]
+        if me == src:
+            out[path] = _add_in_order([g] + [got.pop((i, st))
+                                             for st in rd[1:]], None)
+        else:
+            out[path] = torch.empty_like(like[path])
+        rcv = [st for st in range(S) if st != src]
+        if not rcv:
+            continue
+        pieces = out[path].view(-1).tensor_split(len(rcv))
+        for j, st in enumerate(rcv):
+            if not pieces[j].numel():
+                continue
+            if me == src:
+                rounds[0][0].append((pieces[j], ring[st]))
+            elif me == st:
+                rounds[0][1].append((pieces[j], ring[src]))
+                rounds[1][0].extend((pieces[j], ring[o]) for o in rcv
+                                    if o != st)
+            elif me in rcv:
+                rounds[1][1].append((pieces[j], ring[st]))
+    for sends, recvs in rounds:
+        comm.exchange(sends, recvs, tally=False)
+    red = {"stages": grads["stages"]}
+    for path, t in out.items():
+        node = red
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    t1 = time.perf_counter()
+    comm.stats["grad_ring_s"] += t1 - t0
     if mesh.data > 1:
         def over_data(t):
             if isinstance(t, dict):
                 return {k: over_data(v) for k, v in t.items()}
             return comm.all_reduce(t, mesh.data_group)
-        out = over_data(out)
-    return out
+        red = over_data(red)
+        comm.stats["grad_data_s"] += time.perf_counter() - t1
+    return red
 
 
 def _check_mesh(dcfg: DistConfig, mesh) -> None:
@@ -589,9 +769,41 @@ def _broadcast_ids(mesh, *outs):
     return res
 
 
+def _ordered_sum(vals, m: int, S: int):
+    """``vals`` [S, m] (a per-call scalar, every stage's gathered) summed
+    in the one-process tick order (``_ticks``), from zero as one process
+    sums them."""
+    acc = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    for _, idx, mi in _ticks(m, S):
+        acc = acc + vals[idx, mi]
+    return acc
+
+
+def _spec_for(spec, batch):
+    """The carry spec of a batch: whisper served without frames carries no
+    encoder stream."""
+    return spec if "frames" in batch else {k: v for k, v in spec.items()
+                                           if k != "enc"}
+
+
+def _drop_sum(cfg, drop, mesh, m: int, device):
+    """The MoE drop fractions of every stage call (``drop``: this rank's,
+    per microbatch) summed as one process sums them: gathered over the
+    ring, averaged over ``data`` (each replica's are over its equal share
+    of the lanes), added in the tick order; the same value on every rank.
+    Zero, with no collective, for an arch without experts."""
+    if not cfg.num_experts:
+        return torch.zeros((), device=device)
+    rows = mesh.comm.all_gather(drop, mesh.model_group)      # [S, m]
+    if mesh.data > 1:
+        rows = mesh.comm.all_reduce(rows, mesh.data_group) / mesh.data
+    return _ordered_sum(rows, m, mesh.model)
+
+
 def _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh, hash_proj,
                   stage_timer):
     from repro_torch.launch.sharding import replica_shapes
+    from repro_torch.models.blocks import data_sum
     _check_mesh(dcfg, mesh)
     S, s = mesh.model, mesh.stage
     dt = M.param_dtype(dcfg)
@@ -600,8 +812,17 @@ def _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh, hash_proj,
     prev = mesh.rank_of(s - 1) if s > 0 else None
     nxt = mesh.rank_of(s + 1) if s < S - 1 else None
     comm = mesh.comm
+    # MoE's load-balancing loss over the whole microbatch: its router
+    # means and counts are summed over the data replicas
+    over_data = (None if mesh.data == 1 or not cfg.num_experts else
+                 (lambda t: comm.all_reduce(t, mesh.data_group)))
 
-    def loss_fn(params, assignment, dyn, batch, backward: bool = False):
+    def loss_fn(params, assignment, dyn, batch, backward: bool = False,
+                sites=None):
+        with data_sum(over_data, mesh.data):
+            return run(params, assignment, dyn, batch, backward, sites)
+
+    def run(params, assignment, dyn, batch, backward, sites):
         tokens = batch["tokens"]
         device = tokens.device
         m = shapes.num_micro
@@ -611,14 +832,15 @@ def _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh, hash_proj,
         stage_p = _stage_slice(params["stages"], 0)
         dyn_s = _stage_slice(dyn, 0)
         acc = None
-        aux_acc = 0.0
+        aux_mi = torch.zeros(m, device=device)
         exited = []
-        kept = []              # (micro, carry in, carry out), tick order
+        kept = []              # (micro, carry in, carry out, aux), tick order
         h_seq = {}
+        spec_b = _spec_for(spec, batch)
 
-        def stage_fn(carry):
+        def stage_fn(carry, shared, stage_p):
             return M.stage_forward(cfg, dcfg, dyncfg, mode, stage_p,
-                                   params["shared"], tags, dyn_s, carry,
+                                   shared, tags, dyn_s, carry,
                                    None, pos, depth_base,
                                    hash_proj=hash_proj)
 
@@ -631,28 +853,33 @@ def _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh, hash_proj,
                     carry = _ingest(params, cfg, dyncfg, tokens[mi], dt,
                                     _prefix(batch, mi))
                 else:
-                    carry = _recv_carry(comm, spec, prev, device, backward)
+                    carry = _recv_carry(comm, spec_b, prev, device, backward)
+                shared = _site(params["shared"], sites, s)
+                call_p, pairs = (_call_leaves(stage_p) if backward
+                                 else (stage_p, []))
                 if stage_timer is not None:
                     stage_timer.stamp(0, 0)
                 if dcfg.remat == "full":
-                    out, _, stats, aux = checkpoint(stage_fn, carry,
+                    out, _, stats, aux = checkpoint(stage_fn, carry, shared,
+                                                    call_p,
                                                     use_reentrant=False)
                 else:
-                    out, _, stats, aux = stage_fn(carry)
+                    out, _, stats, aux = stage_fn(carry, shared, call_p)
                 if stage_timer is not None:
                     stage_timer.stamp(0, 1)
                 stats = {k: v.detach() for k, v in stats.items()}
                 acc = stats if acc is None else {k: acc[k] + v
                                                  for k, v in stats.items()}
-                aux_acc = aux_acc + aux
+                if torch.is_tensor(aux):
+                    aux_mi[mi] = aux.detach()
                 if s == S - 1:
                     h_seq[mi] = out["x"][:, shapes.prefix:]
                     if "exited" in out:
                         exited.append(out["exited"].detach().mean())
                 else:
-                    _send_carry(comm, out, spec, nxt)
+                    _send_carry(comm, out, spec_b, nxt)
                 if backward:
-                    kept.append((mi, carry, out))
+                    kept.append((mi, carry, out, aux, pairs))
             nll = cnt = torch.zeros((), device=device)
             h_leaf = {}
             if s == S - 1:
@@ -667,32 +894,53 @@ def _mesh_loss_fn(cfg, dcfg, dyncfg, shapes, mode, mesh, hash_proj,
                                         batch["label_mask"][mi],
                                         cfg.norm_eps, use_reentrant=False)
                     nll, cnt = nll + n_, cnt + c_
-        aux_t = torch.as_tensor(aux_acc, dtype=torch.float32, device=device)
-        tot = comm.all_reduce(torch.stack([
-            torch.as_tensor(nll, device=device).detach().float(),
-            torch.as_tensor(cnt, device=device).detach().float(),
-            aux_t.detach()]), mesh.world_group)
-        aux_tot = tot[2] / mesh.data
+        # nll, count and every stage call's aux loss ([S, m], this rank's
+        # row filled) summed over the world in one collective
+        part = torch.zeros(2 + S * m, device=device)
+        part[0] = torch.as_tensor(nll, device=device).detach().float()
+        part[1] = torch.as_tensor(cnt, device=device).detach().float()
+        part[2 + s * m:2 + (s + 1) * m] = aux_mi
+        tot = comm.all_reduce(part, mesh.world_group)
         loss = tot[0] / torch.clamp(tot[1], min=1.0)
-        loss = loss + M.AUX_LOSS_COEF * aux_tot / (m * max(
-            1, cfg.total_blocks()))
+        den = m * max(1, cfg.total_blocks())
+        if cfg.num_experts:
+            # the aux losses added in one process's tick order; each
+            # replica's is the whole microbatch's (``data_sum``)
+            aux_all = tot[2:].reshape(S, m) / mesh.data
+            loss = loss + M.AUX_LOSS_COEF * _ordered_sum(aux_all, m, S) / den
         if backward:
             if s == S - 1:
-                obj = nll / torch.clamp(tot[1], min=1.0)
-                if torch.is_tensor(aux_acc) and aux_acc.requires_grad:
-                    obj = obj + M.AUX_LOSS_COEF * aux_acc / (
-                        mesh.data * m * max(1, cfg.total_blocks()))
-                torch.autograd.backward(obj)
-            for mi, cin, cout in reversed(kept):
+                torch.autograd.backward(
+                    nll / torch.clamp(tot[1], min=1.0))
+            # d loss / d aux of one call, taken as one process takes it
+            g_aux = torch.ones((), device=device) / den * M.AUX_LOSS_COEF
+            for mi, cin, cout, aux, pairs in reversed(kept):
                 if s == S - 1:
-                    torch.autograd.backward(
-                        cout["x"][:, shapes.prefix:], h_leaf.pop(mi).grad)
+                    outs = [cout["x"][:, shapes.prefix:]]
+                    grads = [h_leaf.pop(mi).grad]
                 else:
-                    keys = _diff_leaves(cout)
-                    g = _recv_carry(comm, {k: spec[k] for k in keys}, nxt,
-                                    device)
-                    torch.autograd.backward([cout[k] for k in keys],
-                                            [g[k] for k in keys])
+                    keys = [k for k in _diff_leaves(cout)
+                            if cout[k].requires_grad]
+                    g = _recv_carry(comm, {k: spec_b[k]
+                                           for k in _diff_leaves(cout)},
+                                    nxt, device)
+                    outs = [cout[k] for k in keys]
+                    grads = [g[k] for k in keys]
+                if torch.is_tensor(aux) and aux.requires_grad:
+                    outs.append(aux)
+                    grads.append(g_aux.to(aux.dtype))
+                # a slot's gradient so far enters this call's leaf first
+                # (a view made now runs first in the backward), so a leaf
+                # read several times in a call adds each read to the running
+                # sum as one process's single backward adds them
+                for t, q in pairs:
+                    if t.grad is not None:
+                        outs.append(q.view_as(q))
+                        grads.append(t.grad)
+                torch.autograd.backward(outs, grads)
+                for t, q in pairs:
+                    if q.grad is not None:
+                        t.grad = q.grad
                 if s > 0:
                     for k in _diff_leaves(cin):
                         gk = cin[k].grad
@@ -736,6 +984,8 @@ def _mesh_prefill_fn(cfg, dcfg, dyncfg, shapes, mesh, hash_proj,
         dyn_s = _stage_slice(dyn, 0)
         ids_out = torch.zeros((m, rshapes.mb_global), dtype=torch.int32,
                               device=device)
+        drop = torch.zeros(m, device=device)
+        spec_b = _spec_for(spec, batch)
         for t in range(m + S - 1):
             mi = t - s
             if not 0 <= mi < m:
@@ -744,23 +994,25 @@ def _mesh_prefill_fn(cfg, dcfg, dyncfg, shapes, mesh, hash_proj,
                 carry = _ingest(params, cfg, dyncfg, tokens[mi], dt,
                                 _prefix(batch, mi))
             else:
-                carry = _recv_carry(comm, spec, prev, device)
+                carry = _recv_carry(comm, spec_b, prev, device)
             cache_mb = {k: v[0][:, mi] for k, v in cache.items()}
             if stage_timer is not None:
                 stage_timer.stamp(0, 0)
-            carry, _, _, _ = M.stage_forward(
+            carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "prefill", stage_p, params["shared"],
                 tags, dyn_s, carry, cache_mb, pos, s * len(tags),
                 hash_proj=hash_proj)
             if stage_timer is not None:
                 stage_timer.stamp(0, 1)
+            if cfg.num_experts:
+                drop[mi] = st["moe_dropped"].sum()
             if s == S - 1:
                 logits = M.lm_logits(params, cfg, carry["x"][:, -1])
                 ids_out[mi] = torch.argmax(logits, dim=-1).to(torch.int32)
             else:
-                _send_carry(comm, carry, spec, nxt)
+                _send_carry(comm, carry, spec_b, nxt)
         (ids,) = _broadcast_ids(mesh, ids_out)
-        return ids, cache, torch.zeros((), device=device)
+        return ids, cache, _drop_sum(cfg, drop, mesh, m, device)
 
     prefill_fn.mesh = mesh
     return prefill_fn
@@ -809,6 +1061,7 @@ def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
                               device=device)
         lp_out = torch.zeros((shapes.num_micro, B), dtype=torch.float32,
                              device=device)
+        drop = torch.zeros(m_live, device=device)
         for t in range(m_live + S - 1):
             mi = t - s
             if not 0 <= mi < m_live:
@@ -832,12 +1085,14 @@ def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
             pos_mb = pos[mi] if per_lane else pos
             if stage_timer is not None:
                 stage_timer.stamp(0, 0)
-            carry, _, _, _ = M.stage_forward(
+            carry, _, st, _ = M.stage_forward(
                 cfg, dcfg, dyncfg, "decode", stage_p, params["shared"],
                 tags, dyn_s, carry, cache_mb, pos_mb, s * len(tags),
                 hash_proj=hash_proj)
             if stage_timer is not None:
                 stage_timer.stamp(0, 1)
+            if cfg.num_experts:
+                drop[mi] = st["moe_dropped"].sum()
             if s == S - 1:
                 logits = M.lm_logits(params, cfg, carry["x"][:, 0])
                 if temperature > 0.0:
@@ -851,7 +1106,8 @@ def _mesh_decode_fn(cfg, dcfg, dyncfg, shapes, mesh, m_live, temperature,
             else:
                 _send_carry(comm, carry, spec, nxt)
         ids, lps = _broadcast_ids(mesh, ids_out, lp_out)
-        return ids, lps, cache, torch.zeros((), device=device)
+        return ids, lps, cache, _drop_sum(cfg, drop, mesh, m_live,
+                                               device)
 
     decode_fn.mesh = mesh
     return decode_fn

@@ -275,3 +275,58 @@ def latency_train(mesh, spec, k: int):
         out["report"] = {key: out["report"][key] for key in
                          ("losses", "controller", "stages_history")}
     return out
+
+
+def runs(mesh, parts, archs=()):
+    """Several runs in one launch (the ranks' start is paid once).  Each
+    part is (kind, spec or None, kwargs): "train" is ``rank_train``,
+    "serve" ``rank_serve_elastic``, "one_shot" ``launch.serve.rank_serve``;
+    ``archs``: configs registered at run time in the parent.  Returns
+    each part's result."""
+    from repro_torch.api.session import rank_serve_elastic, rank_train
+    from repro_torch.launch.dist import ensure_arch
+    from repro_torch.launch.serve import rank_serve
+    for cfg in archs:
+        ensure_arch(cfg)
+    out = []
+    for kind, spec, kw in parts:
+        if kind == "one_shot":
+            out.append(rank_serve(mesh, **kw))
+        else:
+            fn = rank_train if kind == "train" else rank_serve_elastic
+            out.append(fn(mesh, spec, **kw))
+    return out
+
+
+def family_step(mesh, cfg, dcfg, dyncfg, shapes, tree):
+    """``value_and_grad`` of the pipelined loss as this rank's stage, on a
+    reference tree's params, assignment, dyn and batch (numpy); returns
+    the loss and the gradients with the stage rows gathered whole."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.launch.sharding import (gather_rows, local_params,
+                                             local_rows, split_batch)
+    from repro_torch.pipeline import pipeline as P
+    loss_fn = P.build_loss_fn(cfg, dcfg, dyncfg, shapes, mesh=mesh)
+    params = local_params(convert.to_torch(tree["params"], "cpu"), mesh)
+    dyn = local_rows(convert.to_torch(tree["dyn"], "cpu"), mesh)
+    batch = split_batch({k: torch.from_numpy(np.asarray(v))
+                         for k, v in tree["batch"].items()}, mesh)
+    loss, _, grads = P.value_and_grad(
+        loss_fn, params, convert.to_torch(tree["assign"], "cpu"), dyn, batch)
+    grads["stages"] = gather_rows(grads["stages"], mesh)
+    return {"loss": loss, "grads": grads}
+
+
+def server(mesh, cfg, dcfg, dyncfg, shapes, trace, params, paged=None):
+    """The elastic server as this rank's stage (one rank per stage), on a
+    reference's params; rank 0 returns the completions."""
+    from repro_torch.serve.server import ElasticServer
+    srv = ElasticServer(cfg, dcfg, dyncfg, shapes, seed=0, paged=paged,
+                        device=mesh.device, params=params, mesh=mesh)
+    try:
+        rep = srv.serve(trace)
+    finally:
+        srv.close()
+    return {c["rid"]: c["tokens"] for c in rep["completions"]}

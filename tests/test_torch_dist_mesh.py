@@ -14,8 +14,12 @@ ranks, on the CPU, against the reference on four host devices.
   cache's rows across ranks is ``test_torch_dist.py``'s): the tokens are
   identical to the reference's at temperature 0, on every rank;
 * ``procs`` that is not ``data x stages`` raises, naming both numbers;
-  what the ranks leave out (the other families, FSDP) raises naming
-  [multi-card].
+  the elastic server across ranks runs one rank per stage, so a 2 x 2
+  mesh of ranks refuses it;
+* an arch above 8e9 parameters (full-size Command R+) at data 2 reaches
+  the launch, in training and in the one-shot serve: its stage rows are
+  replicated over ``data`` as the reference's runtime places them (the
+  reference's FSDP sharding is its AOT dry-run's alone).
 """
 import json
 
@@ -131,26 +135,45 @@ def test_procs_must_be_data_times_stages():
                     **ONE_SHOT)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--arch", "mixtral-8x7b", "--dynamism", "moe"],
-    ["--arch", "internvl2-26b"],
-    # full size at data 2: the reference shards it over data (FSDP)
-    ["--arch", "command-r-plus-104b", "--set", "model.layers=null"]])
-def test_features_outside_the_slice_refuse_ranks(extra, tmp_path):
-    """What the ranks do not run yet (the non-dense families; FSDP of an
-    arch above 8B parameters at data 2) raises before any rank starts,
-    naming ROADMAP Queue 1 [multi-card]; the elastic server across ranks
-    runs one rank per stage (data 1), so a 2 x 2 mesh of ranks refuses
-    it."""
+def test_elastic_server_across_ranks_needs_one_rank_per_stage():
+    """The elastic server across ranks runs one rank per stage (data 1):
+    a 2 x 2 mesh of ranks refuses it."""
     from repro_torch.api.cli import (TRAIN_ALIASES, TRAIN_CLI_DEFAULTS,
                                      build_spec)
     from repro_torch.api.session import Session
     from repro_torch.launch.train import build_parser
-    argv = FLAGS + PORT_WIDTHS + extra
-    with pytest.raises(NotImplementedError, match=r"\[multi-card\]"):
-        run(argv + ["--device", "cpu", "--procs", "4"])
     spec = build_spec(build_parser().parse_args(FLAGS + PORT_WIDTHS),
                       TRAIN_ALIASES, cli_defaults=TRAIN_CLI_DEFAULTS)
     with pytest.raises(ValueError, match=r"stages=2 must equal procs=4"):
         with Session(spec, device="cpu", procs=4) as s:
             s.serve()
+
+
+class Launched(Exception):
+    """Raised by a stand-in for ``launch.dist.launch``."""
+
+
+@pytest.mark.parametrize("path", ["train", "serve"])
+def test_arch_above_8b_at_data_2_reaches_the_launch(path, monkeypatch):
+    """Full-size Command R+ (above 8e9 parameters by the port's own
+    count) at data 2 x model 2: nothing refuses it before the ranks
+    start (the launch is stood in for: the arch does not fit the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist
+
+    seen = {}
+
+    def launch(target, nprocs, **kw):
+        seen.update(target=target, nprocs=nprocs, data=kw["data"])
+        raise Launched
+    monkeypatch.setattr(dist, "launch", launch)
+    assert get_config("command-r-plus-104b").param_count() > 8e9
+    with pytest.raises(Launched):
+        if path == "train":
+            run(FLAGS + PORT_WIDTHS + [
+                "--arch", "command-r-plus-104b", "--set", "model.layers=null",
+                "--device", "cpu", "--procs", "4"])
+        else:
+            run_serving("command-r-plus-104b", device="cpu", procs=4,
+                        data=2, **dict(ONE_SHOT, stages=2, layers=None))
+    assert seen["nprocs"] == 4 and seen["data"] == 2

@@ -14,6 +14,12 @@
 * A migration (``core.migration.migrate``) and an elastic resize 2 -> 1 ->
   2 of the zamba2 state are bitwise the unmoved run: the loss after each
   equals the unmoved loss, and the round trip returns every leaf.
+* Across 2 ranks (one process per stage, gloo): the S = 2 train step's
+  loss and every gradient (the shared ``ga_*`` ones, summed over the
+  stages in order) bitwise the one-process step's; training with a
+  migration that moves MAMBA and HYBRID_ATTN rows across the ranks, and a
+  resume from its rank-written safe point (``ga_*`` and their moments in
+  ``common.npz``), bitwise the one-process run.
 Both sides run ``kernel_impl="pallas"``.  Tolerances: the unit functions
 1e-5 (fp32, summation order differs); the train step 1e-5 relative on the
 loss and 1e-5 of each gradient leaf's largest entry.
@@ -209,8 +215,34 @@ def port_step(arch, tree, shapes):
         convert.to_torch(tree["dyn"], "cpu"), tb)
 
 
-def test_zamba2_two_stage_train_step_matches_reference(tmp_path):
-    tree = reference_two_stage_step(tmp_path, "zamba2-1.2b", {}, SEQ)
+def ranks_step(arch, tree, shapes):
+    """``port_step`` as 2 ranks (``_dist_targets.family_step``): rank 0's
+    loss and gradients, the stage rows gathered whole."""
+    from repro_torch.launch.dist import launch
+    tcfg = treduce(tget(arch), **SMALL)
+    td = TDist(num_stages=2, slot_slack=2, remat="none",
+               param_dtype="float32", kernel_impl="pallas")
+    res = launch("_dist_targets:family_step", 2, device="cpu", kwargs=dict(
+        cfg=tcfg, dcfg=td, dyncfg=TDyn(kind="pruning"), shapes=shapes,
+        tree=tree))
+    return res[0]["loss"], res[0]["grads"]
+
+
+def assert_bitwise(got, want):
+    got = dict(_leaves(got))
+    for k, t in _leaves(want):
+        assert torch.equal(got[k], t), k
+
+
+@pytest.fixture(scope="module")
+def zamba2_step(tmp_path_factory):
+    """The reference's S = 2 train step of reduced zamba2."""
+    return reference_two_stage_step(tmp_path_factory.mktemp("zamba2"),
+                                    "zamba2-1.2b", {}, SEQ)
+
+
+def test_zamba2_two_stage_train_step_matches_reference(zamba2_step):
+    tree = zamba2_step
     tl, _, tg = port_step("zamba2-1.2b", tree,
                           TP.PipelineShapes(M_, B_, SEQ))
     np.testing.assert_allclose(float(tl), float(tree["loss"]), rtol=1e-5)
@@ -222,6 +254,114 @@ def test_zamba2_two_stage_train_step_matches_reference(tmp_path):
         assert torch.isfinite(g).all()
 
 
+def test_zamba2_step_over_two_ranks_is_bitwise_one_process(zamba2_step):
+    shapes = TP.PipelineShapes(M_, B_, SEQ)
+    tl, _, tg = port_step("zamba2-1.2b", zamba2_step, shapes)
+    rl, rg = ranks_step("zamba2-1.2b", zamba2_step, shapes)
+    assert float(rl) == float(tl)
+    assert_bitwise(rg, tg)
+    assert float(rg["shared"]["ga_wq"].abs().sum()) > 0
+    _assert_grads(rg, zamba2_step["grads"])
+
+
+ZAMBA_TRAIN = ["--arch", "zamba2-1.2b", "--layers", "12", "--d-model", "64",
+               "--num-heads", "4", "--num-kv-heads", "2", "--d-ff", "256",
+               "--vocab-size", "256", "--seq", "32", "--num-micro", "2",
+               "--mb-global", "2", "--stages", "2", "--kernel-impl",
+               "pallas", "--dynamism", "none", "--steps", "6",
+               "--rebalance-every", "2", "--straggler", "1:3.0",
+               "--log-every", "100"]
+
+
+@pytest.fixture(scope="module")
+def zamba2_ranks(tmp_path_factory):
+    """ZAMBA_TRAIN as 2 ranks with a safe point after step 3 and the
+    resume from it (one launch, gathered), the one-process run, and the
+    safe point's directory."""
+    from repro_torch.api.cli import (TRAIN_ALIASES, TRAIN_CLI_DEFAULTS,
+                                     build_spec)
+    from repro_torch.launch.dist import launch
+    from repro_torch.launch.train import build_parser, run
+    ck = str(tmp_path_factory.mktemp("zamba2") / "ck")
+    one = run(ZAMBA_TRAIN + ["--device", "cpu"])
+    spec = build_spec(build_parser().parse_args(
+        ZAMBA_TRAIN + ["--ckpt-dir", ck, "--ckpt-every", "4"]),
+        TRAIN_ALIASES, cli_defaults=TRAIN_CLI_DEFAULTS)
+    tail = spec.override({"ckpt_every": 0, "ckpt_dir": None})
+    res = launch("_dist_targets:runs", 2, device="cpu", kwargs=dict(parts=[
+        ("train", spec, dict(gather=True)),
+        ("train", tail, dict(gather=True, resume=(ck, 3)))]))
+    return {"one": one, "full": res[0][0]["report"],
+            "resumed": res[0][1]["report"],
+            "ranks": [r[0]["rank"] for r in res], "ck": ck}
+
+
+def test_zamba2_migration_and_safe_point_across_ranks(zamba2_ranks):
+    """Migrations after steps 1 and 3 move one MAMBA and one HYBRID_ATTN
+    layer from rank 1 to rank 0; the run, its safe point after step 3
+    (``ga_*`` and both moments in ``common.npz``) and the resume from it
+    are bitwise the one-process run."""
+    one, full = zamba2_ranks["one"], zamba2_ranks["full"]
+    resumed, ranks = zamba2_ranks["resumed"], zamba2_ranks["ranks"]
+    assert full["losses"] == one["losses"]
+    events = [(e.iteration, e.moved_layers) for e in full["events"]]
+    assert events == [(e.iteration, e.moved_layers) for e in one["events"]]
+    assert events == [(2, 1), (4, 1)]
+    tags = one["assignment"]["tags"].tolist()
+    pattern = [t for row in tags for t in row if t]
+    moved = {pattern[i] for i in range(full["lps_history"][0][0],
+                                       full["final_lps"][0])}
+    assert moved == {BLOCK_MAMBA, BLOCK_HYBRID_ATTN}, moved
+    assert sum(r["comm"]["rows_sent"] for r in ranks) == sum(
+        r["comm"]["rows_recv"] for r in ranks) > 0
+    for rep in (full, resumed):
+        for tree in ("params", "opt_state", "dyn"):
+            assert_bitwise(rep[tree], one[tree])
+    assert resumed["losses"] == one["losses"][4:]
+    with np.load(os.path.join(zamba2_ranks["ck"], "step_00000003",
+                              "common.npz")) as z:
+        ga = [k for k in z.files if "/shared/ga_" in k]
+    assert len(ga) == 15, ga          # params, m and v of the 5 leaves
+
+
+def test_chip_smoke_7i_check_refuses_a_wrong_run(zamba2_ranks):
+    """7i takes this run (with the card's counters, K1 / K2a / K2b each
+    step as 6b's); a split, a migration or a loss that differs, no rows
+    moved, or K2a's count short fail."""
+    import copy
+
+    from test_torch_moe_cli import _smoke, launched
+    smoke = _smoke()
+    one, rep = zamba2_ranks["one"], zamba2_ranks["full"]
+    want = {"losses": one["losses"], "lps_history": one["lps_history"],
+            "events": [[e.iteration, e.moved_layers] for e in one["events"]]}
+    per_step = smoke.ZAMBA_LAUNCHES_PER_STEP
+    steps = len(rep["losses"])
+    good = launched(zamba2_ranks["ranks"], per_step, steps)
+    got, _, moved = smoke.check_zamba_across(rep, good, want)
+    assert moved == {BLOCK_MAMBA, BLOCK_HYBRID_ATTN}
+    assert got["block_sparse_attention"] == 48 * steps
+    short = launched(zamba2_ranks["ranks"], dict(
+        per_step, block_sparse_attention_bwd_dq=22), steps)
+    with pytest.raises(AssertionError, match="bwd_dq launched"):
+        smoke.check_zamba_across(rep, short, want)
+    still = copy.deepcopy(good)
+    for r in still:
+        r["comm"]["rows_sent"] = r["comm"]["rows_recv"] = 0
+    with pytest.raises(AssertionError, match="rows sent"):
+        smoke.check_zamba_across(rep, still, want)
+    split = copy.deepcopy(want)
+    split["lps_history"][-1] = [6, 6]
+    with pytest.raises(AssertionError, match="splits"):
+        smoke.check_zamba_across(rep, good, split)
+    moves = dict(want, events=[[2, 2], [4, 1]])
+    with pytest.raises(AssertionError, match="migrations"):
+        smoke.check_zamba_across(rep, good, moves)
+    loss = dict(want, losses=want["losses"][:2] + [0.0] + want["losses"][3:])
+    with pytest.raises(AssertionError, match="step 2"):
+        smoke.check_zamba_across(rep, good, loss)
+
+
 def _trace(request_cls, vocab=256):
     rng = np.random.RandomState(5)
     plens, gens, arrive = [8, 5, 8, 3, 6, 8], [4, 6, 2, 5, 3, 4], \
@@ -231,9 +371,10 @@ def _trace(request_cls, vocab=256):
                             np.int32), gen=gens[i]) for i in range(6)]
 
 
-def serve_both(arch, paged=None, **cfg_kw):
+def serve_both(arch, paged=None, with_params=False, **cfg_kw):
     """The reference's and the port's ElasticServer at S = 1 on one trace
-    (the port on the reference's params): completions of each."""
+    (the port on the reference's params): completions of each (and the
+    params, ``with_params``)."""
     from repro.configs import DistConfig, get_config, reduced_config
     from repro.dynamics.config import DynamicsConfig
     from repro.pipeline.pipeline import PipelineShapes
@@ -264,7 +405,7 @@ def serve_both(arch, paged=None, **cfg_kw):
     got = {c["rid"]: c["tokens"]
            for c in tsrv.serve(_trace(TRequest))["completions"]}
     tsrv.close()
-    return got, want
+    return (got, want, params) if with_params else (got, want)
 
 
 def test_zamba2_server_matches_reference():

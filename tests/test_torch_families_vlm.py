@@ -5,6 +5,9 @@ configs in the port, against the JAX package.
   embeddings prepended (``PipelineShapes.prefix``; the loss reads the
   positions after the prefix): loss and every gradient leaf against the
   reference's, S = 1 in this process.
+* The same step over 2 ranks (the reference's params split over 2 stage
+  buffers, the patch prefix riding the carry between the ranks): bitwise
+  the one-process step at 2 stages, and within 1e-5 of the reference's.
 * Serving InternVL2 text through the paged ``ElasticServer``:
   token-identical to the reference's at temperature 0.
 * Pruning an MoE arch (``[moe-rest]``): the train CLI on reduced
@@ -39,7 +42,13 @@ from test_torch_train import _assert_grads  # noqa: E402
 torch.set_num_threads(1)
 
 
-def test_vlm_train_step_with_the_patch_prefix_matches_reference():
+VLM_STEP = dict(m=2, B=2, seq=24)
+
+
+@pytest.fixture(scope="module")
+def vlm_step():
+    """The reference's S = 1 train step of reduced InternVL2 on the
+    loader's patches: (params, assignment, dyn, batch, loss, grads), numpy."""
     from repro.configs import DistConfig, get_config, reduced_config
     from repro.data.loader import DataConfig, make_loader
     from repro.dynamics.config import DynamicsConfig
@@ -66,6 +75,15 @@ def test_vlm_train_step_with_the_patch_prefix_matches_reference():
                                            prefix=jcfg.num_patches))
     (jl, _), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         params, assign, dyn, batch)
+    return (params, jax.tree.map(np.asarray, assign), dyn, batch,
+            float(jl), jax.tree.map(np.asarray, jg))
+
+
+def test_vlm_train_step_with_the_patch_prefix_matches_reference(vlm_step):
+    kw = dict(num_stages=1, slot_slack=2, remat="none",
+              param_dtype="float32", kernel_impl="pallas")
+    params, assign, dyn, batch, jl, jg = vlm_step
+    m, B, seq = VLM_STEP["m"], VLM_STEP["B"], VLM_STEP["seq"]
     tcfg = treduce(tget("internvl2-26b"), **SMALL)
     shapes = TP.PipelineShapes.for_model(tcfg, m, B, seq)
     assert shapes.prefix == 8 and shapes.seq_total == seq + 8
@@ -73,11 +91,52 @@ def test_vlm_train_step_with_the_patch_prefix_matches_reference():
                                shapes)
     tl, _, tg = TP.value_and_grad(
         loss_fn, convert.to_torch(params, "cpu"),
-        convert.to_torch(jax.tree.map(np.asarray, assign), "cpu"),
-        convert.to_torch(dyn, "cpu"),
+        convert.to_torch(assign, "cpu"), convert.to_torch(dyn, "cpu"),
         {k: torch.from_numpy(v) for k, v in batch.items()})
-    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
-    _assert_grads(tg, jax.tree.map(np.asarray, jg))
+    np.testing.assert_allclose(float(tl), jl, rtol=1e-5)
+    _assert_grads(tg, jg)
+
+
+def test_vlm_step_over_two_ranks_is_bitwise_one_process(vlm_step):
+    from repro_torch.checkpoint.elastic import _resplit_stage_tree
+    from repro_torch.launch.dist import launch
+    from repro_torch.models import model as TM
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    from test_torch_families_mamba import assert_bitwise
+    params, _, dyn, batch, jl, jg = vlm_step
+    tcfg = treduce(tget("internvl2-26b"), **SMALL)
+    td = TDist(num_stages=2, slot_slack=2, remat="none",
+               param_dtype="float32", kernel_impl="pallas")
+    n = tcfg.total_blocks()
+    split = TM.uniform_boundaries(n, 2)
+    L = td.slots_for(tcfg)
+
+    def two(tree):       # the one-stage rows split over 2 stage buffers
+        return {k: v.numpy() for k, v in _resplit_stage_tree(
+            convert.to_torch(tree, "cpu"), [n], split, L).items()}
+    tree = {"params": dict(params, stages=two(params["stages"])),
+            "dyn": two(dyn),
+            "assign": {k: v.numpy() for k, v in TM.make_assignment(
+                tcfg, td, split).items()},
+            "batch": batch}
+    shapes = PipelineShapes.for_model(tcfg, VLM_STEP["m"], VLM_STEP["B"],
+                                      VLM_STEP["seq"])
+    got = launch("_dist_targets:family_step", 2, device="cpu", kwargs=dict(
+        cfg=tcfg, dcfg=td, dyncfg=TDyn(kind="pruning"), shapes=shapes,
+        tree=tree))[0]
+    tl, _, tg = TP.value_and_grad(
+        TP.build_loss_fn(tcfg, td, TDyn(kind="pruning"), shapes),
+        convert.to_torch(tree["params"], "cpu"),
+        convert.to_torch(tree["assign"], "cpu"),
+        convert.to_torch(tree["dyn"], "cpu"),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert float(got["loss"]) == float(tl)
+    assert_bitwise(got["grads"], tg)
+    np.testing.assert_allclose(float(tl), jl, rtol=1e-5)
+    # back on one stage buffer, against the reference's gradients
+    back = dict(got["grads"], stages=_resplit_stage_tree(
+        got["grads"]["stages"], split, [n], n + 2))
+    _assert_grads(back, jg)
 
 
 def test_vlm_server_matches_reference():

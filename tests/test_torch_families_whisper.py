@@ -13,6 +13,11 @@
   per-lane positions raise the reference's refusal as a ``ValueError``.
 * A safe point carries ``params["shared"]`` and its Adam moments: a run
   resumed from it ends bitwise the uninterrupted run.
+* Across 2 ranks (one process per stage, gloo): the S = 2 train step (the
+  frames' encoder stream riding the carry between the ranks) bitwise the
+  one-process step, ``dec_pos``'s gradient included; the one-shot serve
+  (fed no frames, as the reference's) token-identical to one process's.
+  The reference's one-shot serve of whisper fails (ROADMAP Queue 3).
 Both sides run ``kernel_impl="pallas"``.
 """
 import numpy as np
@@ -31,7 +36,9 @@ from repro_torch.dynamics.config import DynamicsConfig as TDyn  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.pipeline import pipeline as TP  # noqa: E402
-from test_torch_families_mamba import (B_, M_, SMALL, port_step,  # noqa: E402
+from test_torch_families_mamba import (B_, M_, SMALL,  # noqa: E402
+                                       assert_bitwise,
+                                       port_step, ranks_step,
                                        reference_two_stage_step)
 from test_torch_train import _assert_grads, _leaves  # noqa: E402
 
@@ -76,9 +83,22 @@ dyn["ff_mask"][1, 1, 0] = 0.0
 """
 
 
-def test_whisper_two_stage_train_step_matches_reference(tmp_path):
-    tree = reference_two_stage_step(tmp_path, "whisper-large-v3",
-                                    {"enc_seq": 16}, 24, WHISPER_EXTRA)
+# run_serving's one-shot flags (its reduced widths: 4 heads, 2 KV heads,
+# d_ff 2 x d_model, vocab 512)
+ONE_SHOT = dict(stages=2, micro=2, mb_global=2, prompt_len=8, gen=5,
+                layers=4, d_model=64, seed=0)
+
+
+@pytest.fixture(scope="module")
+def whisper_step(tmp_path_factory):
+    """The reference's S = 2 train step of reduced whisper."""
+    return reference_two_stage_step(tmp_path_factory.mktemp("whisper"),
+                                    "whisper-large-v3", {"enc_seq": 16}, 24,
+                                    WHISPER_EXTRA)
+
+
+def test_whisper_two_stage_train_step_matches_reference(whisper_step):
+    tree = whisper_step
     assert tree["batch"]["frames"].shape == (M_, B_, 16, 64)
     tcfg = treduce(tget("whisper-large-v3"), **SMALL)
     tl, _, tg = port_step("whisper-large-v3", tree,
@@ -90,6 +110,25 @@ def test_whisper_two_stage_train_step_matches_reference(tmp_path):
     assert float(tg["stages"]["e_wq"].abs().sum()) > 0
     for _, g in _leaves(tg):
         assert torch.isfinite(g).all()
+
+
+def test_whisper_over_two_ranks_matches_one_process(whisper_step):
+    from repro_torch.launch.serve import run_serving
+    tree = whisper_step
+    tcfg = treduce(tget("whisper-large-v3"), **SMALL)
+    shapes = TP.PipelineShapes.for_model(tcfg, M_, B_, 24)
+    tl, _, tg = port_step("whisper-large-v3", tree, shapes)
+    rl, rg = ranks_step("whisper-large-v3", tree, shapes)
+    assert float(rl) == float(tl)
+    assert_bitwise(rg, tg)
+    assert float(rg["shared"]["dec_pos"][:24].abs().sum()) > 0
+    _assert_grads(rg, tree["grads"])
+    # the one-shot serve over 2 ranks (the reference's fails on whisper:
+    # ROADMAP Queue 3)
+    got = run_serving("whisper-large-v3", device="cpu", procs=2, **ONE_SHOT)
+    one = run_serving("whisper-large-v3", device="cpu", **ONE_SHOT)
+    assert got["tokens"].tolist() == one["tokens"].tolist()
+    assert [r["stage"] for r in got["ranks"]] == [0, 1]
 
 
 def test_whisper_prefill_and_scalar_decode_match_reference():

@@ -11,7 +11,10 @@ package.
   bit), and the reference's ``ValueError`` for a stack with nothing to
   prune (Mamba2 / zamba2, sLSTM only).
 * Serving: ``ElasticServer`` with the mLSTM / sLSTM state in the cache,
-  token-identical to the reference's at temperature 0.
+  token-identical to the reference's at temperature 0; over 2 ranks (one
+  per stage, the reference's params split over 2 stage buffers, each
+  rank's contiguous cache rows) token-identical to the reference's and to
+  one process's at 2 stages.
 Tolerances: fp32, summation order differs: 1e-5 (the unrolled recurrence
 against the parallel form: 1e-4).
 """
@@ -27,7 +30,8 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs import reduced_config as treduce  # noqa: E402
 from repro_torch.models import xlstm as txl  # noqa: E402
-from test_torch_families_mamba import serve_both  # noqa: E402
+from test_torch_families_mamba import (SMALL, _trace,  # noqa: E402
+                                       serve_both)
 
 torch.set_num_threads(1)
 
@@ -167,6 +171,39 @@ def test_nothing_to_prune_raises_as_the_reference(arch, kw):
         tprn.block_magnitudes(tcfg, convert.to_torch(sp, "cpu"))
 
 
-def test_xlstm_server_matches_reference():
-    got, want = serve_both("xlstm-1.3b", d_ff=0)
+@pytest.fixture(scope="module")
+def xlstm_served():
+    """The reference's and the port's one-stage serve, and the params."""
+    return serve_both("xlstm-1.3b", with_params=True, d_ff=0)
+
+
+def test_xlstm_server_matches_reference(xlstm_served):
+    got, want, _ = xlstm_served
     assert got == want and len(got) == 6
+
+
+def test_xlstm_server_over_two_ranks_matches_reference(xlstm_served):
+    from repro_torch.checkpoint.elastic import _resplit_stage_tree
+    from repro_torch.configs import DistConfig
+    from repro_torch.dynamics.config import DynamicsConfig
+    from repro_torch.launch.dist import launch
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    from repro_torch.serve import ElasticServer
+    from repro_torch.serve.requests import Request
+    _, want, params = xlstm_served
+    cfg = treduce(tget("xlstm-1.3b"), **{**SMALL, "d_ff": 0})
+    dcfg = DistConfig(num_stages=2, slot_slack=2, remat="none",
+                      param_dtype="float32", kernel_impl="pallas")
+    n = cfg.total_blocks()
+    params = dict(params, stages=_resplit_stage_tree(
+        params["stages"], [n], [n // 2, n - n // 2], dcfg.slots_for(cfg)))
+    shapes = PipelineShapes(num_micro=2, mb_global=2, seq=8, cache_len=16)
+    kw = dict(cfg=cfg, dcfg=dcfg, dyncfg=DynamicsConfig(), shapes=shapes,
+              trace=_trace(Request), params=params)
+    got = launch("_dist_targets:server", 2, device="cpu", kwargs=kw)[0]
+    srv = ElasticServer(cfg, dcfg, DynamicsConfig(), shapes, seed=0,
+                        device="cpu", params=params)
+    one = {c["rid"]: c["tokens"]
+           for c in srv.serve(_trace(Request))["completions"]}
+    srv.close()
+    assert got == want == one and len(got) == 6
