@@ -422,7 +422,29 @@ final line:
                mean drop fraction equal 4f's (one stage; slot slack 0 gives
                both the same init), K4 launched in each rank, the tick p50
                beside 4f's;
-  8. the kernels line (JSON: per kernel its launches on the main paths
+  8a.        the dry run (``repro_torch.launch.dryrun``, no card): --all
+               over both meshes (80 cells, 68 analysed, 12 skipped), and
+               the counted probes of smollm-360m and mixtral-8x7b x
+               train_4k at 16 x 16 (a summary line per mesh, the probes'
+               terms);
+  8b.        the dry run held against this card at 4c's and 4e's
+               configurations: its parameter + optimizer + dyn bytes
+               within 1 % of memory_allocated's growth when the engine
+               builds that state here; its temp peak beside the phase's
+               measured peak; its counted FLOPs a step over the phase's
+               steady step ms as TFLOP/s and a share of the data-sheet
+               peak, beside the card's name and power limit;
+  8c.        the scan attention's flash backward at 4e's attention shape
+               (b 2, s 1024, 32:8 heads, hd 128, window 4096): dq / dk /
+               dv against autograd through the forward loop, both fp32,
+               within FLASH_BWD_TOL of each leaf's largest entry; the
+               peak memory of one bf16 forward + backward on each path,
+               and the bytes its forward leaves for the backward;
+               4e's peak beside the 57.88 GB it took with autograd
+               through the scan's loop (4e's parity and 7h's
+               bitwise checks run as before, now through the flash
+               backward);
+  9. the kernels line (JSON: per kernel its launches on the main paths
      and, as launches_tc, how many of them took a tensor-core variant; K6's
      ms is its cold graph-replay time at the main shape, its library_ms
      SDPA's graph-replay time, and "timing" holds both shapes' cold, warm
@@ -442,7 +464,7 @@ final line:
      and 7j's (summed over the ranks);
      family_cases holds 3f's cases of the kernel; before it,
      [phase_seconds]: the wall seconds of every phase (6a-6d, 7b-7g and
-     7h-7j run after 4r, before 5).
+     7h-7j run after 4r, before 5; 8a-8c after 5d).
 
 Every phase drives the port through its front door (``repro_torch.api``:
 the CLIs resolve a RunSpec and run it through a Session).  The CLIs, like
@@ -2223,7 +2245,8 @@ def run_train_phase(torch, kernels):
         k3_bwd_launches=k3_bwd)
     # phase 4q trains the first steps of this run again from a config
     TRAIN_4C.update(losses=list(losses), events=[
-        (e.iteration, e.moved_layers) for e in rep["events"]])
+        (e.iteration, e.moved_layers) for e in rep["events"]],
+        step_ms=sum(st[1:10]) / 9 * 1e3, peak_gb=peak_gb)
     del rep
     free_cuda(torch)
     return launched, k3_bwd
@@ -6968,6 +6991,200 @@ def run_family_ranks(torch, kernels, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the dry run without a card, held against this card, and the
+# scan attention's flash backward
+# ---------------------------------------------------------------------------
+# 4e's peak allocated when autograd differentiated the scan's loop (an
+# H100 80GB HBM3 at 700 W)
+MOE_PEAK_GB_BEFORE = 57.88
+# 8c's tolerance: the flash backward's grads against autograd through the
+# forward loop, both fp32, within this share of each leaf's largest entry
+FLASH_BWD_TOL = 1e-5
+
+
+def run_dryrun_phase():
+    """8a: ``repro_torch.launch.dryrun --all`` over both meshes (80 cells:
+    68 analysed, 12 skipped with the reference's reasons), then the
+    counted probes of smollm-360m and mixtral-8x7b x train_4k at 16 x 16;
+    nothing runs on the card."""
+    import tempfile
+
+    from repro_torch.launch import dryrun as DR
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mp in (False, True):
+            argv = ["--all", "--out", tmp, "--force"]
+            res = DR.main(argv + (["--multi-pod"] if mp else []))
+            name = "2x16x16" if mp else "16x16"
+            summ = DR.summary(res, name)
+            if (summ["cells"], summ["analysed"], summ["skipped"]) != (
+                    40, 34, 6):
+                raise AssertionError(f"dry run {name}: {summ}")
+            say("dryrun", **{k: json.dumps(v).replace(" ", "")
+                             for k, v in summ.items()})
+            out[name] = summ
+    for arch in ("smollm-360m", "mixtral-8x7b"):
+        r = DR.run_cell(arch, "train_4k", probes=True, verbose=False)
+        pr = r["probe"]
+        if "error" in pr:
+            raise AssertionError(f"probe {arch}: {pr['error']}")
+        rl, an = pr["roofline"], r["roofline"]
+        say("dryrun_probe", arch=arch, shape="train_4k", mesh="16x16",
+            flops_per_step=f"{pr['flops_per_step']:.4e}",
+            flops_per_step_T_real=f"{pr['flops_per_step_T_real']:.4e}",
+            analytic_flops=f"{an['flops_per_chip']:.4e}",
+            counted_bytes=f"{rl['hbm_bytes_per_chip']:.4e}",
+            temp_gib=f"{pr['temp_bytes'] / 2 ** 30:.2f}",
+            temp_micro_gib=f"{pr['per_micro']['peak_bytes'] / 2 ** 30:.3f}",
+            peak_gib=f"{r['memory']['peak_bytes_per_chip'] / 2 ** 30:.2f}",
+            fits_80GB=r["memory"]["fits_80GB"],
+            t_compute_s=f"{rl['t_compute_s']:.4f}",
+            t_memory_s=f"{rl['t_memory_s']:.4f}",
+            t_collective_s=f"{rl['t_collective_s']:.4f}",
+            bottleneck=rl["bottleneck"],
+            kernels=json.dumps({k: f"{v['flops']:.3e}" for k, v in
+                                pr["kernels"].items()}).replace(" ", ""))
+        out[arch] = pr
+    return out
+
+
+def held_to_card(torch, label, argv, measured, smi):
+    """8b for one configuration: the dry run's state bytes against
+    ``memory_allocated``'s growth when the engine builds the state on the
+    card, its counted FLOPs a step (every stage, ``m`` microbatches each)
+    over the phase's measured steady step, and its temp peak (every stage,
+    ``m`` microbatches' forwards, then the backward) beside the measured
+    one."""
+    from repro_torch.configs.base import DistConfig, get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.engine import ElasticEngine
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.pipeline.pipeline import PipelineShapes
+    spec = cli_spec("train", argv)
+    p = spec.parallel
+    cfg = get_config(spec.model.arch)
+    dcfg = DistConfig(num_stages=p.stages, slot_slack=p.slot_slack,
+                      remat=p.remat, param_dtype=p.param_dtype,
+                      kernel_impl=p.kernel_impl)
+    dyncfg = spec.dynamics.to_config()
+    shapes = PipelineShapes.for_model(cfg, p.num_micro, p.mb_global, p.seq)
+    # one card holds every stage buffer: a 1 x 1 mesh places nothing
+    cell = DR.config_cell(cfg, dcfg, "train", shapes,
+                          LogicalMesh(("data", "model"), (1, 1)), dyncfg)
+    predicted = (SH.tree_bytes(cell.args[0]) + SH.tree_bytes(cell.args[1])
+                 + SH.tree_bytes(cell.args[3]))
+    free_cuda(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = ElasticEngine(cfg, dcfg, dyncfg, shapes, device="cuda")
+    state = engine.init_state(spec.seed, with_opt=True)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    del state, engine
+    free_cuda(torch)
+    if abs(grown - predicted) > 0.01 * predicted:
+        raise AssertionError(f"{label}: predicted state {predicted} B, "
+                             f"memory_allocated grew {grown} B")
+    # every stage buffer on this card, as the one-process step runs them,
+    # scaled to the run's m microbatches
+    step = DR.scale_probe(*DR.probe_step(cfg, dcfg, dyncfg, "train", shapes,
+                                         stages=range(dcfg.num_stages)),
+                          shapes.num_micro)
+    flops, temp = step["flops"], step["peak_bytes"]
+    step_s = measured["step_ms"] / 1e3
+    peak = RL.peak_flops(dcfg.param_dtype)
+    meas_temp = measured["peak_gb"] * 1e9 - predicted
+    say("dryrun_card", config=label, state_predicted_b=predicted,
+        state_allocated_b=grown,
+        state_ratio=f"{grown / predicted:.5f}",
+        temp_predicted_gb=f"{temp / 1e9:.3f}",
+        peak_measured_gb=f"{measured['peak_gb']:.2f}",
+        temp_measured_gb=f"{meas_temp / 1e9:.3f}",
+        temp_ratio=f"{meas_temp / temp:.3f}",
+        counted_flops_step=f"{flops:.4e}",
+        step_ms=f"{measured['step_ms']:.1f}",
+        tflops=f"{flops / step_s / 1e12:.2f}",
+        peak_share=f"{flops / step_s / peak:.4f}",
+        peak_tflops=f"{peak / 1e12:.0f}", card=repr(smi))
+    return {"predicted": predicted, "grown": grown, "flops": flops,
+            "temp": temp}
+
+
+def flash_backward_at_moe_shape(torch):
+    """8c: ``_FlashScan``'s dq / dk / dv at 4e's attention shape (b 2,
+    s 1024, 32:8 heads, hd 128, window 4096, bf16 in) against autograd
+    through the forward loop (the old path), both in fp32, and the peak
+    memory of one forward + backward on each path in bf16."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, s, hq, hkv, hd = 2, 1024, 32, 8, 128
+    kw = dict(causal=True, sliding_window=4096, kv_block=512)
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda")
+                     .to(torch.bfloat16) for shape in (
+                         (b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd),
+                         (b, s, hq, hd)))
+
+    def old(q, k, v, bm, causal, sliding_window, kv_block):
+        return L._flash_fwd_impl(q, k, v, bm, causal, sliding_window, 0,
+                                 kv_block)[0]
+
+    def new(q, k, v, bm, **kw):
+        return L.flash_attention(q, k, v, impl="scan", block_mask=bm, **kw)
+
+    held = {}
+
+    def grads(fn, dtype, name=None):
+        ts = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        base = torch.cuda.memory_allocated()
+        out = fn(*ts, None, **kw)
+        if name is not None:
+            # what the forward leaves for the backward (with the output):
+            # what a stack of layers holds per attention call
+            held[name] = torch.cuda.memory_allocated() - base
+        out.backward(dout.to(out.dtype))
+        return [t.grad for t in ts]
+
+    errs = {}
+    want = grads(old, torch.float32)
+    got = grads(new, torch.float32)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        top = float(w.abs().max())
+        err = float((a - w).abs().max())
+        if not (torch.isfinite(a).all() and err <= FLASH_BWD_TOL * top):
+            raise AssertionError(f"8c {name}: max err {err:.3e} over "
+                                 f"{FLASH_BWD_TOL} x {top:.3e}")
+        errs[name] = err / top
+    del want, got
+    peaks = {}
+    for name, fn in (("old", old), ("new", new)):
+        free_cuda(torch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads(fn, torch.bfloat16, name)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+    free_cuda(torch)
+    say("flash_bwd", shape=repr((b, s, hq, hkv, hd)), window=4096,
+        tol=FLASH_BWD_TOL,
+        rel_err=json.dumps({k: f"{v:.2e}" for k, v in errs.items()})
+        .replace(" ", ""),
+        peak_old_mb=f"{peaks['old'] / 2 ** 20:.1f}",
+        peak_new_mb=f"{peaks['new'] / 2 ** 20:.1f}",
+        held_old_mb=f"{held['old'] / 2 ** 20:.1f}",
+        held_new_mb=f"{held['new'] / 2 ** 20:.1f}",
+        moe_peak_gb=f"{MOE_TRAIN['peak_gb']:.2f}",
+        moe_peak_gb_before=MOE_PEAK_GB_BEFORE)
+    if peaks["new"] >= peaks["old"] or held["new"] >= held["old"]:
+        raise AssertionError(f"8c: the flash backward's peak {peaks} or "
+                             f"held bytes {held} are not below the old "
+                             f"path's")
+    return errs, peaks, held
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
     return a.shape == b.shape and bool(np.array_equal(a, b))
@@ -7241,7 +7458,16 @@ def main() -> int:
     timed("5d", mod_bitwise, torch)
     timed("5d", serve_parity, torch, kind="early_exit")
 
-    # 8. the kernels line, the card line, the last line
+    # 8a-8c. the dry run over every cell without the card, its state
+    # bytes, FLOPs and temp held against 4c's and 4e's runs on this card,
+    # and the scan attention's flash backward at Mixtral's shape
+    timed("8:8a", run_dryrun_phase)
+    timed("8:8b", held_to_card, torch, "4c", train_args(), TRAIN_4C, smi)
+    timed("8:8b", held_to_card, torch, "4e", moe_train_args(), MOE_TRAIN,
+          smi)
+    timed("8:8c", flash_backward_at_moe_shape, torch)
+
+    # 9. the kernels line, the card line, the last line
     line = []
     for k in kernels.KERNELS:
         r = results[k.name]

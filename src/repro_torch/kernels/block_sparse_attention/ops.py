@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import accounting
 from repro_torch.kernels._build import Kernel, dtype_code, require
 from repro_torch.kernels.block_sparse_attention.ref import (
     block_sparse_attention_bwd_ref, block_sparse_attention_ref)
@@ -188,8 +189,15 @@ def block_sparse_attention_fwd(q, k, v, block_mask, *, causal: bool = True,
     """Returns (out [b, sq, hq, d] in q.dtype, lse [b, hq, sq] float32)."""
     nkb = _check_shapes(q, k, v, block_mask, block)
     if not q.is_cuda:
-        return block_sparse_attention_ref(q, k, v, block_mask, causal=causal,
-                                          block=block)
+        b, sq, hq = q.shape[:3]
+        return accounting.plain(
+            lambda: {"K1": (attention_flops(q, block_mask, causal, block, 2),
+                            accounting.nbytes(q, k, v, block_mask, q)
+                            + 4.0 * b * hq * sq)},
+            lambda: block_sparse_attention_ref(q, k, v, block_mask,
+                                               causal=causal, block=block),
+            lambda: (torch.empty_like(q),
+                     q.new_empty((b, hq, sq), dtype=torch.float32)), q)
     _check_operands((("q", q), ("k", k), ("v", v)), q.dtype)
     mask, msb, msh = _device_mask(block_mask, q)
     b, sq, hq = q.shape[:3]
@@ -264,9 +272,17 @@ def block_sparse_attention_bwd(q, k, v, block_mask, dout, lse, delta, *,
     ([b, hq, sq] float32).  On CUDA: K2a then K2b."""
     if not q.is_cuda:
         _check_shapes(q, k, v, block_mask, block)
-        return block_sparse_attention_bwd_ref(
-            q, k, v, block_mask, dout.to(q.dtype), lse, delta,
-            causal=causal, block=block)
+        read = accounting.nbytes(q, k, v, block_mask, dout, lse, delta)
+        return accounting.plain(
+            lambda: {"K2a": (attention_flops(q, block_mask, causal, block, 3),
+                             read + accounting.nbytes(q)),
+                     "K2b": (attention_flops(q, block_mask, causal, block, 4),
+                             read + accounting.nbytes(k, v))},
+            lambda: block_sparse_attention_bwd_ref(
+                q, k, v, block_mask, dout.to(q.dtype), lse, delta,
+                causal=causal, block=block),
+            lambda: (torch.empty_like(q), torch.empty_like(k),
+                     torch.empty_like(v)), q)
     kw = dict(causal=causal, block=block)
     dq = block_sparse_attention_bwd_dq(q, k, v, block_mask, dout, lse,
                                        delta, **kw)
@@ -301,6 +317,21 @@ def block_sparse_attention(q, k, v, block_mask, *, causal: bool = True,
     """Attention output only ([b, sq, hq, d]); differentiable in q, k, v
     through the flash backward (K2a / K2b on the card)."""
     return _BlockSparseAttention.apply(q, k, v, block_mask, causal, block)
+
+
+def attention_flops(q, block_mask, causal: bool, block: int,
+                    products: int) -> float:
+    """FLOPs of ``products`` block x block x d products on each tile the
+    kernels visit (``attention_tile_work``'s forward count, over every
+    (batch, head) pair).  A mask on the ``meta`` device has no values and
+    counts as dense (every causally reachable tile)."""
+    b, _, hq, d = q.shape
+    mask = (np.ones(tuple(block_mask.shape)) if block_mask.is_meta
+            else block_mask.cpu())
+    bm = np.broadcast_to(np.asarray(mask), (b, hq) + tuple(mask.shape[-2:]))
+    tiles = attention_tile_work(bm, causal=causal, block_q=block,
+                                block_k=block)["fwd_active"] * b * hq
+    return float(products * 2 * tiles * block * block * d)
 
 
 def attention_tile_work(block_mask, *, causal: bool = True,

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import accounting
 from repro_torch.kernels._build import Kernel, dtype_code
 from repro_torch.kernels.grouped_matmul.ref import (grouped_product_dw_ref,
                                                     grouped_product_ref)
@@ -118,7 +119,12 @@ def grouped_product(x, w, counts, cap: int, wmap=None, *,
                          f"{tuple(w.shape)}")
     M, G = _shapes(x, cap, E)
     if not x.is_cuda:
-        return grouped_product_ref(x, w, counts, cap, wmap)
+        return accounting.plain(
+            lambda: {"K4.dx" if bwd else "K4": (
+                2.0 * M * K * N, accounting.nbytes(x, w, counts, wmap)
+                + M * N * x.element_size())},
+            lambda: grouped_product_ref(x, w, counts, cap, wmap),
+            lambda: x.new_empty((M, N)), x)
     _check_cuda("x", x, x.dtype)
     _check_cuda("w", w, x.dtype)
     if not x.is_contiguous():
@@ -148,7 +154,13 @@ def grouped_product_dw(x, g, counts, cap: int, num_experts: int,
         raise ValueError(f"g {tuple(g.shape)} does not match x "
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
-        return grouped_product_dw_ref(x, g, counts, cap, E, gmap, out_dtype)
+        return accounting.plain(
+            lambda: {"K5": (2.0 * M * K * N,
+                            accounting.nbytes(x, g, counts, gmap)
+                            + E * K * N * out_dtype.itemsize)},
+            lambda: grouped_product_dw_ref(x, g, counts, cap, E, gmap,
+                                           out_dtype),
+            lambda: x.new_empty((E, K, N), dtype=out_dtype), x)
     _check_cuda("x", x, x.dtype)
     _check_cuda("g", g, x.dtype)
     if not (x.is_contiguous() and g.is_contiguous()):

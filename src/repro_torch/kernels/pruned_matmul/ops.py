@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import accounting
 from repro_torch.kernels._build import Kernel, dtype_code
 from repro_torch.kernels.pruned_matmul.ref import pruned_matmul_ref
 
@@ -100,9 +101,21 @@ def product(x, w, block_mask, mask_axis: str, blk: int, *,
     M, K = x.shape
     N = w.shape[1]
     if not x.is_cuda:
-        res = pruned_matmul_ref(x, w, block_mask, mask_axis=mask_axis,
-                                bn=blk, bk=blk)
-        return res if out is None else out.copy_(res)
+        def run():
+            res = pruned_matmul_ref(x, w, block_mask, mask_axis=mask_axis,
+                                    bn=blk, bk=blk)
+            return res if out is None else out.copy_(res)
+
+        def work():
+            keep = (1.0 if block_mask.is_meta else
+                    float((np.asarray(block_mask.cpu()) > 0).mean()))
+            return {"K3.bwd" if bwd else "K3": (
+                2.0 * M * K * N * keep,
+                accounting.nbytes(x, w, block_mask)
+                + M * N * x.element_size())}
+        return accounting.plain(
+            work, run, lambda: (x.new_empty((M, N)) if out is None else out),
+            x)
     for name, t in (("x", x), ("w", w)):
         if not t.is_cuda or t.dim() != 2:
             raise ValueError(f"{name} must be a 2-d CUDA tensor, got "

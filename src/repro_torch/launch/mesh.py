@@ -1,4 +1,5 @@
-"""A mesh of ranks — the port's counterpart of ``repro.launch.mesh``.
+"""A mesh of ranks, and the logical mesh of the dry run — the port's
+counterpart of ``repro.launch.mesh``.
 
 The reference lays S pipeline stages and D data replicas out as a
 ``data x model`` mesh of devices.  Here each cell of that mesh is one OS
@@ -22,13 +23,47 @@ group of it.  Collectives and point-to-point transfers go through
 ``mesh.comm`` (``launch.dist.Comm``, one per rank, shared by every world's
 mesh), which stages CUDA tensors through host buffers when the backend is
 ``gloo``.
+
+A ``LogicalMesh`` is the other kind: axis names and sizes, no process and
+no group.  The dry run (``launch.dryrun``) places its input specs on one,
+as the reference places its on placeholder devices:
+``make_production_mesh()`` is the reference's 16 x 16 ``("data",
+"model")`` mesh, ``make_production_mesh(multi_pod=True)`` its 2 x 16 x 16
+``("pod", "data", "model")`` one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """Axis names and sizes of a mesh of cards, with no process behind it
+    (the dry run's placement target)."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axis_sizes:
+            n *= a
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """The reference's production mesh: 16 x 16 (data x model) = 256
+    cards, or 2 x 16 x 16 (pod x data x model) = 512."""
+    if multi_pod:
+        return LogicalMesh(("pod", "data", "model"), (2, 16, 16))
+    return LogicalMesh(("data", "model"), (16, 16))
 
 
 @dataclasses.dataclass
@@ -46,6 +81,10 @@ class Mesh:
     world_group: Any = None     # None: the mesh is the whole launch
 
     axis_names = ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
 
     @property
     def member(self) -> bool:
@@ -149,5 +188,10 @@ def data_axes(mesh) -> tuple:
 
 
 def dp_degree(mesh) -> int:
-    """The number of data replicas."""
-    return 1 if mesh is None else int(mesh.data)
+    """The number of data replicas (the product of the data axes)."""
+    if mesh is None:
+        return 1
+    n = 1
+    for a in data_axes(mesh):
+        n *= mesh.shape[a]
+    return int(n)

@@ -21,15 +21,33 @@ in, ``tree_digest`` the bytes every rank of a world must agree on.
 Stage rows stay on their ``model`` rank and are replicated over ``data``
 for every arch, as the reference's runtime places them
 (``ElasticEngine._place``: stage leaves on ``model``, everything else
-replicated).  The reference's FSDP sharding over ``data`` (archs above 8B
-parameters) is read only by its AOT dry-run's input specs; its port
-belongs with that dry-run (ROADMAP Queue 1 [tpu-mesh]).
+replicated).
+
+The second half of this module is the reference's placement policy for
+its dry run, which holds the FSDP layout (``launch.specs``,
+``launch.dryrun``): each input of a step gets a partition tuple over a
+``LogicalMesh``'s axis names, one entry a dim (None: not split; an axis
+name; or a tuple of names, split over their product), as the reference's
+``PartitionSpec``s:
+
+  * stage buffers ``[S, L_max, ...]``: ``model`` on dim 0, and with FSDP
+    (archs above 8e9 parameters) ``data`` on the largest dim >= 2 that
+    ``data`` divides;
+  * embed ``[V, d]`` and head ``[d, V]``: the vocabulary over ``data``;
+  * ``shared`` and ``final_norm``: replicated (``dec_pos`` on dim 0);
+  * the batch ``[m, B, ...]``: B over every data axis;
+  * the decode cache ``[S, L_max, m, B, ...]``: ``model``, then the batch
+    dim over ``data`` (else the largest divisible dim from 3 on);
+  * optimizer moments: their parameter's tuple; Adafactor's ``vr`` drops
+    the last entry, ``vc`` the one before it.
+
+``shard_shape`` / ``shard_bytes`` give what one card holds of a leaf.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -211,3 +229,193 @@ def tree_digest(tree: Any) -> Optional[str]:
         h.update(t.detach().contiguous().cpu().reshape(-1)
                  .view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
+
+
+
+# ---------------------------------------------------------------------------
+# The dry run's placement (the reference's partition specs, FSDP included)
+# ---------------------------------------------------------------------------
+class Placed(NamedTuple):
+    """A stand-in for one input of a step: its shape, dtype and partition
+    tuple over a logical mesh (``()``: replicated).  Allocates nothing."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    placement: Tuple[Any, ...] = ()
+
+
+def _is_leaf(x) -> bool:
+    return not isinstance(x, dict)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of trees of dicts with one structure."""
+    if _is_leaf(tree):
+        return fn(tree, *rest)
+    return {k: tree_map(fn, v, *(r[k] for r in rest))
+            for k, v in tree.items()}
+
+
+def _fsdp_dim(shape: Tuple[int, ...], start: int, size: int
+              ) -> Optional[int]:
+    """Largest dim index >= start whose size is divisible by ``size``."""
+    best, best_sz = None, 0
+    for i in range(start, len(shape)):
+        if shape[i] % size == 0 and shape[i] >= size and shape[i] > best_sz:
+            best, best_sz = i, shape[i]
+    return best
+
+
+def stage_param_spec(shape: Tuple[int, ...], mesh, fsdp: bool = True
+                     ) -> Tuple[Any, ...]:
+    entries = ["model"] + [None] * (len(shape) - 1)
+    if fsdp and len(shape) > 2:
+        d = _fsdp_dim(shape, 2, mesh.shape["data"])
+        if d is not None:
+            entries[d] = "data"
+    return tuple(entries)
+
+
+def param_shardings(cfg, dcfg, mesh, param_tree_spec: Dict[str, Any]):
+    """Partition tuples matching ``model.param_spec(cfg, dcfg)``."""
+    dsize = mesh.shape["data"]
+    out: Dict[str, Any] = {}
+    for k, v in param_tree_spec.items():
+        if k == "stages":
+            out[k] = {f: stage_param_spec(s.shape, mesh, dcfg.fsdp)
+                      for f, s in v.items()}
+        elif k == "embed":
+            out[k] = (("data", None) if v.shape[0] % dsize == 0
+                      else (None, None))
+        elif k == "head":
+            out[k] = ((None, "data") if v.shape[1] % dsize == 0
+                      else (None, None))
+        elif k == "shared":
+            out[k] = {f: (("data", None) if f == "dec_pos"
+                          and s.shape[0] % dsize == 0
+                          else (None,) * len(s.shape))
+                      for f, s in v.items()}
+        else:
+            out[k] = (None,) * len(v.shape)
+    return out
+
+
+_MOMENT_KEYS = ("m", "v", "vr", "vc", "f")
+
+
+def opt_shardings(opt_template, p_shardings, mesh):
+    """Each moment takes its parameter's tuple, found by path through the
+    moment keys (``m``, ``v``, ``f``, ``vr``, ``vc``); Adafactor's ``vr``
+    drops the last entry and ``vc`` the one before it; anything else (the
+    step count) is replicated."""
+    def find(path):
+        node = p_shardings
+        for key in path:
+            if isinstance(node, dict) and key in node:
+                node = node[key]
+            elif key in _MOMENT_KEYS:
+                continue
+            else:
+                return None
+        return None if isinstance(node, dict) else node
+
+    def one(path, leaf):
+        ndim = len(leaf.shape)
+        pspec = find(path)
+        if pspec is None:
+            return (None,) * ndim
+        entries = list(pspec)
+        last = path[-1] if path else ""
+        if last == "vr":
+            entries = entries[:-1]
+        elif last == "vc":
+            entries = entries[:-2] + entries[-1:]
+        return tuple((entries + [None] * ndim)[:ndim])
+
+    return rebuild(opt_template, one)
+
+
+def batch_shardings(batch_spec: Dict[str, Any], mesh):
+    from repro_torch.launch.mesh import data_axes, dp_degree
+    daxes = data_axes(mesh)
+    dp = dp_degree(mesh)
+
+    def one(s):
+        entries = [None] * len(s.shape)
+        if len(s.shape) >= 2 and s.shape[1] % dp == 0:
+            entries[1] = daxes if len(daxes) > 1 else daxes[0]
+        return tuple(entries)
+
+    return {k: one(v) for k, v in batch_spec.items()}
+
+
+def cache_shardings(cache_spec: Dict[str, Any], mesh):
+    dsize = mesh.shape["data"]
+
+    def one(s):
+        entries = ["model"] + [None] * (len(s.shape) - 1)
+        # the batch dim (3) first, else the largest divisible dim >= 3
+        if len(s.shape) > 3 and s.shape[3] % dsize == 0:
+            entries[3] = "data"
+        else:
+            d = _fsdp_dim(s.shape, 3, dsize)
+            if d is not None:
+                entries[d] = "data"
+        return tuple(entries)
+
+    return {k: one(v) for k, v in cache_spec.items()}
+
+
+def stage_tree_shardings(tree_spec: Dict[str, Any], mesh):
+    """Assignment and dyn leaves ``[S, ...]``: the stage over ``model``."""
+    return tree_map(lambda s: ("model",) + (None,) * (len(s.shape) - 1),
+                    tree_spec)
+
+
+def attach(spec_tree, placement_tree):
+    """``Placed`` stand-ins: each spec's shape and dtype with its
+    placement."""
+    return tree_map(lambda s, p: Placed(tuple(s.shape), s.dtype, tuple(p)),
+                    spec_tree, placement_tree)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def shard_shape(shape: Tuple[int, ...], placement, mesh
+                ) -> Tuple[int, ...]:
+    """The shape one card holds of a leaf of ``shape`` under
+    ``placement`` (dims split over their axes' product, rounded up)."""
+    sizes = mesh.shape
+    out = list(shape)
+    for i, entry in enumerate(placement):
+        n = 1
+        for a in _axes(entry):
+            n *= sizes[a]
+        out[i] = -(-shape[i] // n)
+    return tuple(out)
+
+
+def shard_bytes(leaf: Placed, mesh) -> int:
+    """Bytes one card holds of a ``Placed`` leaf."""
+    n = 1
+    for d in shard_shape(leaf.shape, leaf.placement, mesh):
+        n *= d
+    return n * leaf.dtype.itemsize
+
+
+def tree_bytes(tree, mesh=None) -> int:
+    """Bytes of a tree of ``Placed`` leaves: one card's (``mesh`` given),
+    or the whole tree's, each leaf counted once."""
+    total = 0
+    for _, leaf in leaves(tree):
+        if mesh is not None:
+            total += shard_bytes(leaf, mesh)
+        else:
+            n = 1
+            for d in leaf.shape:
+                n *= d
+            total += n * leaf.dtype.itemsize
+    return total

@@ -7,9 +7,13 @@ has the reference's three impls: "reference" (the O(s^2) oracle), "scan"
 means the hand-written CUDA kernels of ``repro_torch.kernels`` (their plain
 PyTorch versions on a CPU tensor).  The "pallas" ops are differentiable
 through the kernels' own backward (K2a / K2b for attention, K3's backward
-products for the SwiGLU); "reference" and "scan" differentiate through
-torch autograd of their forward (the reference's memory-saving
-``_flash_vjp`` for "scan" is ROADMAP work).
+products for the SwiGLU).  "scan" (and "pallas" attention with a sliding
+window or a query offset, which falls back to it) differentiates through
+``_FlashScan``, the reference's flash backward (``_flash_vjp``): the
+forward keeps only (q, k, v, block_mask, out, lse) and the backward
+recomputes each kv block's scores from ``lse``, so no per-block score or
+probability tensor outlives its block.  "reference" differentiates through
+torch autograd of its forward, as in the reference.
 """
 from __future__ import annotations
 
@@ -201,9 +205,8 @@ def flash_attention(q, k, v, *, causal: bool, sliding_window: int = 0,
         return attention_reference(
             q, k, v, causal=causal, sliding_window=sliding_window,
             q_offset=q_offset, block_mask=block_mask, block_size=kv_block)
-    out, _ = _flash_fwd_impl(q, k, v, block_mask, causal, sliding_window,
-                             q_offset, kv_block)
-    return out
+    return _FlashScan.apply(q, k, v, block_mask, causal, sliding_window,
+                            q_offset, kv_block)
 
 
 def _pallas_attention(q, k, v, block_mask, causal, kv_block):
@@ -226,6 +229,94 @@ def _pallas_attention(q, k, v, block_mask, causal, kv_block):
         bm = bm[:, :, qb][:, :, :, kb]
     return bsa_ops.block_sparse_attention(q, k, v, bm, causal=causal,
                                           block=block)
+
+
+class _FlashScan(torch.autograd.Function):
+    """The scan's forward with the reference's flash backward
+    (``_flash_vjp``): the forward runs without a graph and saves
+    (q, k, v, block_mask, out, lse); the backward recomputes the scores
+    kv block by kv block from ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_mask, causal, sliding_window, q_offset,
+                kv_block):
+        out, lse = _flash_fwd_impl(q, k, v, block_mask, causal,
+                                   sliding_window, q_offset, kv_block)
+        ctx.save_for_backward(q, k, v, block_mask, out, lse)
+        ctx.args = (causal, sliding_window, q_offset, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, block_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, block_mask, out, lse, dout,
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _flash_bwd(q, k, v, block_mask, out, lse, dout, causal, sliding_window,
+               q_offset, kv_block):
+    """(dq, dk, dv) in the inputs' dtypes, the reference's
+    ``_flash_vjp_bwd``: per kv block, s = q k^T / sqrt(d) in fp32 from the
+    fp32 operands, p = exp(s - lse) (0 where masked and on fully masked
+    rows, whose lse is ~NEG_INF), ds = p (dout v^T - D) / sqrt(d) with
+    D = rowsum(dout * out); dq += ds k, and the block's dk = ds^T q and
+    dv = p^T dout, each summed over its GQA group."""
+    b, sq, h, d = q.shape
+    sk, kv_heads = k.shape[1], k.shape[2]
+    rep = h // kv_heads
+    pad = (-sk) % kv_block
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nkb = k.shape[1] // kv_block
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    pq = torch.arange(sq, device=dev) + q_offset
+    qb_ids = torch.arange(sq, device=dev) // kv_block
+    if block_mask is not None:
+        qb_ids = qb_ids.clamp(max=block_mask.shape[-2] - 1)
+    doutf = dout.float().transpose(1, 2)                       # [b,h,sq,d]
+    D = (doutf * out.float().transpose(1, 2)).sum(-1)          # [b,h,sq]
+    qh = q.float().transpose(1, 2)                             # [b,h,sq,d]
+    dead_row = (lse <= NEG_INF / 4)[..., None]
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, nkb * kv_block, kv_heads, d), dtype=torch.float32,
+                     device=dev)
+    dv = torch.zeros_like(dk)
+    for jb in range(nkb):
+        blk = slice(jb * kv_block, (jb + 1) * kv_block)
+        krep = k[:, blk].float().repeat_interleave(rep, dim=2)
+        vrep = v[:, blk].float().repeat_interleave(rep, dim=2)
+        s = torch.einsum("bhqd,bkhd->bhqk", qh, krep) * scale
+        pk = jb * kv_block + torch.arange(kv_block, device=dev)
+        mask = (pk[None, :] <= sk - 1).expand(sq, kv_block)
+        if causal:
+            mask = mask & (pq[:, None] >= pk[None, :])
+        if sliding_window:
+            mask = mask & (pq[:, None] - pk[None, :] < sliding_window)
+        neg = torch.full_like(s, NEG_INF)
+        if block_mask is not None:
+            kb = min(jb, block_mask.shape[-1] - 1)
+            if block_mask.dim() == 3:
+                bm = block_mask[:, qb_ids, kb]                    # [h, sq]
+                s = torch.where(bm[None, :, :, None] > 0, s, neg)
+            else:
+                bm = block_mask[:, :, qb_ids, kb]                 # [b, h, sq]
+                s = torch.where(bm[..., None] > 0, s, neg)
+        s = torch.where(mask[None, None], s, neg)
+        p = torch.exp(s - lse[..., None])
+        p = torch.where((s <= NEG_INF / 2) | dead_row,
+                        torch.zeros_like(p), p)
+        dp = torch.einsum("bhqd,bkhd->bhqk", doutf, vrep)
+        ds = p * (dp - D[..., None]) * scale
+        dq += torch.einsum("bhqk,bkhd->bhqd", ds, krep)
+        dk[:, blk] = torch.einsum("bhqk,bhqd->bkhd", ds, qh).reshape(
+            b, kv_block, kv_heads, rep, d).sum(3)
+        dv[:, blk] = torch.einsum("bhqk,bhqd->bkhd", p, doutf).reshape(
+            b, kv_block, kv_heads, rep, d).sum(3)
+    return (dq.transpose(1, 2).to(q.dtype), dk[:, :sk].to(k.dtype),
+            dv[:, :sk].to(v.dtype))
 
 
 def _flash_fwd_impl(q, k, v, block_mask, causal, sliding_window, q_offset,

@@ -87,6 +87,15 @@ def make_assignment(cfg: ModelConfig, dcfg: DistConfig,
     }
 
 
+def assignment_spec(cfg: ModelConfig, dcfg: DistConfig
+                    ) -> Dict[str, B.TensorSpec]:
+    """``make_assignment``'s shapes and dtypes, allocating nothing."""
+    S, L_max = dcfg.num_stages, dcfg.slots_for(cfg)
+    return {"tags": B.TensorSpec((S, L_max), torch.int32),
+            "num_active": B.TensorSpec((S,), torch.int32),
+            "depth_base": B.TensorSpec((S,), torch.int32)}
+
+
 # ---------------------------------------------------------------------------
 # Params / dyn-state / cache construction
 # ---------------------------------------------------------------------------
@@ -157,6 +166,14 @@ def init_dyn(cfg: ModelConfig, dcfg: DistConfig, dyncfg: DynamicsConfig,
             cfg.num_experts, dtype=torch.float32, device=device).repeat(
                 S, L_max, 1)
     return dyn
+
+
+def dyn_spec(cfg: ModelConfig, dcfg: DistConfig,
+             dyncfg: DynamicsConfig) -> Dict[str, B.TensorSpec]:
+    """``init_dyn``'s shapes and dtypes, allocating nothing (built on the
+    ``meta`` device)."""
+    return {k: B.TensorSpec(tuple(v.shape), v.dtype)
+            for k, v in init_dyn(cfg, dcfg, dyncfg, "meta").items()}
 
 
 def cache_spec(cfg: ModelConfig, dcfg: DistConfig, num_micro: int, mb: int,

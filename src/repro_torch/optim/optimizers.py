@@ -186,6 +186,20 @@ def make_optimizer(cfg: OptConfig, mesh=None):
     return init_fn, update_fn
 
 
+def opt_spec(cfg: OptConfig, param_spec) -> Any:
+    """The optimizer state's template for a tree of ``TensorSpec``s
+    (shape, dtype) without allocating it: ``init_fn`` run on ``meta``
+    tensors, its leaves turned back into specs — the reference's
+    ``jax.eval_shape(init_fn, pspec)``.  Adafactor's factored ``vr`` /
+    ``vc`` moments come out as its init makes them."""
+    spec_type = type(next(p for _, p in _leaves(param_spec)))
+    meta = _map(lambda _, s: torch.empty(s.shape, dtype=s.dtype,
+                                         device="meta"), param_spec)
+    init_fn, _ = make_optimizer(cfg)
+    return _map(lambda _, t: spec_type(tuple(t.shape), t.dtype),
+                init_fn(meta))
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]

@@ -73,6 +73,29 @@ class PipelineShapes:
                    enc_seq=cfg.encoder_seq if cfg.is_encdec else 0)
 
 
+def plan_shapes(cfg: ModelConfig, dcfg: DistConfig, shape_kind: str,
+                seq_len: int, global_batch: int, dp_degree: int
+                ) -> PipelineShapes:
+    """Microbatching of a shape cell over ``dp_degree`` data replicas, as
+    the reference's ``plan_shapes`` derives it: at most ``4 S``
+    microbatches a replica; a batch smaller than the data degree (one
+    500k-token request) is not split over ``data``."""
+    prefix = M.prefix_len(cfg)
+    enc_seq = cfg.encoder_seq if cfg.is_encdec else 0
+    cache_len = seq_len if shape_kind in ("decode", "prefill") else 0
+    if global_batch < dp_degree:
+        return PipelineShapes(num_micro=1, mb_global=global_batch,
+                              seq=seq_len, cache_len=cache_len,
+                              prefix=prefix, enc_seq=enc_seq)
+    per_replica = max(1, global_batch // dp_degree)
+    num_micro = min(per_replica, 4 * dcfg.num_stages)
+    mb = max(1, per_replica // num_micro)
+    num_micro = max(1, per_replica // mb)
+    return PipelineShapes(num_micro=num_micro, mb_global=mb * dp_degree,
+                          seq=seq_len, cache_len=cache_len, prefix=prefix,
+                          enc_seq=enc_seq)
+
+
 def _stage_slice(tree, s: int):
     return {k: v[s] for k, v in tree.items()}
 

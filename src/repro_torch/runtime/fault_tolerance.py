@@ -71,6 +71,10 @@ class HeartbeatMonitor:
             self._last[worker] = self.clock()
 
 
+# decimals of a relative slowdown (``StragglerDetector.relative_slowdown``)
+SLOWDOWN_DIGITS = 12
+
+
 class StragglerDetector:
     """EMA of per-stage step times; exposes slowdown multipliers ≥ 1 that
     the controller multiplies into the by-time cost vector."""
@@ -102,14 +106,21 @@ class StragglerDetector:
         model (absolute seconds off by a constant factor) does not read as
         every stage straggling — only *relative* skew between stages
         survives.  This is the multiplier the controller folds into the
-        balancer's time cost vector."""
+        balancer's time cost vector.
+
+        The ratio is rounded to ``SLOWDOWN_DIGITS`` decimals, so it is
+        scale-free to the bit: times measured at another scale (another
+        wall time a step) differ from these in their last bits, and the
+        balancer breaks exact ties between cuts (a 2x straggler's stage
+        against two others) on those bits."""
         expected = np.maximum(np.asarray(expected, dtype=np.float64), 1e-12)
         if not self.initialized:
             return np.ones_like(expected)
         scale = self.times.sum() / expected.sum()
         if scale <= 0:
             return np.ones_like(expected)
-        return np.maximum(1.0, self.times / (expected * scale))
+        return np.maximum(1.0, np.round(self.times / (expected * scale),
+                                        SLOWDOWN_DIGITS))
 
 
 @dataclasses.dataclass

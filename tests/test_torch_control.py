@@ -356,6 +356,63 @@ def test_mailbox_counts_survive_a_stress_of_threads():
         sys.setswitchinterval(old)
 
 
+def _straggler_plan(P, stage_times):
+    """The plan ``P``'s controller (the port's or the reference's
+    modules) decides for a reduced smollm's profile with these measured
+    stage times."""
+    cfg = P.reduced_config(P.get_config("smollm-360m"), num_layers=8,
+                           d_model=64, num_heads=4, num_kv_heads=2,
+                           d_ff=256, vocab_size=512)
+    dcfg = P.DistConfig(num_stages=4, param_dtype="float32")
+    tags = np.asarray(P.make_assignment(cfg, dcfg)["tags"])
+    live = np.where(tags != 0, 4.0, 0.0)
+    stats = {"ff_active": live, "attn_density": live,
+             "expert_load": np.zeros(tags.shape + (1,))}
+    ctrl = P.DynMoController(cfg, dcfg, P.DynamicsConfig(kind="pruning"),
+                             P.ControllerConfig(rebalance_every=3),
+                             straggler=P.StragglerDetector(4))
+    ctrl.straggler.update(np.asarray(stage_times, dtype=np.float64))
+    prof = P.profile_from_stats(cfg, stats, tags, 4, 256, 32,
+                                bytes_per_param=4)
+    return ctrl.decide(prof, 3)[0]
+
+
+def _modules(root):
+    import importlib
+    import types
+    names = {"configs.base": ("DistConfig", "get_config", "reduced_config"),
+             "core.controller": ("ControllerConfig", "DynMoController"),
+             "core.profiler": ("profile_from_stats",),
+             "dynamics.config": ("DynamicsConfig",),
+             "models.model": ("make_assignment",),
+             "runtime.fault_tolerance": ("StragglerDetector",)}
+    P = types.SimpleNamespace()
+    for mod, attrs in names.items():
+        m = importlib.import_module(f"{root}.{mod}")
+        for a in attrs:
+            setattr(P, a, getattr(m, a))
+    return P
+
+
+def test_straggler_decision_does_not_depend_on_the_step_wall_time():
+    """A simulated 3x straggler's stage times are the step's wall time
+    split by layer counts: at every wall time the port's controller
+    decides the plan the reference's decides for the exact times [1, 3,
+    1, 1].  The relative slowdown is 2.0 up to the last bits of the
+    scale, and the balancer breaks an exact tie between two cuts on those
+    bits; unrounded, about a quarter of wall times gave no rebalance (the
+    one-process run of the test below then had no event)."""
+    want = _straggler_plan(_modules("repro"), [1.0, 3.0, 1.0, 1.0])
+    assert want is not None
+    port = _modules("repro_torch")
+    decided = {}
+    for wall in np.linspace(0.2, 0.4, 401):
+        lps = _straggler_plan(port, np.full(4, wall / 4) * [1, 3, 1, 1])
+        decided.setdefault(str(lps), []).append(float(wall))
+    assert list(decided) == [str(want)], {
+        k: (len(v), v[:3]) for k, v in decided.items()}
+
+
 LATENCY = ["--layers", "8", "--d-model", "64", "--num-heads", "4",
            "--num-kv-heads", "2", "--d-ff", "256", "--vocab-size", "512",
            "--stages", "4", "--num-micro", "4", "--mb-global", "2", "--seq",
