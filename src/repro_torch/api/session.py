@@ -20,7 +20,12 @@ saves it, ``obs.metrics_port`` serves it at ``GET /metrics``);
 ``obs.trace`` gives the run a ``Tracer`` (``session.tracer``, exported to
 ``obs.trace_out``) that is process-current while the run lasts, so the RPC
 clients, the control plane and the fault injector stamp their spans and
-events into it.  ``faults.enabled`` resolves the ``FaultSpec`` into a
+events into it.  ``train`` looks the current tracer up as each step starts
+(``obs.timing.step_tracer``), so a tracer made current or cleared from
+``on_step`` traces from the next step on; while one is current every phase
+of a step is a span (the loader's ``train.data``, the step's ``step.*``
+with their device time, ``train.sync``, the prune, the decision and its
+stats read-back, the migration, the hook, the log).  ``faults.enabled`` resolves the ``FaultSpec`` into a
 ``FaultPlan`` and fires it through a ``faults.ChaosInjector``
 (``session.injector``): worker crashes, manager kills and respawns, RPC
 loss / duplication / delay, straggler spikes and a trainer kill.
@@ -70,6 +75,7 @@ job-manager bookkeeping, detach pool hooks), then the job-manager client
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -83,6 +89,16 @@ from repro_torch.api.specs import RunSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.events import EVENT_SCHEMA, stamp_record
 from repro_torch.obs.metrics import MetricsRegistry
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _span(tracer, name: str, step: int, cat: str = "train"):
+    """A span of the training loop under the open one; a no-op (nothing
+    built) without a tracer."""
+    return _NO_SPAN if tracer is None else tracer.span(name, cat=cat,
+                                                       step=step)
 
 
 @dataclasses.dataclass
@@ -459,6 +475,7 @@ class Session:
         from repro_torch.dynamics import pruning as prn
         from repro_torch.dynamics.trajectories import zhu_gupta_sparsity
         from repro_torch.launch.engine import ElasticEngine
+        from repro_torch.obs.timing import release_profile_tracer, step_tracer
         from repro_torch.optim.schedule import cosine_schedule
         from repro_torch.pipeline.pipeline import PipelineShapes
         from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
@@ -476,7 +493,7 @@ class Session:
                 return step_times[-1]
             return float(mesh.comm.all_gather_object(
                 step_times[-1])[engine.mesh.leader])
-        tracer = self._obs_begin("train")
+        self._obs_begin("train")
         mreg = self.metrics
         steps = steps if steps is not None else spec.steps
         stages = spec.parallel.stages
@@ -728,13 +745,20 @@ class Session:
         warmup_steps, warmup_s, decide_s = 0, 0.0, 0.0
         steady_times: List[float] = []
         preempt_ctx = None
-        root_span = (tracer.span("train", cat="session", steps=steps,
-                                 stages=stages) if tracer is not None
-                     else None)
+        # the step's tracer, and the root span open in it
+        tracer = root_span = None
         t0 = time.perf_counter()
-        for step, batch in enumerate(loader, start=start_step):
-            if step >= steps:
-                break
+        for step in range(start_step, steps):
+            cur = step_tracer()
+            if cur is not tracer:
+                if root_span is not None:
+                    root_span.end(steps_run=len(losses))
+                tracer = cur
+                root_span = (tracer.span("train", cat="session",
+                                         steps=steps, stages=stages)
+                             if tracer is not None else None)
+            with _span(tracer, "train.data", step):
+                batch = next(loader)
             t_step = time.perf_counter()
             lr = cosine_schedule(step, steps, 3e-4, warmup=10)
             sp_step = (tracer.span("train.step", cat="train", step=step,
@@ -743,8 +767,10 @@ class Session:
             loss, stats, gnorm = engine.step(state, batch, lr)
             # one scalar sync for the loss curve; the per-slot stats stay
             # on the device until controller cadence (§3.3.1)
-            losses.append(float(loss))
+            with _span(tracer, "train.sync", step):
+                losses.append(float(loss))
             if sp_step is not None:
+                engine.read_step_spans(state)
                 sp_step.end(compiled=engine.last_step_compiled)
             dt = time.perf_counter() - t_step
             step_times.append(dt)
@@ -764,47 +790,51 @@ class Session:
 
             # ---- dynamism events (black-box to the controller)
             if dynamism == "pruning" and step and step % 10 == 0:
-                sp = zhu_gupta_sparsity(
-                    step * 100, dataclasses.replace(
-                        dyncfg, prune_start_iter=0,
-                        prune_end_iter=steps * 100, prune_frequency=1))
-                keep = prn.target_keep_blocks(cfg, cfg.total_blocks(), sp)
-                if engine.active():
-                    state.dyn = {**state.dyn,
-                                 "ff_mask": prn.global_block_prune(
-                                     cfg, state.params["stages"],
-                                     state.assignment["tags"], keep,
-                                     mesh=engine.mesh)}
+                with _span(tracer, "train.prune", step):
+                    sp = zhu_gupta_sparsity(
+                        step * 100, dataclasses.replace(
+                            dyncfg, prune_start_iter=0,
+                            prune_end_iter=steps * 100, prune_frequency=1))
+                    keep = prn.target_keep_blocks(cfg, cfg.total_blocks(),
+                                                  sp)
+                    if engine.active():
+                        state.dyn = {**state.dyn,
+                                     "ff_mask": prn.global_block_prune(
+                                         cfg, state.params["stages"],
+                                         state.assignment["tags"], keep,
+                                         mesh=engine.mesh)}
             if dynamism == "freezing" and step and step % 10 == 0:
-                front = int(cfg.total_blocks() * min(0.6, step / steps))
-                tags_np = state.assignment["tags"].numpy()
-                fr = np.zeros(tags_np.shape, np.float32)
-                g = 0
-                for s in range(tags_np.shape[0]):
-                    for l in range(tags_np.shape[1]):
-                        if tags_np[s, l] != 0:
-                            if g < front:
-                                fr[s, l] = 1.0
-                            g += 1
-                if engine.active():
-                    if mesh is not None:
-                        fr = fr[engine.mesh.stage:engine.mesh.stage + 1]
-                    state.dyn = {**state.dyn, "frozen":
-                                 state.dyn["frozen"].new_tensor(fr)}
+                with _span(tracer, "train.freeze", step):
+                    front = int(cfg.total_blocks() * min(0.6, step / steps))
+                    tags_np = state.assignment["tags"].numpy()
+                    fr = np.zeros(tags_np.shape, np.float32)
+                    g = 0
+                    for s in range(tags_np.shape[0]):
+                        for l in range(tags_np.shape[1]):
+                            if tags_np[s, l] != 0:
+                                if g < front:
+                                    fr[s, l] = 1.0
+                                g += 1
+                    if engine.active():
+                        if mesh is not None:
+                            fr = fr[engine.mesh.stage:engine.mesh.stage + 1]
+                        state.dyn = {**state.dyn, "frozen":
+                                     state.dyn["frozen"].new_tensor(fr)}
 
             # ---- heartbeats (simulated per-step liveness: active workers
             # beat; released / dead ones go silent and time out)
             if monitor is not None:
-                sim_clock[0] = float(step)
-                beat = engine.stage_workers if injector is None \
-                    else injector.heartbeat_workers(engine.stage_workers)
-                for w in beat:
-                    monitor.beat(w)
-                if (spec.cluster.simulate_recover is not None
-                        and step == spec.cluster.simulate_recover):
-                    for w in range(stages):
-                        if w not in engine.stage_workers:
-                            monitor.revive(w)
+                with _span(tracer, "train.heartbeat", step):
+                    sim_clock[0] = float(step)
+                    beat = engine.stage_workers if injector is None \
+                        else injector.heartbeat_workers(engine.stage_workers)
+                    for w in beat:
+                        monitor.beat(w)
+                    if (spec.cluster.simulate_recover is not None
+                            and step == spec.cluster.simulate_recover):
+                        for w in range(stages):
+                            if w not in engine.stage_workers:
+                                monitor.revive(w)
 
             # ---- publish stats to the control plane on cadence (the only
             # device -> host stats sync; in async mode a pointer swap)
@@ -857,14 +887,17 @@ class Session:
                             share = np.asarray(state.lps, np.float64)
                             measured = share / share.sum() * wall_dt
                         measured = measured * np.asarray(mult)
+                with _span(tracer, "controller.stats", step,
+                           cat="controller"):
+                    host_stats = engine.stats_to_host(state, stats)
+                    tags = state.assignment["tags"].numpy()
+                    frozen = engine.gather_state(
+                        state.dyn and state.dyn["frozen"]).cpu().numpy()
                 cp.publish(StatsSnapshot(
                     iteration=step + 1, epoch=engine.epoch,
-                    stats=engine.stats_to_host(state, stats),
-                    tags=state.assignment["tags"].numpy(),
+                    stats=host_stats, tags=tags,
                     num_micro=shapes.num_micro, tokens=tokens_per_step,
-                    seq=seq, frozen=engine.gather_state(
-                        state.dyn and state.dyn["frozen"]).cpu().numpy(),
-                    stage_times=measured))
+                    seq=seq, frozen=frozen, stage_times=measured))
                 if spec.controller.async_drain:
                     cp.drain()
                 if stage_times_log and stage_times_log[-1]["step"] == step \
@@ -972,10 +1005,12 @@ class Session:
                         if plan.resize.policy == "preempt":
                             preempt_ctx = None
                 elif plan.new_lps is not None:
-                    (state.params, state.opt_state, state.dyn,
-                     state.assignment, _) = cp.apply(
-                        plan, state.params, state.opt_state, state.dyn)
-                    state.lps = cp.with_ctrl(lambda c: list(c.lps))
+                    with _span(tracer, "controlplane.apply", step,
+                               cat="controller"):
+                        (state.params, state.opt_state, state.dyn,
+                         state.assignment, _) = cp.apply(
+                            plan, state.params, state.opt_state, state.dyn)
+                        state.lps = cp.with_ctrl(lambda c: list(c.lps))
                 # expert re-layout: orthogonal to the stage plan above (it
                 # rewrites only the expert_map dyn leaf).  Every rank
                 # commits it to its controller and records it; only a rank
@@ -983,13 +1018,16 @@ class Session:
                 # expert_map row
                 if plan.expert_relayout is not None:
                     rl = plan.expert_relayout
-                    if state.dyn is not None and "expert_map" in state.dyn:
-                        em = state.dyn["expert_map"]
-                        state.dyn = {**state.dyn,
-                                     "expert_map": em.new_tensor(
-                                         rl.new.as_array()).expand_as(
-                                             em).clone()}
-                    cp.with_ctrl(lambda c: c.commit_relayout(rl))
+                    with _span(tracer, "moe.relayout", step,
+                               cat="controller"):
+                        if (state.dyn is not None
+                                and "expert_map" in state.dyn):
+                            em = state.dyn["expert_map"]
+                            state.dyn = {**state.dyn,
+                                         "expert_map": em.new_tensor(
+                                             rl.new.as_array()).expand_as(
+                                                 em).clone()}
+                        cp.with_ctrl(lambda c: c.commit_relayout(rl))
                     rec = {"iteration": rl.iteration, "skew": rl.skew,
                            "tokens": rl.total_tokens,
                            "moved_experts": rl.moved_experts,
@@ -1077,26 +1115,29 @@ class Session:
                 # for Session.resume
                 injector.on_step(step, workers=engine.stage_workers)
             if on_step is not None:
-                on_step(step, self)
+                with _span(tracer, "train.hook", step):
+                    on_step(step, self)
             if mesh is not None:
                 held.append(engine.held_bytes(state))
-            gnorms.append(float(gnorm))
-            if step % spec.log_every == 0:
-                self._emit("log", step, loss=float(loss),
-                           gnorm=float(gnorm), stages=state.stages,
-                           lps=list(state.lps))
-                ee = ""
-                if "exited_frac" in stats:
-                    # early exit's share of exited tokens: a host read on
-                    # the log cadence only
-                    exited_frac[step] = float(stats["exited_frac"])
-                    ee = f" exited {exited_frac[step]:.4f}"
-                print(f"step {step:4d} loss {float(loss):.4f} "
-                      f"gnorm {float(gnorm):.3f} S={state.stages} "
-                      f"lps={state.lps}{ee}", flush=True)
+            with _span(tracer, "train.log", step):
+                gnorms.append(float(gnorm))
+                if step % spec.log_every == 0:
+                    self._emit("log", step, loss=float(loss),
+                               gnorm=float(gnorm), stages=state.stages,
+                               lps=list(state.lps))
+                    ee = ""
+                    if "exited_frac" in stats:
+                        # early exit's share of exited tokens: a host read
+                        # on the log cadence only
+                        exited_frac[step] = float(stats["exited_frac"])
+                        ee = f" exited {exited_frac[step]:.4f}"
+                    print(f"step {step:4d} loss {float(loss):.4f} "
+                          f"gnorm {float(gnorm):.3f} S={state.stages} "
+                          f"lps={state.lps}{ee}", flush=True)
         wall = time.perf_counter() - t0
         if root_span is not None:
             root_span.end(steps_run=len(losses))
+        release_profile_tracer()
         if mesh is not None:
             # this rank's final rows and replicated leaves, as digests
             # (rank_train(digest=True))

@@ -78,7 +78,8 @@ from repro_torch.launch.sharding import (local_params, local_rows,
                                          state_bytes, tree_digest, zeros)
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
-from repro_torch.obs.timing import StageTimer
+from repro_torch.obs.timing import StageTimer, StepSpans
+from repro_torch.obs.trace import current_tracer
 from repro_torch.optim.optimizers import OptConfig, make_optimizer
 from repro_torch.pipeline.pipeline import (PipelineShapes, _ingest,
                                            _stage_slice, build_decode_fn,
@@ -91,17 +92,20 @@ def make_train_step(cfg: ModelConfig, dcfg: DistConfig,
                     dyncfg: DynamicsConfig, shapes: PipelineShapes,
                     opt_cfg: Optional[OptConfig] = None, *,
                     device: DeviceLike = None, hash_proj=None,
-                    stage_timer=None, mesh=None):
+                    stage_timer=None, step_spans=None, mesh=None):
     """Returns (init_opt_fn, train_step) with
     train_step(params, opt_state, assignment, dyn, batch, lr)
       -> (params, opt_state, loss, stats, gnorm);
     params and opt_state are updated in place; the batch is moved to
     ``device`` (the card unless ``"cpu"`` is asked for).  ``stage_timer``
-    threads an ``obs.timing.StageTimer`` into the pipelined loss.  With a
-    ``mesh`` the state is the rank's rows, the batch is cut to its
-    replica's lanes, the gradients of the leaves replicated over ``model``
-    are summed over the ring and every gradient over ``data``, and the
-    clip norm is the mesh's."""
+    threads an ``obs.timing.StageTimer`` into the pipelined loss.  With
+    ``step_spans`` (an ``obs.timing.StepSpans``), a step run while a
+    tracer is current records ``step.batch``, ``step.forward``,
+    ``step.backward`` and ``step.optimizer``.  With a ``mesh`` the state
+    is the rank's rows, the batch is cut to its replica's lanes, the
+    gradients of the leaves replicated over ``model`` are summed over the
+    ring and every gradient over ``data``, and the clip norm is the
+    mesh's."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or OptConfig(name=dcfg.optimizer)
     loss_fn = build_loss_fn(cfg, dcfg, dyncfg, shapes, hash_proj=hash_proj,
@@ -109,12 +113,22 @@ def make_train_step(cfg: ModelConfig, dcfg: DistConfig,
     init_fn, update_fn = make_optimizer(opt_cfg, mesh=mesh)
 
     def train_step(params, opt_state, assignment, dyn, batch, lr):
+        tracer = current_tracer() if step_spans is not None else None
+        phase = None if tracer is None else step_spans.begin(tracer)
+        if phase is not None:
+            phase("step.batch")
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in split_batch(batch, mesh).items()}
+        if phase is not None:
+            phase("step.forward")
         loss, stats, grads = value_and_grad(loss_fn, params, assignment, dyn,
-                                            batch)
+                                            batch, phase=phase)
+        if phase is not None:
+            phase("step.optimizer")
         params, opt_state, gnorm = update_fn(
             grads, opt_state, params, lr, frozen=dyn.get("frozen"))
+        if phase is not None:
+            phase(None)
         return params, opt_state, loss, stats, gnorm
 
     return init_fn, train_step
@@ -167,6 +181,7 @@ class EngineWorld:
     decode: Any = None        # {live_micros: decode fn}
     stepped: bool = False     # the first step() on this world warms up
     timer: Any = None         # obs.timing.StageTimer (in-step timing on)
+    spans: Any = None         # obs.timing.StepSpans (one process)
 
 
 @dataclasses.dataclass
@@ -317,6 +332,8 @@ class ElasticEngine:
             dcfg = self.dcfg_for(stages)
             mesh = None if cols is None else self._submesh(cols)
             init_opt = step = timer = None
+            # with a mesh the loss runs its own backward: no phase spans
+            spans = StepSpans(self.device) if mesh is None else None
             if mesh is None or mesh.member:
                 # across ranks each rank times its own stage (as its
                 # stage 0)
@@ -326,9 +343,9 @@ class ElasticEngine:
                 init_opt, step = make_train_step(
                     self.cfg, dcfg, self.dyncfg, self.shapes, self.opt_cfg,
                     device=self.device, hash_proj=self.hash_proj,
-                    stage_timer=timer, mesh=mesh)
+                    stage_timer=timer, step_spans=spans, mesh=mesh)
             w = EngineWorld(stages=stages, dcfg=dcfg, init_opt=init_opt,
-                            step=step, timer=timer, mesh=mesh)
+                            step=step, timer=timer, spans=spans, mesh=mesh)
             self._worlds[key] = w
         return w
 
@@ -547,6 +564,13 @@ class ElasticEngine:
             state.params, state.opt_state = params, opt_state
             out = (loss, stats, gnorm)
         return self._from_world(out)
+
+    def read_step_spans(self, state: EngineState) -> None:
+        """The device ms of the last traced step's phase spans: call after
+        the step's own loss sync."""
+        spans = self.world(state.stages).spans
+        if spans is not None:
+            spans.resolve()
 
     @staticmethod
     def stats_to_host(state: EngineState, stats):

@@ -24,6 +24,13 @@ controller thread opens takes its id when it opens, so a fixed-seed run's
 ``event_sequence`` is reproducible wherever the main thread waits for the
 decision (inline, or async with the drain).  Stdlib-only: safe to import
 in manager processes that never load torch.
+
+The default clock is the wall clock in integer nanoseconds
+(``time.time_ns``), the clock ``torch.profiler``'s Chrome trace is on:
+``wall0`` is the same reading as the origin of ``ts``, so ``wall0 + ts``
+places a span on a device trace with no second clock read.  A span's
+event is returned by ``end`` and may take more arguments until export
+(``obs.timing.StepSpans`` writes a step span's device time into it).
 """
 from __future__ import annotations
 
@@ -70,11 +77,12 @@ class Span:
         """The wire context other processes parent their events on."""
         return {"trace_id": self.tracer.trace_id, "span_id": self.span_id}
 
-    def end(self, **extra_args) -> None:
+    def end(self, **extra_args) -> Optional[Dict[str, Any]]:
+        """Record the span; returns its event (None if already ended)."""
         if self._done:
-            return
+            return None
         self._done = True
-        self.tracer._end_span(self, extra_args)
+        return self.tracer._end_span(self, extra_args)
 
     def __enter__(self) -> "Span":
         return self
@@ -89,10 +97,10 @@ class Tracer:
     ``trace_id`` should be derived from stable run identity (seed +
     tenant), NOT from pids or clocks — the logical event sequence of a
     fixed-seed run must be reproducible (tested).  ``clock``/``pid`` are
-    injectable for golden fixtures.
+    injectable for golden fixtures (seconds; ``wall0`` is then read apart).
     """
 
-    def __init__(self, trace_id: str, *, clock=time.perf_counter,
+    def __init__(self, trace_id: str, *, clock=None,
                  pid: Optional[int] = None,
                  meta: Optional[Dict[str, Any]] = None):
         self.trace_id = trace_id
@@ -102,8 +110,13 @@ class Tracer:
         self._events: List[Dict[str, Any]] = []
         self._lc = 0
         self._span_seq = 0
-        self._t0 = clock()
-        self._wall0 = time.time()
+        if clock is None:
+            self._t0 = time.time_ns()
+            self.wall0_ns = self._t0
+        else:
+            self._t0 = clock()
+            self.wall0_ns = time.time_ns()
+        self._wall0 = self.wall0_ns / 1e9
         self._stack = threading.local()   # open-span stack, per thread
         self.meta = dict(meta or {})
 
@@ -119,6 +132,8 @@ class Tracer:
             return f"{self.trace_id}.s{self._span_seq}"
 
     def _us(self) -> float:
+        if self._clock is None:
+            return (time.time_ns() - self._t0) / 1e3
         return (self._clock() - self._t0) * 1e6
 
     def _tid(self) -> int:
@@ -127,6 +142,11 @@ class Tracer:
     def _parent(self) -> Optional[str]:
         stack = getattr(self._stack, "spans", None)
         return stack[-1].span_id if stack else None
+
+    def open_span(self) -> Optional[Span]:
+        """This thread's innermost open span."""
+        stack = getattr(self._stack, "spans", None)
+        return stack[-1] if stack else None
 
     # -- recording ----------------------------------------------------------
     def span(self, name: str, cat: str = "session",
@@ -143,7 +163,8 @@ class Tracer:
         stack.append(sp)
         return sp
 
-    def _end_span(self, sp: Span, extra_args: Dict[str, Any]) -> None:
+    def _end_span(self, sp: Span, extra_args: Dict[str, Any]
+                  ) -> Dict[str, Any]:
         stack = getattr(self._stack, "spans", None)
         if stack and sp in stack:
             stack.remove(sp)
@@ -151,11 +172,12 @@ class Tracer:
         args = {"trace_id": self.trace_id, "span_id": sp.span_id,
                 "parent_id": sp.parent_id, "lc": sp._lc0,
                 "lc_end": self.next_lc(), **sp.args, **extra_args}
+        ev = {"name": sp.name, "cat": sp.cat, "ph": "X",
+              "ts": sp._t0, "dur": max(0.0, t1 - sp._t0),
+              "pid": self._pid, "tid": self._tid(), "args": args}
         with self._lock:
-            self._events.append(
-                {"name": sp.name, "cat": sp.cat, "ph": "X",
-                 "ts": sp._t0, "dur": max(0.0, t1 - sp._t0),
-                 "pid": self._pid, "tid": self._tid(), "args": args})
+            self._events.append(ev)
+        return ev
 
     def instant(self, name: str, cat: str = "session",
                 parent_id: Optional[str] = None, **args) -> Dict[str, str]:

@@ -493,9 +493,10 @@ def _micro_loss(final_norm, head, h, labels, label_mask, eps):
     return ((lse - ll) * label_mask).sum(), label_mask.sum()
 
 
-def value_and_grad(loss_fn, params, assignment, dyn, batch):
+def value_and_grad(loss_fn, params, assignment, dyn, batch, phase=None):
     """(loss, stats, grads) of ``loss_fn``; ``grads`` has ``params``' tree
-    and shapes.
+    and shapes.  ``phase`` (``obs.timing.StepSpans.phase``), when given,
+    is called with ``"step.backward"`` between the loss and the gradients.
 
     Each stage field is handed to the loss as per-slot leaves (detached
     views of the stacked tensor, no copy) so the backward writes each
@@ -544,6 +545,8 @@ def value_and_grad(loss_fn, params, assignment, dyn, batch):
     sites = []
     if mesh is None:
         loss, stats = loss_fn(view, assignment, dyn, batch, sites=sites)
+        if phase is not None:
+            phase("step.backward")
         own = [t for _, leaves_ in sites for t in leaves_.values()
                if t.requires_grad]
         got = list(torch.autograd.grad(loss, flat + own, allow_unused=True))

@@ -18,11 +18,18 @@
   live step, events with tracing identity, a trace that validates and a
   metrics snapshot; a traced serve with ``obs.metrics_port`` and
   ``obs.in_step_timing`` answers ``GET /metrics`` with its token count.
+* The port's own spans (no reference counterpart): a tracer made current
+  from ``on_step`` traces exactly the next steps, each loop and step
+  phase under its parent, the step's phases with ``device_ms``; a
+  recording ``torch.profiler`` does the same with a tracer of its own; a
+  run with neither records nothing; the tracer's clock is the wall clock
+  in nanoseconds.
 """
 import json
 import os
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -361,3 +368,115 @@ def test_torch_cluster_smoke_script_passes(tmp_path):
     assert "SMOKE OK" in proc.stdout
     assert "chain OK: rpc.steal -> cluster.preempt -> resize.shrink" \
         in proc.stdout
+
+
+def test_tracer_clock_is_the_wall_clock_in_ns():
+    tr = t_trace.Tracer("clock", pid=0)
+    with tr.span("x"):
+        inside = time.time_ns()
+    doc = tr.to_chrome()
+    ev = doc["traceEvents"][0]
+    start = doc["otherData"]["wall0"] * 1e9 + ev["ts"] * 1e3
+    assert abs(start - inside) < 1e6
+    exact = tr.wall0_ns + ev["ts"] * 1e3
+    assert exact <= inside <= exact + ev["dur"] * 1e3 + 1e3
+
+
+SPAN_SPEC = {
+    "model": {"arch": "smollm-360m", "layers": 8, "d_model": 32,
+              "num_heads": 2, "num_kv_heads": 1, "d_ff": 64,
+              "vocab_size": 64},
+    "parallel": {"stages": 2, "num_micro": 2, "mb_global": 1, "seq": 8},
+    # the one decision, at step 10, moves a layer off the straggler
+    "controller": {"rebalance_every": 11, "straggler": {1: 3.0}},
+    "dynamics": {"kind": "pruning"},
+    "steps": 12, "log_every": 1}
+# each span the traced steps 10 and 11 run, with its parent's name
+SPAN_PARENTS = {
+    "train": None, "train.data": "train", "train.step": "train",
+    "step.batch": "train.step", "step.forward": "train.step",
+    "step.backward": "train.step", "step.optimizer": "train.step",
+    "train.sync": "train.step", "train.prune": "train",
+    "controller.decide": "train", "controller.stats": "controller.decide",
+    "controlplane.decide": "controller.decide",
+    "controlplane.apply": "train", "train.hook": "train",
+    "train.log": "train"}
+
+
+def _spans_by_parent(tr):
+    evs = tr.to_chrome()["traceEvents"]
+    names = {e["args"]["span_id"]: e["name"] for e in evs}
+    return [(e["name"], names.get(e["args"]["parent_id"]), e["args"])
+            for e in evs]
+
+
+def _span_train(on_step):
+    from repro_torch.api import RunSpec, Session
+    with Session(RunSpec.from_dict(SPAN_SPEC), device="cpu") as s:
+        rep = s.train(on_step=on_step)
+        spans = s._engine.world(2).spans
+    return rep, spans
+
+
+def test_tracer_switched_from_on_step_traces_those_steps(tmp_path):
+    import torch_check_trace
+    tr = t_trace.Tracer("switched", pid=0)
+
+    def on_step(step, session):
+        if step == 9:
+            t_trace.set_current_tracer(tr)
+        if step == 11:
+            t_trace.set_current_tracer(None)
+
+    rep, _ = _span_train(on_step)
+    assert t_trace.current_tracer() is None
+    got = _spans_by_parent(tr)
+    assert {(n, p) for n, p, _ in got} == set(SPAN_PARENTS.items())
+    assert [e.iteration for e in rep["events"]] == [11]
+    assert sorted(a["step"] for n, _, a in got if n == "train.step") \
+        == [10, 11]
+    for name, _, args in got:
+        if name == "controlplane.decide":
+            assert args["iteration"] == 11
+        elif name != "train":
+            assert args["step"] in (10, 11), (name, args)
+        if name.startswith("step."):
+            assert args["device_ms"] >= 0
+    path = tr.export(str(tmp_path / "switched.json"))
+    assert torch_check_trace.main(
+        [path, "--expect-chain", "train,train.step,step.forward",
+         "--expect-chain", "controller.decide,controller.stats"]) == 0
+    # the tracer records nothing once it is no longer current
+    n = len(tr)
+    _span_train(None)
+    assert len(tr) == n
+
+
+def test_untraced_run_records_nothing_and_profiler_traces_its_steps():
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import timing
+    before = timing.profile_tracer()
+
+    def quiet(step, session):
+        assert t_trace.current_tracer() is None
+
+    _, spans = _span_train(quiet)
+    assert timing.profile_tracer() is before
+    assert (spans._tracer, spans._open, spans._pending) == (None, None, [])
+    prof = {}
+
+    def profiled(step, session):
+        if step == 9:
+            prof["p"] = profile(activities=[ProfilerActivity.CPU])
+            prof["p"].start()
+        if step == 11:
+            prof["p"].stop()
+
+    _span_train(profiled)
+    tr = timing.profile_tracer()
+    assert tr is not None and tr is not before
+    assert t_trace.current_tracer() is None
+    got = _spans_by_parent(tr)
+    assert {(n, p) for n, p, _ in got} == set(SPAN_PARENTS.items())
+    assert {a.get("step", a.get("iteration")) for _, _, a in got
+            if "steps" not in a} == {10, 11}
